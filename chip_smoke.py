@@ -1,0 +1,660 @@
+#!/usr/bin/env python3
+"""Run the PyTorch/CUDA port (quorum_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py          # from the root of a checkout
+
+Phases, each printing one JSON line:
+  build    compile the four CUDA kernels from csrc/ with nvcc (sm_90a)
+  kernels  hold each kernel against its plain PyTorch version on the
+           card, at the main path's shapes (8192 x 160 batches, a
+           2^22-row table), plus a small table that grows
+  golden   the stage CLIs reproduce tests/golden/expected*.fa/.log with
+           --device cuda; the quorum driver's --device cuda output is
+           byte-equal to its --device cpu output
+  full     the quorum driver on a seeded E. coli-size FASTQ (random
+           4,641,652 bp genome, 150 bp reads at 40x, 1% substitutions,
+           ~10% low-quality bases, k = 24); launch counts are reset
+           just before it and read just after
+  loaded   HK1 timed on one of the full run's batches, inserted into a
+           table that already holds all its other batches (the load a
+           late batch of the main path meets); HK2 sealing that table,
+           held against its plain version
+Then one {"kernels": [...]} line (launches from the full run, times
+and bounds from the kernels and loaded phases), the card's name and
+power limit from nvidia-smi, and {"ok": true, "device": {...}} as the
+last line.
+Exits non-zero, with no result line, when CUDA is unavailable, outside
+a checkout, or when any phase fails. Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import filecmp
+import json
+import os
+import shutil
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+GOLDEN = os.path.join(ROOT, "tests", "golden")
+WORK = os.path.join(ROOT, ".smoke_work")
+
+GENOME_BP = 4_641_652  # E. coli K-12 MG1655
+READ_LEN = 150
+COVERAGE = 40
+ERR_RATE = 0.01
+LOW_Q_RATE = 0.10
+K = 24
+BATCH = 8192
+SEED = 20261016
+QT = 33 + 5  # the driver's stage-1 threshold for these quals (-q 33 -m 5)
+H100_BYTES_PER_S = 3.35e12  # HBM3, SXM data sheet
+
+SOURCES = {  # kernel -> (source in the repo, TPU program it replaces)
+    "tile_insert": ("quorum_tpu_torch/kernels/csrc/tile_insert.cu",
+                    "quorum_tpu/ops/ctable.py:1280"),
+    "tile_seal": ("quorum_tpu_torch/kernels/csrc/tile_seal.cu",
+                  "quorum_tpu/ops/ctable.py:1443"),
+    "tile_lookup": ("quorum_tpu_torch/kernels/csrc/tile_lookup.cu",
+                    "quorum_tpu/ops/ctable.py:677"),
+    "extend_reads": ("quorum_tpu_torch/kernels/csrc/extend_reads.cu",
+                     "quorum_tpu/models/corrector.py:1095"),
+}
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+# ------------------------------------------------------------- data
+
+
+def synth_reads(gen, genome_bp: int, coverage: int, low_q: bool = True):
+    """Seeded genome and reads (torch.Generator on the CPU): 150 bp from
+    random positions and strands, 1% substitutions, ~10% low-quality
+    bases. Returns (genome codes, codes [n, 150] int8 with the errors,
+    true codes [n, 150], quals [n, 150] uint8)."""
+    import torch
+
+    genome = torch.randint(0, 4, (genome_bp,), generator=gen,
+                           dtype=torch.int8)
+    n = -(-genome_bp * coverage // READ_LEN)  # reads for the coverage
+    start = torch.randint(0, genome_bp - READ_LEN + 1, (n,), generator=gen)
+    idx = start[:, None] + torch.arange(READ_LEN)[None, :]
+    true = genome[idx]
+    rev = torch.rand(n, generator=gen) < 0.5
+    true[rev] = (3 - true[rev]).flip(1)
+    err = torch.rand((n, READ_LEN), generator=gen) < ERR_RATE
+    shift = torch.randint(1, 4, (n, READ_LEN), generator=gen,
+                          dtype=torch.int8)
+    codes = torch.where(err, (true + shift) % 4, true)
+    hi = torch.full((n, READ_LEN), 33 + 40, dtype=torch.uint8)
+    if low_q:
+        lowq = torch.rand((n, READ_LEN), generator=gen) < LOW_Q_RATE
+        hi[lowq] = 33 + 2
+    return genome, codes, true, hi
+
+
+def write_fastq(path: str, codes, quals):
+    """Fixed-width records: @r<9 digits>\\n seq \\n+\\n qual \\n."""
+    import numpy as np
+
+    n, l = codes.shape
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    h = 12  # len(b"@r%09d\n")
+    rec = np.empty((n, h + l + 3 + l + 1), np.uint8)
+    rec[:, :h] = np.frombuffer(b"".join(b"@r%09d\n" % i for i in range(n)),
+                               np.uint8).reshape(n, h)
+    rec[:, h:h + l] = acgt[codes.numpy()]
+    rec[:, h + l:h + l + 3] = np.frombuffer(b"\n+\n", np.uint8)
+    rec[:, h + l + 3:h + 2 * l + 3] = quals.numpy()
+    rec[:, -1] = ord("\n")
+    rec.tofile(path)
+
+
+def pack_batch(codes, quals, qt: int):
+    """One parser-shaped batch (BATCH rows, -2 / 0 padding) of up to
+    BATCH reads, packed with the qual >= qt plane."""
+    import numpy as np
+
+    from quorum_tpu_torch.io import fastq, packing
+
+    n = codes.shape[0]
+    L = fastq.bucket_for(READ_LEN)
+    c = np.full((BATCH, L), -2, np.int8)
+    q = np.zeros((BATCH, L), np.uint8)
+    c[:n, :READ_LEN] = codes.numpy()
+    q[:n, :READ_LEN] = quals.numpy()
+    lengths = np.zeros(BATCH, np.int32)
+    lengths[:n] = READ_LEN
+    return c, q, lengths, packing.pack_reads(c, q, lengths, thresholds=(qt,))
+
+
+def table_size(bases: int, genome_bp: int) -> int:
+    """-s as bench.py sizes it: genome mers + ~k error mers per error."""
+    return int((genome_bp + bases * ERR_RATE * K * 1.3) * 1.25) + 1_000_000
+
+
+# ------------------------------------------------------------- timing
+
+
+def event_ms(fn, reps: int, setup=None) -> float:
+    """Median CUDA-event time of fn() over reps (setup() outside)."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        if setup is not None:
+            setup()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def kernel_ms(fn, name: str, reps: int, setup=None) -> float:
+    """Median time of the kernel launch itself (loader events)."""
+    import torch
+
+    from quorum_tpu_torch.kernels.loader import STATS
+
+    times = []
+    for _ in range(reps):
+        if setup is not None:
+            setup()
+        STATS.events.clear()
+        STATS.timing = True
+        try:
+            fn()
+        finally:
+            STATS.timing = False
+        torch.cuda.synchronize()
+        ms = [a.elapsed_time(b) for n, a, b in STATS.events if n == name]
+        check(len(ms) == 1, f"{name}: expected one timed launch")
+        times.append(ms[0])
+    times.sort()
+    return times[len(times) // 2]
+
+
+# ------------------------------------------------------------- phases
+
+
+def phase_build():
+    from quorum_tpu_torch.kernels import loader
+
+    t0 = time.perf_counter()
+    reports = loader.build_all()
+    for name in loader.KERNELS:
+        loader.library(name)
+    regs = {n: [ln.strip() for ln in r.splitlines() if "registers" in ln]
+            for n, r in reports.items()}
+    emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
+          "ptxas": regs})
+
+
+def _export(state, meta):
+    from quorum_tpu_torch.ops import ctable
+
+    return ctable.tile_export_v4(state, meta)
+
+
+def phase_kernels(card: str) -> dict:
+    """Each kernel vs its plain version on the same CUDA inputs."""
+    import numpy as np
+    import torch
+
+    from quorum_tpu_torch import kernels
+    from quorum_tpu_torch.io import packing
+    from quorum_tpu_torch.kernels import reference as ref
+    from quorum_tpu_torch.models import corrector, create_database
+    from quorum_tpu_torch.ops import ctable, mer
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 1)
+    # one full batch at the main path's shape: a 30 kbp genome at 40x
+    # (anchors form), inserted into the main path's table geometry
+    _g, codes, _t, quals = synth_reads(gen, 30_720, COVERAGE)
+    b = BATCH
+    c, q, lengths, pk = pack_batch(codes, quals, QT)
+    L = pk.length
+    wire = torch.from_numpy(pk.to_wire()).to(dev)
+    full_bases = -(-GENOME_BP * COVERAGE // READ_LEN) * READ_LEN
+    meta = ctable.TileMeta(K, 7, ctable.tile_rb_for(
+        table_size(full_bases, GENOME_BP), K, 7))
+    out = {}
+
+    # --- HK1 + HK2: same batch, kernel build vs plain build
+    bk = ctable.make_tile_build(meta, dev)
+    full, pend = kernels.tile_insert_reads(bk, meta, wire, b, L,
+                                           pk.thresholds, QT)
+    check(not full, "tile_insert: main-path table reported full")
+    bp = ctable.make_tile_build(meta, dev)
+    left = ref.tile_insert_reads(bp, meta, wire, b, L, pk.thresholds, QT)
+    check(left[0].numel() == 0, "plain insert: main-path table full")
+    rows_k, stats_k = kernels.tile_seal(bk, meta)
+    rows_kp, stats_kp = ref.tile_seal(bk, meta)
+    seal_equal = (torch.equal(rows_k, rows_kp)
+                  and torch.equal(stats_k, stats_kp))
+    rows_p, stats_p = ref.tile_seal(bp, meta)
+    ins_equal = (np.array_equal(_export(ctable.TileState(rows_k), meta),
+                                _export(ctable.TileState(rows_p), meta))
+                 and torch.equal(stats_k, stats_p))
+    check(int(stats_k[0]) == 0, "tile_seal: duplicate tag pair")
+    del rows_kp, rows_p, bp
+
+    # a small table that must grow: the whole build, kernels vs plain
+    # (plain on the CPU, whose wrappers take the plain versions)
+    gsmall = torch.Generator().manual_seed(SEED + 2)
+    _g2, c2, _t2, q2 = synth_reads(gsmall, 4_000, 20)
+    rb = [packing.pack_reads(c2.numpy(), q2.numpy(),
+                             np.full(c2.shape[0], READ_LEN, np.int32),
+                             thresholds=(QT,))]
+
+    def batches():
+        from quorum_tpu_torch.io.fastq import ReadBatch
+        for p in rb:
+            yield ReadBatch(None, None, p.lengths, [], p.n_reads), p
+
+    gcfg = create_database.BuildConfig(k=K, bits=7, qual_thresh=QT,
+                                       initial_size=100, batch_size=BATCH)
+    sk, mk, stk = create_database.build_database([], gcfg, dev, batches())
+    sp, mp, stp = create_database.build_database([], gcfg,
+                                                 torch.device("cpu"),
+                                                 batches())
+    grow_equal = (stk.grows >= 2 and mk == mp
+                  and np.array_equal(_export(sk, mk), _export(sp, mp))
+                  and (stk.distinct, stk.distinct_hq, stk.total_hq)
+                  == (stp.distinct, stp.distinct_hq, stp.total_hq))
+    check(ins_equal, "tile_insert differs from its plain version")
+    check(grow_equal, "tile_insert/tile_seal differ through grows")
+    check(seal_equal, "tile_seal differs from its plain version")
+
+    # HK1's and HK2's times come from the loaded phase, at the load the
+    # main path meets (HK2's same-address counter atomics grow with it)
+    cw, hqb = ref.widen_wire(wire, b, L, pk.thresholds, QT)
+    _keys, _q, valid = ref.extract_observations(cw, hqb, K)
+    out["tile_insert"] = dict(equal=ins_equal and grow_equal,
+                              n=int(valid.sum()))
+    out["tile_seal"] = dict(equal=seal_equal, n=meta.rows * 64,
+                            bound_bytes=meta.rows * (512 + 512 + 512) + 32)
+    del bk
+
+    # --- HK3: the stage-2 sweep's keys (present) + random (absent)
+    state = ctable.TileState(rows_k)
+    f, r, _v = mer.rolling_kmers(cw, K)
+    sweep = mer.canonical(f, r).reshape(-1)
+    rnd = torch.randint(0, 1 << 48, (sweep.numel() // 4,), device=dev,
+                        generator=torch.Generator(dev).manual_seed(SEED))
+    lk = torch.cat([sweep, rnd])
+    vk = kernels.tile_lookup(state.rows, meta, lk)
+    vp = ref.tile_lookup(state.rows, meta, lk)
+    lk_equal = torch.equal(vk, vp) and bool((vk[:sweep.numel()] != 0).any())
+    check(lk_equal, "tile_lookup differs from its plain version")
+    kmain = sweep  # the main path looks up B x L keys per batch
+    laddr = torch.unique(ref.tile_key_parts(kmain, meta)[0])
+    out["tile_lookup"] = dict(
+        equal=lk_equal, n=lk.numel(),
+        ms=kernel_ms(lambda: kernels.tile_lookup(state.rows, meta, kmain),
+                     "tile_lookup", 10),
+        plain_ms=event_ms(lambda: ref.tile_lookup(state.rows, meta, kmain),
+                          3),
+        bound_bytes=16 * kmain.numel() + 512 * laddr.numel())
+
+    # --- HK4: the batch with Ns, short reads and reads with no anchor
+    g4 = torch.Generator().manual_seed(SEED + 3)
+    c4 = c.copy()
+    inread = np.arange(L)[None, :] < lengths[:, None]
+    c4[(torch.rand(c4.shape, generator=g4).numpy() < 0.01) & inread] = -1
+    l4 = lengths.copy()
+    short = (torch.rand(b, generator=g4).numpy() < 0.05) & (l4 > 0)
+    l4[short] = torch.randint(5, 60, (int(short.sum()),),
+                              generator=g4).numpy()
+    rnd_reads = (torch.rand(b, generator=g4).numpy() < 0.03) & (l4 > 0)
+    c4[rnd_reads, :READ_LEN] = torch.randint(
+        0, 4, (int(rnd_reads.sum()), READ_LEN), generator=g4).numpy()
+    c4[np.arange(L)[None, :] >= l4[:, None]] = -2
+    cfg = corrector.ECConfig(k=K, cutoff=4, qual_cutoff=33 + 40)
+    codes4 = torch.from_numpy(c4).to(dev)
+    hqb4 = torch.from_numpy(q).to(dev) >= cfg.qual_cutoff
+    len4 = torch.from_numpy(l4).to(dev)
+    anc = corrector.find_anchors(state, meta, codes4, len4, cfg)
+    keep = corrector.make_keep_table(meta, cfg, dev)
+    maxe = corrector.log_capacity(L, cfg)
+    args = (state.rows, meta, codes4, hqb4, len4, anc.found, anc.start_off,
+            anc.f, anc.r, anc.prev, keep)
+    kw = dict(window=cfg.effective_window, error=cfg.effective_error,
+              min_count=cfg.min_count, cutoff=cfg.cutoff, maxe=maxe)
+    rk = kernels.extend_reads(*args, **kw)
+    probed = []
+    orig = ref.tile_lookup
+
+    def spy(rows, m, ks):
+        probed.append(ref.tile_key_parts(ks, m)[0])
+        return orig(rows, m, ks)
+
+    ref.tile_lookup = spy
+    try:
+        rp = ref.extend_reads(*args, **kw)
+    finally:
+        ref.tile_lookup = orig
+    ext_equal = _batch_equal(rk, rp, anc.found)
+    found = anc.found.cpu().numpy()
+    check(found.sum() > 0 and (~found).sum() > 0,
+          "extend_reads check lacks anchored or unanchored reads")
+    check(ext_equal, "extend_reads differs from its plain version")
+    paddr = torch.unique(torch.cat(probed)).numel() if probed else 0
+    io_bytes = (2 * b * L + b * 29 + keep.numel()          # inputs
+                + b * L + 8 * b + 2 * b * (8 + 8 * maxe))  # outputs
+    out["extend_reads"] = dict(
+        equal=ext_equal, n=b,
+        ms=kernel_ms(lambda: kernels.extend_reads(*args, **kw),
+                     "extend_reads", 5),
+        plain_ms=event_ms(lambda: ref.extend_reads(*args, **kw), 1),
+        bound_bytes=io_bytes + 512 * paddr)
+    emit({"kernels": [{"name": nm, "equal": bool(v["equal"]), "n": v["n"]}
+                      for nm, v in out.items()], "card": card})
+    return out
+
+
+def _batch_equal(a, b, found) -> bool:
+    """extend_reads outputs equal under the test rule: start/end for
+    every read, out inside [start, end) for anchored reads, each log's
+    n and its first n entries."""
+    import torch
+
+    out_a, s_a, e_a, f_a, b_a = a
+    out_b, s_b, e_b, f_b, b_b = b
+    if not (torch.equal(s_a, s_b) and torch.equal(e_a, e_b)):
+        return False
+    pos = torch.arange(out_a.shape[1], device=out_a.device)[None, :]
+    live = found[:, None] & (pos >= s_a[:, None]) & (pos < e_a[:, None])
+    if not torch.equal(torch.where(live, out_a, 0),
+                       torch.where(live, out_b, 0)):
+        return False
+    for la, lb in ((f_a, f_b), (b_a, b_b)):
+        if not torch.equal(la[0], lb[0]):
+            return False
+        j = torch.arange(la[2].shape[1], device=la[2].device)[None, :]
+        m = j < la[0][:, None]
+        for x, y in ((la[2], lb[2]), (la[3], lb[3])):
+            if not torch.equal(torch.where(m, x, 0), torch.where(m, y, 0)):
+                return False
+    return True
+
+
+def phase_golden():
+    from quorum_tpu_torch.cli import create_database as cdb
+    from quorum_tpu_torch.cli import error_correct_reads as ec
+    from quorum_tpu_torch.cli import quorum
+
+    reads = os.path.join(GOLDEN, "reads.fastq")
+    d = os.path.join(WORK, "golden")
+    os.makedirs(d, exist_ok=True)
+    db = os.path.join(d, "db.jf")
+    check(cdb.main(["-s", "64k", "-m", "13", "-b", "7", "-q", "38", "-o", db,
+                    "--device", "cuda", reads]) == 0, "golden stage 1")
+    res = {}
+    for tag, extra, suffix in (("p4", ["-p", "4"], ""),
+                               ("auto", [], "_auto")):
+        o = os.path.join(d, tag)
+        check(ec.main(extra + [db, reads, "-o", o, "--device", "cuda"]) == 0,
+              f"golden stage 2 ({tag})")
+        res[tag] = all(filecmp.cmp(o + ext, os.path.join(
+            GOLDEN, f"expected{suffix}{ext}"), shallow=False)
+            for ext in (".fa", ".log"))
+    for dev in ("cuda", "cpu"):
+        check(quorum.main(["-s", "64k", "-k", "13", "-p",
+                           os.path.join(d, f"drv_{dev}"), "--device", dev,
+                           reads]) == 0, f"golden driver ({dev})")
+    res["driver_cuda_eq_cpu"] = all(
+        filecmp.cmp(os.path.join(d, f"drv_cuda{ext}"),
+                    os.path.join(d, f"drv_cpu{ext}"), shallow=False)
+        for ext in (".fa", ".log"))
+    emit({"phase": "golden", **res})
+    check(all(res.values()), f"golden mismatch: {res}")
+
+
+def phase_full(card: str) -> dict:
+    import numpy as np
+    import torch
+
+    from quorum_tpu_torch.cli import quorum
+    from quorum_tpu_torch.kernels.loader import STATS
+
+    gen = torch.Generator().manual_seed(SEED)
+    t0 = time.perf_counter()
+    _genome, codes, true, quals = synth_reads(gen, GENOME_BP, COVERAGE)
+    n = codes.shape[0]
+    fq = os.path.join(WORK, "reads.fastq")
+    write_fastq(fq, codes, quals)
+    gen_s = time.perf_counter() - t0
+    bases = n * READ_LEN
+    size = table_size(bases, GENOME_BP)
+    prefix = os.path.join(WORK, "full")
+    torch.cuda.reset_peak_memory_stats()
+    report: dict = {}
+    STATS.reset()
+    STATS.timing = True
+    t1 = time.perf_counter()
+    rc = quorum.main(["-s", str(size), "-k", str(K), "-p", prefix,
+                      "--device", "cuda", fq], report=report)
+    wall = time.perf_counter() - t1
+    STATS.timing = False
+    launches = dict(STATS.launches)
+    kms = STATS.kernel_ms()
+    check(rc == 0, f"full-size driver rc {rc}")
+    for name, cnt in launches.items():
+        check(cnt > 0, f"{name} was not launched on the main path")
+    ec = report["ec"]
+    build = report["build"]
+    check(ec.reads == n and ec.corrected + ec.skipped == n,
+          "full-size read accounting")
+    # correctness by the repo's own measure: the corrected reads carry
+    # fewer substitutions against the true genome than they came with
+    errs_in = errs_out = checked = 0
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    with open(prefix + ".fa", "rb") as f:
+        for _ in range(2000):
+            hdr = f.readline()
+            seq = f.readline().rstrip(b"\n")
+            if not hdr:
+                break
+            i = int(hdr[2:11])
+            parts = hdr.split()
+            start = 0
+            for ent in parts[1:]:
+                p, _, kind = ent.partition(b":")
+                if kind == b"5_trunc":
+                    start = max(start, int(p))
+            t = acgt[true[i].numpy()][start:start + len(seq)]
+            o = acgt[codes[i].numpy()][start:start + len(seq)]
+            s = np.frombuffer(seq, np.uint8)
+            errs_in += int((o != t).sum())
+            errs_out += int((s != t).sum())
+            checked += 1
+    check(checked > 0 and errs_out < errs_in,
+          f"correction did not reduce errors ({errs_in} -> {errs_out})")
+    s1, s2 = report["stage1_s"], report["stage2_s"]
+    host_s = report["stage1_host_s"] + ec.host_s
+    emit({"phase": "full", "card": card, "genome_bp": GENOME_BP,
+          "reads": n, "bases": bases, "k": K, "size": size,
+          "fastq_gen_s": round(gen_s, 3), "stage1_s": round(s1, 3),
+          "stage2_s": round(s2, 3), "wall_s": round(wall, 3),
+          "gbases_per_hour": round(bases / (s1 + s2) * 3600 / 1e9, 4),
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "corrected_share": round(ec.corrected / n, 6),
+          "distinct_mers": build.distinct, "grows": build.grows,
+          "cutoff": ec.cutoff,
+          "host_s": {"stage1_parse_pack": round(report["stage1_host_s"], 3),
+                     "stage2_finish_render": round(ec.host_s, 3)},
+          "stage2_device_s": round(ec.device_s, 3),
+          "kernel_s": {k: round(v / 1e3, 4) for k, v in kms.items()},
+          "kernel_ms_per_launch": {k: round(v / launches[k], 5)
+                                   for k, v in kms.items()},
+          "host_share": round(host_s / (s1 + s2), 4),
+          "sample_errors_in_out": [errs_in, errs_out, checked],
+          "launches": launches})
+    return dict(launches=launches, codes=codes, quals=quals, size=size,
+                grows=build.grows,
+                insert_ms_per_launch=kms["tile_insert"]
+                / launches["tile_insert"])
+
+
+def phase_loaded(card: str, full: dict) -> dict:
+    """HK1 and its plain version on one full batch of the full run,
+    into a copy of a table that holds every other batch of that run;
+    then HK2 and its plain version sealing that table.
+    The byte bound counts what an insert must touch: the scan stops at
+    the first empty or matching slot, so per distinct key one 32-byte
+    tag sector is read (and written when the key is new) and per
+    distinct (key, qual class) one 32-byte counter sector is read and
+    written; plus the wire."""
+    import torch
+
+    from quorum_tpu_torch import kernels
+    from quorum_tpu_torch.kernels import reference as ref
+    from quorum_tpu_torch.ops import ctable
+
+    dev = torch.device("cuda")
+    codes, quals = full["codes"], full["quals"]
+    meta = ctable.TileMeta(K, 7, ctable.tile_rb_for(full["size"], K, 7)
+                           + full["grows"])
+    n_batches = -(-codes.shape[0] // BATCH)
+    timed = n_batches - 2  # a full batch late in the run
+
+    def wire_of(i):
+        _c, _q, _l, pk = pack_batch(codes[i * BATCH:(i + 1) * BATCH],
+                                    quals[i * BATCH:(i + 1) * BATCH], QT)
+        return pk, torch.from_numpy(pk.to_wire()).to(dev)
+
+    loaded = ctable.make_tile_build(meta, dev)
+    for i in range(n_batches):
+        if i != timed:
+            pk, wire = wire_of(i)
+            full_, _p = kernels.tile_insert_reads(
+                loaded, meta, wire, BATCH, pk.length, pk.thresholds, QT)
+            check(not full_, "loaded table reported full")
+    pk, wire = wire_of(timed)
+    work = ctable.make_tile_build(meta, dev)
+
+    def reset():
+        work.tag.copy_(loaded.tag)
+        work.hq.copy_(loaded.hq)
+        work.lq.copy_(loaded.lq)
+
+    def insert(fn):
+        return lambda: fn(work, meta, wire, BATCH, pk.length, pk.thresholds,
+                          QT)
+
+    def occupied():
+        return int((work.tag[:, 0::2] != -1).sum())
+
+    reset()
+    before = occupied()
+    ms = kernel_ms(insert(kernels.tile_insert_reads), "tile_insert", 5,
+                   reset)
+    new_keys = occupied() - before
+    plain = event_ms(insert(ref.tile_insert_reads), 3, reset)
+    cw, hqb = ref.widen_wire(wire, BATCH, pk.length, pk.thresholds, QT)
+    keys, qual, valid = ref.extract_observations(cw, hqb, K)
+    kv, qv = keys[valid], qual[valid].to(torch.int64)
+    n_keys = torch.unique(kv).numel()
+    n_classes = torch.unique(kv * 2 + qv).numel()
+    bound_bytes = wire.numel() + 32 * (n_keys + new_keys) + 64 * n_classes
+    occ = before / (meta.rows * 64)
+    del work
+    rows_k, stats_k = kernels.tile_seal(loaded, meta)
+    rows_p, stats_p = ref.tile_seal(loaded, meta)
+    seal_equal = torch.equal(rows_k, rows_p) and torch.equal(stats_k, stats_p)
+    check(seal_equal, "tile_seal differs from its plain version (loaded)")
+    del rows_k, rows_p
+    ms_seal = kernel_ms(lambda: kernels.tile_seal(loaded, meta), "tile_seal",
+                        5)
+    plain_seal = event_ms(lambda: ref.tile_seal(loaded, meta), 2)
+    emit({"phase": "loaded", "card": card, "batch": timed,
+          "table_occupancy": round(occ, 6), "observations": int(valid.sum()),
+          "distinct_keys": n_keys, "new_keys": new_keys,
+          "distinct_key_classes": n_classes, "bound_bytes": bound_bytes,
+          "ms": round(ms, 5), "plain_ms": round(plain, 5),
+          "full_run_ms_per_launch": round(full["insert_ms_per_launch"], 5),
+          "seal_equal": seal_equal, "seal_ms": round(ms_seal, 5),
+          "seal_plain_ms": round(plain_seal, 5)})
+    del loaded
+    return {"tile_insert": dict(n=int(valid.sum()), ms=ms, plain_ms=plain,
+                                bound_bytes=bound_bytes),
+            "tile_seal": dict(ms=ms_seal, plain_ms=plain_seal)}
+
+
+def run() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 2
+    try:
+        import quorum_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: run from the root of a quorum-tpu checkout "
+              f"({e})", file=sys.stderr)
+        return 2
+    card = card_line()
+    os.makedirs(WORK, exist_ok=True)
+    try:
+        phase_build()
+        stats = phase_kernels(card)
+        phase_golden()
+        full = phase_full(card)
+        for name, v in phase_loaded(card, full).items():
+            stats[name].update(v)
+        launches = full["launches"]
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    finally:
+        shutil.rmtree(WORK, ignore_errors=True)
+    rows = []
+    for name, v in stats.items():
+        src, replaces = SOURCES[name]
+        bound = v["bound_bytes"] / H100_BYTES_PER_S * 1e3
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": replaces, "launches": launches[name],
+                     "max_abs_err": 0 if v["equal"] else None,
+                     "ms": round(v["ms"], 5),
+                     "plain_ms": round(v["plain_ms"], 5),
+                     "bound_ms": round(bound, 5), "bound_by": "bytes",
+                     "library_ms": None})
+    emit({"kernels": rows})
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(run())

@@ -1,0 +1,118 @@
+"""quorum_error_correct_reads (port): the reference-named correction
+flags of quorum_tpu's stage-2 CLI (-m -s -g -a -w -e -p -q -Q -d
+--apriori-error-rate --poisson-threshold -o, same defaults) plus
+--batch-size, --verify-db and --device.
+
+    python -m quorum_tpu_torch.cli.error_correct_reads -p 4 db.jf \\
+        reads.fastq -o corrected
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from .. import resolve_device
+from ..io.integrity import IntegrityError
+from ..models.ec_config import DEFAULT_QUAL_CUTOFF
+from ..models.error_correct import ECOptions, run_error_correct
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="quorum_error_correct_reads",
+        description="Error correct reads from a fastq file based on the "
+                    "k-mer frequencies.")
+    p.add_argument("-m", "--min-count", type=int, default=1,
+                   help='Minimum count for a k-mer to be considered "good"')
+    p.add_argument("-s", "--skip", type=int, default=1,
+                   help="Number of bases to skip for start k-mer")
+    p.add_argument("-g", "--good", type=int, default=2,
+                   help="Number of good k-mer in a row for anchor")
+    p.add_argument("-a", "--anchor-count", type=int, default=3,
+                   help="Minimum count for an anchor k-mer")
+    p.add_argument("-w", "--window", type=int, default=10,
+                   help="Size of window")
+    p.add_argument("-e", "--error", type=int, default=3,
+                   help="Maximum number of error in a window")
+    p.add_argument("-o", "--output", default=None, metavar="prefix",
+                   help="Output file prefix (default: stdout/stderr)")
+    p.add_argument("--apriori-error-rate", type=float, default=0.01,
+                   help="Probability of a base being an error")
+    p.add_argument("--poisson-threshold", type=float, default=1e-6,
+                   help="Error probability threshold in Poisson test")
+    p.add_argument("-p", "--cutoff", type=int, default=None,
+                   help="Poisson cutoff when there are multiple choices")
+    p.add_argument("-q", "--qual-cutoff-value", type=int, default=None,
+                   help="Any base above with quality equal or greater is "
+                        "untouched when there are multiple choices")
+    p.add_argument("-Q", "--qual-cutoff-char", default=None,
+                   help="Any base above with quality equal or greater is "
+                        "untouched when there are multiple choices")
+    p.add_argument("-d", "--no-discard", action="store_true",
+                   help="Do not discard reads, output a single N")
+    p.add_argument("--verify-db", choices=("full", "sample", "off"),
+                   default="full",
+                   help="Checksum verification of v5 databases at load")
+    p.add_argument("--batch-size", type=int, default=8192,
+                   help="Reads per device batch")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu (plain PyTorch versions of "
+                        "the kernels)")
+    p.add_argument("db", help="Mer database")
+    p.add_argument("sequence", nargs="+", help="Input sequence")
+    return p
+
+
+def main(argv=None, db=None, prepacked=None,
+         report: dict | None = None) -> int:
+    """`db`/`prepacked`: the quorum driver's in-process handoff and
+    replayed batches; `report` (optional dict) receives the ECStats."""
+    args = build_parser().parse_args(argv)
+    if args.qual_cutoff_char is not None and \
+            args.qual_cutoff_value is not None:
+        print("Switches -q and -Q are conflicting.", file=sys.stderr)
+        return 1
+    if args.qual_cutoff_char is not None and (
+            len(args.qual_cutoff_char) != 1
+            or ord(args.qual_cutoff_char) > 127):
+        print("The qual-cutoff-char must be one ASCII character.",
+              file=sys.stderr)
+        return 1
+    if args.qual_cutoff_value is not None and not (
+            0 <= args.qual_cutoff_value <= 127):
+        print("The qual-cutoff-value must be in the range 0-127.",
+              file=sys.stderr)
+        return 1
+    qual_cutoff = (
+        ord(args.qual_cutoff_char) if args.qual_cutoff_char is not None
+        else args.qual_cutoff_value if args.qual_cutoff_value is not None
+        else DEFAULT_QUAL_CUTOFF)
+    resolve_device(args.device)  # no card for --device cuda: raise here
+    opts = ECOptions(output=args.output, cutoff=args.cutoff,
+                     apriori_error_rate=args.apriori_error_rate,
+                     poisson_threshold=args.poisson_threshold,
+                     batch_size=args.batch_size, verify_db=args.verify_db,
+                     device=args.device)
+    try:
+        stats = run_error_correct(args.db, args.sequence, opts,
+                                  qual_cutoff=qual_cutoff, skip=args.skip,
+                                  good=args.good,
+                                  anchor_count=args.anchor_count,
+                                  min_count=args.min_count,
+                                  window=args.window, error=args.error,
+                                  no_discard=args.no_discard,
+                                  db=db, prepacked=prepacked)
+    except IntegrityError as e:
+        print(str(e), file=sys.stderr)
+        return 3
+    except (RuntimeError, ValueError, OSError) as e:
+        print(str(e), file=sys.stderr)
+        return 1
+    if report is not None:
+        report["stats"] = stats
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,200 @@
+"""quorum (port): the single-GPU driver. Parses and packs the reads
+ONCE, builds the mer table (stage 1), hands it to stage 2 in-process
+(the table stays on the card) and corrects every read against it
+(counterpart of quorum_tpu/cli/quorum.py:711-752, 931).
+
+    python -m quorum_tpu_torch.cli.quorum -s 64k -k 13 -p out reads.fastq
+    python -m quorum_tpu_torch.cli.quorum --device cpu ...   # plain torch
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import re
+import sys
+import time
+
+import numpy as np
+
+from .. import resolve_device
+from ..io import fastq, packing
+from ..models.ec_config import DEFAULT_QUAL_CUTOFF
+from . import create_database as cdb_cli
+from . import error_correct_reads as ec_cli
+
+# Host bytes the driver may hold of parsed batches for stage 2 to
+# replay (the JAX driver's default cap). Past it the cache is dropped
+# and stage 2 parses the input again from disk.
+REPLAY_CACHE_BYTES = 6 * 1024 ** 3
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="quorum",
+        description="Run the quorum error corrector on the given fastq "
+                    "files.")
+    p.add_argument("-s", "--size", default="200M",
+                   help="Mer database size (default 200M)")
+    p.add_argument("-p", "--prefix", default="quorum_corrected",
+                   help="Output prefix (default quorum_corrected)")
+    p.add_argument("-k", "--kmer-len", type=int, default=24,
+                   help="Kmer length (default 24)")
+    p.add_argument("-q", "--min-q-char", type=int, default=None,
+                   help="Minimum quality char. Usually 33 or 64 "
+                        "(autodetect)")
+    p.add_argument("-m", "--min-quality", type=int, default=5,
+                   help="Minimum above -q for high quality base (5)")
+    p.add_argument("-w", "--window", type=int, default=None,
+                   help="Window size for trimming")
+    p.add_argument("-e", "--error", type=int, default=None,
+                   help="Maximum number of errors in a window")
+    p.add_argument("--min-count", type=int, default=None,
+                   help="Minimum count for a k-mer to be good")
+    p.add_argument("--skip", type=int, default=None,
+                   help="Number of bases to skip to find anchor kmer")
+    p.add_argument("--anchor", type=int, default=None,
+                   help="Number of good kmer in a row for anchor")
+    p.add_argument("--anchor-count", type=int, default=None,
+                   help="Minimum count for an anchor kmer")
+    p.add_argument("-d", "--no-discard", action="store_true",
+                   help="Do not discard reads, output a single N (false)")
+    p.add_argument("--batch-size", type=int, default=8192,
+                   help="Reads per device batch")
+    p.add_argument("--db-version", type=int, choices=(4, 5), default=5,
+                   help="Mer-database export version (default 5)")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu (plain PyTorch versions of "
+                        "the kernels)")
+    p.add_argument("reads", nargs="*", help="Input fastq files")
+    return p
+
+
+def detect_min_q_char(path: str, max_reads: int = 1000) -> int:
+    """Smallest quality char of the first `max_reads` records
+    (quorum.in:129-152), with the Illumina 35/66 -> -2 adjustment and
+    the 33/59/64 sanity check."""
+    min_q = 256
+    for i, (_hdr, _seq, qual) in enumerate(fastq.iter_records([path])):
+        if i >= max_reads:
+            break
+        if not qual:
+            raise RuntimeError("Invalid fastq format")
+        min_q = min(min_q, min(qual))
+    if min_q in (35, 66):
+        min_q -= 2
+    if min_q not in (33, 59, 64):
+        raise RuntimeError(
+            f"Found an unusual minimum quality char of {min_q} "
+            f"({chr(min_q) if 0 <= min_q < 256 else '?'}). Stopping now. "
+            "Use option -q to override")
+    return min_q
+
+
+def _drain(items: list):
+    """Yield the items in order, letting go of each once it is taken."""
+    items.reverse()
+    while items:
+        yield items.pop()
+
+
+def main(argv=None, report: dict | None = None) -> int:
+    """`report` (optional dict) receives per-stage seconds, the host
+    share of each, and the two stages' statistics."""
+    args = build_parser().parse_args(argv)
+    if not re.match(r"^\d+[kMGT]?$", args.size):
+        print(f"Invalid size '{args.size}'. It must be a number, maybe "
+              "followed by a suffix (like k, M, G for thousand, million "
+              "and billion).", file=sys.stderr)
+        return 1
+    if not args.reads:
+        print("No sequence files. See quorum --help.", file=sys.stderr)
+        return 1
+    resolve_device(args.device)  # no card for --device cuda: raise here
+    min_q = args.min_q_char
+    if min_q is None:
+        try:
+            min_q = detect_min_q_char(args.reads[0])
+        except (RuntimeError, ValueError, OSError) as e:
+            print(str(e), file=sys.stderr)
+            return 1
+    t1 = min_q + args.min_quality
+    db_file = args.prefix + "_mer_database.jf"
+    cdb_argv = ["-s", args.size, "-m", str(args.kmer_len), "-q", str(t1),
+                "-b", "7", "-o", db_file, "--batch-size",
+                str(args.batch_size), "--db-version", str(args.db_version),
+                "--device", args.device]
+
+    # one parse + pack for both stages: stage 1 consumes the generator,
+    # stage 2 replays the cached batches packed with ITS quality plane,
+    # unless they outgrow REPLAY_CACHE_BYTES (then stage 2 re-parses)
+    cache: list = []
+    host = {"s1": 0.0, "cached": 0, "keep": True}
+
+    def shared_batches():
+        it = fastq.read_batches(args.reads, args.batch_size)
+        while True:
+            t0 = time.perf_counter()
+            b = next(it, None)
+            if b is None:
+                break
+            pk1 = packing.pack_reads(b.codes, b.quals, b.lengths,
+                                     thresholds=(t1,))
+            if host["keep"]:
+                pk2 = packing.PackedReads(
+                    pcodes=pk1.pcodes, nmask=pk1.nmask,
+                    hq={DEFAULT_QUAL_CUTOFF: np.packbits(
+                        b.quals >= DEFAULT_QUAL_CUTOFF, axis=1,
+                        bitorder="little")},
+                    lengths=pk1.lengths, length=pk1.length)
+                b = dataclasses.replace(b, quals=None)
+                host["cached"] += (
+                    b.codes.nbytes + pk2.pcodes.nbytes + pk2.nmask.nbytes
+                    + pk2.hq[DEFAULT_QUAL_CUTOFF].nbytes
+                    + sum(len(h) + 90 for h in b.headers))
+                host["keep"] = host["cached"] <= REPLAY_CACHE_BYTES
+                if host["keep"]:
+                    cache.append((b, pk2))
+                else:
+                    cache.clear()
+            host["s1"] += time.perf_counter() - t0
+            yield b, pk1
+
+    handoff: dict = {}
+    t_s1 = time.perf_counter()
+    rc = cdb_cli.main(cdb_argv + list(args.reads), handoff=handoff,
+                      batches=shared_batches())
+    if rc != 0:
+        print("Creating the mer database failed. Most likely the size "
+              "passed to the -s switch is too small.", file=sys.stderr)
+        return 1
+    s1_s = time.perf_counter() - t_s1
+
+    ec_argv = ["--batch-size", str(args.batch_size), "--device",
+               args.device]
+    for flag, val in (("--min-count", args.min_count), ("--skip", args.skip),
+                      ("--good", args.anchor),
+                      ("--anchor-count", args.anchor_count),
+                      ("--window", args.window), ("--error", args.error)):
+        if val is not None:
+            ec_argv.extend([flag, str(val)])
+    if args.no_discard:
+        ec_argv.append("--no-discard")
+    ec_argv += ["-o", args.prefix, db_file] + list(args.reads)
+    t_s2 = time.perf_counter()
+    ec_stats: dict = {}
+    rc = ec_cli.main(ec_argv, db=handoff["db"],
+                     prepacked=_drain(cache) if host["keep"] else None,
+                     report=ec_stats)
+    if rc != 0:
+        print("Error correction failed", file=sys.stderr)
+        return 1
+    if report is not None:
+        report.update(stage1_s=s1_s, stage2_s=time.perf_counter() - t_s2,
+                      stage1_host_s=host["s1"], build=handoff["db"][2],
+                      ec=ec_stats.get("stats"))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,208 @@
+"""Wrappers of the four hand-written Hopper kernels (csrc/*.cu).
+
+Every wrapper checks device, dtype, shape and contiguity, then either
+launches its CUDA kernel (tensors on a CUDA device) or runs the plain
+PyTorch version from kernels/reference.py (tensors on the CPU). There is
+no fallback: a CUDA tensor always goes to the kernel, and a failed build
+or launch raises.
+
+  HK1 tile_insert   stage-1 counting (wire -> canonical mers -> 64-bit
+                    CAS claim in the 64-slot row), plus the parts entry
+                    that re-inserts after a grow
+  HK2 tile_seal     duplicate check + fold + statistics
+  HK3 tile_lookup   canonical mer -> value word
+  HK4 extend_reads  per-(read, direction) extension with edit logs
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import reference as ref
+from .loader import launch
+
+
+def _on_cuda(*tensors: torch.Tensor) -> bool:
+    devs = {t.device.type for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on mixed devices: {sorted(devs)}")
+    dev = devs.pop()
+    if dev not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev == "cuda"
+
+
+def _check(t: torch.Tensor, dtype, name: str, align8: bool = False):
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if align8 and t.data_ptr() % 8:
+        raise ValueError(f"{name}: must be 8-byte aligned")
+
+
+def _check_build(bstate, meta):
+    _check(bstate.tag, torch.int32, "tag", align8=True)
+    _check(bstate.hq, torch.int32, "hq")
+    _check(bstate.lq, torch.int32, "lq")
+    if tuple(bstate.tag.shape) != (meta.rows, 2 * ref.TSLOTS) \
+            or bstate.hq.numel() != meta.rows * ref.TSLOTS \
+            or bstate.lq.numel() != meta.rows * ref.TSLOTS:
+        raise ValueError("build state does not match the table geometry")
+
+
+def _pending(failed, keys):
+    idx = torch.nonzero(failed).squeeze(1)
+    return keys[idx], (failed[idx] >> 1).bool()
+
+
+# --------------------------------------------------------------- HK1
+
+
+def tile_insert_reads(bstate, meta, wire: torch.Tensor, b: int, length: int,
+                      thresholds, qual_thresh: int):
+    """Insert every observation of one packed batch (in place). Returns
+    (full, (keys, qual)) with the observations that found no room."""
+    _check_build(bstate, meta)
+    _check(wire, torch.uint8, "wire")
+    ts = sorted(int(t) for t in thresholds)
+    if int(qual_thresh) not in ts:
+        raise KeyError(f"wire lacks the qual>={qual_thresh} plane")
+    c4, c8 = -(-length // 4), -(-length // 8)
+    if wire.numel() != b * c4 + b * c8 * (1 + len(ts)) + 4 * b:
+        raise ValueError("wire size does not match its geometry")
+    if not _on_cuda(wire, bstate.tag):
+        keys, qual = ref.tile_insert_reads(bstate, meta, wire, b, length, ts,
+                                           qual_thresh)
+        return bool(keys.numel()), (keys, qual)
+    n = b * length
+    failed = torch.empty(n, dtype=torch.uint8, device=wire.device)
+    fkeys = torch.empty(n, dtype=torch.int64, device=wire.device)
+    full = torch.zeros(1, dtype=torch.int32, device=wire.device)
+    off_nmask = b * c4
+    off_hq = off_nmask + b * c8 * (1 + ts.index(int(qual_thresh)))
+    off_len = b * c4 + b * c8 * (1 + len(ts))
+    launch("tile_insert", "tile_insert_reads", wire.data_ptr(), b, length,
+           off_nmask, off_hq, off_len, meta.k, meta.rb_log2, meta.bits,
+           bstate.tag.data_ptr(), bstate.hq.data_ptr(), bstate.lq.data_ptr(),
+           failed.data_ptr(), fkeys.data_ptr(), full.data_ptr())
+    if not int(full.item()):
+        empty = torch.empty(0, dtype=torch.int64, device=wire.device)
+        return False, (empty, empty.bool())
+    return True, _pending(failed, fkeys)
+
+
+def tile_insert_parts(bstate, meta, addr, rlo, rhi, hq_add, lq_add):
+    """Insert DISTINCT keys given by their (addr, rlo, rhi) with count
+    increments (the grow re-insert and the observations pending after a
+    grow). Returns `placed` (bool per key; False where the 64-slot row
+    is full of other keys)."""
+    _check_build(bstate, meta)
+    addr, rlo, rhi = (x.to(torch.int64).contiguous() for x in (addr, rlo,
+                                                               rhi))
+    hq_add = hq_add.to(torch.int32).contiguous()
+    lq_add = lq_add.to(torch.int32).contiguous()
+    if not _on_cuda(addr, bstate.tag):
+        return ref.insert_unique(bstate, meta, addr, rlo, rhi, hq_add,
+                                 lq_add)
+    placed = torch.empty(addr.numel(), dtype=torch.uint8, device=addr.device)
+    launch("tile_insert", "tile_insert_parts", addr.data_ptr(),
+           rlo.data_ptr(), rhi.data_ptr(), hq_add.data_ptr(),
+           lq_add.data_ptr(), addr.numel(), bstate.tag.data_ptr(),
+           bstate.hq.data_ptr(), bstate.lq.data_ptr(), placed.data_ptr())
+    return placed.bool()
+
+
+# --------------------------------------------------------------- HK2
+
+
+def tile_seal(bstate, meta):
+    """Returns (rows int32 [rows, 128], stats int64 [4] = dup, occupied,
+    distinct_hq, total_hq)."""
+    _check_build(bstate, meta)
+    if not _on_cuda(bstate.tag):
+        return ref.tile_seal(bstate, meta)
+    dev = bstate.tag.device
+    rows = torch.empty_like(bstate.tag)
+    stats = torch.zeros(4, dtype=torch.int64, device=dev)
+    launch("tile_seal", "tile_seal", bstate.tag.data_ptr(),
+           bstate.hq.data_ptr(), bstate.lq.data_ptr(), meta.rows, meta.bits,
+           rows.data_ptr(), stats.data_ptr())
+    return rows, stats
+
+
+# --------------------------------------------------------------- HK3
+
+
+def _check_rows(rows, meta):
+    _check(rows, torch.int32, "rows")
+    if tuple(rows.shape) != (meta.rows, 2 * ref.TSLOTS):
+        raise ValueError("row plane does not match the table geometry")
+    if rows.data_ptr() % 16:
+        raise ValueError("rows: must be 16-byte aligned")
+
+
+def tile_lookup(rows: torch.Tensor, meta, keys: torch.Tensor):
+    """Value word (int64) of each canonical int64 mer, 0 if absent."""
+    _check_rows(rows, meta)
+    _check(keys, torch.int64, "keys")
+    if not _on_cuda(rows, keys):
+        return ref.tile_lookup(rows, meta, keys)
+    out = torch.empty_like(keys)
+    launch("tile_lookup", "tile_lookup", rows.data_ptr(), keys.data_ptr(),
+           keys.numel(), meta.k, meta.rb_log2, meta.bits, out.data_ptr())
+    return out
+
+
+# --------------------------------------------------------------- HK4
+
+
+def extend_reads(rows, meta, codes, hqb, lengths, found, start_off, anc_f,
+                 anc_r, prev0, keep, *, window: int, error: int,
+                 min_count: int, cutoff: int, maxe: int):
+    """Extend every anchored read both ways (see reference.extend_reads
+    for the outputs). All tensors on one device."""
+    _check_rows(rows, meta)
+    b, l = codes.shape
+    _check(codes, torch.int8, "codes")
+    _check(hqb, torch.bool, "hqb")
+    _check(lengths, torch.int32, "lengths")
+    _check(found, torch.bool, "found")
+    _check(start_off, torch.int32, "start_off")
+    _check(anc_f, torch.int64, "anc_f")
+    _check(anc_r, torch.int64, "anc_r")
+    _check(prev0, torch.int32, "prev0")
+    _check(keep, torch.uint8, "keep")
+    if tuple(keep.shape) != (4 * meta.max_val + 1, meta.max_val + 1):
+        raise ValueError("keep table does not match max_val")
+    kw = dict(window=window, error=error, min_count=min_count,
+              cutoff=cutoff, maxe=maxe)
+    if not _on_cuda(rows, codes, keep):
+        return ref.extend_reads(rows, meta, codes, hqb, lengths, found,
+                                start_off, anc_f, anc_r, prev0, keep, **kw)
+    dev = codes.device
+    out = codes.clone()
+    start = torch.empty(b, dtype=torch.int32, device=dev)
+    end = torch.empty(b, dtype=torch.int32, device=dev)
+    log_n = torch.empty(2 * b, dtype=torch.int32, device=dev)
+    log_lwin = torch.empty(2 * b, dtype=torch.int32, device=dev)
+    log_pos = torch.zeros((2 * b, maxe), dtype=torch.int32, device=dev)
+    log_meta = torch.zeros((2 * b, maxe), dtype=torch.int32, device=dev)
+    overflow = torch.zeros(1, dtype=torch.int32, device=dev)
+    launch("extend_reads", "extend_reads", rows.data_ptr(), meta.k,
+           meta.rb_log2, meta.bits, codes.data_ptr(), hqb.data_ptr(),
+           lengths.data_ptr(), found.data_ptr(), start_off.data_ptr(),
+           anc_f.data_ptr(), anc_r.data_ptr(), prev0.data_ptr(),
+           keep.data_ptr(), b, l, window, error, min_count, cutoff, maxe,
+           out.data_ptr(), start.data_ptr(), end.data_ptr(),
+           log_n.data_ptr(), log_lwin.data_ptr(), log_pos.data_ptr(),
+           log_meta.data_ptr(), overflow.data_ptr())
+    if int(overflow.item()):
+        raise RuntimeError(f"log overflow: more than {maxe} entries")
+
+    def i64(*xs):
+        return tuple(x.to(torch.int64) for x in xs)
+
+    fwd = i64(log_n[:b], log_lwin[:b], log_pos[:b], log_meta[:b])
+    bwd = i64(log_n[b:], log_lwin[b:], log_pos[b:], log_meta[b:])
+    return out, start.to(torch.int64), end.to(torch.int64), fwd, bwd

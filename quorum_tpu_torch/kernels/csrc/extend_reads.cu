@@ -1,0 +1,265 @@
+// HK4 extend_reads: stage-2 extension of every anchored read, both
+// directions.
+//
+// Replaces the TPU path quorum_tpu/models/corrector.py:1095 (extend /
+// _extend_loop :549 with _gba :265, _gba_reduce :238, _log_append :107,
+// _log_remove_last_window :135, _append_trunc :155, _advance_lwin :94),
+// the float32 Poisson term of ops/poisson.py:45 (K15) and the
+// reverse-complement frame of _rc_prologue / _bwd_epilogue
+// (corrector.py:1181-1223, K12).
+//
+// Design: one thread per (read, direction) lane runs the reference's
+// sequential extension (models/oracle.py:350-505, error_correct_reads.cc
+// :384-565) directly: a GPU has per-lane control flow, so the TPU's
+// lockstep masks, compaction caps and stall-and-retry are gone. The
+// backward lane steps d = -1 in the read's own frame instead of running
+// in a reverse-complement frame (K12 is computed by stepping, not by
+// mirroring); like that frame, it shifts a non-ACGT base in as T. Each
+// table probe is one 512-byte row scan (table.cuh probe_row, shared with
+// HK3). The Poisson keep test reads a host-built table of the float32
+// outcome over (sum of kept counts, c_ori), so no float math runs here.
+// The edit logs (err_log.hpp) live in global memory, maxe entries a lane.
+//
+// Bound: bytes. Each step of a lane makes 4 probes (16 more on an
+// ambiguous base); the least traffic is one read of every row the run
+// probes, plus the codes/quals in and the corrected bases and logs out.
+#include "table.cuh"
+
+struct Cfg {
+  int k, rb, bits, L, window, error, min_count, cutoff, maxe;
+};
+
+// get_best_alternatives (mer_database.hpp:302-329).
+__device__ void gba(const uint32_t* rows, const Cfg& c, uint64_t f,
+                    uint64_t r, int d, int counts[4], int& ucode, int& level,
+                    int& count) {
+  int cnt[4], q[4];
+  level = 0;
+  for (int v = 0; v < 4; ++v) {
+    uint64_t fv = f, rv = r;
+    dir_replace0(fv, rv, v, d, c.k);
+    uint32_t val = probe_row(rows, key_parts(canonical(fv, rv), c.k, c.rb,
+                                             c.bits), c.bits);
+    cnt[v] = (int)(val >> 1);
+    q[v] = (int)(val & 1u);
+    if (cnt[v] > 0 && q[v] > level) level = q[v];
+  }
+  count = 0;
+  ucode = 0;
+  for (int v = 0; v < 4; ++v) {
+    counts[v] = (cnt[v] > 0 && q[v] == level) ? cnt[v] : 0;
+    if (counts[v] > 0) {
+      ++count;
+      ucode = v;
+    }
+  }
+}
+
+// One lane's err_log (err_log.hpp:22-135), raw read positions.
+struct Log {
+  int* pos;
+  int* meta;
+  int n, lwin, d, window, error, maxe;
+  int* overflow;
+
+  __device__ void check() {  // check_nb_error's window advance
+    if (n == 0) return;
+    const int back = pos[n - 1];
+    const bool guard = d > 0 ? back > window : back < window;
+    if (guard)
+      while (d * (back - pos[lwin]) > window) ++lwin;
+  }
+  __device__ bool append(int raw, int m) {
+    if (n >= maxe) {
+      *overflow = 1;
+      return false;
+    }
+    pos[n] = raw;
+    meta[n] = m;
+    ++n;
+    check();
+    return n - lwin - 1 >= error;
+  }
+  __device__ void truncation(int raw) {  // backward records raw + 1
+    append(d < 0 ? raw + 1 : raw, 1);
+  }
+  __device__ int remove_last_window() {
+    if (n == 0) return 0;
+    const int diff = d * (pos[n - 1] - pos[lwin]);
+    n = lwin;
+    lwin = 0;
+    check();
+    return diff;
+  }
+};
+
+__device__ __forceinline__ int sub_meta(int frm, int to) {
+  return ((frm >= 0 ? frm : 4) << 1) | ((to >= 0 ? to : 4) << 4);
+}
+
+__global__ void extend_kernel(
+    const uint32_t* __restrict__ rows, Cfg c, const int8_t* __restrict__ codes,
+    const uint8_t* __restrict__ hqb, const int* __restrict__ lengths,
+    const uint8_t* __restrict__ found, const int* __restrict__ start_off,
+    const long long* __restrict__ anc_f, const long long* __restrict__ anc_r,
+    const int* __restrict__ prev0, const uint8_t* __restrict__ keep, int B,
+    int8_t* out, int* start, int* end, int* log_n, int* log_lwin,
+    int* log_pos, int* log_meta, int* overflow) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= 2 * B) return;
+  const int i = lane < B ? lane : lane - B;
+  const int d = lane < B ? 1 : -1;
+  const int k = c.k;
+  const int so = start_off[i];
+  Log lg{log_pos + (size_t)lane * c.maxe, log_meta + (size_t)lane * c.maxe,
+         0, 0, d, c.window, c.error, c.maxe, overflow};
+  if (!found[i]) {
+    if (d > 0) end[i] = so; else start[i] = so - k;
+    log_n[lane] = 0;
+    log_lwin[lane] = 0;
+    return;
+  }
+  const int8_t* rc = codes + (size_t)i * c.L;
+  const uint8_t* rq = hqb + (size_t)i * c.L;
+  int8_t* ro = out + (size_t)i * c.L;
+  const int len = lengths[i];
+  const int endp = d > 0 ? len : -1;
+  const int maxv = (1 << c.bits) - 1;
+  uint64_t f = (uint64_t)anc_f[i], r = (uint64_t)anc_r[i];
+  int prev = prev0[i];
+  int pos = d > 0 ? so : so - k - 1;
+  int opos = pos;
+  while (d > 0 ? pos < endp : pos > endp) {
+    const int ori = rc[pos];
+    const bool qb = rq[pos] != 0;
+    const int cpos = pos;
+    pos += d;
+    dir_shift(f, r, ori >= 0 ? ori : (d > 0 ? 0 : 3), d, k);
+    int counts[4], ucode, level, count;
+    gba(rows, c, f, r, d, counts, ucode, level, count);
+    if (count == 0) {
+      lg.truncation(cpos);
+      break;
+    }
+    if (count == 1) {
+      prev = counts[ucode];
+      if (ori != ucode) {
+        dir_replace0(f, r, ucode, d, k);
+        if (lg.append(cpos, sub_meta(ori, ucode))) {
+          const int diff = lg.remove_last_window();
+          lg.truncation(cpos - d * diff);
+          opos -= d * diff;
+          break;
+        }
+      }
+      ro[opos] = (int8_t)dir_base0(f, d, k);
+      opos += d;
+      continue;
+    }
+    if (ori >= 0) {
+      const int c_ori = counts[ori];
+      if (c_ori > c.min_count) {
+        bool kp = c_ori >= c.cutoff || qb;
+        if (!kp) {
+          const int s = counts[0] + counts[1] + counts[2] + counts[3];
+          kp = keep[(size_t)s * (maxv + 1) + c_ori] != 0;
+        }
+        if (kp) {
+          ro[opos] = (int8_t)dir_base0(f, d, k);
+          opos += d;
+          continue;
+        }
+      } else if (level == 0 && c_ori == 0) {
+        lg.truncation(cpos);
+        break;
+      }
+    } else if (level == 0) {
+      lg.truncation(cpos);
+      break;
+    }
+    // multiple alternatives (error_correct_reads.cc:473-545)
+    int check = ori;
+    bool success = false;
+    int cont[4] = {0, 0, 0, 0};
+    bool cwn[4] = {false, false, false, false};
+    const int nb = (d > 0 ? pos < endp : pos > endp) ? rc[pos] : -1;
+    for (int v = 0; v < 4; ++v) {
+      if (counts[v] <= c.min_count) continue;
+      check = v;
+      uint64_t nf = f, nr = r;
+      dir_replace0(nf, nr, v, d, k);
+      dir_shift(nf, nr, 0, d, k);
+      int ncounts[4], nu, nlevel, ncount;
+      gba(rows, c, nf, nr, d, ncounts, nu, nlevel, ncount);
+      if (ncount > 0 && nlevel >= level) {
+        cwn[v] = nb >= 0 && ncounts[nb] > 0;
+        success = true;
+        cont[v] = counts[v];
+      }
+    }
+    if (success) {
+      // prev_count <= min_count: the reference's int overflow makes the
+      // tie-break dead code (oracle.py:23-25) -- no candidate matches
+      check = -1;
+      if (prev > c.min_count) {
+        int min_diff = 0x7FFFFFFF;
+        for (int v = 0; v < 4; ++v) {
+          const int df = abs(cont[v] - prev);
+          if (cont[v] > 0 && df < min_diff) min_diff = df;
+        }
+        int ncand = 0;
+        bool cand[4];
+        for (int v = 0; v < 4; ++v) {
+          cand[v] = abs(cont[v] - prev) == min_diff;
+          if (cand[v]) {
+            ++ncand;
+            check = v;
+          }
+        }
+        if (ncand > 1 && nb >= 0) {
+          for (int v = 0; v < 4; ++v) {
+            if (!cand[v]) continue;
+            if (!cwn[v]) --ncand;
+            else check = v;
+          }
+        }
+        if (ncand != 1) check = -1;
+      }
+      if (check >= 0 && check != ori) {
+        dir_replace0(f, r, check, d, k);
+        if (lg.append(cpos, sub_meta(ori, check))) {
+          const int diff = lg.remove_last_window();
+          lg.truncation(cpos - d * diff);
+          opos -= d * diff;
+          break;
+        }
+      }
+    }
+    if (ori < 0 && check < 0) {
+      lg.truncation(cpos);
+      break;
+    }
+    ro[opos] = (int8_t)dir_base0(f, d, k);
+    opos += d;
+  }
+  if (d > 0) end[i] = opos; else start[i] = opos + 1;
+  log_n[lane] = lg.n;
+  log_lwin[lane] = lg.lwin;
+}
+
+extern "C" int extend_reads(
+    const uint32_t* rows, int k, int rb, int bits, const int8_t* codes,
+    const uint8_t* hqb, const int* lengths, const uint8_t* found,
+    const int* start_off, const long long* anc_f, const long long* anc_r,
+    const int* prev0, const uint8_t* keep, int B, int L, int window,
+    int error, int min_count, int cutoff, int maxe, int8_t* out, int* start,
+    int* end, int* log_n, int* log_lwin, int* log_pos, int* log_meta,
+    int* overflow, void* stream) {
+  Cfg c{k, rb, bits, L, window, error, min_count, cutoff, maxe};
+  if (B > 0)
+    extend_kernel<<<(2 * B + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
+        rows, c, codes, hqb, lengths, found, start_off, anc_f, anc_r, prev0,
+        keep, B, out, start, end, log_n, log_lwin, log_pos, log_meta,
+        overflow);
+  return (int)cudaGetLastError();
+}

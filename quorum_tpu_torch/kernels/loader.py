@@ -1,0 +1,165 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each `csrc/*.cu` source compiles with nvcc into its own shared library
+with a plain C interface (``extern "C"`` launchers taking device
+pointers, sizes and the CUDA stream), loaded with ctypes. Builds happen
+at first use, never at import, into ``quorum_tpu_torch/_build/<hash>/``
+keyed by a digest of every source and the flags, so a checkout builds
+its kernels from the sources it holds and a changed source rebuilds.
+All sources compile in parallel (one nvcc each).
+
+`STATS` counts the launches of each kernel (a wrapper adds one where it
+launches, nowhere else) and, when `STATS.timing` is on, keeps CUDA
+events around every launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(HERE, "csrc")
+BUILD_ROOT = os.path.join(os.path.dirname(HERE), "_build")
+
+KERNELS = ("tile_insert", "tile_seal", "tile_lookup", "extend_reads")
+
+NVCC_FLAGS = ["-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-gencode", "arch=compute_90a,code=sm_90a", "-Xptxas", "-v"]
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+# C signatures of the launchers (every one returns cudaGetLastError()).
+SIGNATURES = {
+    "tile_insert": {
+        "tile_insert_reads": [_P, _I, _I, _LL, _LL, _LL, _I, _I, _I,
+                              _P, _P, _P, _P, _P, _P, _P],
+        "tile_insert_parts": [_P, _P, _P, _P, _P, _LL, _P, _P, _P, _P,
+                              _P],
+    },
+    "tile_seal": {"tile_seal": [_P, _P, _P, _LL, _I, _P, _P, _P]},
+    "tile_lookup": {"tile_lookup": [_P, _P, _LL, _I, _I, _I, _P, _P]},
+    "extend_reads": {
+        "extend_reads": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                         _P, _P, _P],
+    },
+}
+
+
+class KernelStats:
+    """Launch counts per kernel, and optional CUDA-event timing."""
+
+    def __init__(self):
+        self.launches = {name: 0 for name in KERNELS}
+        self.timing = False
+        self.events: list = []  # (kernel, start event, end event)
+
+    def reset(self) -> None:
+        for name in self.launches:
+            self.launches[name] = 0
+        self.events.clear()
+
+    def kernel_ms(self) -> dict:
+        """Summed event time per kernel (synchronizes the device)."""
+        import torch
+
+        torch.cuda.synchronize()
+        out = {name: 0.0 for name in KERNELS}
+        for name, a, b in self.events:
+            out[name] += a.elapsed_time(b)
+        return out
+
+
+STATS = KernelStats()
+_LIBS: dict = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def build_dir() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in sorted(os.listdir(CSRC)):
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_ROOT, h.hexdigest()[:16])
+
+
+def build_all() -> dict:
+    """Compile every kernel whose library is missing, all at once.
+    Returns {name: ptxas report}. Raises on any failed build."""
+    out_dir = build_dir()
+    os.makedirs(out_dir, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = {}
+    reports = {}
+    for name in KERNELS:
+        lib = os.path.join(out_dir, f"lib{name}.so")
+        if os.path.exists(lib):
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
+               os.path.join(CSRC, f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, lib)
+    failed = []
+    for name, (proc, tmp, lib) in procs.items():
+        text, _ = proc.communicate()
+        reports[name] = text
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exit {proc.returncode}\n{text}")
+            os.unlink(tmp)
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return reports
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel `name` (built on first use)."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        path = os.path.join(build_dir(), f"lib{name}.so")
+        if not os.path.exists(path):
+            build_all()
+        lib = ctypes.CDLL(path)
+        for fn, argtypes in SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib
+
+
+def launch(name: str, fn: str, *args) -> None:
+    """Call launcher `fn` of kernel `name` on the current stream, count
+    the launch, and raise if CUDA refused it."""
+    import torch
+
+    c_fn = getattr(library(name), fn)
+    stream = torch.cuda.current_stream().cuda_stream
+    STATS.launches[name] += 1
+    if STATS.timing:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+    rc = c_fn(*args, stream)
+    if STATS.timing:
+        b.record()
+        STATS.events.append((name, a, b))
+    if rc != 0:
+        raise RuntimeError(f"{name}.{fn}: CUDA launch failed with error {rc}")

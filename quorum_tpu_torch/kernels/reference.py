@@ -1,0 +1,482 @@
+"""Plain PyTorch versions of the four hand-written kernels.
+
+Each function computes what its CUDA kernel computes (csrc/*.cu) with
+ordinary tensor operations. The wrappers in kernels/__init__.py call
+them only for tensors that lie on the CPU; chip_smoke.py runs them on
+the card beside the kernels to hold the two against each other.
+
+32-bit words are stored as int32 tensors (the bit pattern of the JAX
+package's uint32 planes). Arithmetic here widens them to int64 and
+masks with 0xFFFFFFFF after every multiply and shift; a k-mer is one
+int64 of at most 62 bits (ops/mer.py).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops import mer
+
+M32 = 0xFFFFFFFF
+EMPTY = 0xFFFFFFFF  # an empty tag word (quorum_tpu.ops.ctable._EMPTY_TAG)
+TSLOTS = 64
+_ROUND_C = (0x9E3779B9, 0x85EBCA6B, 0xC2B2AE35, 0x27D4EB2F)
+_LOOKUP_CHUNK = 1 << 18
+
+
+def u32(x: torch.Tensor) -> torch.Tensor:
+    """int32 storage -> the unsigned value as int64."""
+    return x.to(torch.int64) & M32
+
+
+def i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 holding an unsigned 32-bit value -> int32 storage."""
+    return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
+
+
+def _mul32(x, c: int):
+    """(x * c) mod 2^32 for x < 2^32 without int64 overflow."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & M32
+
+
+def mix32(x):
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def feistel(keys: torch.Tensor, k: int) -> torch.Tensor:
+    """The 4-round Feistel bijection on the 2k-bit key
+    (ctable.feistel_mix); returns the mixed value (L << k) | R."""
+    kmask = (1 << k) - 1
+    r = keys & kmask
+    l = (keys >> k) & kmask
+    for c in _ROUND_C:
+        f = mix32((r + c) & M32) & kmask
+        l, r = r, l ^ f
+    return (l << k) | r
+
+
+def tile_key_parts(keys: torch.Tensor, meta):
+    """Canonical int64 mers -> (addr, rlo, rhi) int64: the row address
+    is the low rb_log2 bits of the mixed key, the remainder splits into
+    a (31 - bits)-bit low tag and the high tag (ctable.tile_key_parts)."""
+    full = feistel(keys, meta.k)
+    addr = full & ((1 << meta.rb_log2) - 1)
+    rem = full >> meta.rb_log2
+    rlo = rem & ((1 << meta.rlo_bits) - 1)
+    return addr, rlo, rem >> meta.rlo_bits
+
+
+def preferred_slot(rlo, rhi):
+    return (rlo ^ (rlo >> 7) ^ ((rhi << 3) & M32)) & (TSLOTS - 1)
+
+
+# --------------------------------------------------------------- HK1
+
+
+def widen_wire(wire, b: int, length: int, thresholds, qual_thresh: int):
+    """K1: the fused wire -> (codes int8 [B, L], hq bool [B, L]) where
+    hq is the qual >= qual_thresh predicate."""
+    pcodes, nmask, hq, lengths = mer.wire_parts(wire, b, length, thresholds)
+    codes = mer.unpack_codes(pcodes, nmask, lengths, length)
+    return codes, mer.unpack_bits(hq[int(qual_thresh)], length)
+
+
+def extract_observations(codes, hqb, k: int):
+    """K2: per window end, the canonical mer, `valid` (k consecutive
+    ACGT bases) and `qual` (all k bases high quality: reset on a
+    non-ACGT or low-quality base, ctable.py:1189-1191). Flat [B*L]."""
+    f, r, valid = mer.rolling_kmers(codes, k)
+    qual = mer.run_at_least((codes < 0) | ~hqb, k)
+    return (mer.canonical(f, r).reshape(-1), qual.reshape(-1),
+            valid.reshape(-1))
+
+
+def insert_unique(bstate, meta, addr, rlo, rhi, hq_add, lq_add):
+    """Insert DISTINCT keys with their count increments. Deterministic
+    claim rounds: every pending key looks for its tag pair (match) or
+    the first empty slot in rotated order from its preferred slot; one
+    winner per contested (row, slot) is picked by the smallest lane id
+    (scatter_reduce amin) and writes both tag words. Returns `placed`
+    (False only where the 64-slot bucket is full of other keys)."""
+    n = addr.shape[0]
+    dev = addr.device
+    tag = bstate.tag.view(-1, TSLOTS, 2)
+    placed = torch.zeros(n, dtype=torch.bool, device=dev)
+    pend = torch.arange(n, device=dev)
+    p0 = preferred_slot(rlo, rhi)
+    slots = torch.arange(TSLOTS, device=dev)
+    while pend.numel():
+        a = addr[pend]
+        rows = tag[a]
+        tlo, thi = u32(rows[..., 0]), u32(rows[..., 1])
+        j = (slots[None, :] - p0[pend, None]) & (TSLOTS - 1)
+        match = (tlo == rlo[pend, None]) & (thi == rhi[pend, None])
+        score = torch.where(match, j, torch.where(tlo == EMPTY, TSLOTS + j,
+                                                  3 * TSLOTS))
+        best, slot = score.min(dim=1)
+        flat = a * TSLOTS + slot
+        win = best < TSLOTS
+        claim = ~win & (best < 2 * TSLOTS)
+        if claim.any():
+            cl = torch.nonzero(claim).squeeze(1)
+            uslot, inv = torch.unique(flat[cl], return_inverse=True)
+            owner = torch.full(uslot.shape, n, dtype=torch.int64, device=dev)
+            owner.scatter_reduce_(0, inv, pend[cl], "amin")
+            won = cl[owner[inv] == pend[cl]]
+            tflat = bstate.tag.view(-1)
+            tflat[2 * flat[won]] = i32(rlo[pend[won]])
+            tflat[2 * flat[won] + 1] = i32(rhi[pend[won]])
+            win = win.clone()
+            win[won] = True
+        w = torch.nonzero(win).squeeze(1)
+        bstate.hq.index_add_(0, flat[w], hq_add[pend[w]].to(torch.int32))
+        bstate.lq.index_add_(0, flat[w], lq_add[pend[w]].to(torch.int32))
+        placed[pend[w]] = True
+        # retire winners and lanes whose bucket holds no room for them
+        pend = pend[~win & claim]
+    return placed
+
+
+def insert_mers(bstate, meta, keys, qual):
+    """Insert canonical-mer observations (one count each, hq when
+    `qual`). Duplicate keys are summed first, so each key claims once.
+    Returns `placed` per observation."""
+    if keys.numel() == 0:
+        return torch.zeros(0, dtype=torch.bool, device=keys.device)
+    uk, inv = torch.unique(keys, return_inverse=True)
+    q = qual.to(torch.int64)
+    hq = torch.zeros(uk.shape[0], dtype=torch.int64, device=keys.device)
+    lq = torch.zeros_like(hq)
+    hq.index_add_(0, inv, q)
+    lq.index_add_(0, inv, 1 - q)
+    addr, rlo, rhi = tile_key_parts(uk, meta)
+    return insert_unique(bstate, meta, addr, rlo, rhi, hq, lq)[inv]
+
+
+def tile_insert_reads(bstate, meta, wire, b: int, length: int, thresholds,
+                      qual_thresh: int):
+    """HK1 (K1 + K2 + K4 + K5): widen the wire, extract the batch's
+    observations and insert them. Returns (keys, qual) of the valid
+    observations that found no room (empty when the batch fit)."""
+    codes, hqb = widen_wire(wire, b, length, thresholds, qual_thresh)
+    keys, qual, valid = extract_observations(codes, hqb, meta.k)
+    keys, qual = keys[valid], qual[valid]
+    placed = insert_mers(bstate, meta, keys, qual)
+    return keys[~placed], qual[~placed]
+
+
+# --------------------------------------------------------------- HK2
+
+
+def tile_seal(bstate, meta):
+    """K7: duplicate-tag check, fold into the query layout
+    ``lo = rlo << (bits+1) | q << bits | min(cnt, max_val)``, ``hi =
+    rhi``, and the (occupied, distinct-hq, total-hq) statistics.
+    Returns (rows int32 [rows, 128], stats int64 [4] = dup, occupied,
+    distinct_hq, total_hq)."""
+    t = bstate.tag.view(-1, TSLOTS, 2)
+    tlo, thi = u32(t[..., 0]), u32(t[..., 1])
+    hq = u32(bstate.hq.view(-1, TSLOTS))
+    lq = u32(bstate.lq.view(-1, TSLOTS))
+    occ = (tlo != EMPTY) & ((hq | lq) != 0)
+    q = (hq > 0) & occ
+    cnt = torch.clamp(torch.where(q, hq, lq), max=meta.max_val)
+    lo = torch.where(occ, (tlo << (meta.bits + 1))
+                     | (q.to(torch.int64) << meta.bits) | cnt, 0)
+    hi = torch.where(occ, thi, 0)
+    rows = torch.stack([i32(lo), i32(hi)], dim=2).view(-1, 2 * TSLOTS)
+    # duplicate tag pairs within a row: sort by (hi, lo), compare
+    # neighbours (unoccupied slots sort last as an all-ones pair)
+    klo = torch.where(occ, tlo, M32)
+    khi = torch.where(occ, thi, M32)
+    klo, order = torch.sort(klo, dim=1, stable=True)
+    khi = torch.gather(khi, 1, order)
+    khi, order = torch.sort(khi, dim=1, stable=True)
+    klo = torch.gather(klo, 1, order)
+    same = ((khi[:, 1:] == khi[:, :-1]) & (klo[:, 1:] == klo[:, :-1])
+            & (khi[:, 1:] != M32))
+    stats = torch.stack([same.any().to(torch.int64), occ.sum(),
+                         q.sum(), torch.where(q, cnt, 0).sum()])
+    return rows, stats
+
+
+# --------------------------------------------------------------- HK3
+
+
+def tile_lookup(rows, meta, keys):
+    """K10: the value word ``(count << 1) | qual`` of each canonical
+    mer, 0 when absent."""
+    out = torch.zeros(keys.shape[0], dtype=torch.int64, device=keys.device)
+    r3 = rows.view(-1, TSLOTS, 2)
+    for s in range(0, keys.shape[0], _LOOKUP_CHUNK):
+        addr, rlo, rhi = tile_key_parts(keys[s:s + _LOOKUP_CHUNK], meta)
+        g = r3[addr]
+        lo, hi = u32(g[..., 0]), u32(g[..., 1])
+        count = lo & meta.max_val
+        match = ((count != 0) & ((lo >> (meta.bits + 1)) == rlo[:, None])
+                 & (hi == rhi[:, None]))
+        val = (count << 1) | ((lo >> meta.bits) & 1)
+        out[s:s + _LOOKUP_CHUNK] = torch.where(match, val, 0).sum(dim=1)
+    return out
+
+
+# --------------------------------------------------------------- HK4
+
+
+class _Logs:
+    """Per-lane err_log state (err_log.hpp:22-106) for the lockstep
+    extension: entry buffers, count n, window start lwin."""
+
+    def __init__(self, nl: int, maxe: int, d, window: int, error: int,
+                 dev):
+        self.pos = torch.zeros((nl, maxe), dtype=torch.int64, device=dev)
+        self.meta = torch.zeros_like(self.pos)
+        self.n = torch.zeros(nl, dtype=torch.int64, device=dev)
+        self.lwin = torch.zeros_like(self.n)
+        self.d, self.window, self.error, self.maxe = d, window, error, maxe
+        self.overflow = False
+        self.j = torch.arange(maxe, device=dev)[None, :]
+
+    def _check(self, mask, back):
+        """check_nb_error's window advance: entry positions are
+        monotone in direction order, so the first in-window index is
+        the count of over-window entries."""
+        d = self.d
+        guard = mask & torch.where(d > 0, back > self.window,
+                                   back < self.window)
+        dist = d[:, None] * (back[:, None] - self.pos)
+        over = ((self.j < self.n[:, None]) & (dist > self.window)).sum(1)
+        self.lwin = torch.where(guard, torch.maximum(self.lwin, over),
+                                self.lwin)
+
+    def append(self, mask, raw, meta):
+        """Append (raw, meta) for `mask` lanes; returns the lanes whose
+        error budget tripped."""
+        self.overflow |= bool((mask & (self.n >= self.maxe)).any())
+        m = mask & (self.n < self.maxe)
+        idx = torch.nonzero(m).squeeze(1)
+        self.pos[idx, self.n[idx]] = raw[idx]
+        self.meta[idx, self.n[idx]] = meta[idx]
+        self.n = self.n + m
+        self._check(m, raw)
+        return m & ((self.n - self.lwin - 1) >= self.error)
+
+    def _at(self, i):
+        return torch.gather(self.pos, 1, i.clamp(0, self.maxe - 1)[:, None]
+                            ).squeeze(1)
+
+    def remove_last_window(self, mask):
+        diff = torch.where(mask & (self.n > 0),
+                           self.d * (self._at(self.n - 1) - self._at(self.lwin)),
+                           0)
+        self.n = torch.where(mask, torch.where(self.n > 0, self.lwin, 0),
+                             self.n)
+        self.lwin = torch.where(mask, 0, self.lwin)
+        self._check(mask & (self.n > 0), self._at(self.n - 1))
+        return diff
+
+
+def _gba(rows, meta, f, r, d, active):
+    """get_best_alternatives (mer_database.hpp:302-329): the 4 variant
+    counts of base 0 kept at the best quality level present. Returns
+    (counts [N, 4], ucode, level, count)."""
+    k = meta.k
+    idx = torch.nonzero(active).squeeze(1)
+    vals = torch.zeros((f.shape[0], 4), dtype=torch.int64, device=f.device)
+    if idx.numel():
+        keys = []
+        for v in range(4):
+            fv, rv = mer.dir_replace0(f[idx], r[idx], torch.full_like(
+                idx, v), d[idx], k)
+            keys.append(mer.canonical(fv, rv))
+        vals[idx] = tile_lookup(rows, meta, torch.cat(keys)).view(4, -1).T
+    cnt, q = vals >> 1, vals & 1
+    level = torch.where(cnt > 0, q, 0).amax(dim=1)
+    counts = torch.where((cnt > 0) & (q == level[:, None]), cnt, 0)
+    count = (counts > 0).sum(dim=1)
+    ucode = torch.zeros_like(count)
+    for v in range(4):
+        ucode = torch.where(counts[:, v] > 0, v, ucode)
+    return counts, ucode, level, count
+
+
+def _sub_meta(frm, to):
+    return ((torch.where(frm >= 0, frm, 4) << 1)
+            | (torch.where(to >= 0, to, 4) << 4))
+
+
+def extend_reads(rows, meta, codes, hqb, lengths, found, start_off, anc_f,
+                 anc_r, prev0, keep, *, window: int, error: int,
+                 min_count: int, cutoff: int, maxe: int):
+    """HK4 (K13 + K15): the reference's extension (oracle._extend,
+    error_correct_reads.cc:384-565) for every (read, direction) lane in
+    lockstep, both directions stepped directly in the read's own frame
+    (d = +1 lanes then d = -1 lanes). Backward lanes shift a non-ACGT
+    base in as T, the code the JAX package's reverse-complement frame
+    gives it. Returns (out int8 [B, L], start, end, (fwd n, lwin, pos,
+    meta), (bwd n, lwin, pos, meta)) with int64 log fields."""
+    b, l = codes.shape
+    dev = codes.device
+    k = meta.k
+    nl = 2 * b
+    lane = torch.arange(nl, device=dev)
+    read = lane % b
+    d = torch.where(lane < b, 1, -1)
+    so = start_off.to(torch.int64)
+    ln = lengths.to(torch.int64)
+    codes64 = codes.to(torch.int64)
+    f = torch.cat([anc_f, anc_f])
+    r = torch.cat([anc_r, anc_r])
+    prev = torch.cat([prev0, prev0]).to(torch.int64)
+    pos = torch.cat([so, so - k - 1])
+    end = torch.cat([ln, torch.full_like(ln, -1)])
+    opos = pos.clone()
+    alive = torch.cat([found, found]).bool()
+    out = codes.clone()
+    logs = _Logs(nl, maxe, d, window, error, dev)
+    maxv = meta.max_val
+    neg = torch.full_like(lane, -1)
+
+    def in_range(p):
+        return torch.where(d > 0, p < end, p > end)
+
+    def trunc_raw(p):
+        return p + (d < 0)  # backward_log::truncation records pos + 1
+
+    while True:
+        act = alive & in_range(pos)
+        if not bool(act.any()):
+            break
+        cpos = pos
+        pos = torch.where(act, pos + d, pos)
+        cp = cpos.clamp(0, l - 1)
+        ori = torch.where(act, codes64[read, cp], neg)
+        qb = act & hqb[read, cp]
+        code = torch.where(ori >= 0, ori, torch.where(d > 0, 0, 3))
+        nf, nr = mer.dir_shift(f, r, code, d, k)
+        f, r = torch.where(act, nf, f), torch.where(act, nr, r)
+        counts, ucode, level, count = _gba(rows, meta, f, r, d, act)
+
+        t0 = act & (count == 0)
+        c1 = act & (count == 1)
+        prev = torch.where(c1, counts.gather(1, ucode[:, None])[:, 0], prev)
+        sub1 = c1 & (ori != ucode)
+        nf, nr = mer.dir_replace0(f, r, ucode, d, k)
+        f, r = torch.where(c1, nf, f), torch.where(c1, nr, r)
+        trip1 = logs.append(sub1, cpos, _sub_meta(ori, ucode))
+        diff1 = logs.remove_last_window(trip1)
+        logs.append(trip1, trunc_raw(cpos - d * diff1),
+                    torch.ones_like(lane))
+        opos = torch.where(trip1, opos - d * diff1, opos)
+        write = c1 & ~trip1
+
+        cm = act & (count > 1)
+        has_ori = cm & (ori >= 0)
+        c_ori = torch.where(has_ori, counts.gather(1, ori.clamp(0)[:, None])
+                            [:, 0], 0)
+        ori_hi = has_ori & (c_ori > min_count)
+        keep_cut = ori_hi & ((c_ori >= cutoff) | qb)
+        ksum = counts.sum(dim=1).clamp(max=4 * maxv)
+        keep_poi = (ori_hi & ~keep_cut
+                    & keep[ksum, c_ori.clamp(0, maxv)].bool())
+        keep_s = keep_cut | keep_poi
+        t_a = has_ori & ~ori_hi & (level == 0) & (c_ori == 0)
+        t_b = cm & (ori < 0) & (level == 0)
+        ambig = cm & ~keep_s & ~t_a & ~t_b
+
+        trip2 = torch.zeros_like(act)
+        t_c = torch.zeros_like(act)
+        amb_w = torch.zeros_like(act)
+        ia = torch.nonzero(ambig).squeeze(1)
+        if ia.numel():
+            (trip2, t_c, amb_w, f, r, opos) = _ambiguous(
+                rows, meta, logs, ia, f, r, d, pos, end, read, codes64,
+                counts, level, prev, ori, cpos, opos, min_count, nl)
+        logs.append(t0 | t_a | t_b | t_c, trunc_raw(cpos),
+                    torch.ones_like(lane))
+        alive = alive & ~(t0 | trip1 | t_a | t_b | trip2 | t_c)
+        write = write | keep_s | amb_w
+        w = torch.nonzero(write).squeeze(1)
+        out[read[w], opos[w]] = mer.dir_base0(f[w], d[w], k).to(torch.int8)
+        opos = torch.where(write, opos + d, opos)
+
+    if logs.overflow:
+        raise RuntimeError(f"log overflow: more than {maxe} entries")
+    not_found = ~found.bool()
+    end_f = torch.where(not_found, so, opos[:b])
+    start = torch.where(not_found, so - k, opos[b:] + 1)
+    fwd = (logs.n[:b], logs.lwin[:b], logs.pos[:b], logs.meta[:b])
+    bwd = (logs.n[b:], logs.lwin[b:], logs.pos[b:], logs.meta[b:])
+    return out, start, end_f, fwd, bwd
+
+
+def _ambiguous(rows, meta, logs, ia, f, r, d, pos, end, read, codes64,
+               counts, level, prev, ori, cpos, opos, min_count, nl):
+    """The multiple-alternatives path (error_correct_reads.cc:473-545)
+    for the lanes `ia`: continuation probe, then the tie-break chain
+    including the int-overflow dead code (prev_count <= min_count never
+    substitutes; oracle module docstring)."""
+    k = meta.k
+    da = d[ia]
+    pa = pos[ia]
+    inr = torch.where(da > 0, pa < end[ia], pa > end[ia])
+    l = codes64.shape[1]
+    rnb = torch.where(inr, codes64[read[ia], pa.clamp(0, l - 1)], -1)
+    ca = counts[ia]
+    elig = ca > min_count
+    check = ori[ia]
+    for i in range(4):
+        check = torch.where(elig[:, i], i, check)
+    succ = torch.zeros_like(elig)
+    cwn = torch.zeros_like(elig)
+    for i in range(4):
+        fi, ri = mer.dir_replace0(f[ia], r[ia], torch.full_like(ia, i), da, k)
+        fi, ri = mer.dir_shift(fi, ri, torch.zeros_like(ia), da, k)
+        nc, _u, nlev, ncnt = _gba(rows, meta, fi, ri, da, elig[:, i])
+        s_i = elig[:, i] & (ncnt > 0) & (nlev >= level[ia])
+        succ[:, i] = s_i
+        cwn[:, i] = s_i & (rnb >= 0) & (nc.gather(1, rnb.clamp(0)[:, None])
+                                         [:, 0] > 0)
+    success = succ.any(dim=1)
+    cont = torch.where(succ, ca, 0)
+    pr = prev[ia]
+    diffs = (cont - pr[:, None]).abs()
+    min_diff = torch.where(cont > 0, diffs, 2**31 - 1).amin(dim=1)
+    cand = success[:, None] & (pr > min_count)[:, None] & (diffs == min_diff[:, None])
+    ncand = cand.sum(dim=1)
+    cc = torch.full_like(ia, -1)
+    for i in range(4):
+        cc = torch.where(cand[:, i], i, cc)
+    tie = (ncand > 1) & (rnb >= 0)
+    ncand = torch.where(tie, (cand & cwn).sum(dim=1), ncand)
+    for i in range(4):
+        cc = torch.where(tie & cand[:, i] & cwn[:, i], i, cc)
+    cc = torch.where(ncand != 1, -1, cc)
+    check = torch.where(success, cc, check)
+
+    do_rep = success & (check >= 0)
+    nf, nr = mer.dir_replace0(f[ia], r[ia], check.clamp(0), da, k)
+    f, r = f.clone(), r.clone()
+    f[ia] = torch.where(do_rep, nf, f[ia])
+    r[ia] = torch.where(do_rep, nr, r[ia])
+
+    def full(x, fill=False):
+        o = torch.full((nl,), fill, dtype=x.dtype, device=x.device)
+        o[ia] = x
+        return o
+
+    sub2 = full(do_rep & (check != ori[ia]))
+    check_f = full(check, -1)
+    trip2 = logs.append(sub2, cpos, _sub_meta(ori, check_f))
+    diff2 = logs.remove_last_window(trip2)
+    logs.append(trip2, cpos - d * diff2 + (d < 0), torch.ones_like(pos))
+    opos = torch.where(trip2, opos - d * diff2, opos)
+    amb = full(torch.ones_like(do_rep))
+    t_c = amb & ~trip2 & (ori < 0) & (check_f < 0)
+    return trip2, t_c, amb & ~trip2 & ~t_c, f, r, opos

@@ -1,0 +1,149 @@
+"""Stage 2 as a program: FASTQ in, corrected FASTA + skip log out
+(counterpart of quorum_tpu/models/error_correct.py, in-order loop).
+
+Output contract (byte-compatible with the reference):
+  * `.fa` record: ``>header fwd_log bwd_log\\nseq\\n``;
+  * `.log` record per skipped read: ``Skipped <header>: <reason>\\n``;
+  * `--no-discard`: skipped reads also emit ``>header\\nN\\n``;
+  * `-o PREFIX` writes PREFIX.fa / PREFIX.log, else stdout / stderr.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import sys
+import time
+from typing import Iterable, Sequence
+
+import torch
+
+from ..io import db_format, fastq, packing
+from ..ops import ctable
+from ..ops.poisson import compute_poisson_cutoff
+from .corrector import correct_batch_packed, finish_batch, make_keep_table
+from .ec_config import DEFAULT_QUAL_CUTOFF, ECConfig
+
+
+def render_result(hdr: str, r, cfg: ECConfig) -> tuple[str, str]:
+    """One read's `.fa` and `.log` text (error_correct_reads.cc
+    :246-341)."""
+    if r.ok:
+        return f">{hdr} {r.fwd_log} {r.bwd_log}\n{r.seq}\n", ""
+    fa = f">{hdr}\nN\n" if cfg.no_discard else ""
+    return fa, f"Skipped {hdr}: {r.error}\n"
+
+
+@dataclasses.dataclass
+class ECStats:
+    reads: int = 0
+    corrected: int = 0
+    skipped: int = 0
+    bases_in: int = 0
+    bases_out: int = 0
+    cutoff: int = 0
+    host_s: float = 0.0    # parse, pack, finish and render
+    device_s: float = 0.0  # H2D + correction until the result is ready
+
+
+@dataclasses.dataclass(frozen=True)
+class ECOptions:
+    output: str | None = None  # -o prefix; None = stdout/stderr
+    cutoff: int | None = None  # -p; None = compute from the table
+    apriori_error_rate: float = 0.01
+    poisson_threshold: float = 1e-6
+    batch_size: int = 8192
+    verify_db: str = "full"
+    device: str = "cuda"
+
+
+def resolve_cutoff(state, meta, opts: ECOptions,
+                   stats: tuple[int, int] | None = None) -> int:
+    """-p, or compute_poisson_cutoff over the table's (distinct_hq,
+    total_hq) with the reference's parameterization
+    (error_correct_reads.cc:710-717). 0 = failed."""
+    if opts.cutoff is not None:
+        return opts.cutoff
+    if stats is None:
+        _occ, distinct, total = ctable.tile_stats(state, meta)
+    else:
+        distinct, total = stats
+    return compute_poisson_cutoff(
+        int(distinct), int(total), opts.apriori_error_rate / 3.0,
+        opts.poisson_threshold / opts.apriori_error_rate)
+
+
+def run_error_correct(db_path: str, sequences: Sequence[str],
+                      opts: ECOptions, qual_cutoff: int = DEFAULT_QUAL_CUTOFF,
+                      skip: int = 1, good: int = 2, anchor_count: int = 3,
+                      min_count: int = 1, window: int = 10, error: int = 3,
+                      no_discard: bool = False, db=None,
+                      prepacked: Iterable | None = None) -> ECStats:
+    """Run stage 2. `db` is an in-process handoff (state, meta, build
+    stats) that skips reading the database file; `prepacked` replays
+    (ReadBatch, PackedReads) pairs packed with the qual_cutoff plane
+    instead of parsing `sequences` again."""
+    from .. import resolve_device
+
+    device = resolve_device(opts.device)
+    if db is not None:
+        state, meta, bstats = db
+        table_stats = (bstats.distinct_hq, bstats.total_hq)
+    else:
+        state, meta, _header = db_format.read_db(db_path, device=device,
+                                                 verify=opts.verify_db)
+        table_stats = None
+    cutoff = resolve_cutoff(state, meta, opts, table_stats)
+    if cutoff == 0 and opts.cutoff is None:
+        raise RuntimeError(
+            "Cutoff computation failed. Pass it explicitly with -p switch.")
+    cfg = ECConfig(k=meta.k, skip=skip, good=good,
+                   anchor_count=anchor_count, min_count=min_count,
+                   cutoff=cutoff, qual_cutoff=qual_cutoff, window=window,
+                   error=error, no_discard=no_discard,
+                   collision_prob=opts.apriori_error_rate / 3.0,
+                   poisson_threshold=opts.poisson_threshold)
+    keep = make_keep_table(meta, cfg, device)
+    stats = ECStats(cutoff=cutoff)
+    if prepacked is None:
+        prepacked = ((b, packing.pack_reads(b.codes, b.quals, b.lengths,
+                                            thresholds=(qual_cutoff,)))
+                     for b in fastq.read_batches(sequences, opts.batch_size))
+    out = open(opts.output + ".fa", "w") if opts.output else sys.stdout
+    log = open(opts.output + ".log", "w") if opts.output else sys.stderr
+    try:
+        it = iter(prepacked)
+        while True:
+            t0 = time.perf_counter()
+            item = next(it, None)
+            if item is None:
+                break
+            batch, pk = item
+            t1 = time.perf_counter()
+            res = correct_batch_packed(state, meta, pk, cfg, keep)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            t2 = time.perf_counter()
+            results = finish_batch(res, batch.n, batch.codes)
+            fa_parts, log_parts = [], []
+            for hdr, r in zip(batch.headers, results):
+                fa, lg = render_result(hdr, r, cfg)
+                if r.ok:
+                    stats.corrected += 1
+                    stats.bases_out += r.end - r.start
+                else:
+                    stats.skipped += 1
+                fa_parts.append(fa)
+                log_parts.append(lg)
+            out.write("".join(fa_parts))
+            log.write("".join(log_parts))
+            stats.reads += batch.n
+            stats.bases_in += int(batch.lengths[:batch.n].sum())
+            stats.device_s += t2 - t1
+            stats.host_s += (t1 - t0) + (time.perf_counter() - t2)
+    finally:
+        for f in (out, log):
+            if f is sys.stdout or f is sys.stderr:
+                f.flush()
+            else:
+                f.close()
+    return stats
