@@ -4,7 +4,7 @@
     python3 chip_smoke.py          # from the root of a checkout
 
 Phases, each printing one JSON line:
-  build    compile the four CUDA kernels from csrc/ with nvcc (sm_90a)
+  build    compile the eight CUDA kernels from csrc/ with nvcc (sm_90a)
   kernels  hold each kernel against its plain PyTorch version on the
            card, at the main path's shapes (8192 x 160 batches, a
            2^22-row table), plus a small table that grows
@@ -15,14 +15,28 @@ Phases, each printing one JSON line:
            4,641,652 bp genome, 150 bp reads at 40x, 1% substitutions,
            ~10% low-quality bases, k = 24); launch counts are reset
            just before it and read just after
+  two_binary  the same FASTQ through quorum_create_database with -s a
+           sixteenth of the full run's (the table doubles at least
+           twice), the v5 file, then quorum_error_correct_reads on its
+           own from that file: the table holds the full run's content
+           and the .fa/.log are byte-equal to the full run's; launch
+           counts reset before and read after, as for full
+  pending  HK1's keys entry on the leftovers the two-binary build meets:
+           the full run's batches into a table of the two_binary
+           phase's first size; at each overflow the doubled table (HK8)
+           takes the batch's leftover observations through the keys
+           entry and, on a copy, through its plain version
   loaded   HK1 timed on one of the full run's batches, inserted into a
            table that already holds all its other batches (the load a
-           late batch of the main path meets); HK2 sealing that table,
-           held against its plain version
-Then one {"kernels": [...]} line (launches from the full run, times
-and bounds from the kernels and loaded phases), the card's name and
-power limit from nvidia-smi, and {"ok": true, "device": {...}} as the
-last line.
+           late batch of the main path meets); HK2 sealing and HK8
+           doubling that table, each held against its plain version
+  table    HK7 loading and HK6 exporting the full run's database, and
+           HK5, HK3 and HK4 on one of its batches against that table,
+           each held against its plain version and timed there
+Then one {"kernels": [...]} line (launches from the full and two_binary
+runs, times and bounds from the kernels, loaded and table phases), the
+card's name and power limit from nvidia-smi, and {"ok": true, "device":
+{...}} as the last line.
 Exits non-zero, with no result line, when CUDA is unavailable, outside
 a checkout, or when any phase fails. Imports nothing of JAX.
 """
@@ -61,6 +75,22 @@ SOURCES = {  # kernel -> (source in the repo, TPU program it replaces)
                     "quorum_tpu/ops/ctable.py:677"),
     "extend_reads": ("quorum_tpu_torch/kernels/csrc/extend_reads.cu",
                      "quorum_tpu/models/corrector.py:1095"),
+    "stage2_head": ("quorum_tpu_torch/kernels/csrc/stage2_head.cu",
+                    "quorum_tpu/models/corrector.py:348"),
+    "tile_export": ("quorum_tpu_torch/kernels/csrc/tile_export.cu",
+                    "quorum_tpu/ops/ctable.py:1643"),
+    "tile_load": ("quorum_tpu_torch/kernels/csrc/tile_load.cu",
+                  "quorum_tpu/ops/ctable.py:787"),
+    "tile_grow": ("quorum_tpu_torch/kernels/csrc/tile_grow.cu",
+                  "quorum_tpu/ops/ctable.py:1521"),
+}
+# the kernels each main-path run must launch (HK3's probe runs inside
+# HK5 and HK4; the query CLI is its caller)
+PATH_KERNELS = {
+    "full": ("tile_insert", "tile_seal", "tile_export", "stage2_head",
+             "extend_reads"),
+    "two_binary": ("tile_insert", "tile_grow", "tile_seal", "tile_export",
+                   "tile_load", "stage2_head", "extend_reads"),
 }
 
 
@@ -176,28 +206,42 @@ def event_ms(fn, reps: int, setup=None) -> float:
     return times[len(times) // 2]
 
 
-def kernel_ms(fn, name: str, reps: int, setup=None) -> float:
-    """Median time of the kernel launch itself (loader events)."""
+def kernel_ms(fn, name: str, reps: int, setup=None, detail=None) -> float:
+    """Median time of the kernel's own C launches (loader events around
+    each, summed over the wrapper call). With a `detail` dict, also the
+    median time of each C launcher and of the whole wrapper call
+    (`span`, with the host work between its launches)."""
     import torch
 
     from quorum_tpu_torch.kernels.loader import STATS
 
-    times = []
+    def median(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    times, spans, per = [], [], {}
     for _ in range(reps):
         if setup is not None:
             setup()
         STATS.events.clear()
+        STATS.calls.clear()
         STATS.timing = True
         try:
             fn()
         finally:
             STATS.timing = False
         torch.cuda.synchronize()
-        ms = [a.elapsed_time(b) for n, a, b in STATS.events if n == name]
-        check(len(ms) == 1, f"{name}: expected one timed launch")
-        times.append(ms[0])
-    times.sort()
-    return times[len(times) // 2]
+        span = [a.elapsed_time(b) for n, a, b in STATS.events if n == name]
+        check(len(span) == 1, f"{name}: expected one timed launch")
+        spans.append(span[0])
+        calls = [(f, a.elapsed_time(b)) for n, f, a, b in STATS.calls
+                 if n == name]
+        times.append(sum(t for _f, t in calls))
+        for f, t in calls:
+            per.setdefault(f, []).append(t)
+    if detail is not None:
+        detail["span"] = median(spans)
+        detail.update({f: median(v) for f, v in per.items()})
+    return median(times)
 
 
 # ------------------------------------------------------------- phases
@@ -230,8 +274,8 @@ def phase_kernels(card: str) -> dict:
     from quorum_tpu_torch import kernels
     from quorum_tpu_torch.io import packing
     from quorum_tpu_torch.kernels import reference as ref
-    from quorum_tpu_torch.models import corrector, create_database
-    from quorum_tpu_torch.ops import ctable, mer
+    from quorum_tpu_torch.models import create_database
+    from quorum_tpu_torch.ops import ctable
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED + 1)
@@ -303,28 +347,8 @@ def phase_kernels(card: str) -> dict:
                             bound_bytes=meta.rows * (512 + 512 + 512) + 32)
     del bk
 
-    # --- HK3: the stage-2 sweep's keys (present) + random (absent)
-    state = ctable.TileState(rows_k)
-    f, r, _v = mer.rolling_kmers(cw, K)
-    sweep = mer.canonical(f, r).reshape(-1)
-    rnd = torch.randint(0, 1 << 48, (sweep.numel() // 4,), device=dev,
-                        generator=torch.Generator(dev).manual_seed(SEED))
-    lk = torch.cat([sweep, rnd])
-    vk = kernels.tile_lookup(state.rows, meta, lk)
-    vp = ref.tile_lookup(state.rows, meta, lk)
-    lk_equal = torch.equal(vk, vp) and bool((vk[:sweep.numel()] != 0).any())
-    check(lk_equal, "tile_lookup differs from its plain version")
-    kmain = sweep  # the main path looks up B x L keys per batch
-    laddr = torch.unique(ref.tile_key_parts(kmain, meta)[0])
-    out["tile_lookup"] = dict(
-        equal=lk_equal, n=lk.numel(),
-        ms=kernel_ms(lambda: kernels.tile_lookup(state.rows, meta, kmain),
-                     "tile_lookup", 10),
-        plain_ms=event_ms(lambda: ref.tile_lookup(state.rows, meta, kmain),
-                          3),
-        bound_bytes=16 * kmain.numel() + 512 * laddr.numel())
-
-    # --- HK4: the batch with Ns, short reads and reads with no anchor
+    # --- HK5, HK3, HK4: the batch with Ns, short reads and reads with
+    # no anchor (timed later, on the full run's table)
     g4 = torch.Generator().manual_seed(SEED + 3)
     c4 = c.copy()
     inread = np.arange(L)[None, :] < lengths[:, None]
@@ -337,15 +361,73 @@ def phase_kernels(card: str) -> dict:
     c4[rnd_reads, :READ_LEN] = torch.randint(
         0, 4, (int(rnd_reads.sum()), READ_LEN), generator=g4).numpy()
     c4[np.arange(L)[None, :] >= l4[:, None]] = -2
+    out.update(stage2_kernels(ctable.TileState(rows_k), meta, c4, q, l4,
+                              reps=0))
+    emit({"kernels": [{"name": nm, "equal": bool(v["equal"]), "n": v["n"]}
+                      for nm, v in out.items()], "card": card})
+    return out
+
+
+def stage2_kernels(state, meta, c, q, lengths, reps: int) -> dict:
+    """HK5, HK3 and HK4 against their plain versions on one batch
+    (codes int8 [B, L] with -1 / -2, quals, lengths) and the table
+    `state`; with reps > 0 also timed, with their byte bounds. HK3 looks
+    up the batch's window mers plus as many random (absent) keys."""
+    import numpy as np
+    import torch
+
+    from quorum_tpu_torch import kernels
+    from quorum_tpu_torch.io import packing
+    from quorum_tpu_torch.kernels import reference as ref
+    from quorum_tpu_torch.models import corrector
+    from quorum_tpu_torch.ops import mer
+
+    dev = state.rows.device
+    b, L = c.shape
     cfg = corrector.ECConfig(k=K, cutoff=4, qual_cutoff=33 + 40)
-    codes4 = torch.from_numpy(c4).to(dev)
-    hqb4 = torch.from_numpy(q).to(dev) >= cfg.qual_cutoff
-    len4 = torch.from_numpy(l4).to(dev)
-    anc = corrector.find_anchors(state, meta, codes4, len4, cfg)
+    pk = packing.pack_reads(c, q, lengths, thresholds=(cfg.qual_cutoff,))
+    wire = torch.from_numpy(pk.to_wire()).to(dev)
+    hargs = (state.rows, meta, wire, b, L, pk.thresholds, cfg.qual_cutoff)
+    hkw = dict(skip=cfg.skip, good=cfg.good, anchor_count=cfg.anchor_count)
+    hk = kernels.stage2_head(*hargs, **hkw)
+    hp = ref.stage2_head(*hargs, **hkw)
+    head_equal = all(torch.equal(x, y) for x, y in
+                     zip(hk[:3] + tuple(hk[3]), hp[:3] + tuple(hp[3])))
+    check(head_equal, "stage2_head differs from its plain version")
+    codes, hqb, lens, anc = hk
+    found = anc[0]
+    check(bool(found.any()) and bool((~found).any()),
+          "stage-2 check lacks anchored or unanchored reads")
+    out = {}
+
+    # HK5's least traffic: the wire, its outputs, and one read of the
+    # row of every window the scan must probe (checked-or-valid windows
+    # up to the anchor; all of them in a read without one)
+    f, r, validk = mer.rolling_kmers(codes, K)
+    sweep = mer.canonical(f, r)
+    p = torch.arange(L, device=dev)[None, :]
+    vw = validk & (p >= cfg.skip + K - 1)
+    need = vw & (~found[:, None] | (p < anc[1][:, None]))
+    prow = torch.unique(ref.tile_key_parts(sweep[need], meta)[0]).numel()
+    out["stage2_head"] = dict(
+        equal=head_equal, n=b,
+        bound_bytes=wire.numel() + 2 * b * L + 29 * b + 512 * prow)
+
+    sweep = sweep.reshape(-1)
+    rnd = torch.randint(0, 1 << 48, (sweep.numel(),), device=dev,
+                        generator=torch.Generator(dev).manual_seed(SEED))
+    lk = torch.cat([sweep, rnd])
+    vk = kernels.tile_lookup(state.rows, meta, lk)
+    vp = ref.tile_lookup(state.rows, meta, lk)
+    lk_equal = torch.equal(vk, vp) and bool((vk[:sweep.numel()] != 0).any())
+    check(lk_equal, "tile_lookup differs from its plain version")
+    laddr = torch.unique(ref.tile_key_parts(sweep, meta)[0]).numel()
+    out["tile_lookup"] = dict(equal=lk_equal, n=lk.numel(),
+                              bound_bytes=16 * sweep.numel() + 512 * laddr)
+
     keep = corrector.make_keep_table(meta, cfg, dev)
     maxe = corrector.log_capacity(L, cfg)
-    args = (state.rows, meta, codes4, hqb4, len4, anc.found, anc.start_off,
-            anc.f, anc.r, anc.prev, keep)
+    args = (state.rows, meta, codes, hqb, lens, *anc, keep)
     kw = dict(window=cfg.effective_window, error=cfg.effective_error,
               min_count=cfg.min_count, cutoff=cfg.cutoff, maxe=maxe)
     rk = kernels.extend_reads(*args, **kw)
@@ -361,22 +443,27 @@ def phase_kernels(card: str) -> dict:
         rp = ref.extend_reads(*args, **kw)
     finally:
         ref.tile_lookup = orig
-    ext_equal = _batch_equal(rk, rp, anc.found)
-    found = anc.found.cpu().numpy()
-    check(found.sum() > 0 and (~found).sum() > 0,
-          "extend_reads check lacks anchored or unanchored reads")
+    ext_equal = _batch_equal(rk, rp, found)
     check(ext_equal, "extend_reads differs from its plain version")
     paddr = torch.unique(torch.cat(probed)).numel() if probed else 0
     io_bytes = (2 * b * L + b * 29 + keep.numel()          # inputs
                 + b * L + 8 * b + 2 * b * (8 + 8 * maxe))  # outputs
-    out["extend_reads"] = dict(
-        equal=ext_equal, n=b,
-        ms=kernel_ms(lambda: kernels.extend_reads(*args, **kw),
-                     "extend_reads", 5),
-        plain_ms=event_ms(lambda: ref.extend_reads(*args, **kw), 1),
-        bound_bytes=io_bytes + 512 * paddr)
-    emit({"kernels": [{"name": nm, "equal": bool(v["equal"]), "n": v["n"]}
-                      for nm, v in out.items()], "card": card})
+    out["extend_reads"] = dict(equal=ext_equal, n=b,
+                               bound_bytes=io_bytes + 512 * paddr)
+    if reps:
+        out["stage2_head"].update(
+            ms=kernel_ms(lambda: kernels.stage2_head(*hargs, **hkw),
+                         "stage2_head", reps),
+            plain_ms=event_ms(lambda: ref.stage2_head(*hargs, **hkw), 2))
+        out["tile_lookup"].update(
+            ms=kernel_ms(lambda: kernels.tile_lookup(state.rows, meta, sweep),
+                         "tile_lookup", reps),
+            plain_ms=event_ms(lambda: ref.tile_lookup(state.rows, meta,
+                                                      sweep), 2))
+        out["extend_reads"].update(
+            ms=kernel_ms(lambda: kernels.extend_reads(*args, **kw),
+                         "extend_reads", reps),
+            plain_ms=event_ms(lambda: ref.extend_reads(*args, **kw), 1))
     return out
 
 
@@ -467,8 +554,8 @@ def phase_full(card: str) -> dict:
     launches = dict(STATS.launches)
     kms = STATS.kernel_ms()
     check(rc == 0, f"full-size driver rc {rc}")
-    for name, cnt in launches.items():
-        check(cnt > 0, f"{name} was not launched on the main path")
+    for name in PATH_KERNELS["full"]:
+        check(launches[name] > 0, f"{name} was not launched on the main path")
     ec = report["ec"]
     build = report["build"]
     check(ec.reads == n and ec.corrected + ec.skipped == n,
@@ -514,14 +601,275 @@ def phase_full(card: str) -> dict:
           "stage2_device_s": round(ec.device_s, 3),
           "kernel_s": {k: round(v / 1e3, 4) for k, v in kms.items()},
           "kernel_ms_per_launch": {k: round(v / launches[k], 5)
-                                   for k, v in kms.items()},
+                                   for k, v in kms.items() if launches[k]},
           "host_share": round(host_s / (s1 + s2), 4),
           "sample_errors_in_out": [errs_in, errs_out, checked],
           "launches": launches})
     return dict(launches=launches, codes=codes, quals=quals, size=size,
-                grows=build.grows,
+                grows=build.grows, fastq=fq, prefix=prefix,
+                db=prefix + "_mer_database.jf", build=build,
                 insert_ms_per_launch=kms["tile_insert"]
                 / launches["tile_insert"])
+
+
+def table_content(path: str):
+    """A database's entries as (full hash, value word) pairs sorted by
+    hash, on the card: the table's content whatever its row count (the
+    full hash is (rem << rb_log2) | row, rem = hi:rlo)."""
+    import numpy as np
+    import torch
+
+    from quorum_tpu_torch.io import db_format
+
+    h = db_format.read_header(path)
+    rb, bits, n = h["rb_log2"], h["bits"], h["n_entries"]
+    rows, rl = 1 << rb, 31 - bits
+    buf = torch.from_numpy(np.frombuffer(db_format.db_payload_bytes(path),
+                                         np.uint8).copy()).to("cuda")
+    addr = torch.repeat_interleave(torch.arange(rows, device="cuda"),
+                                   buf[:rows].to(torch.int64))
+    lo = buf[rows:rows + 4 * n].view(n, 4).to(torch.int64)
+    lo = lo[:, 0] | lo[:, 1] << 8 | lo[:, 2] << 16 | lo[:, 3] << 24
+    hi = torch.zeros_like(lo)
+    for j in range(h["hi_bytes"]):
+        at = rows + 4 * n + j * n
+        hi |= buf[at:at + n].to(torch.int64) << (8 * j)
+    full_hash = ((hi << rl) | (lo >> (bits + 1))) << rb | addr
+    order = torch.argsort(full_hash)
+    return full_hash[order], (lo & ((1 << (bits + 1)) - 1))[order]
+
+
+def phase_two_binary(card: str, full: dict) -> dict:
+    """The two binaries on the full run's FASTQ: quorum_create_database
+    with a table of a sixteenth of the full run's rows (so it doubles
+    at least twice), the v5 file, then quorum_error_correct_reads on its
+    own from that file, with the driver's stage arguments."""
+    import filecmp
+
+    import torch
+
+    from quorum_tpu_torch.cli import create_database as cdb
+    from quorum_tpu_torch.cli import error_correct_reads as ec
+    from quorum_tpu_torch.io import db_format
+    from quorum_tpu_torch.kernels.loader import STATS
+
+    rb_full = db_format.read_header(full["db"])["rb_log2"]
+    size = 24 << (rb_full - 4)  # tile_rb_for(size) = rb_full - 4
+    db = os.path.join(WORK, "two_binary.jf")
+    prefix = os.path.join(WORK, "two_binary")
+    torch.cuda.reset_peak_memory_stats()
+    handoff: dict = {}
+    report: dict = {}
+    STATS.reset()
+    STATS.timing = True
+    t0 = time.perf_counter()
+    rc1 = cdb.main(["-s", str(size), "-m", str(K), "-q", str(QT), "-b", "7",
+                    "-o", db, "--device", "cuda", full["fastq"]],
+                   handoff=handoff)
+    t1 = time.perf_counter()
+    build = handoff.pop("db")[2] if rc1 == 0 else None
+    rc2 = ec.main(["--device", "cuda", "-o", prefix, db, full["fastq"]],
+                  report=report) if rc1 == 0 else None
+    t2 = time.perf_counter()
+    STATS.timing = False
+    launches = dict(STATS.launches)
+    kms = STATS.kernel_ms()
+    check(rc1 == 0 and rc2 == 0, f"two-binary run rc {rc1}, {rc2}")
+    for name in PATH_KERNELS["two_binary"]:
+        check(launches[name] > 0,
+              f"{name} was not launched on the two-binary path")
+    rb = db_format.read_header(db)["rb_log2"]
+    same_out = all(filecmp.cmp(prefix + ext, full["prefix"] + ext,
+                               shallow=False) for ext in (".fa", ".log"))
+    ha, va = table_content(db)
+    hb, vb = table_content(full["db"])
+    same_table = torch.equal(ha, hb) and torch.equal(va, vb)
+    del ha, va, hb, vb
+    same_payload = (db_format.db_payload_bytes(db)
+                    == db_format.db_payload_bytes(full["db"]))
+    stats = report["stats"]
+    emit({"phase": "two_binary", "card": card, "size": size,
+          "rb_log2_start": rb_full - 4, "rb_log2_end": rb,
+          "rb_log2_full": rb_full, "grows": build.grows,
+          "distinct_mers": build.distinct, "cutoff": stats.cutoff,
+          "create_database_s": round(t1 - t0, 3),
+          "build_s": round(build.seconds, 3),
+          "error_correct_s": round(t2 - t1, 3),
+          "stage2_device_s": round(stats.device_s, 3),
+          "stage2_host_s": round(stats.host_s, 3),
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "same_table_content": same_table, "same_payload_bytes": same_payload,
+          "same_fa_log": same_out, "launches": launches,
+          "kernel_s": {k: round(v / 1e3, 4) for k, v in kms.items()},
+          "kernel_ms_per_launch": {k: round(v / launches[k], 5)
+                                   for k, v in kms.items() if launches[k]}})
+    check(build.grows >= 2, f"the table grew {build.grows} times, not >= 2")
+    check(same_table, "the grown table's content differs from the full run's")
+    check(same_payload == (rb == rb_full),
+          "payload bytes disagree with the table geometry")
+    check(same_out, "two-binary .fa/.log differ from the full run's")
+    return dict(launches=launches, rb_start=rb_full - 4)
+
+
+def phase_table(card: str, full: dict) -> dict:
+    """HK7 loading and HK6 exporting the full run's database, each held
+    against its plain version (and HK6 against the file's payload
+    bytes); then HK5, HK3 and HK4 on a late full batch of the run's
+    reads against that table, held and timed there."""
+    import numpy as np
+    import torch
+
+    from quorum_tpu_torch import kernels
+    from quorum_tpu_torch.io import db_format
+    from quorum_tpu_torch.kernels import reference as ref
+    from quorum_tpu_torch.ops import ctable
+
+    dev = torch.device("cuda")
+    h = db_format.read_header(full["db"])
+    meta = ctable.TileMeta(h["key_len"] // 2, h["bits"], h["rb_log2"])
+    n = h["n_entries"]
+    raw = db_format.db_payload_bytes(full["db"])
+    payload = torch.from_numpy(np.frombuffer(raw, np.uint8).copy()).to(dev)
+    rows, stats = kernels.tile_load(payload, meta, n)
+    rows_p, stats_p = ref.tile_load(payload, meta, n)
+    b = full["build"]
+    load_equal = (torch.equal(rows, rows_p) and torch.equal(stats, stats_p)
+                  and stats.tolist() == [b.distinct, b.distinct_hq,
+                                         b.total_hq])
+    check(load_equal, "tile_load differs from its plain version")
+    del rows_p
+    ek = kernels.tile_export(rows, meta)
+    export_equal = (torch.equal(ek, ref.tile_export(rows, meta))
+                    and ek.cpu().numpy().tobytes() == raw)
+    check(export_equal, "tile_export differs from its plain version")
+    row_bytes = meta.rows * 512
+    export_parts: dict = {}
+    out = {
+        "tile_load": dict(
+            equal=load_equal, n=n,
+            ms=kernel_ms(lambda: kernels.tile_load(payload, meta, n),
+                         "tile_load", 5),
+            plain_ms=event_ms(lambda: ref.tile_load(payload, meta, n), 2),
+            bound_bytes=len(raw) + row_bytes),
+        "tile_export": dict(
+            equal=export_equal, n=n,
+            ms=kernel_ms(lambda: kernels.tile_export(rows, meta),
+                         "tile_export", 5, detail=export_parts),
+            plain_ms=event_ms(lambda: ref.tile_export(rows, meta), 2),
+            bound_bytes=row_bytes + len(raw)),
+    }
+    codes, quals = full["codes"], full["quals"]
+    i = -(-codes.shape[0] // BATCH) - 2
+    c, q, lengths, _pk = pack_batch(codes[i * BATCH:(i + 1) * BATCH],
+                                    quals[i * BATCH:(i + 1) * BATCH], QT)
+    out.update(stage2_kernels(ctable.TileState(rows), meta, c, q, lengths,
+                              reps=5))
+    # HK6's wrapper span and its two C launches apart: the span adds the
+    # host's wait for the payload size and the buffer's allocation
+    out["tile_export"]["parts_ms"] = export_parts
+    emit({"phase": "table", "card": card, "rows": meta.rows, "entries": n,
+          "payload_bytes": len(raw), "batch": i,
+          **{nm: {k: (round(v, 5) if isinstance(v, float) else v)
+                  for k, v in d.items()} for nm, d in out.items()}})
+    return out
+
+
+def full_wires(full: dict) -> list:
+    """The full run's reads as the stage-1 batches on the card: a list
+    of (PackedReads, wire)."""
+    import torch
+
+    codes, quals = full["codes"], full["quals"]
+    out = []
+    for i in range(-(-codes.shape[0] // BATCH)):
+        _c, _q, _l, pk = pack_batch(codes[i * BATCH:(i + 1) * BATCH],
+                                    quals[i * BATCH:(i + 1) * BATCH], QT)
+        out.append((pk, torch.from_numpy(pk.to_wire()).to("cuda")))
+    return out
+
+
+def phase_pending(card: str, full: dict, rb_start: int) -> dict:
+    """HK1's keys entry against its plain version on the leftovers the
+    two-binary build meets. The full run's batches go (HK1's reads
+    entry) into a table of 2^rb_start rows; at each overflow the table
+    doubles (HK8) and the batch's leftover observations go into two
+    copies of the doubled table, one through the keys entry and one
+    through its plain version: equal when the placed flags, the sealed
+    exports (HK2, HK6) and the statistics agree. The build goes on from
+    the keys entry's copy, as the path does. The keys entry is timed on
+    the last overflow (the largest table); its byte bound reads each
+    observation (8 + 1 B) and writes its flag, and touches the tag and
+    counter sectors as HK1's reads entry does (phase_loaded)."""
+    import torch
+
+    from quorum_tpu_torch import kernels
+    from quorum_tpu_torch.kernels import reference as ref
+    from quorum_tpu_torch.ops import ctable
+
+    dev = torch.device("cuda")
+    meta = ctable.TileMeta(K, 7, rb_start)
+    bstate = ctable.make_tile_build(meta, dev)
+
+    def copy(st):
+        return ctable.TBuildState(*(t.clone() for t in st))
+
+    def occupied(st):
+        return int((st.tag[:, 0::2] != -1).sum())
+
+    overflows = []
+    for pk, wire in full["wires"]:
+        full_, (keys, qual) = kernels.tile_insert_reads(
+            bstate, meta, wire, BATCH, pk.length, pk.thresholds, QT)
+        while full_:
+            bstate, meta = ctable.tile_grow_build(bstate, meta)
+            base = copy(bstate)
+            plain = copy(bstate)
+            placed = kernels.tile_insert_keys(bstate, meta, keys, qual)
+            placed_p = ref.insert_keys(plain, meta, keys, qual)
+            rows_k, stats_k = kernels.tile_seal(bstate, meta)
+            rows_p, stats_p = kernels.tile_seal(plain, meta)
+            del plain
+            equal = (torch.equal(placed, placed_p)
+                     and torch.equal(stats_k, stats_p)
+                     and torch.equal(kernels.tile_export(rows_k, meta),
+                                     kernels.tile_export(rows_p, meta)))
+            del rows_k, rows_p
+            check(equal, f"tile_insert_keys differs from its plain version "
+                  f"at {meta.rows} rows")
+            new_keys = occupied(bstate) - occupied(base)
+            kq = keys * 2 + qual.to(torch.int64)
+            overflows.append(dict(
+                rows=meta.rows, leftover=keys.numel(),
+                distinct_keys=torch.unique(keys).numel(), new_keys=new_keys,
+                distinct_key_classes=torch.unique(kq).numel(),
+                placed=int(placed.sum()), equal=equal))
+            before, left = base, (keys, qual)
+            keys, qual = keys[~placed], qual[~placed]
+            full_ = keys.numel() > 0
+    check(len(overflows) >= 2, f"{len(overflows)} overflows, not >= 2")
+
+    # the last overflow again: `before` is its doubled table before the
+    # leftovers went in
+    last = overflows[-1]
+    work = copy(before)
+
+    def reset():
+        for dst, src in zip(work, before):
+            dst.copy_(src)
+
+    ms = kernel_ms(lambda: kernels.tile_insert_keys(work, meta, *left),
+                   "tile_insert", 5, reset)
+    plain_ms = event_ms(lambda: ref.insert_keys(work, meta, *left), 2, reset)
+    n = last["leftover"]
+    bound_bytes = (10 * n + 32 * (last["distinct_keys"] + last["new_keys"])
+                   + 64 * last["distinct_key_classes"])
+    del work, before, bstate
+    emit({"phase": "pending", "card": card, "rb_log2_start": rb_start,
+          "overflows": overflows, "keys_entry_ms": round(ms, 5),
+          "keys_entry_plain_ms": round(plain_ms, 5),
+          "keys_entry_bound_ms": round(bound_bytes / H100_BYTES_PER_S * 1e3,
+                                       5)})
+    return dict(overflows=overflows, ms=ms, plain_ms=plain_ms)
 
 
 def phase_loaded(card: str, full: dict) -> dict:
@@ -540,25 +888,17 @@ def phase_loaded(card: str, full: dict) -> dict:
     from quorum_tpu_torch.ops import ctable
 
     dev = torch.device("cuda")
-    codes, quals = full["codes"], full["quals"]
     meta = ctable.TileMeta(K, 7, ctable.tile_rb_for(full["size"], K, 7)
                            + full["grows"])
-    n_batches = -(-codes.shape[0] // BATCH)
-    timed = n_batches - 2  # a full batch late in the run
-
-    def wire_of(i):
-        _c, _q, _l, pk = pack_batch(codes[i * BATCH:(i + 1) * BATCH],
-                                    quals[i * BATCH:(i + 1) * BATCH], QT)
-        return pk, torch.from_numpy(pk.to_wire()).to(dev)
-
+    wires = full["wires"]
+    timed = len(wires) - 2  # a full batch late in the run
     loaded = ctable.make_tile_build(meta, dev)
-    for i in range(n_batches):
+    for i, (pk, wire) in enumerate(wires):
         if i != timed:
-            pk, wire = wire_of(i)
             full_, _p = kernels.tile_insert_reads(
                 loaded, meta, wire, BATCH, pk.length, pk.thresholds, QT)
             check(not full_, "loaded table reported full")
-    pk, wire = wire_of(timed)
+    pk, wire = wires[timed]
     work = ctable.make_tile_build(meta, dev)
 
     def reset():
@@ -595,6 +935,7 @@ def phase_loaded(card: str, full: dict) -> dict:
     ms_seal = kernel_ms(lambda: kernels.tile_seal(loaded, meta), "tile_seal",
                         5)
     plain_seal = event_ms(lambda: ref.tile_seal(loaded, meta), 2)
+    grow = grow_loaded(loaded, meta)
     emit({"phase": "loaded", "card": card, "batch": timed,
           "table_occupancy": round(occ, 6), "observations": int(valid.sum()),
           "distinct_keys": n_keys, "new_keys": new_keys,
@@ -602,11 +943,59 @@ def phase_loaded(card: str, full: dict) -> dict:
           "ms": round(ms, 5), "plain_ms": round(plain, 5),
           "full_run_ms_per_launch": round(full["insert_ms_per_launch"], 5),
           "seal_equal": seal_equal, "seal_ms": round(ms_seal, 5),
-          "seal_plain_ms": round(plain_seal, 5)})
+          "seal_plain_ms": round(plain_seal, 5),
+          "grow": {k: v for k, v in grow.items() if k != "equal"}})
     del loaded
     return {"tile_insert": dict(n=int(valid.sum()), ms=ms, plain_ms=plain,
                                 bound_bytes=bound_bytes),
-            "tile_seal": dict(ms=ms_seal, plain_ms=plain_seal)}
+            "tile_seal": dict(ms=ms_seal, plain_ms=plain_seal),
+            "tile_grow": grow}
+
+
+def grow_loaded(loaded, meta) -> dict:
+    """HK8 and its plain version doubling the loaded build table: equal
+    when both doubled tables seal (HK2) to the same export (HK6) and
+    statistics; then both timed into a fresh doubled table. The byte
+    bound reads the old tags and counters once (1 KiB a row) and
+    writes, per live key, one 32-byte tag sector and one 32-byte
+    counter sector of the new table."""
+    import dataclasses
+
+    import torch
+
+    from quorum_tpu_torch import kernels
+    from quorum_tpu_torch.kernels import reference as ref
+    from quorum_tpu_torch.ops import ctable
+
+    new_meta = dataclasses.replace(meta, rb_log2=meta.rb_log2 + 1)
+    dev = loaded.tag.device
+    sealed = []
+    for fn in (kernels.tile_grow, ref.tile_grow):
+        new = ctable.make_tile_build(new_meta, dev)
+        check(not fn(loaded, meta, new, new_meta), "doubled table full")
+        rows, stats = kernels.tile_seal(new, new_meta)
+        del new
+        sealed.append((kernels.tile_export(rows, new_meta), stats))
+        del rows
+    equal = (torch.equal(sealed[0][0], sealed[1][0])
+             and torch.equal(sealed[0][1], sealed[1][1]))
+    check(equal, "tile_grow differs from its plain version")
+    live = int(sealed[0][1][1])
+    del sealed
+    work = ctable.make_tile_build(new_meta, dev)
+
+    def fresh():
+        work.tag.fill_(-1)
+        work.hq.zero_()
+        work.lq.zero_()
+
+    ms = kernel_ms(lambda: kernels.tile_grow(loaded, meta, work, new_meta),
+                   "tile_grow", 3, fresh)
+    plain = event_ms(lambda: ref.tile_grow(loaded, meta, work, new_meta), 1,
+                     fresh)
+    del work
+    return dict(equal=equal, n=meta.rows * 64, live_keys=live, ms=ms,
+                plain_ms=plain, bound_bytes=meta.rows * 1024 + 64 * live)
 
 
 def run() -> int:
@@ -629,20 +1018,28 @@ def run() -> int:
         stats = phase_kernels(card)
         phase_golden()
         full = phase_full(card)
+        two = phase_two_binary(card, full)
+        full["wires"] = full_wires(full)
+        phase_pending(card, full, two["rb_start"])
         for name, v in phase_loaded(card, full).items():
-            stats[name].update(v)
-        launches = full["launches"]
+            stats.setdefault(name, {}).update(v)
+        for name, v in phase_table(card, full).items():
+            stats.setdefault(name, {}).update(v)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
+    by_path = {"full": full["launches"], "two_binary": two["launches"]}
     rows = []
-    for name, v in stats.items():
-        src, replaces = SOURCES[name]
+    for name, (src, replaces) in SOURCES.items():
+        v = stats[name]
         bound = v["bound_bytes"] / H100_BYTES_PER_S * 1e3
         rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": launches[name],
+                     "replaces": replaces,
+                     "launches": sum(p[name] for p in by_path.values()),
+                     "launches_by_path": {k: p[name]
+                                          for k, p in by_path.items()},
                      "max_abs_err": 0 if v["equal"] else None,
                      "ms": round(v["ms"], 5),
                      "plain_ms": round(v["plain_ms"], 5),

@@ -205,14 +205,14 @@ def _verify_v5(path: str, header: dict, offset: int, mode: str) -> None:
                 "whole-file digest mismatch")
 
 
-def _decode_compact_payload(path: str, offset: int, rows_n: int, n: int,
-                            hi_bytes: int):
-    """One v4/v5 payload -> (counts u8[rows_n], lo u32[n], hi u32[n]),
-    with the structural refusals."""
+def _read_payload(path: str, offset: int, rows_n: int, n: int,
+                  hi_bytes: int) -> np.ndarray:
+    """One v4/v5 payload as raw bytes, after its structural refusals
+    (size, at most 64 entries a row, counts summing to n_entries)."""
     count = rows_n + (4 + hi_bytes) * n
     with open(path, "rb") as f:
         f.seek(offset)
-        payload = np.frombuffer(f.read(count), np.uint8)
+        payload = np.fromfile(f, np.uint8, count)
     if payload.shape[0] != count:
         raise IntegrityError(f"corrupt database '{path}': payload "
                              "truncated", path=path, section="entries",
@@ -228,19 +228,15 @@ def _decode_compact_payload(path: str, offset: int, rows_n: int, n: int,
             f"corrupt database '{path}': row counts sum "
             f"{int(counts.sum(dtype=np.int64))} != n_entries {n}",
             path=path, section="bucket_index", offset=offset)
-    lo = payload[rows_n:rows_n + 4 * n].copy().view(np.uint32)
-    hi = np.zeros((n,), np.uint32)
-    base = rows_n + 4 * n
-    for j in range(hi_bytes):
-        hi |= payload[base + j * n:base + (j + 1) * n].astype(np.uint32) \
-            << np.uint32(8 * j)
-    return counts, lo, hi
+    return payload
 
 
-def read_db(path: str, device="cpu", verify: str = "full"):
+def load_db(path: str, device="cpu", verify: str = "full"):
     """Load a single-file v4/v5 database onto `device`. Returns
-    (TileState, TileMeta, header). v5 digests are checked per `verify`
-    BEFORE any array is trusted."""
+    (TileState, TileMeta, header, (n_occupied, distinct_hq, total_hq)).
+    v5 digests and the payload's structure are checked on the host
+    BEFORE any byte reaches the device; then the raw payload crosses
+    once and HK7 decodes and places it there."""
     if verify not in VERIFY_MODES:
         raise ValueError(f"verify must be one of {VERIFY_MODES}, "
                          f"got {verify!r}")
@@ -260,10 +256,10 @@ def read_db(path: str, device="cpu", verify: str = "full"):
             f"corrupt database '{path}': hi_bytes {header['hi_bytes']} != "
             f"{meta.hi_bytes} for this geometry", path=path,
             section="header", offset=0)
-    counts, lo, hi = _decode_compact_payload(
-        path, offset, meta.rows, int(header["n_entries"]), meta.hi_bytes)
-    return (ctable.tile_rows_from_compact(counts, lo, hi, meta, device),
-            meta, header)
+    n = int(header["n_entries"])
+    payload = _read_payload(path, offset, meta.rows, n, meta.hi_bytes)
+    state, stats = ctable.tile_load(payload, meta, n, device)
+    return state, meta, header, stats
 
 
 def db_payload_bytes(path: str) -> bytes:

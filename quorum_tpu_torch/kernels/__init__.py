@@ -1,4 +1,4 @@
-"""Wrappers of the four hand-written Hopper kernels (csrc/*.cu).
+"""Wrappers of the eight hand-written Hopper kernels (csrc/*.cu).
 
 Every wrapper checks device, dtype, shape and contiguity, then either
 launches its CUDA kernel (tensors on a CUDA device) or runs the plain
@@ -7,11 +7,15 @@ no fallback: a CUDA tensor always goes to the kernel, and a failed build
 or launch raises.
 
   HK1 tile_insert   stage-1 counting (wire -> canonical mers -> 64-bit
-                    CAS claim in the 64-slot row), plus the parts entry
-                    that re-inserts after a grow
+                    CAS claim in the 64-slot row), plus the keys entry
+                    that re-inserts observations left over by a grow
   HK2 tile_seal     duplicate check + fold + statistics
   HK3 tile_lookup   canonical mer -> value word
   HK4 extend_reads  per-(read, direction) extension with edit logs
+  HK5 stage2_head   stage-2 wire widening, window lookups, anchor scan
+  HK6 tile_export   sealed rows -> the v4/v5 payload (sorted, compacted)
+  HK7 tile_load     the v4/v5 payload -> sealed rows + statistics
+  HK8 tile_grow     double the build table and re-insert every slot
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from . import reference as ref
-from .loader import launch
+from .loader import call, launch, launching
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
@@ -92,24 +96,21 @@ def tile_insert_reads(bstate, meta, wire: torch.Tensor, b: int, length: int,
     return True, _pending(failed, fkeys)
 
 
-def tile_insert_parts(bstate, meta, addr, rlo, rhi, hq_add, lq_add):
-    """Insert DISTINCT keys given by their (addr, rlo, rhi) with count
-    increments (the grow re-insert and the observations pending after a
-    grow). Returns `placed` (bool per key; False where the 64-slot row
-    is full of other keys)."""
+def tile_insert_keys(bstate, meta, keys: torch.Tensor, qual: torch.Tensor):
+    """Insert observations given as canonical int64 mers with their
+    qual bit, one count each (keys may repeat). Returns `placed` (bool
+    per observation; False where the 64-slot row is full of other
+    keys)."""
     _check_build(bstate, meta)
-    addr, rlo, rhi = (x.to(torch.int64).contiguous() for x in (addr, rlo,
-                                                               rhi))
-    hq_add = hq_add.to(torch.int32).contiguous()
-    lq_add = lq_add.to(torch.int32).contiguous()
-    if not _on_cuda(addr, bstate.tag):
-        return ref.insert_unique(bstate, meta, addr, rlo, rhi, hq_add,
-                                 lq_add)
-    placed = torch.empty(addr.numel(), dtype=torch.uint8, device=addr.device)
-    launch("tile_insert", "tile_insert_parts", addr.data_ptr(),
-           rlo.data_ptr(), rhi.data_ptr(), hq_add.data_ptr(),
-           lq_add.data_ptr(), addr.numel(), bstate.tag.data_ptr(),
-           bstate.hq.data_ptr(), bstate.lq.data_ptr(), placed.data_ptr())
+    _check(keys, torch.int64, "keys")
+    _check(qual, torch.bool, "qual")
+    if not _on_cuda(keys, qual, bstate.tag):
+        return ref.insert_keys(bstate, meta, keys, qual)
+    placed = torch.empty(keys.numel(), dtype=torch.uint8, device=keys.device)
+    launch("tile_insert", "tile_insert_keys", keys.data_ptr(),
+           qual.data_ptr(), keys.numel(), meta.k, meta.rb_log2, meta.bits,
+           bstate.tag.data_ptr(), bstate.hq.data_ptr(), bstate.lq.data_ptr(),
+           placed.data_ptr())
     return placed.bool()
 
 
@@ -206,3 +207,127 @@ def extend_reads(rows, meta, codes, hqb, lengths, found, start_off, anc_f,
     fwd = i64(log_n[:b], log_lwin[:b], log_pos[:b], log_meta[:b])
     bwd = i64(log_n[b:], log_lwin[b:], log_pos[b:], log_meta[b:])
     return out, start.to(torch.int64), end.to(torch.int64), fwd, bwd
+
+
+# --------------------------------------------------------------- HK5
+
+
+def stage2_head(rows, meta, wire: torch.Tensor, b: int, length: int,
+                thresholds, qual_cutoff: int, *, skip: int, good: int,
+                anchor_count: int):
+    """One stage-2 batch from its packed wire to HK4's inputs: (codes
+    int8 [B, L], hqb bool [B, L] = qual >= qual_cutoff, lengths int32
+    [B], (found bool, start_off int32, f int64, r int64, prev int32))
+    -- the anchors of corrector.find_anchors without a contaminant."""
+    _check_rows(rows, meta)
+    _check(wire, torch.uint8, "wire")
+    ts = sorted(int(t) for t in thresholds)
+    if int(qual_cutoff) not in ts:
+        raise KeyError(f"wire lacks the qual>={qual_cutoff} plane")
+    c4, c8 = -(-length // 4), -(-length // 8)
+    if wire.numel() != b * c4 + b * c8 * (1 + len(ts)) + 4 * b:
+        raise ValueError("wire size does not match its geometry")
+    kw = dict(skip=skip, good=good, anchor_count=anchor_count)
+    if not _on_cuda(rows, wire):
+        return ref.stage2_head(rows, meta, wire, b, length, ts, qual_cutoff,
+                               **kw)
+    dev = wire.device
+    codes = torch.empty((b, length), dtype=torch.int8, device=dev)
+    hqb = torch.empty((b, length), dtype=torch.bool, device=dev)
+    lengths = torch.empty(b, dtype=torch.int32, device=dev)
+    found = torch.empty(b, dtype=torch.bool, device=dev)
+    start_off = torch.empty(b, dtype=torch.int32, device=dev)
+    anc_f = torch.empty(b, dtype=torch.int64, device=dev)
+    anc_r = torch.empty(b, dtype=torch.int64, device=dev)
+    prev = torch.empty(b, dtype=torch.int32, device=dev)
+    off_nmask = b * c4
+    off_hq = off_nmask + b * c8 * (1 + ts.index(int(qual_cutoff)))
+    off_len = b * c4 + b * c8 * (1 + len(ts))
+    launch("stage2_head", "stage2_head", wire.data_ptr(), b, length,
+           off_nmask, off_hq, off_len, rows.data_ptr(), meta.k,
+           meta.rb_log2, meta.bits, skip, good, anchor_count,
+           codes.data_ptr(), hqb.data_ptr(), lengths.data_ptr(),
+           found.data_ptr(), start_off.data_ptr(), anc_f.data_ptr(),
+           anc_r.data_ptr(), prev.data_ptr())
+    return codes, hqb, lengths, (found, start_off, anc_f, anc_r, prev)
+
+
+# --------------------------------------------------------------- HK6
+
+
+def _scan_scratch(meta, dev):
+    """HK6/HK7 scratch: chunk sums and per-row first entry (+ total)."""
+    return (torch.empty(-(-meta.rows // 1024), dtype=torch.int64,
+                        device=dev),
+            torch.empty(meta.rows + 1, dtype=torch.int64, device=dev))
+
+
+def tile_export(rows: torch.Tensor, meta) -> torch.Tensor:
+    """The v4/v5 payload (uint8 tensor on the rows' device): per-row
+    occupancy counts, the entries' LE u32 lo words in canonical order
+    (each row sorted by (hi, lo)), then `hi_bytes` byte planes of their
+    hi words."""
+    _check_rows(rows, meta)
+    if not _on_cuda(rows):
+        return ref.tile_export(rows, meta)
+    dev = rows.device
+    counts = torch.empty(meta.rows, dtype=torch.uint8, device=dev)
+    sums, first = _scan_scratch(meta, dev)
+    with launching("tile_export"):
+        call("tile_export", "tile_export_counts", rows.data_ptr(),
+             meta.rows, meta.bits, counts.data_ptr(), sums.data_ptr(),
+             first.data_ptr())
+        n = int(first[meta.rows].item())  # sizes the payload
+        out = torch.empty(meta.rows + (4 + meta.hi_bytes) * n,
+                          dtype=torch.uint8, device=dev)
+        call("tile_export", "tile_export_rows", rows.data_ptr(), meta.rows,
+             meta.bits, counts.data_ptr(), first.data_ptr(), n,
+             meta.hi_bytes, out.data_ptr())
+    return out
+
+
+# --------------------------------------------------------------- HK7
+
+
+def tile_load(payload: torch.Tensor, meta, n: int):
+    """The sealed rows (int32 [rows, 128]) of a v4/v5 payload of n
+    entries, and their stats int64 [3] = (occupied, distinct_hq,
+    total_hq). The caller has checked the payload's structure (size,
+    at most 64 entries a row, counts summing to n)."""
+    _check(payload, torch.uint8, "payload")
+    if payload.numel() != meta.rows + (4 + meta.hi_bytes) * n:
+        raise ValueError("payload size does not match its geometry")
+    if not _on_cuda(payload):
+        return ref.tile_load(payload, meta, n)
+    dev = payload.device
+    rows = torch.empty((meta.rows, 2 * ref.TSLOTS), dtype=torch.int32,
+                       device=dev)
+    stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    sums, first = _scan_scratch(meta, dev)
+    launch("tile_load", "tile_load", payload.data_ptr(), meta.rows, n,
+           meta.hi_bytes, meta.bits, sums.data_ptr(), first.data_ptr(),
+           rows.data_ptr(), stats.data_ptr())
+    return rows, stats
+
+
+# --------------------------------------------------------------- HK8
+
+
+def tile_grow(bstate, meta, new, new_meta) -> bool:
+    """Re-insert every live slot of `bstate` into `new`, a fresh build
+    table of twice the rows (new_meta.rb_log2 = meta.rb_log2 + 1).
+    Returns True if a slot found no room (it cannot: a doubled row
+    takes the keys of one old row)."""
+    _check_build(bstate, meta)
+    _check_build(new, new_meta)
+    if new_meta.rb_log2 != meta.rb_log2 + 1 or new_meta.k != meta.k \
+            or new_meta.bits != meta.bits:
+        raise ValueError("new table is not the doubled geometry")
+    if not _on_cuda(bstate.tag, new.tag):
+        return ref.tile_grow(bstate, meta, new, new_meta)
+    full = torch.zeros(1, dtype=torch.int32, device=new.tag.device)
+    launch("tile_grow", "tile_grow", bstate.tag.data_ptr(),
+           bstate.hq.data_ptr(), bstate.lq.data_ptr(), meta.rows,
+           meta.rb_log2, meta.rlo_bits, new.tag.data_ptr(),
+           new.hq.data_ptr(), new.lq.data_ptr(), full.data_ptr())
+    return bool(full.item())

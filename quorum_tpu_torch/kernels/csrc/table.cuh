@@ -1,8 +1,10 @@
 // Shared device code of the tile-bucket table: the Feistel key hash
 // (quorum_tpu/ops/ctable.py:151-198, 633-674), the preferred slot
 // (ctable.py:938), the direction-generic mer arithmetic
-// (quorum_tpu/ops/mer.py:104-190) and the one-row probe that HK3 and HK4
-// share (ctable.tile_lookup_impl, ctable.py:677-696).
+// (quorum_tpu/ops/mer.py:104-190), the one-row probe that HK3, HK4 and
+// HK5 share (ctable.tile_lookup_impl, ctable.py:677-696), the slot claim
+// that HK1 and HK8 share, and the exclusive scan of per-row entry counts
+// that HK6 and HK7 share.
 //
 // A k-mer (k <= 31) is one uint64 of 2k bits; a table row is 128 u32
 // words = 64 (lo, hi) slot pairs.
@@ -107,4 +109,147 @@ __device__ __forceinline__ uint32_t probe_row(const uint32_t* __restrict__ rows,
       return (c1 << 1) | ((w.z >> bits) & 1u);
   }
   return 0;
+}
+
+// Claim-or-match the key's slot in the build table and add (ah, al) to
+// its counters; false if the 64-slot row is full of other keys. The scan
+// starts at the preferred slot and goes round the row in the same order
+// for every insert of a key, and slots are never freed, so concurrent
+// inserts of one key (within a launch or across launches) meet in one
+// slot: the tag pair is claimed with one 64-bit atomicCAS expecting the
+// empty pair.
+__device__ __forceinline__ bool claim_add(uint32_t* tag, uint32_t* hq,
+                                          uint32_t* lq, KeyParts p,
+                                          uint32_t ah, uint32_t al) {
+  unsigned long long* row =
+      reinterpret_cast<unsigned long long*>(tag) + (size_t)p.addr * TSLOTS;
+  const unsigned long long want =
+      ((unsigned long long)p.rhi << 32) | (unsigned long long)p.rlo;
+  const int p0 = preferred_slot(p.rlo, p.rhi);
+  for (int t = 0; t < TSLOTS; ++t) {
+    const int s = (p0 + t) & (TSLOTS - 1);
+    unsigned long long cur =
+        *reinterpret_cast<volatile unsigned long long*>(row + s);
+    if (cur == EMPTY_PAIR) cur = atomicCAS(row + s, EMPTY_PAIR, want);
+    if (cur == EMPTY_PAIR || cur == want) {
+      const size_t slot = (size_t)p.addr * TSLOTS + s;
+      if (ah) atomicAdd(hq + slot, ah);
+      if (al) atomicAdd(lq + slot, al);
+      return true;
+    }
+  }
+  return false;
+}
+
+// ------------------------------------------------------------------
+// Exclusive scan of per-row u8 entry counts: first[r] = sum of
+// counts[0..r), first[rows] = the total. Two passes over chunks of
+// SCAN_CHUNK rows (chunk sums; one block scans the chunk sums), then the
+// per-row offsets. Each thread of a 256-thread block owns 4 rows.
+
+#define SCAN_CHUNK 1024
+#define SCAN_THREADS 256
+#define FULL_MASK 0xFFFFFFFFu
+
+__device__ __forceinline__ long long warp_incl_scan(long long v) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const long long t = __shfl_up_sync(FULL_MASK, v, o);
+    if (lane >= o) v += t;
+  }
+  return v;
+}
+
+// Exclusive scan of v over the block (blockDim.x a multiple of 32);
+// *total gets the block's sum. Every thread of the block must call it.
+__device__ long long block_excl_scan(long long v, long long* total) {
+  __shared__ long long warp_sum[32];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const long long inc = warp_incl_scan(v);
+  if (lane == 31) warp_sum[w] = inc;
+  __syncthreads();
+  if (w == 0) {
+    long long t = lane < nw ? warp_sum[lane] : 0;
+    t = warp_incl_scan(t);
+    if (lane < nw) warp_sum[lane] = t;
+  }
+  __syncthreads();
+  const long long below = w ? warp_sum[w - 1] : 0;
+  *total = warp_sum[nw - 1];
+  __syncthreads();  // warp_sum is free again for the next call
+  return below + inc - v;
+}
+
+__device__ __forceinline__ long long chunk_row_counts(const uint8_t* counts,
+                                                      long long rows,
+                                                      long long r0,
+                                                      int c[4]) {
+  long long sum = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    c[j] = r0 + j < rows ? counts[r0 + j] : 0;
+    sum += c[j];
+  }
+  return sum;
+}
+
+__global__ void scan_chunk_sums_kernel(const uint8_t* __restrict__ counts,
+                                       long long rows,
+                                       long long* __restrict__ sums) {
+  int c[4];
+  const long long r0 = (long long)blockIdx.x * SCAN_CHUNK + 4 * threadIdx.x;
+  long long total;
+  block_excl_scan(chunk_row_counts(counts, rows, r0, c), &total);
+  if (threadIdx.x == 0) sums[blockIdx.x] = total;
+}
+
+// One block: chunk sums -> exclusive chunk offsets, and the grand total.
+__global__ void scan_chunk_offsets_kernel(long long* sums, long long nchunks,
+                                          long long* total_out) {
+  long long carry = 0;
+  for (long long base = 0; base < nchunks; base += blockDim.x) {
+    const long long i = base + threadIdx.x;
+    const long long v = i < nchunks ? sums[i] : 0;
+    long long tile;
+    const long long ex = block_excl_scan(v, &tile);
+    if (i < nchunks) sums[i] = carry + ex;
+    carry += tile;
+  }
+  if (threadIdx.x == 0) *total_out = carry;
+}
+
+__global__ void scan_row_offsets_kernel(const uint8_t* __restrict__ counts,
+                                        long long rows,
+                                        const long long* __restrict__ sums,
+                                        long long* __restrict__ first) {
+  int c[4];
+  const long long r0 = (long long)blockIdx.x * SCAN_CHUNK + 4 * threadIdx.x;
+  long long total;
+  long long off = sums[blockIdx.x] +
+                  block_excl_scan(chunk_row_counts(counts, rows, r0, c),
+                                  &total);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (r0 + j < rows) first[r0 + j] = off;
+    off += c[j];
+  }
+}
+
+// Enqueue the scan: `sums` is scratch of ceil(rows / SCAN_CHUNK) int64,
+// `first` holds rows + 1 int64.
+static inline cudaError_t row_offsets(const uint8_t* counts, long long rows,
+                                      long long* sums, long long* first,
+                                      cudaStream_t stream) {
+  const long long nchunks = (rows + SCAN_CHUNK - 1) / SCAN_CHUNK;
+  if (nchunks == 0) return cudaMemsetAsync(first, 0, sizeof(long long),
+                                           stream);
+  scan_chunk_sums_kernel<<<(unsigned)nchunks, SCAN_THREADS, 0, stream>>>(
+      counts, rows, sums);
+  scan_chunk_offsets_kernel<<<1, 1024, 0, stream>>>(sums, nchunks,
+                                                    first + rows);
+  scan_row_offsets_kernel<<<(unsigned)nchunks, SCAN_THREADS, 0, stream>>>(
+      counts, rows, sums, first);
+  return cudaGetLastError();
 }

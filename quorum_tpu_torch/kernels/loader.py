@@ -9,12 +9,16 @@ its kernels from the sources it holds and a changed source rebuilds.
 All sources compile in parallel (one nvcc each).
 
 `STATS` counts the launches of each kernel (a wrapper adds one where it
-launches, nowhere else) and, when `STATS.timing` is on, keeps CUDA
-events around every launch.
+launches, nowhere else: one per wrapper call, whatever number of C
+launchers the call enqueues) and, when `STATS.timing` is on, keeps CUDA
+events around everything the wrapper call enqueues (`events`) and
+around each C launch (`calls`): for a wrapper with two C launches and
+host work between them the two differ by the device's idle gap.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -26,7 +30,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(HERE), "_build")
 
-KERNELS = ("tile_insert", "tile_seal", "tile_lookup", "extend_reads")
+KERNELS = ("tile_insert", "tile_seal", "tile_lookup", "extend_reads",
+           "stage2_head", "tile_export", "tile_load", "tile_grow")
 
 NVCC_FLAGS = ["-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-gencode", "arch=compute_90a,code=sm_90a", "-Xptxas", "-v"]
@@ -38,8 +43,7 @@ SIGNATURES = {
     "tile_insert": {
         "tile_insert_reads": [_P, _I, _I, _LL, _LL, _LL, _I, _I, _I,
                               _P, _P, _P, _P, _P, _P, _P],
-        "tile_insert_parts": [_P, _P, _P, _P, _P, _LL, _P, _P, _P, _P,
-                              _P],
+        "tile_insert_keys": [_P, _P, _LL, _I, _I, _I, _P, _P, _P, _P, _P],
     },
     "tile_seal": {"tile_seal": [_P, _P, _P, _LL, _I, _P, _P, _P]},
     "tile_lookup": {"tile_lookup": [_P, _P, _LL, _I, _I, _I, _P, _P]},
@@ -48,6 +52,17 @@ SIGNATURES = {
                          _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                          _P, _P, _P],
     },
+    "stage2_head": {
+        "stage2_head": [_P, _I, _I, _LL, _LL, _LL, _P, _I, _I, _I, _I, _I,
+                        _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    },
+    "tile_export": {
+        "tile_export_counts": [_P, _LL, _I, _P, _P, _P, _P],
+        "tile_export_rows": [_P, _LL, _I, _P, _P, _LL, _I, _P, _P],
+    },
+    "tile_load": {"tile_load": [_P, _LL, _LL, _I, _I, _P, _P, _P, _P, _P]},
+    "tile_grow": {"tile_grow": [_P, _P, _P, _LL, _I, _I, _P, _P, _P, _P,
+                                _P]},
 }
 
 
@@ -58,11 +73,13 @@ class KernelStats:
         self.launches = {name: 0 for name in KERNELS}
         self.timing = False
         self.events: list = []  # (kernel, start event, end event)
+        self.calls: list = []  # (kernel, C launcher, start, end)
 
     def reset(self) -> None:
         for name in self.launches:
             self.launches[name] = 0
         self.events.clear()
+        self.calls.clear()
 
     def kernel_ms(self) -> dict:
         """Summed event time per kernel (synchronizes the device)."""
@@ -145,21 +162,45 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launch(name: str, fn: str, *args) -> None:
-    """Call launcher `fn` of kernel `name` on the current stream, count
-    the launch, and raise if CUDA refused it."""
+@contextlib.contextmanager
+def launching(name: str):
+    """Count one launch of kernel `name` and, when timing, time all the
+    work its wrapper enqueues inside the block."""
+    import torch
+
+    STATS.launches[name] += 1
+    if not STATS.timing:
+        yield
+        return
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    yield
+    b.record()
+    STATS.events.append((name, a, b))
+
+
+def call(name: str, fn: str, *args) -> None:
+    """Call C launcher `fn` of kernel `name` on the current stream and
+    raise if CUDA refused the launch (no count: see `launching`; timed
+    on its own when timing)."""
     import torch
 
     c_fn = getattr(library(name), fn)
-    stream = torch.cuda.current_stream().cuda_stream
-    STATS.launches[name] += 1
+    stream = torch.cuda.current_stream()
     if STATS.timing:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
-        a.record()
-    rc = c_fn(*args, stream)
+        a.record(stream)
+    rc = c_fn(*args, stream.cuda_stream)
     if STATS.timing:
-        b.record()
-        STATS.events.append((name, a, b))
+        b.record(stream)
+        STATS.calls.append((name, fn, a, b))
     if rc != 0:
         raise RuntimeError(f"{name}.{fn}: CUDA launch failed with error {rc}")
+
+
+def launch(name: str, fn: str, *args) -> None:
+    """A wrapper's one launcher call: counted, timed, checked."""
+    with launching(name):
+        call(name, fn, *args)

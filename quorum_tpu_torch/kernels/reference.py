@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four hand-written kernels.
+"""Plain PyTorch versions of the eight hand-written kernels.
 
 Each function computes what its CUDA kernel computes (csrc/*.cu) with
 ordinary tensor operations. The wrappers in kernels/__init__.py call
@@ -97,13 +97,15 @@ def extract_observations(codes, hqb, k: int):
             valid.reshape(-1))
 
 
-def insert_unique(bstate, meta, addr, rlo, rhi, hq_add, lq_add):
-    """Insert DISTINCT keys with their count increments. Deterministic
-    claim rounds: every pending key looks for its tag pair (match) or
-    the first empty slot in rotated order from its preferred slot; one
-    winner per contested (row, slot) is picked by the smallest lane id
-    (scatter_reduce amin) and writes both tag words. Returns `placed`
-    (False only where the 64-slot bucket is full of other keys)."""
+def insert_parts(bstate, meta, addr, rlo, rhi, hq_add, lq_add):
+    """Insert keys given by their (addr, rlo, rhi) with count
+    increments. Deterministic claim rounds: every pending lane looks for
+    its tag pair (match) or the first empty slot in rotated order from
+    its preferred slot; one winner per contested (row, slot) is picked
+    by the smallest lane id (scatter_reduce amin) and writes both tag
+    words. A key may repeat: its lanes contest the same empty slot, the
+    losers match it in the next round. Returns `placed` (False only
+    where the 64-slot bucket is full of other keys)."""
     n = addr.shape[0]
     dev = addr.device
     tag = bstate.tag.view(-1, TSLOTS, 2)
@@ -143,20 +145,13 @@ def insert_unique(bstate, meta, addr, rlo, rhi, hq_add, lq_add):
     return placed
 
 
-def insert_mers(bstate, meta, keys, qual):
-    """Insert canonical-mer observations (one count each, hq when
-    `qual`). Duplicate keys are summed first, so each key claims once.
-    Returns `placed` per observation."""
-    if keys.numel() == 0:
-        return torch.zeros(0, dtype=torch.bool, device=keys.device)
-    uk, inv = torch.unique(keys, return_inverse=True)
+def insert_keys(bstate, meta, keys, qual):
+    """Insert canonical-mer observations, one count each (hq when
+    `qual`; keys may repeat), as HK1 does. Returns `placed` per
+    observation."""
+    addr, rlo, rhi = tile_key_parts(keys, meta)
     q = qual.to(torch.int64)
-    hq = torch.zeros(uk.shape[0], dtype=torch.int64, device=keys.device)
-    lq = torch.zeros_like(hq)
-    hq.index_add_(0, inv, q)
-    lq.index_add_(0, inv, 1 - q)
-    addr, rlo, rhi = tile_key_parts(uk, meta)
-    return insert_unique(bstate, meta, addr, rlo, rhi, hq, lq)[inv]
+    return insert_parts(bstate, meta, addr, rlo, rhi, q, 1 - q)
 
 
 def tile_insert_reads(bstate, meta, wire, b: int, length: int, thresholds,
@@ -167,7 +162,7 @@ def tile_insert_reads(bstate, meta, wire, b: int, length: int, thresholds,
     codes, hqb = widen_wire(wire, b, length, thresholds, qual_thresh)
     keys, qual, valid = extract_observations(codes, hqb, meta.k)
     keys, qual = keys[valid], qual[valid]
-    placed = insert_mers(bstate, meta, keys, qual)
+    placed = insert_keys(bstate, meta, keys, qual)
     return keys[~placed], qual[~placed]
 
 
@@ -480,3 +475,136 @@ def _ambiguous(rows, meta, logs, ia, f, r, d, pos, end, read, codes64,
     amb = full(torch.ones_like(do_rep))
     t_c = amb & ~trip2 & (ori < 0) & (check_f < 0)
     return trip2, t_c, amb & ~trip2 & ~t_c, f, r, opos
+
+
+# --------------------------------------------------------------- HK5
+
+
+def stage2_head(rows, meta, wire, b: int, length: int, thresholds,
+                qual_cutoff: int, *, skip: int, good: int,
+                anchor_count: int):
+    """K1 + K2 + K10 + K11 (corrector.find_anchors without a
+    contaminant): widen the wire, look every window's canonical mer up
+    (non-ACGT bases enter the mer as A; such windows are invalid), and
+    anchor each read at the first p where `good` consecutive checked
+    windows had an hq count >= anchor_count; invalid windows and low
+    checked counts reset the run. Returns (codes, hqb, lengths int32,
+    (found, start_off int32, f, r, prev int32)); a read without an
+    anchor gets position 0's mers and value and start_off 1."""
+    k = meta.k
+    _pc, _nm, _hq, lengths = mer.wire_parts(wire, b, length, thresholds)
+    codes, hqb = widen_wire(wire, b, length, thresholds, qual_cutoff)
+    f, r, validk = mer.rolling_kmers(codes, k)
+    vals = tile_lookup(rows, meta, mer.canonical(f, r).reshape(-1)
+                       ).view(b, length)
+    p = torch.arange(length, device=codes.device)[None, :]
+    vw = validk & (p >= skip + k - 1)
+    val_hq = torch.where(vw & ((vals & 1) == 1), vals >> 1, 0)
+    checked = vw & (p <= lengths[:, None].to(torch.int64) - 2)
+    a = checked & (val_hq >= anchor_count)
+    z = ~vw | (checked & (val_hq < anchor_count))
+    cum_a = torch.cumsum(a.to(torch.int64), dim=1)
+    last_z = torch.cummax(torch.where(z, p, -1), dim=1).values
+    cum_at_z = torch.gather(cum_a, 1, last_z.clamp(min=0))
+    run = cum_a - torch.where(last_z >= 0, cum_at_z, 0)
+    hit = a & (run >= good)
+    found = hit.any(dim=1)
+    anchor_p = torch.argmax(hit.to(torch.uint8), dim=1)
+    ap = torch.where(found, anchor_p, 0)[:, None]
+    return codes, hqb, lengths.to(torch.int32), (
+        found, (anchor_p + 1).to(torch.int32), torch.gather(f, 1, ap)[:, 0],
+        torch.gather(r, 1, ap)[:, 0],
+        torch.gather(val_hq, 1, ap)[:, 0].to(torch.int32))
+
+
+# --------------------------------------------------------------- HK6
+
+
+def tile_export(rows, meta):
+    """K8: the v4/v5 payload as one uint8 tensor -- per-row occupancy
+    counts (u8), the occupied entries' lo words (LE u32) in canonical
+    order (each row sorted by (empty, hi, lo), so the file is a pure
+    function of the table's content), then `hi_bytes` byte planes of
+    their hi words."""
+    rows3 = rows.view(-1, TSLOTS, 2)
+    lo = u32(rows3[..., 0])
+    hi = u32(rows3[..., 1])
+    occ = (lo & meta.max_val) != 0
+
+    def by(key):  # stable re-order of every slot field along the row
+        order = torch.sort(key, dim=1, stable=True).indices
+        return tuple(torch.gather(x, 1, order) for x in (lo, hi, occ))
+
+    # stable sorts, least significant key first: (empty, hi, lo)
+    lo, hi, occ = by(lo)
+    lo, hi, occ = by(hi)
+    lo, hi, occ = by((~occ).to(torch.int8))
+    counts = occ.sum(dim=1).to(torch.uint8)
+    clo, chi = lo[occ], hi[occ]
+    parts = [counts, i32(clo).view(torch.uint8)]
+    parts += [((chi >> (8 * j)) & 0xFF).to(torch.uint8)
+              for j in range(meta.hi_bytes)]
+    return torch.cat(parts)
+
+
+# --------------------------------------------------------------- HK7
+
+
+def tile_load(payload, meta, n: int):
+    """K9 + the statistics of K7: decode the payload's lo words and hi
+    byte planes, scatter entry i of row a into slot rank-within-row of
+    a fresh row plane, and count (occupied, distinct_hq, total_hq) over
+    the entries. Returns (rows int32 [rows, 128], stats int64 [3])."""
+    nrows = meta.rows
+    cnt = payload[:nrows].to(torch.int64)
+    lo = payload[nrows:nrows + 4 * n].view(n, 4).to(torch.int64)
+    lo = lo[:, 0] | (lo[:, 1] << 8) | (lo[:, 2] << 16) | (lo[:, 3] << 24)
+    hi = torch.zeros(n, dtype=torch.int64, device=payload.device)
+    base = nrows + 4 * n
+    for j in range(meta.hi_bytes):
+        hi |= payload[base + j * n:base + (j + 1) * n].to(torch.int64) \
+            << (8 * j)
+    rows = torch.zeros((nrows, 2 * TSLOTS), dtype=torch.int32,
+                       device=payload.device)
+    if n:
+        addr = torch.repeat_interleave(
+            torch.arange(nrows, device=payload.device), cnt)
+        first = torch.cumsum(cnt, 0) - cnt
+        rank = torch.arange(n, device=payload.device) - first[addr]
+        flat = rows.view(-1)
+        at = addr * 2 * TSLOTS + 2 * rank
+        flat[at] = i32(lo)
+        flat[at + 1] = i32(hi)
+    count = lo & meta.max_val
+    occ = count != 0
+    q = occ & (((lo >> meta.bits) & 1) == 1)
+    return rows, torch.stack([occ.sum(), q.sum(),
+                              torch.where(q, count, 0).sum()])
+
+
+# --------------------------------------------------------------- HK8
+
+
+def tile_grow(bstate, meta, new, new_meta, chunk: int = 1 << 22) -> bool:
+    """K6: re-insert every live slot of `bstate` into the doubled table
+    `new`. The full hash is (rem << rb) | addr, so doubling moves rem's
+    low bit into the address top bit. Returns True if a slot found no
+    room."""
+    tag = bstate.tag.view(-1)
+    n_slots = meta.rows * TSLOTS
+    rl = meta.rlo_bits
+    for start in range(0, n_slots, chunk):
+        stop = min(n_slots, start + chunk)
+        rlo = u32(tag[2 * start:2 * stop:2])
+        rhi = u32(tag[2 * start + 1:2 * stop:2])
+        hq = bstate.hq[start:stop]
+        lq = bstate.lq[start:stop]
+        valid = (rlo != EMPTY) & ((hq | lq) != 0)
+        idx = torch.nonzero(valid).squeeze(1)
+        addr = ((idx + start) // TSLOTS) | ((rlo[idx] & 1) << meta.rb_log2)
+        nrlo = (rlo[idx] >> 1) | ((rhi[idx] & 1) << (rl - 1))
+        nrhi = rhi[idx] >> 1
+        if not insert_parts(new, new_meta, addr, nrlo & M32, nrhi,
+                            hq[idx], lq[idx]).all():
+            return True
+    return False

@@ -1,10 +1,10 @@
 """Stage-2 corrector on the device (counterpart of the plain path of
 quorum_tpu/models/corrector.py).
 
-Per batch: the wire widens to codes and the qual>=cutoff plane, every
-window's canonical mer is looked up once (HK3, the position sweep), the
-reference's anchor scan (find_starting_mer, error_correct_reads.cc
-:609-643) runs in closed form, and HK4 extends every anchored read in
+Per batch: HK5 widens the wire to codes and the qual>=cutoff plane,
+looks every window's canonical mer up once (the position sweep) and
+runs the reference's anchor scan (find_starting_mer,
+error_correct_reads.cc:609-643); HK4 extends every anchored read in
 both directions. The host then renders the results.
 
 Result fields match corrector.BatchResult: `out` corrected codes, `start`
@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..ops import mer
+from ..io import packing
 from ..ops.ctable import TileMeta, TileState
 from ..ops.poisson import keep_table
 from .ec_config import ECConfig, ERROR_NO_STARTING_MER
@@ -75,54 +75,6 @@ def log_capacity(l: int, cfg: ECConfig) -> int:
     return min(l + 2, -(-l // w) * (cfg.effective_error + 1) + 8)
 
 
-def find_anchors(state: TileState, meta: TileMeta, codes: torch.Tensor,
-                 lengths: torch.Tensor, cfg: ECConfig) -> Anchors:
-    """The position sweep (one HK3 lookup per window end; non-ACGT bases
-    enter the mer as A, such windows are invalid) and the closed-form
-    anchor scan of corrector.find_anchors: anchor at the first p where
-    `good` consecutive checked windows had an hq count >= anchor_count;
-    invalid windows and low checked counts reset the run."""
-    k = cfg.k
-    b, l = codes.shape
-    f, r, validk = mer.rolling_kmers(codes, k)
-    vals = kernels.tile_lookup(state.rows, meta,
-                               mer.canonical(f, r).reshape(-1)).view(b, l)
-    p = torch.arange(l, device=codes.device)[None, :]
-    vw = validk & (p >= cfg.skip + k - 1)
-    val_hq = torch.where(vw & ((vals & 1) == 1), vals >> 1, 0)
-    checked = vw & (p <= lengths[:, None].to(torch.int64) - 2)
-    a = checked & (val_hq >= cfg.anchor_count)
-    z = ~vw | (checked & (val_hq < cfg.anchor_count))
-    cum_a = torch.cumsum(a.to(torch.int64), dim=1)
-    last_z = torch.cummax(torch.where(z, p, -1), dim=1).values
-    cum_at_z = torch.gather(cum_a, 1, last_z.clamp(min=0))
-    run = cum_a - torch.where(last_z >= 0, cum_at_z, 0)
-    hit = a & (run >= cfg.good)
-    found = hit.any(dim=1)
-    anchor_p = torch.argmax(hit.to(torch.uint8), dim=1)
-    ap = torch.where(found, anchor_p, 0)[:, None]
-    return Anchors(found, (anchor_p + 1).to(torch.int32),
-                   torch.gather(f, 1, ap)[:, 0], torch.gather(r, 1, ap)[:, 0],
-                   torch.gather(val_hq, 1, ap)[:, 0].to(torch.int32))
-
-
-def correct_codes(state: TileState, meta: TileMeta, codes: torch.Tensor,
-                  hqb: torch.Tensor, lengths: torch.Tensor, cfg: ECConfig,
-                  keep: torch.Tensor) -> BatchResult:
-    """Correct a [B, L] batch already on the table's device: codes int8,
-    hqb bool (qual >= cfg.qual_cutoff), lengths int32."""
-    anc = find_anchors(state, meta, codes, lengths, cfg)
-    maxe = log_capacity(codes.shape[1], cfg)
-    out, start, end, fwd, bwd = kernels.extend_reads(
-        state.rows, meta, codes, hqb, lengths, anc.found, anc.start_off,
-        anc.f, anc.r, anc.prev, keep, window=cfg.effective_window,
-        error=cfg.effective_error, min_count=cfg.min_count,
-        cutoff=cfg.cutoff, maxe=maxe)
-    status = torch.where(anc.found, OK, ST_NO_ANCHOR)
-    return BatchResult(out, start, end, status, LogState(*fwd),
-                       LogState(*bwd))
-
-
 def make_keep_table(meta: TileMeta, cfg: ECConfig, device) -> torch.Tensor:
     return torch.from_numpy(keep_table(meta.max_val, cfg.collision_prob,
                                        cfg.poisson_threshold)).to(device)
@@ -130,30 +82,37 @@ def make_keep_table(meta: TileMeta, cfg: ECConfig, device) -> torch.Tensor:
 
 def correct_batch(state: TileState, meta: TileMeta, codes, quals, lengths,
                   cfg: ECConfig) -> BatchResult:
-    """Library entry: numpy or tensor codes int8 [B, L], quals uint8
-    [B, L], lengths [B]; runs on the table's device."""
-    dev = state.rows.device
-    codes = torch.as_tensor(np.asarray(codes, np.int8)).to(dev)
-    hqb = torch.as_tensor(np.asarray(quals, np.uint8)).to(dev) \
-        >= cfg.qual_cutoff
-    lengths = torch.as_tensor(np.asarray(lengths, np.int32)).to(dev)
-    return correct_codes(state, meta, codes, hqb, lengths, cfg,
-                         make_keep_table(meta, cfg, dev))
+    """Library entry: codes int8 [B, L] (-1 non-ACGT, -2 past the
+    read), quals uint8 [B, L], lengths [B]; packed like a parsed batch
+    and corrected on the table's device."""
+    packed = packing.pack_reads(np.asarray(codes, np.int8),
+                                np.asarray(quals, np.uint8),
+                                np.asarray(lengths, np.int32),
+                                thresholds=(cfg.qual_cutoff,))
+    return correct_batch_packed(state, meta, packed, cfg,
+                                make_keep_table(meta, cfg, state.rows.device))
 
 
 def correct_batch_packed(state: TileState, meta: TileMeta, packed,
                          cfg: ECConfig, keep: torch.Tensor) -> BatchResult:
     """correct_batch over the packed wire (io/packing): one H2D buffer,
-    widened on the device (K1, plain torch)."""
+    then HK5 (widening, sweep, anchors) and HK4 (extension) on the
+    table's device."""
     packed.require_plane(cfg.qual_cutoff)
-    dev = state.rows.device
-    wire = torch.from_numpy(packed.to_wire()).to(dev)
-    pcodes, nmask, hq, lengths = mer.wire_parts(
-        wire, packed.n_reads, packed.length, packed.thresholds)
-    codes = mer.unpack_codes(pcodes, nmask, lengths, packed.length)
-    hqb = mer.unpack_bits(hq[int(cfg.qual_cutoff)], packed.length)
-    return correct_codes(state, meta, codes, hqb, lengths.to(torch.int32),
-                         cfg, keep)
+    wire = torch.from_numpy(packed.to_wire()).to(state.rows.device)
+    codes, hqb, lengths, anc = kernels.stage2_head(
+        state.rows, meta, wire, packed.n_reads, packed.length,
+        packed.thresholds, cfg.qual_cutoff, skip=cfg.skip, good=cfg.good,
+        anchor_count=cfg.anchor_count)
+    anc = Anchors(*anc)
+    out, start, end, fwd, bwd = kernels.extend_reads(
+        state.rows, meta, codes, hqb, lengths, anc.found, anc.start_off,
+        anc.f, anc.r, anc.prev, keep, window=cfg.effective_window,
+        error=cfg.effective_error, min_count=cfg.min_count,
+        cutoff=cfg.cutoff, maxe=log_capacity(packed.length, cfg))
+    status = torch.where(anc.found, OK, ST_NO_ANCHOR)
+    return BatchResult(out, start, end, status, LogState(*fwd),
+                       LogState(*bwd))
 
 
 # ------------------------------------------------------------ host finish

@@ -25,6 +25,7 @@ from quorum_tpu_torch.io import db_format as tdb
 from quorum_tpu_torch.models import corrector as tcorr
 from quorum_tpu_torch.models import error_correct as tec
 from quorum_tpu_torch.models.ec_config import ECConfig as TECConfig
+from quorum_tpu_torch.ops import ctable as tctable
 from quorum_tpu_torch.ops import poisson as tpoisson
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "reads.fastq")
@@ -76,8 +77,13 @@ def _compare(jres, tres, n):
 def test_cutoff_matches_resolve_cutoff(table):
     jstate, jmeta, tstate, tmeta, _g = table
     want = jec.resolve_cutoff(jstate, jmeta, jec.ECOptions())
-    assert tec.resolve_cutoff(tstate, tmeta,
-                              tec.ECOptions(device="cpu")) == want
+    # the statistics the stand-alone stage 2 takes: HK7's, on loading
+    # the table's payload
+    payload = tctable.tile_export_v4(tstate, tmeta)
+    n = (payload.size - tmeta.rows) // (4 + tmeta.hi_bytes)
+    _s, (_occ, distinct, total) = tctable.tile_load(payload, tmeta, n, "cpu")
+    assert tec.resolve_cutoff(tec.ECOptions(device="cpu"),
+                              (distinct, total)) == want
 
 
 @pytest.mark.parametrize("max_val", [127, 15])

@@ -93,7 +93,7 @@ def test_databases_load_both_ways(drivers, tmp_path):
     assert (jdb.db_payload_bytes(str(tmp_path / "j.qdb"))
             == tdb.db_payload_bytes(port_db))
     # and the port reads the JAX package's file
-    ts, tm, _h = tdb.read_db(jax_db, device="cpu")
+    ts, tm, _h, _stats = tdb.load_db(jax_db, device="cpu")
     tdb.write_db(str(tmp_path / "t.qdb"), ts, tm, db_version=4)
     assert (tdb.db_payload_bytes(str(tmp_path / "t.qdb"))
             == jdb.db_payload_bytes(jax_db))
@@ -123,5 +123,5 @@ def test_corrupt_v5_database_is_refused(drivers, tmp_path):
     assert tec_cli.main(["-p", "4", bad, READS, "-o",
                          str(tmp_path / "x"), "--device", "cpu"]) == 3
     with pytest.raises(tdb.IntegrityError):
-        tdb.read_db(bad, device="cpu", verify="sample")
-    tdb.read_db(bad, device="cpu", verify="off")  # structural load only
+        tdb.load_db(bad, device="cpu", verify="sample")
+    tdb.load_db(bad, device="cpu", verify="off")  # structural load only
