@@ -4,7 +4,7 @@
     python3 chip_smoke.py          # from the root of a checkout
 
 Phases, each printing one JSON line:
-  build    compile the eight CUDA kernels from csrc/ with nvcc (sm_90a)
+  build    compile the twelve CUDA kernels from csrc/ with nvcc (sm_90a)
   kernels  hold each kernel against its plain PyTorch version on the
            card, at the main path's shapes (8192 x 160 batches, a
            2^22-row table), plus a small table that grows
@@ -21,6 +21,18 @@ Phases, each printing one JSON line:
            own from that file: the table holds the full run's content
            and the .fa/.log are byte-equal to the full run's; launch
            counts reset before and read after, as for full
+  prefilter  the same FASTQ through the driver with --prefilter two-pass
+           at the full run's -s (the database's header, and its content
+           against the full table); quorum_error_correct_reads
+           --presence-floor 2 on the full run's database, byte-equal to
+           the two-pass run's .fa/.log; the driver with --prefilter
+           inline, held to inline's guarantees against the exact counts;
+           then both modes again from a table of a 64th of the full
+           run's rows (sketch kept at the full size), so the gated build
+           grows: two-pass equal to the full-s two-pass run in table,
+           header and .fa/.log, inline held to its guarantees, peak
+           memory beside the two_binary run's; launch counts reset
+           before and read after each driver run
   pending  HK1's keys entry on the leftovers the two-binary build meets:
            the full run's batches into a table of the two_binary
            phase's first size; at each overflow the doubled table (HK8)
@@ -29,12 +41,18 @@ Phases, each printing one JSON line:
   loaded   HK1 timed on one of the full run's batches, inserted into a
            table that already holds all its other batches (the load a
            late batch of the main path meets); HK2 sealing and HK8
-           doubling that table, each held against its plain version
+           doubling that table, each held against its plain version; on
+           that batch HK9 aggregating it, HK10 querying and updating a
+           2^30-cell sketch that holds the other batches, and HK11's
+           two-pass and inline entries inserting it into copies of the
+           table, each held against its plain version and timed
   table    HK7 loading and HK6 exporting the full run's database, and
            HK5, HK3 and HK4 on one of its batches against that table,
-           each held against its plain version and timed there
-Then one {"kernels": [...]} line (launches from the full and two_binary
-runs, times and bounds from the kernels, loaded and table phases), the
+           and HK12 flooring it at 2, each held against its plain
+           version and timed there
+Then one {"kernels": [...]} line (launches from the full, two_binary
+and the four prefilter driver runs, times and bounds from the kernels,
+loaded and table phases), the
 card's name and power limit from nvidia-smi, and {"ok": true, "device":
 {...}} as the last line.
 Exits non-zero, with no result line, when CUDA is unavailable, outside
@@ -83,6 +101,14 @@ SOURCES = {  # kernel -> (source in the repo, TPU program it replaces)
                   "quorum_tpu/ops/ctable.py:787"),
     "tile_grow": ("quorum_tpu_torch/kernels/csrc/tile_grow.cu",
                   "quorum_tpu/ops/ctable.py:1521"),
+    "batch_aggregate": ("quorum_tpu_torch/kernels/csrc/batch_aggregate.cu",
+                        "quorum_tpu/ops/ctable.py:1016"),
+    "sketch_update": ("quorum_tpu_torch/kernels/csrc/sketch_update.cu",
+                      "quorum_tpu/ops/sketch.py:135"),
+    "gated_insert": ("quorum_tpu_torch/kernels/csrc/gated_insert.cu",
+                     "quorum_tpu/ops/sketch.py:208"),
+    "tile_floor": ("quorum_tpu_torch/kernels/csrc/tile_floor.cu",
+                   "quorum_tpu/ops/ctable.py:1608"),
 }
 # the kernels each main-path run must launch (HK3's probe runs inside
 # HK5 and HK4; the query CLI is its caller)
@@ -91,7 +117,17 @@ PATH_KERNELS = {
              "extend_reads"),
     "two_binary": ("tile_insert", "tile_grow", "tile_seal", "tile_export",
                    "tile_load", "stage2_head", "extend_reads"),
+    "prefilter_two_pass": ("batch_aggregate", "sketch_update", "gated_insert",
+                           "tile_seal", "tile_export", "tile_floor",
+                           "stage2_head", "extend_reads"),
+    "prefilter_inline": ("batch_aggregate", "sketch_update", "gated_insert",
+                         "tile_seal", "tile_export", "tile_floor",
+                         "stage2_head", "extend_reads"),
 }
+# a gated build that grows adds HK8 and HK1's keys entry
+PATH_KERNELS.update({
+    p + "_grow": PATH_KERNELS[p] + ("tile_grow", "tile_insert")
+    for p in ("prefilter_two_pass", "prefilter_inline")})
 
 
 class SmokeFailure(Exception):
@@ -325,10 +361,10 @@ def phase_kernels(card: str) -> dict:
 
     gcfg = create_database.BuildConfig(k=K, bits=7, qual_thresh=QT,
                                        initial_size=100, batch_size=BATCH)
-    sk, mk, stk = create_database.build_database([], gcfg, dev, batches())
+    sk, mk, stk = create_database.build_database([], gcfg, dev, batches)
     sp, mp, stp = create_database.build_database([], gcfg,
                                                  torch.device("cpu"),
-                                                 batches())
+                                                 batches)
     grow_equal = (stk.grows >= 2 and mk == mp
                   and np.array_equal(_export(sk, mk), _export(sp, mp))
                   and (stk.distinct, stk.distinct_hq, stk.total_hq)
@@ -606,6 +642,7 @@ def phase_full(card: str) -> dict:
           "sample_errors_in_out": [errs_in, errs_out, checked],
           "launches": launches})
     return dict(launches=launches, codes=codes, quals=quals, size=size,
+                max_memory=torch.cuda.max_memory_allocated(),
                 grows=build.grows, fastq=fq, prefix=prefix,
                 db=prefix + "_mer_database.jf", build=build,
                 insert_ms_per_launch=kms["tile_insert"]
@@ -658,6 +695,7 @@ def phase_two_binary(card: str, full: dict) -> dict:
     db = os.path.join(WORK, "two_binary.jf")
     prefix = os.path.join(WORK, "two_binary")
     torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
     handoff: dict = {}
     report: dict = {}
     STATS.reset()
@@ -672,6 +710,7 @@ def phase_two_binary(card: str, full: dict) -> dict:
                   report=report) if rc1 == 0 else None
     t2 = time.perf_counter()
     STATS.timing = False
+    peak = torch.cuda.max_memory_allocated() - resident
     launches = dict(STATS.launches)
     kms = STATS.kernel_ms()
     check(rc1 == 0 and rc2 == 0, f"two-binary run rc {rc1}, {rc2}")
@@ -697,7 +736,7 @@ def phase_two_binary(card: str, full: dict) -> dict:
           "error_correct_s": round(t2 - t1, 3),
           "stage2_device_s": round(stats.device_s, 3),
           "stage2_host_s": round(stats.host_s, 3),
-          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "max_memory_allocated": peak, "resident_before_run": resident,
           "same_table_content": same_table, "same_payload_bytes": same_payload,
           "same_fa_log": same_out, "launches": launches,
           "kernel_s": {k: round(v / 1e3, 4) for k, v in kms.items()},
@@ -708,7 +747,269 @@ def phase_two_binary(card: str, full: dict) -> dict:
     check(same_payload == (rb == rb_full),
           "payload bytes disagree with the table geometry")
     check(same_out, "two-binary .fa/.log differ from the full run's")
-    return dict(launches=launches, rb_start=rb_full - 4)
+    return dict(launches=launches, rb_start=rb_full - 4, peak=peak)
+
+
+def driver_run(card: str, full: dict, mode: str, size: int = 0) -> dict:
+    """The quorum driver on the full run's FASTQ with --prefilter `mode`,
+    at the full run's -s or, with `size`, at that smaller -s so that the
+    gated build grows (HK8, then HK1's keys entry after HK11); launch
+    counts reset just before, read just after. Prints the stage and pass
+    seconds, launches, kernel seconds, the prefilter's counts and the
+    run's own peak device memory (the peak less what this script held
+    on the card when the run began)."""
+    import torch
+
+    from quorum_tpu_torch.cli import quorum
+    from quorum_tpu_torch.io import db_format
+    from quorum_tpu_torch.kernels.loader import STATS
+
+    tag = mode.replace("-", "_") + ("_grow" if size else "")
+    prefix = os.path.join(WORK, "pf_" + tag)
+    path = "prefilter_" + tag
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    report: dict = {}
+    STATS.reset()
+    STATS.timing = True
+    t0 = time.perf_counter()
+    rc = quorum.main(["-s", str(size or full["size"]), "-k", str(K), "-p",
+                      prefix, "--device", "cuda", "--prefilter", mode,
+                      full["fastq"]], report=report)
+    wall = time.perf_counter() - t0
+    STATS.timing = False
+    launches = dict(STATS.launches)
+    kms = STATS.kernel_ms()
+    order = [n for n, _a, _b in STATS.events]
+    keys_entry = sum(f == "tile_insert_keys" for _n, f, _a, _b in STATS.calls)
+    check(rc == 0, f"prefilter {mode} driver rc {rc}")
+    for name in PATH_KERNELS[path]:
+        check(launches[name] > 0, f"{name} was not launched on the {path} path")
+    build, ec = report["build"], report["ec"]
+    db = prefix + "_mer_database.jf"
+    h = db_format.read_header(db)
+    pf = h["prefilter"]
+    peak = torch.cuda.max_memory_allocated() - resident
+    emit({"phase": path, "card": card, "size": size or full["size"],
+          "grows": build.grows, "rb_log2_end": h["rb_log2"],
+          "stage1_s": round(report["stage1_s"], 3),
+          "sketch_pass_s": round(build.sketch_seconds, 3),
+          "insert_pass_and_seal_s": round(build.seconds - build.sketch_seconds,
+                                          3),
+          "stage1_parse_pack_s": round(report["stage1_host_s"], 3),
+          "stage2_s": round(report["stage2_s"], 3),
+          "stage2_device_s": round(ec.device_s, 3),
+          "wall_s": round(wall, 3), "cutoff": ec.cutoff,
+          "presence_floor": ec.presence_floor, "entries": h["n_entries"],
+          "entries_full": full["build"].distinct, "dropped": pf["dropped"],
+          "false_pass": pf["false_pass"],
+          "sketch_bytes": 1 << pf["sketch_cells_log2"],
+          "max_memory_allocated": peak, "resident_before_run": resident,
+          "max_memory_allocated_full": full["max_memory"],
+          "corrected_share": round(ec.corrected / ec.reads, 6),
+          "keys_entry_launches": keys_entry, "launches": launches,
+          "kernel_s": {k: round(v / 1e3, 4) for k, v in kms.items()},
+          "kernel_ms_per_launch": {k: round(v / launches[k], 5)
+                                   for k, v in kms.items() if launches[k]}})
+    if size:
+        # the grow loop after the gated insert: HK8 doubles the table,
+        # then the leftovers go through HK1's keys entry
+        check(build.grows >= 1 and keys_entry > 0
+              and order.index("gated_insert") < order.index("tile_grow")
+              < order.index("tile_insert"),
+              f"{path}: {build.grows} grows, {keys_entry} keys-entry "
+              f"launches, not after a gated insert and a grow")
+    return dict(launches=launches, prefix=prefix, db=db, header=h,
+                build=build, ec=ec, peak=peak)
+
+
+def exact_counts(full: dict):
+    """Every mer of the full run with its exact (hq, lq) observations, as
+    (full hash, hq, lq) sorted by hash: the full run's batches into a
+    fresh build table at its geometry, read before the seal (the full
+    hash is (rem << rb_log2) | row, rem = hi:rlo)."""
+    import torch
+
+    from quorum_tpu_torch import kernels
+    from quorum_tpu_torch.ops import ctable
+
+    meta = ctable.TileMeta(K, 7, ctable.tile_rb_for(full["size"], K, 7)
+                           + full["grows"])
+    bs = ctable.make_tile_build(meta, "cuda")
+    for pk, wire in full["wires"]:
+        f, _left = kernels.tile_insert_reads(bs, meta, wire, BATCH, pk.length,
+                                             pk.thresholds, QT)
+        check(not f, "exact-count table reported full")
+    tag = bs.tag.view(-1, 2)
+    slot = torch.nonzero(tag[:, 0] != -1).squeeze(1)
+    rlo = tag[slot, 0].to(torch.int64) & 0xFFFFFFFF
+    rhi = tag[slot, 1].to(torch.int64) & 0xFFFFFFFF
+    full_hash = (((rhi << meta.rlo_bits) | rlo) << meta.rb_log2) | (slot // 64)
+    hq, lq = bs.hq[slot].to(torch.int64), bs.lq[slot].to(torch.int64)
+    del bs, tag, rlo, rhi
+    order = torch.argsort(full_hash)
+    return full_hash[order], hq[order], lq[order]
+
+
+def same_fa_log(a: str, b: str) -> bool:
+    return all(filecmp.cmp(a + ext, b + ext, shallow=False)
+               for ext in (".fa", ".log"))
+
+
+def inline_check(card: str, run: dict, exact, two_db: str, label: str):
+    """Inline's guarantees for `run`'s table against the exact counts:
+    every entry is a real mer, every mer seen >= 2 times is present,
+    every absent mer is a true singleton, and a stored count is within
+    one of the truth in its quality class (below saturation). Prints
+    how many entries differ (hash or value) from the table in `two_db`."""
+    import torch
+
+    check(run["header"]["prefilter"]["mode"] == "inline", "inline header mode")
+    fh, fhq, flq = exact
+    ih, iv = table_content(run["db"])
+    at = torch.searchsorted(fh, ih).clamp(max=fh.numel() - 1)
+    real = bool((fh[at] == ih).all())
+    present = torch.zeros_like(fh, dtype=torch.bool)
+    present[at] = True
+    tot = fhq + flq
+    max_val = 127
+    q = ((iv >> 7) & 1) == 1
+    cnt = iv & max_val
+    h, l = fhq[at], flq[at]
+    below = (h < max_val - 1) & (l < max_val - 1)
+    res = dict(real_mers=real, recurring_kept=bool(present[tot >= 2].all()),
+               absent_single=bool((tot[~present] == 1).all()),
+               within_one_hq=bool(((cnt - h).abs() <= 1)[q & below].all()),
+               within_one_lq=bool(((h <= 1) & ((cnt - l).abs() <= 1))
+                                  [~q & below].all()))
+    ha, va = table_content(two_db)
+    ta = torch.searchsorted(ha, ih).clamp(max=ha.numel() - 1)
+    common = ha[ta] == ih
+    n_common = int(common.sum())
+    differ = (ih.numel() - n_common) + (ha.numel() - n_common) \
+        + int((va[ta][common] != iv[common]).sum())
+    emit({"phase": label, "card": card, "entries": ih.numel(),
+          "entries_compared": ha.numel(), "entries_differing": differ,
+          "mers": fh.numel(), "singletons": int((tot == 1).sum()), **res})
+    check(all(res.values()), f"{label}: inline guarantees {res}")
+
+
+def phase_prefilter(card: str, full: dict, two_binary: dict) -> dict:
+    """The memory-frugal stage 1 at full width. two-pass: the header
+    declares floor 2 and the full table's (distinct_hq, total_hq); the
+    table is the full one without the dropped singletons (dropped =
+    singletons - false passes, every missing entry a count-1 entry, every
+    kept entry unchanged); quorum_error_correct_reads --presence-floor 2
+    on the full run's database (HK7, HK12) gives the two-pass run's
+    .fa/.log. inline: every mer seen >= 2 times is present, every entry
+    is a real mer, every absent mer is a true singleton, and a stored
+    count is within one of the truth in its quality class. Then both
+    modes again at the -s of a table with fewer slots than the two-pass
+    table holds entries (a 64th of the full run's rows at full width),
+    with the sketch held at the full run's size (QUORUM_SKETCH_BITS), so
+    that the gated build grows: the two-pass table, header and .fa/.log equal the
+    full-s two-pass run's, the inline table meets inline's guarantees,
+    and each run's peak device memory stands beside the unfiltered
+    two-binary run's."""
+    import torch
+
+    from quorum_tpu_torch.cli import error_correct_reads as ec_cli
+    from quorum_tpu_torch.kernels.loader import STATS
+
+    fb = full["build"]
+    two = driver_run(card, full, "two-pass")
+    h = two["header"]
+    pf = h["prefilter"]
+    check(pf["min_obs"] == 2 and pf["mode"] == "two-pass",
+          f"two-pass header declares {pf}")
+    check(h["poisson_stats"] == {"distinct_hq": fb.distinct_hq,
+                                 "total_hq": fb.total_hq},
+          f"poisson_stats {h['poisson_stats']} are not the full table's "
+          f"({fb.distinct_hq}, {fb.total_hq})")
+    check(pf["dropped"] == fb.singletons - pf["false_pass"]
+          and h["n_entries"] == fb.distinct - pf["dropped"],
+          f"two-pass counts: dropped {pf['dropped']}, singletons "
+          f"{fb.singletons}, false passes {pf['false_pass']}, entries "
+          f"{h['n_entries']} of {fb.distinct}")
+    ha, va = table_content(two["db"])
+    hb, vb = table_content(full["db"])
+    at = torch.searchsorted(hb, ha).clamp(max=hb.numel() - 1)
+    kept_same = bool((hb[at] == ha).all()) and torch.equal(vb[at], va)
+    gone = torch.ones_like(hb, dtype=torch.bool)
+    gone[at] = False
+    gone_count1 = bool(((vb[gone] & 127) == 1).all())
+    check(kept_same and gone_count1 and int(gone.sum()) == pf["dropped"],
+          f"two-pass content: kept entries equal {kept_same}, missing "
+          f"{int(gone.sum())} all count-1 {gone_count1}")
+    del hb, vb, gone, at
+
+    # the full database's stage 2 at floor 2: the floor theorem
+    prefix = os.path.join(WORK, "full_floor2")
+    report: dict = {}
+    STATS.reset()
+    STATS.timing = True
+    t0 = time.perf_counter()
+    rc = ec_cli.main(["--device", "cuda", "--presence-floor", "2", "-o",
+                      prefix, full["db"], full["fastq"]], report=report)
+    ec_s = time.perf_counter() - t0
+    STATS.timing = False
+    floor_launches = dict(STATS.launches)
+    check(rc == 0, f"floored stage 2 rc {rc}")
+    check(floor_launches["tile_load"] > 0 and floor_launches["tile_floor"] > 0,
+          "the floored stage 2 did not launch tile_load and tile_floor")
+    same = same_fa_log(prefix, two["prefix"])
+    emit({"phase": "prefilter_floor", "card": card,
+          "error_correct_s": round(ec_s, 3),
+          "stage2_device_s": round(report["stats"].device_s, 3),
+          "cutoff": report["stats"].cutoff,
+          "cutoff_two_pass": two["ec"].cutoff,
+          "same_fa_log_as_two_pass": same, "launches": floor_launches})
+    check(same, "full database at floor 2 differs from the two-pass run")
+
+    inl = driver_run(card, full, "inline")
+    exact = exact_counts(full)
+    inline_check(card, inl, exact, two["db"], "prefilter_inline_check")
+
+    # both modes from a table with fewer slots than the two-pass run
+    # keeps entries, so it must grow; the sketch as large as above
+    small = 24 << (h["n_entries"] // 128).bit_length()
+    before = os.environ.get("QUORUM_SKETCH_BITS")
+    os.environ["QUORUM_SKETCH_BITS"] = str(pf["sketch_cells_log2"])
+    try:
+        two_g = driver_run(card, full, "two-pass", small)
+        inl_g = driver_run(card, full, "inline", small)
+    finally:
+        if before is None:
+            del os.environ["QUORUM_SKETCH_BITS"]
+        else:
+            os.environ["QUORUM_SKETCH_BITS"] = before
+    hg, vg = table_content(two_g["db"])
+    same_table = torch.equal(hg, ha) and torch.equal(vg, va)
+    del ha, va, hg, vg
+    same_header = all(two_g["header"][key] == h[key]
+                      for key in ("prefilter", "poisson_stats", "n_entries"))
+    same_out = same_fa_log(two_g["prefix"], two["prefix"])
+    emit({"phase": "prefilter_grow", "card": card, "size": small,
+          "grows_two_pass": two_g["build"].grows,
+          "grows_inline": inl_g["build"].grows,
+          "same_table_as_full_s_two_pass": same_table,
+          "same_header_as_full_s_two_pass": same_header,
+          "same_fa_log_as_full_s_two_pass": same_out,
+          "max_memory_allocated": {
+              "prefilter_two_pass_grow": two_g["peak"],
+              "prefilter_inline_grow": inl_g["peak"],
+              "prefilter_two_pass": two["peak"],
+              "prefilter_inline": inl["peak"],
+              "two_binary": two_binary["peak"]}})
+    check(same_table and same_header and same_out,
+          f"grown two-pass run: table {same_table}, header {same_header}, "
+          f".fa/.log {same_out} against the full-s two-pass run")
+    inline_check(card, inl_g, exact, inl["db"], "prefilter_inline_grow_check")
+    del exact
+    return {"prefilter_two_pass": two["launches"],
+            "prefilter_inline": inl["launches"],
+            "prefilter_two_pass_grow": two_g["launches"],
+            "prefilter_inline_grow": inl_g["launches"]}
 
 
 def phase_table(card: str, full: dict) -> dict:
@@ -767,10 +1068,50 @@ def phase_table(card: str, full: dict) -> dict:
     # HK6's wrapper span and its two C launches apart: the span adds the
     # host's wait for the payload size and the buffer's allocation
     out["tile_export"]["parts_ms"] = export_parts
+    out["tile_floor"] = floor_table(rows, meta)
     emit({"phase": "table", "card": card, "rows": meta.rows, "entries": n,
           "payload_bytes": len(raw), "batch": i,
           **{nm: {k: (round(v, 5) if isinstance(v, float) else v)
                   for k, v in d.items()} for nm, d in out.items()}})
+    return out
+
+
+def floor_table(rows, meta) -> dict:
+    """HK12 and its plain version flooring copies of the full run's
+    table at 2: equal rows, and entries gone; timed in place on a copy
+    restored before each launch. Bound: the rows read once, and each
+    32-byte sector that holds a dropped entry written once."""
+    import torch
+
+    from quorum_tpu_torch import kernels
+    from quorum_tpu_torch.kernels import reference as ref
+
+    work = rows.clone()
+    kernels.tile_floor(work, meta, 2)
+    plain = rows.clone()
+    ref.tile_floor(plain, meta, 2)
+    equal = torch.equal(work, plain)
+    kept = int(((work[:, 0::2] & meta.max_val) != 0).sum())
+    gone = (((rows[:, 0::2] & meta.max_val) != 0)
+            & ((work[:, 0::2] & meta.max_val) == 0))
+    dropped = int(gone.sum())
+    sectors = int(gone.view(meta.rows, -1, 4).any(2).sum())
+    del plain, gone
+    check(equal and dropped > 0,
+          f"tile_floor differs from its plain version (equal {equal}, "
+          f"dropped {dropped})")
+
+    def restore():
+        work.copy_(rows)
+
+    out = dict(equal=equal, n=meta.rows * 64, kept=kept, dropped=dropped,
+               written_sectors=sectors,
+               ms=kernel_ms(lambda: kernels.tile_floor(work, meta, 2),
+                            "tile_floor", 5, restore),
+               plain_ms=event_ms(lambda: ref.tile_floor(work, meta, 2), 2,
+                                 restore),
+               bound_bytes=meta.rows * 512 + 32 * sectors)
+    del work
     return out
 
 
@@ -927,6 +1268,7 @@ def phase_loaded(card: str, full: dict) -> dict:
     bound_bytes = wire.numel() + 32 * (n_keys + new_keys) + 64 * n_classes
     occ = before / (meta.rows * 64)
     del work
+    pre = prefilter_kernels(card, full, loaded, meta, timed)
     rows_k, stats_k = kernels.tile_seal(loaded, meta)
     rows_p, stats_p = ref.tile_seal(loaded, meta)
     seal_equal = torch.equal(rows_k, rows_p) and torch.equal(stats_k, stats_p)
@@ -949,7 +1291,184 @@ def phase_loaded(card: str, full: dict) -> dict:
     return {"tile_insert": dict(n=int(valid.sum()), ms=ms, plain_ms=plain,
                                 bound_bytes=bound_bytes),
             "tile_seal": dict(ms=ms_seal, plain_ms=plain_seal),
-            "tile_grow": grow}
+            "tile_grow": grow, **pre}
+
+
+def prefilter_kernels(card: str, full: dict, loaded, meta, timed: int) -> dict:
+    """HK9, HK10 and HK11 on batch `timed` of the full run, each held
+    against its plain version on the same inputs and timed:
+    - HK9 aggregating the batch: the lanes equal as sorted (key, hq, lq)
+      sets;
+    - HK10 at the driver's sketch size (cells_log2_for(-s) = 2^30 cells,
+      1 GiB) holding every other batch of the run: the query of the
+      batch's lanes and the one-batch update, byte-equal cells;
+    - HK11's two-pass entry behind the finished sketch and its inline
+      entry on the lanes with the pre-batch query, each on copies of
+      the loaded build table: equal placed / pending flags, dropped
+      counts, sealed export (HK2, HK6) and statistics.
+    Byte bounds (3.35 TB/s), counting only what each function must
+    move, from this batch's data (a scratch hash, its clearing and the
+    empty lanes belong to a design, not to the function): HK9 the wire
+    in and 16 bytes per distinct lane out; HK10's update the live lanes
+    (16 bytes each) and each distinct 32-byte cell sector the lanes'
+    two hashes reach, read and written once; its query the live keys in,
+    an int32 each out, and those sectors read once; HK11 two-pass the
+    wire, HK1's sectors for the gated observations and those cell
+    sectors read once; inline the live lanes and `old` in and a flag
+    each out (21 bytes), plus HK1's sectors per gated lane."""
+    import torch
+
+    from quorum_tpu_torch import kernels
+    from quorum_tpu_torch.kernels import reference as ref
+    from quorum_tpu_torch.ops import ctable, sketch
+
+    dev = loaded.tag.device
+    wires = full["wires"]
+    smeta = sketch.SketchMeta(sketch.cells_log2_for(full["size"]))
+    cl = smeta.cells_log2
+    sk = sketch.make_sketch(smeta, dev)
+    for i, (pk, wire) in enumerate(wires):
+        if i != timed:
+            sketch.sketch_update_packed(sk, smeta, K, pk, wire, QT)
+    pk, wire = wires[timed]
+    L = pk.length
+    wargs = (wire, BATCH, L, pk.thresholds, QT)
+
+    # --- HK9
+    keys, hq, lq = kernels.batch_aggregate(*wargs, K)
+    pkeys, phq, plq = ref.batch_aggregate(*wargs, K)
+    live = keys >= 0
+    order = torch.argsort(keys[live])
+    agg_equal = (torch.equal(keys[live][order], pkeys)
+                 and torch.equal(hq[live][order], phq)
+                 and torch.equal(lq[live][order], plq))
+    check(agg_equal, "batch_aggregate differs from its plain version")
+    n_obs, n_lanes, slots = (int((phq + plq).sum()), int(live.sum()),
+                             keys.numel())
+    agg = dict(equal=agg_equal, n=n_obs,
+               ms=kernel_ms(lambda: kernels.batch_aggregate(*wargs, K),
+                            "batch_aggregate", 5),
+               plain_ms=event_ms(lambda: ref.batch_aggregate(*wargs, K), 2),
+               bound_bytes=wire.numel() + 16 * n_lanes)
+    # the distinct 32-byte cell sectors the batch's mers reach (HK10, HK11)
+    cell_sectors = torch.unique(torch.cat(ref.sketch_addrs(pkeys, cl))
+                                >> 5).numel()
+    del pkeys, phq, plq
+
+    # --- HK10: query the pre-batch sketch, then update it with the batch
+    old = kernels.sketch_min(sk.cells, cl, keys)
+    min_equal = torch.equal(old, ref.sketch_min(sk.cells, cl, keys))
+    pre = sk.cells.clone()
+    kernels.sketch_update(sk.cells, cl, keys, hq, lq)
+    plain_cells = pre.clone()
+    ref.sketch_update(plain_cells, cl, keys, hq, lq)
+    upd_equal = torch.equal(sk.cells, plain_cells)
+    check(min_equal and upd_equal,
+          f"sketch_update differs from its plain version (query "
+          f"{min_equal}, update {upd_equal})")
+    work = plain_cells
+
+    def restore():
+        work.copy_(pre)
+
+    query_ms = kernel_ms(lambda: kernels.sketch_min(pre, cl, keys),
+                         "sketch_update", 5)
+    sku = dict(equal=min_equal and upd_equal, n=n_lanes, cells=smeta.cells,
+               ms=kernel_ms(lambda: kernels.sketch_update(work, cl, keys, hq,
+                                                          lq),
+                            "sketch_update", 5, restore),
+               plain_ms=event_ms(lambda: ref.sketch_update(work, cl, keys, hq,
+                                                           lq), 2, restore),
+               bound_bytes=16 * n_lanes + 64 * cell_sectors,
+               cell_sectors=cell_sectors,
+               query=dict(ms=query_ms,
+                          plain_ms=event_ms(lambda: ref.sketch_min(pre, cl,
+                                                                   keys), 2),
+                          bound_bytes=12 * n_lanes + 32 * cell_sectors),
+               cell_values=[int((sk.cells == v).sum()) for v in range(3)])
+    del work, plain_cells
+
+    def copy(st):
+        return ctable.TBuildState(*(t.clone() for t in st))
+
+    def sealed(st):
+        rows, stats = kernels.tile_seal(st, meta)
+        return kernels.tile_export(rows, meta), stats
+
+    def occupied(st):
+        return int((st.tag[:, 0::2] != -1).sum())
+
+    before = occupied(loaded)
+    work = copy(loaded)
+
+    def reset():
+        for dst, src in zip(work, loaded):
+            dst.copy_(src)
+
+    # --- HK11 two-pass, behind the finished sketch (sk.cells)
+    gargs = (meta, sk.cells, cl, *wargs)
+    a, b = copy(loaded), copy(loaded)
+    full_k, (left_k, _lq), drop_k = kernels.gated_insert_reads(a, *gargs)
+    (left_p, _pq), drop_p = ref.gated_insert_reads(b, *gargs)
+    ea, sa = sealed(a)
+    eb, sb = sealed(b)
+    new_two = occupied(a) - before
+    del a, b
+    two_equal = (not full_k and left_k.numel() == 0 and left_p.numel() == 0
+                 and torch.equal(drop_k, drop_p) and torch.equal(sa, sb)
+                 and torch.equal(ea, eb))
+    del ea, eb
+    check(two_equal, "gated_insert (two-pass) differs from its plain version")
+    cw, hqb = ref.widen_wire(*wargs)
+    okeys, oqual, ovalid = ref.extract_observations(cw, hqb, K)
+    okeys, oqual = okeys[ovalid], oqual[ovalid].to(torch.int64)
+    gate = ref.sketch_min(sk.cells, cl, okeys) >= 2
+    g_keys = torch.unique(okeys[gate]).numel()
+    g_classes = torch.unique(okeys[gate] * 2 + oqual[gate]).numel()
+    del cw, hqb, okeys, oqual, ovalid, gate
+    two = dict(ms=kernel_ms(lambda: kernels.gated_insert_reads(work, *gargs),
+                            "gated_insert", 5, reset),
+               plain_ms=event_ms(lambda: ref.gated_insert_reads(work, *gargs),
+                                 2, reset),
+               bound_bytes=wire.numel() + 32 * (g_keys + new_two)
+               + 64 * g_classes + 32 * cell_sectors,
+               dropped=drop_k.tolist(), new_keys=new_two)
+
+    # --- HK11 inline, on the lanes with the PRE-batch query `old`
+    largs = (meta, keys, hq, lq, old)
+    a, b = copy(loaded), copy(loaded)
+    fk, dk = kernels.gated_insert_lanes(a, *largs)
+    fp, dp = ref.gated_insert_lanes(b, *largs)
+    ea, sa = sealed(a)
+    eb, sb = sealed(b)
+    new_inl = occupied(a) - before
+    del a, b
+    inl_equal = (torch.equal(fk, fp) and torch.equal(dk, dp)
+                 and torch.equal(sa, sb) and torch.equal(ea, eb))
+    del ea, eb
+    check(inl_equal, "gated_insert (inline) differs from its plain version")
+    h, l, o = hq.long(), lq.long(), old.long()
+    gated = live & (o + (h + l).clamp(max=2) >= 2)
+    retro = gated & (o == 1)
+    n_cls = int(((h + (retro & (h > 0))) > 0)[gated].sum()
+                + ((l + (retro & (h == 0))) > 0)[gated].sum())
+    inline = dict(ms=kernel_ms(lambda: kernels.gated_insert_lanes(work, *largs),
+                               "gated_insert", 5, reset),
+                  plain_ms=event_ms(
+                      lambda: ref.gated_insert_lanes(work, *largs), 2, reset),
+                  bound_bytes=21 * n_lanes
+                  + 32 * (int(gated.sum()) + new_inl) + 64 * n_cls,
+                  dropped=dk.tolist(), gated_lanes=int(gated.sum()),
+                  failed=int(fk.sum()), new_keys=new_inl)
+    del work, sk, pre
+    gi = dict(equal=two_equal and inl_equal, n=n_obs, **two, inline=inline)
+    emit({"phase": "loaded_prefilter", "card": card, "batch": timed,
+          "observations": n_obs, "lanes": n_lanes, "slots": slots,
+          **{nm: {k: (round(v, 5) if isinstance(v, float) else v)
+                  for k, v in d.items()}
+             for nm, d in (("batch_aggregate", agg), ("sketch_update", sku),
+                           ("gated_insert", gi))}})
+    return {"batch_aggregate": agg, "sketch_update": sku, "gated_insert": gi}
 
 
 def grow_loaded(loaded, meta) -> dict:
@@ -1020,6 +1539,7 @@ def run() -> int:
         full = phase_full(card)
         two = phase_two_binary(card, full)
         full["wires"] = full_wires(full)
+        prefilter = phase_prefilter(card, full, two)
         phase_pending(card, full, two["rb_start"])
         for name, v in phase_loaded(card, full).items():
             stats.setdefault(name, {}).update(v)
@@ -1030,11 +1550,19 @@ def run() -> int:
         return 1
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
-    by_path = {"full": full["launches"], "two_binary": two["launches"]}
+    by_path = {"full": full["launches"], "two_binary": two["launches"],
+               **prefilter}
+    def bound_ms(nbytes):
+        return round(nbytes / H100_BYTES_PER_S * 1e3, 5)
+
     rows = []
     for name, (src, replaces) in SOURCES.items():
         v = stats[name]
-        bound = v["bound_bytes"] / H100_BYTES_PER_S * 1e3
+        # a second entry of the same kernel, timed apart
+        entries = {e: {"ms": round(v[e]["ms"], 5),
+                       "plain_ms": round(v[e]["plain_ms"], 5),
+                       "bound_ms": bound_ms(v[e]["bound_bytes"])}
+                   for e in ("query", "inline") if e in v}
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces,
                      "launches": sum(p[name] for p in by_path.values()),
@@ -1043,8 +1571,8 @@ def run() -> int:
                      "max_abs_err": 0 if v["equal"] else None,
                      "ms": round(v["ms"], 5),
                      "plain_ms": round(v["plain_ms"], 5),
-                     "bound_ms": round(bound, 5), "bound_by": "bytes",
-                     "library_ms": None})
+                     "bound_ms": bound_ms(v["bound_bytes"]),
+                     "bound_by": "bytes", "library_ms": None, **entries})
     emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

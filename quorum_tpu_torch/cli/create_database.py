@@ -1,9 +1,10 @@
 """quorum_create_database (port): flags -s -m -b -q/-Q -o -t
---db-version --batch-size --device, as the reference CLI
+--db-version --batch-size --prefilter --device, as the reference CLI
 (src/create_database_cmdline.yaggo) and quorum_tpu's stage-1 CLI.
 
     python -m quorum_tpu_torch.cli.create_database -s 64k -m 13 -b 7 \\
         -q 38 -o db.jf reads.fastq
+    ... --prefilter two-pass ...   # drop singletons; declares floor 2
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import sys
 
 from .. import resolve_device
 from ..models.create_database import BuildConfig, create_database_main
+from ..ops.sketch import PREFILTER_MODES, prefilter_default
 
 _SUFFIX = {"k": 10**3, "M": 10**6, "G": 10**9, "T": 10**12}
 
@@ -47,6 +49,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "digests, 4 is the bare layout (same payload)")
     p.add_argument("--batch-size", type=int, default=8192,
                    help="Reads per device batch")
+    p.add_argument("--prefilter", choices=("auto",) + PREFILTER_MODES,
+                   default="auto",
+                   help="Singleton prefilter: two-pass streams the input "
+                        "once into a count-min sketch, then inserts only "
+                        "mers seen >= 2 times (exact); inline gates inserts "
+                        "behind the sketch as it goes (a count may be off "
+                        "by one). The database declares a presence floor of "
+                        "2, which stage 2 applies. auto = QUORUM_PREFILTER "
+                        "env, else off")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (plain PyTorch versions of "
                         "the kernels)")
@@ -54,7 +65,10 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv=None, handoff: dict | None = None, batches=None) -> int:
+def main(argv=None, handoff: dict | None = None,
+         batches_factory=None) -> int:
+    """`handoff`, `batches_factory`: the quorum driver's in-process table
+    handoff and shared parse (models/create_database.build_database)."""
     args = build_parser().parse_args(argv)
     if args.min_qual_value is None and args.min_qual_char is None:
         print("Either a min-qual-value or min-qual-char must be provided.",
@@ -77,11 +91,13 @@ def main(argv=None, handoff: dict | None = None, batches=None) -> int:
         qual_thresh=(ord(args.min_qual_char) if args.min_qual_char
                      is not None else args.min_qual_value),
         initial_size=parse_size(args.size), batch_size=args.batch_size,
-        db_version=args.db_version, device=args.device)
+        db_version=args.db_version, device=args.device,
+        prefilter=(prefilter_default() if args.prefilter == "auto"
+                   else args.prefilter))
     try:
         create_database_main(args.reads, args.output, cfg,
                              cmdline=list(sys.argv), handoff=handoff,
-                             batches=batches)
+                             batches_factory=batches_factory)
     except (RuntimeError, OSError, ValueError) as e:
         print(str(e), file=sys.stderr)
         return 1

@@ -1,7 +1,7 @@
 """quorum_error_correct_reads (port): the reference-named correction
 flags of quorum_tpu's stage-2 CLI (-m -s -g -a -w -e -p -q -Q -d
 --apriori-error-rate --poisson-threshold -o, same defaults) plus
---batch-size, --verify-db and --device.
+--presence-floor, --batch-size, --verify-db and --device.
 
     python -m quorum_tpu_torch.cli.error_correct_reads -p 4 db.jf \\
         reads.fastq -o corrected
@@ -51,6 +51,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "untouched when there are multiple choices")
     p.add_argument("-d", "--no-discard", action="store_true",
                    help="Do not discard reads, output a single N")
+    p.add_argument("--presence-floor", type=int, default=0, metavar="N",
+                   help="Treat mers with count < N as absent (0 = auto: a "
+                        "prefiltered database applies its declared floor, "
+                        "others keep every mer)")
     p.add_argument("--verify-db", choices=("full", "sample", "off"),
                    default="full",
                    help="Checksum verification of v5 databases at load")
@@ -93,7 +97,7 @@ def main(argv=None, db=None, prepacked=None,
                      apriori_error_rate=args.apriori_error_rate,
                      poisson_threshold=args.poisson_threshold,
                      batch_size=args.batch_size, verify_db=args.verify_db,
-                     device=args.device)
+                     device=args.device, presence_floor=args.presence_floor)
     try:
         stats = run_error_correct(args.db, args.sequence, opts,
                                   qual_cutoff=qual_cutoff, skip=args.skip,

@@ -5,6 +5,7 @@ ONCE, builds the mer table (stage 1), hands it to stage 2 in-process
 
     python -m quorum_tpu_torch.cli.quorum -s 64k -k 13 -p out reads.fastq
     python -m quorum_tpu_torch.cli.quorum --device cpu ...   # plain torch
+    python -m quorum_tpu_torch.cli.quorum --prefilter two-pass ...
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import numpy as np
 from .. import resolve_device
 from ..io import fastq, packing
 from ..models.ec_config import DEFAULT_QUAL_CUTOFF
+from ..ops.sketch import PREFILTER_MODES
 from . import create_database as cdb_cli
 from . import error_correct_reads as ec_cli
 
@@ -63,6 +65,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Reads per device batch")
     p.add_argument("--db-version", type=int, choices=(4, 5), default=5,
                    help="Mer-database export version (default 5)")
+    p.add_argument("--prefilter", choices=("auto",) + PREFILTER_MODES,
+                   default="auto",
+                   help="Stage-1 singleton prefilter: drop mers seen once "
+                        "before they claim a table slot (two-pass = exact "
+                        "via a sketch pass; inline = online). The database "
+                        "declares its presence floor and stage 2 applies "
+                        "it. auto = QUORUM_PREFILTER env, else off")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (plain PyTorch versions of "
                         "the kernels)")
@@ -124,14 +133,18 @@ def main(argv=None, report: dict | None = None) -> int:
                 "-b", "7", "-o", db_file, "--batch-size",
                 str(args.batch_size), "--db-version", str(args.db_version),
                 "--device", args.device]
+    if args.prefilter != "auto":
+        cdb_argv.extend(["--prefilter", args.prefilter])
 
-    # one parse + pack for both stages: stage 1 consumes the generator,
-    # stage 2 replays the cached batches packed with ITS quality plane,
-    # unless they outgrow REPLAY_CACHE_BYTES (then stage 2 re-parses)
+    # one parse + pack for both stages: stage 1's first pass consumes
+    # the caching generator, stage 2 replays the cached batches packed
+    # with ITS quality plane, unless they outgrow REPLAY_CACHE_BYTES
+    # (then stage 2 re-parses); a second stage-1 pass (the two-pass
+    # prefilter) re-parses quietly
     cache: list = []
     host = {"s1": 0.0, "cached": 0, "keep": True}
 
-    def shared_batches():
+    def parsed_batches():
         it = fastq.read_batches(args.reads, args.batch_size)
         while True:
             t0 = time.perf_counter()
@@ -140,6 +153,12 @@ def main(argv=None, report: dict | None = None) -> int:
                 break
             pk1 = packing.pack_reads(b.codes, b.quals, b.lengths,
                                      thresholds=(t1,))
+            host["s1"] += time.perf_counter() - t0
+            yield b, pk1
+
+    def shared_batches():
+        for b, pk1 in parsed_batches():
+            t0 = time.perf_counter()
             if host["keep"]:
                 pk2 = packing.PackedReads(
                     pcodes=pk1.pcodes, nmask=pk1.nmask,
@@ -160,10 +179,16 @@ def main(argv=None, report: dict | None = None) -> int:
             host["s1"] += time.perf_counter() - t0
             yield b, pk1
 
+    calls = {"n": 0}
+
+    def factory():
+        calls["n"] += 1
+        return shared_batches() if calls["n"] == 1 else parsed_batches()
+
     handoff: dict = {}
     t_s1 = time.perf_counter()
     rc = cdb_cli.main(cdb_argv + list(args.reads), handoff=handoff,
-                      batches=shared_batches())
+                      batches_factory=factory)
     if rc != 0:
         print("Creating the mer database failed. Most likely the size "
               "passed to the -s switch is too small.", file=sys.stderr)

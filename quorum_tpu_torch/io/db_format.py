@@ -82,9 +82,12 @@ def _v5_checksums(buf: np.ndarray, rows_n: int) -> tuple[dict, int]:
 
 def write_db(path: str, state: TileState, meta: TileMeta,
              cmdline: list[str] | None = None, n_entries: int | None = None,
-             db_version: int = DEFAULT_DB_VERSION) -> None:
+             db_version: int = DEFAULT_DB_VERSION,
+             extra_header: dict | None = None) -> None:
     """Export the sealed table (K8 on its device, one D2H) as a v4 or
-    v5 file, atomically (tmp, fsync, rename)."""
+    v5 file, atomically (tmp, fsync, rename). `extra_header` merges
+    into the header (a prefiltered build's `prefilter` declaration and
+    full-table `poisson_stats`); the payload bytes do not change."""
     if db_version not in (4, 5):
         raise ValueError(f"db_version must be 4 or 5, got {db_version}")
     buf = ctable.tile_export_v4(state, meta)
@@ -102,6 +105,7 @@ def write_db(path: str, state: TileState, meta: TileMeta,
         "n_entries": n,
         "hi_bytes": meta.hi_bytes,
         "value_bytes": int(buf.nbytes),
+        **(extra_header or {}),
         **_header_common(cmdline),
     }
     trailer = b""
@@ -233,7 +237,9 @@ def _read_payload(path: str, offset: int, rows_n: int, n: int,
 
 def load_db(path: str, device="cpu", verify: str = "full"):
     """Load a single-file v4/v5 database onto `device`. Returns
-    (TileState, TileMeta, header, (n_occupied, distinct_hq, total_hq)).
+    (TileState, TileMeta, header, (n_occupied, distinct_hq, total_hq));
+    the header carries a prefiltered build's `prefilter` and
+    `poisson_stats`.
     v5 digests and the payload's structure are checked on the host
     BEFORE any byte reaches the device; then the raw payload crosses
     once and HK7 decodes and places it there."""

@@ -1,4 +1,4 @@
-"""Wrappers of the eight hand-written Hopper kernels (csrc/*.cu).
+"""Wrappers of the twelve hand-written Hopper kernels (csrc/*.cu).
 
 Every wrapper checks device, dtype, shape and contiguity, then either
 launches its CUDA kernel (tensors on a CUDA device) or runs the plain
@@ -16,6 +16,10 @@ or launch raises.
   HK6 tile_export   sealed rows -> the v4/v5 payload (sorted, compacted)
   HK7 tile_load     the v4/v5 payload -> sealed rows + statistics
   HK8 tile_grow     double the build table and re-insert every slot
+  HK9 batch_aggregate  a batch's distinct mers with their multiplicities
+  HK10 sketch_update   the prefilter's count-min sketch: update, query
+  HK11 gated_insert    HK1 behind the sketch (two-pass and inline)
+  HK12 tile_floor      the stage-2 presence floor on the sealed rows
 """
 
 from __future__ import annotations
@@ -55,6 +59,21 @@ def _check_build(bstate, meta):
         raise ValueError("build state does not match the table geometry")
 
 
+def _wire_offsets(wire, b: int, length: int, thresholds, qual_thresh: int):
+    """Check a batch's packed wire; returns (sorted thresholds,
+    (off_nmask, off_hq, off_len)) for its qual >= qual_thresh plane."""
+    _check(wire, torch.uint8, "wire")
+    ts = sorted(int(t) for t in thresholds)
+    if int(qual_thresh) not in ts:
+        raise KeyError(f"wire lacks the qual>={qual_thresh} plane")
+    c4, c8 = -(-length // 4), -(-length // 8)
+    if wire.numel() != b * c4 + b * c8 * (1 + len(ts)) + 4 * b:
+        raise ValueError("wire size does not match its geometry")
+    off_nmask = b * c4
+    off_hq = off_nmask + b * c8 * (1 + ts.index(int(qual_thresh)))
+    return ts, (off_nmask, off_hq, b * c4 + b * c8 * (1 + len(ts)))
+
+
 def _pending(failed, keys):
     idx = torch.nonzero(failed).squeeze(1)
     return keys[idx], (failed[idx] >> 1).bool()
@@ -68,13 +87,7 @@ def tile_insert_reads(bstate, meta, wire: torch.Tensor, b: int, length: int,
     """Insert every observation of one packed batch (in place). Returns
     (full, (keys, qual)) with the observations that found no room."""
     _check_build(bstate, meta)
-    _check(wire, torch.uint8, "wire")
-    ts = sorted(int(t) for t in thresholds)
-    if int(qual_thresh) not in ts:
-        raise KeyError(f"wire lacks the qual>={qual_thresh} plane")
-    c4, c8 = -(-length // 4), -(-length // 8)
-    if wire.numel() != b * c4 + b * c8 * (1 + len(ts)) + 4 * b:
-        raise ValueError("wire size does not match its geometry")
+    ts, offs = _wire_offsets(wire, b, length, thresholds, qual_thresh)
     if not _on_cuda(wire, bstate.tag):
         keys, qual = ref.tile_insert_reads(bstate, meta, wire, b, length, ts,
                                            qual_thresh)
@@ -83,11 +96,8 @@ def tile_insert_reads(bstate, meta, wire: torch.Tensor, b: int, length: int,
     failed = torch.empty(n, dtype=torch.uint8, device=wire.device)
     fkeys = torch.empty(n, dtype=torch.int64, device=wire.device)
     full = torch.zeros(1, dtype=torch.int32, device=wire.device)
-    off_nmask = b * c4
-    off_hq = off_nmask + b * c8 * (1 + ts.index(int(qual_thresh)))
-    off_len = b * c4 + b * c8 * (1 + len(ts))
     launch("tile_insert", "tile_insert_reads", wire.data_ptr(), b, length,
-           off_nmask, off_hq, off_len, meta.k, meta.rb_log2, meta.bits,
+           *offs, meta.k, meta.rb_log2, meta.bits,
            bstate.tag.data_ptr(), bstate.hq.data_ptr(), bstate.lq.data_ptr(),
            failed.data_ptr(), fkeys.data_ptr(), full.data_ptr())
     if not int(full.item()):
@@ -118,14 +128,14 @@ def tile_insert_keys(bstate, meta, keys: torch.Tensor, qual: torch.Tensor):
 
 
 def tile_seal(bstate, meta):
-    """Returns (rows int32 [rows, 128], stats int64 [4] = dup, occupied,
-    distinct_hq, total_hq)."""
+    """Returns (rows int32 [rows, 128], stats int64 [5] = dup, occupied,
+    distinct_hq, total_hq, singletons: slots with hq + lq == 1)."""
     _check_build(bstate, meta)
     if not _on_cuda(bstate.tag):
         return ref.tile_seal(bstate, meta)
     dev = bstate.tag.device
     rows = torch.empty_like(bstate.tag)
-    stats = torch.zeros(4, dtype=torch.int64, device=dev)
+    stats = torch.zeros(5, dtype=torch.int64, device=dev)
     launch("tile_seal", "tile_seal", bstate.tag.data_ptr(),
            bstate.hq.data_ptr(), bstate.lq.data_ptr(), meta.rows, meta.bits,
            rows.data_ptr(), stats.data_ptr())
@@ -220,13 +230,7 @@ def stage2_head(rows, meta, wire: torch.Tensor, b: int, length: int,
     [B], (found bool, start_off int32, f int64, r int64, prev int32))
     -- the anchors of corrector.find_anchors without a contaminant."""
     _check_rows(rows, meta)
-    _check(wire, torch.uint8, "wire")
-    ts = sorted(int(t) for t in thresholds)
-    if int(qual_cutoff) not in ts:
-        raise KeyError(f"wire lacks the qual>={qual_cutoff} plane")
-    c4, c8 = -(-length // 4), -(-length // 8)
-    if wire.numel() != b * c4 + b * c8 * (1 + len(ts)) + 4 * b:
-        raise ValueError("wire size does not match its geometry")
+    ts, offs = _wire_offsets(wire, b, length, thresholds, qual_cutoff)
     kw = dict(skip=skip, good=good, anchor_count=anchor_count)
     if not _on_cuda(rows, wire):
         return ref.stage2_head(rows, meta, wire, b, length, ts, qual_cutoff,
@@ -240,11 +244,8 @@ def stage2_head(rows, meta, wire: torch.Tensor, b: int, length: int,
     anc_f = torch.empty(b, dtype=torch.int64, device=dev)
     anc_r = torch.empty(b, dtype=torch.int64, device=dev)
     prev = torch.empty(b, dtype=torch.int32, device=dev)
-    off_nmask = b * c4
-    off_hq = off_nmask + b * c8 * (1 + ts.index(int(qual_cutoff)))
-    off_len = b * c4 + b * c8 * (1 + len(ts))
     launch("stage2_head", "stage2_head", wire.data_ptr(), b, length,
-           off_nmask, off_hq, off_len, rows.data_ptr(), meta.k,
+           *offs, rows.data_ptr(), meta.k,
            meta.rb_log2, meta.bits, skip, good, anchor_count,
            codes.data_ptr(), hqb.data_ptr(), lengths.data_ptr(),
            found.data_ptr(), start_off.data_ptr(), anc_f.data_ptr(),
@@ -331,3 +332,152 @@ def tile_grow(bstate, meta, new, new_meta) -> bool:
            meta.rb_log2, meta.rlo_bits, new.tag.data_ptr(),
            new.hq.data_ptr(), new.lq.data_ptr(), full.data_ptr())
     return bool(full.item())
+
+
+# --------------------------------------------------------------- HK9
+
+
+def batch_aggregate(wire: torch.Tensor, b: int, length: int, thresholds,
+                    qual_thresh: int, k: int):
+    """One packed batch's distinct canonical mers as lanes: (keys int64,
+    hq int32, lq int32) -- each mer's observations in the batch by qual
+    class. On the card the lanes are the slots of a scratch hash of at
+    least twice the batch's windows, empty ones holding key -1; the
+    plain version returns the distinct mers only. Every consumer skips
+    keys < 0 and reads lanes in any order."""
+    ts, offs = _wire_offsets(wire, b, length, thresholds, qual_thresh)
+    if not _on_cuda(wire):
+        return ref.batch_aggregate(wire, b, length, ts, qual_thresh, k)
+    dev = wire.device
+    slots_log2 = max(10, (2 * b * length - 1).bit_length())
+    keys = torch.empty(1 << slots_log2, dtype=torch.int64, device=dev)
+    hq = torch.empty(1 << slots_log2, dtype=torch.int32, device=dev)
+    lq = torch.empty_like(hq)
+    launch("batch_aggregate", "batch_aggregate", wire.data_ptr(), b, length,
+           *offs, k, slots_log2, keys.data_ptr(), hq.data_ptr(),
+           lq.data_ptr())
+    return keys, hq, lq
+
+
+# --------------------------------------------------------------- HK10
+
+
+def _check_sketch(cells: torch.Tensor, cells_log2: int):
+    _check(cells, torch.uint8, "cells")
+    if not 10 <= cells_log2 <= 30 or cells.numel() != 1 << cells_log2:
+        raise ValueError("sketch does not match its geometry")
+    if cells.data_ptr() % 4:
+        raise ValueError("cells: must be 4-byte aligned")
+
+
+def _check_lanes(keys, hq, lq):
+    _check(keys, torch.int64, "keys")
+    _check(hq, torch.int32, "hq")
+    _check(lq, torch.int32, "lq")
+    if not keys.numel() == hq.numel() == lq.numel():
+        raise ValueError("lanes differ in length")
+
+
+def sketch_min(cells: torch.Tensor, cells_log2: int, keys: torch.Tensor):
+    """The count-min query of each lane: min(cell[a1], cell[a2]) as
+    int32, 0 for an empty lane (key < 0)."""
+    _check_sketch(cells, cells_log2)
+    _check(keys, torch.int64, "keys")
+    if not _on_cuda(cells, keys):
+        return ref.sketch_min(cells, cells_log2, keys)
+    out = torch.empty(keys.numel(), dtype=torch.int32, device=keys.device)
+    launch("sketch_update", "sketch_min", keys.data_ptr(), keys.numel(),
+           cells_log2, cells.data_ptr(), out.data_ptr())
+    return out
+
+
+def sketch_update(cells: torch.Tensor, cells_log2: int, keys: torch.Tensor,
+                  hq: torch.Tensor, lq: torch.Tensor) -> None:
+    """Update the sketch in place with a batch's DISTINCT lanes (HK9):
+    per hash in turn, each touched cell becomes min(2, old + the largest
+    min(mult, 2) of the lanes hashing to it)."""
+    _check_sketch(cells, cells_log2)
+    _check_lanes(keys, hq, lq)
+    if not _on_cuda(cells, keys, hq, lq):
+        ref.sketch_update(cells, cells_log2, keys, hq, lq)
+        return
+    launch("sketch_update", "sketch_update", keys.data_ptr(), hq.data_ptr(),
+           lq.data_ptr(), keys.numel(), cells_log2, cells.data_ptr())
+
+
+# --------------------------------------------------------------- HK11
+
+
+def gated_insert_reads(bstate, meta, cells: torch.Tensor, cells_log2: int,
+                       wire: torch.Tensor, b: int, length: int, thresholds,
+                       qual_thresh: int):
+    """Two-pass prefilter insert of one packed batch (in place): HK1 on
+    the observations whose mer the finished sketch saw >= 2 times.
+    Returns (full, (keys, qual) of the gated observations that found no
+    room, dropped int64 [2] = the observations the gate dropped, hq and
+    lq)."""
+    _check_build(bstate, meta)
+    _check_sketch(cells, cells_log2)
+    ts, offs = _wire_offsets(wire, b, length, thresholds, qual_thresh)
+    if not _on_cuda(wire, cells, bstate.tag):
+        (keys, qual), dropped = ref.gated_insert_reads(
+            bstate, meta, cells, cells_log2, wire, b, length, ts,
+            qual_thresh)
+        return bool(keys.numel()), (keys, qual), dropped
+    dev = wire.device
+    n = b * length
+    failed = torch.empty(n, dtype=torch.uint8, device=dev)
+    fkeys = torch.empty(n, dtype=torch.int64, device=dev)
+    full = torch.zeros(1, dtype=torch.int32, device=dev)
+    dropped = torch.zeros(2, dtype=torch.int64, device=dev)
+    launch("gated_insert", "gated_insert_reads", wire.data_ptr(), b, length,
+           *offs, meta.k, meta.rb_log2, meta.bits, cells.data_ptr(),
+           cells_log2, bstate.tag.data_ptr(), bstate.hq.data_ptr(),
+           bstate.lq.data_ptr(), failed.data_ptr(), fkeys.data_ptr(),
+           full.data_ptr(), dropped.data_ptr())
+    if not int(full.item()):
+        empty = torch.empty(0, dtype=torch.int64, device=dev)
+        return False, (empty, empty.bool()), dropped
+    return True, _pending(failed, fkeys), dropped
+
+
+def gated_insert_lanes(bstate, meta, keys: torch.Tensor, hq: torch.Tensor,
+                       lq: torch.Tensor, old: torch.Tensor):
+    """Inline prefilter insert of a batch's distinct lanes (HK9) with
+    `old`, the PRE-batch sketch's query of each (sketch_min): the gate,
+    the retro credit and the claim (in place). Returns (failed bool per
+    lane: gated but without room, dropped int64 [2] = the gated-out
+    lanes' hq and lq totals)."""
+    _check_build(bstate, meta)
+    _check_lanes(keys, hq, lq)
+    _check(old, torch.int32, "old")
+    if old.numel() != keys.numel():
+        raise ValueError("old differs from the lanes in length")
+    if not _on_cuda(keys, hq, lq, old, bstate.tag):
+        return ref.gated_insert_lanes(bstate, meta, keys, hq, lq, old)
+    dev = keys.device
+    failed = torch.empty(keys.numel(), dtype=torch.uint8, device=dev)
+    full = torch.zeros(1, dtype=torch.int32, device=dev)
+    dropped = torch.zeros(2, dtype=torch.int64, device=dev)
+    launch("gated_insert", "gated_insert_lanes", keys.data_ptr(),
+           hq.data_ptr(), lq.data_ptr(), old.data_ptr(), keys.numel(),
+           meta.k, meta.rb_log2, meta.bits, bstate.tag.data_ptr(),
+           bstate.hq.data_ptr(), bstate.lq.data_ptr(), failed.data_ptr(),
+           full.data_ptr(), dropped.data_ptr())
+    return failed.bool(), dropped
+
+
+# --------------------------------------------------------------- HK12
+
+
+def tile_floor(rows: torch.Tensor, meta, floor: int) -> None:
+    """Zero, in place, both words of every entry of the sealed rows
+    whose stored count is below `floor`."""
+    _check_rows(rows, meta)
+    if not 0 <= floor < 2 ** 31:
+        raise ValueError(f"presence floor out of range: {floor}")
+    if not _on_cuda(rows):
+        ref.tile_floor(rows, meta, floor)
+        return
+    launch("tile_floor", "tile_floor", rows.data_ptr(), meta.rows, meta.bits,
+           floor)

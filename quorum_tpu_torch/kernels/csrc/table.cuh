@@ -1,10 +1,13 @@
 // Shared device code of the tile-bucket table: the Feistel key hash
 // (quorum_tpu/ops/ctable.py:151-198, 633-674), the preferred slot
 // (ctable.py:938), the direction-generic mer arithmetic
-// (quorum_tpu/ops/mer.py:104-190), the one-row probe that HK3, HK4 and
-// HK5 share (ctable.tile_lookup_impl, ctable.py:677-696), the slot claim
-// that HK1 and HK8 share, and the exclusive scan of per-row entry counts
-// that HK6 and HK7 share.
+// (quorum_tpu/ops/mer.py:104-190), the window extraction from the packed
+// wire that HK1, HK9 and HK11 share (ctable.extract_observations_impl,
+// ctable.py:1174), the one-row probe that HK3, HK4 and HK5 share
+// (ctable.tile_lookup_impl, ctable.py:677-696), the slot claim that HK1,
+// HK8 and HK11 share, the count-min sketch hash of HK10 and HK11
+// (quorum_tpu/ops/sketch.py:111-132), a one-atomic-per-block sum, and the
+// exclusive scan of per-row entry counts that HK6 and HK7 share.
 //
 // A k-mer (k <= 31) is one uint64 of 2k bits; a table row is 128 u32
 // words = 64 (lo, hi) slot pairs.
@@ -89,6 +92,103 @@ __device__ __forceinline__ void dir_replace0(uint64_t& f, uint64_t& r,
   int ri = k - 1 - i;
   f = (f & ~(3ull << (2 * i))) | ((uint64_t)code << (2 * i));
   r = (r & ~(3ull << (2 * ri))) | ((uint64_t)(3 - code) << (2 * ri));
+}
+
+// One batch's packed wire (quorum_tpu_torch/io/packing.py): b rows of
+// 2-bit codes (ceil(L/4) bytes each), then the N mask, the qual >=
+// threshold plane (ceil(L/8) bytes each) and the little-endian u32 lengths
+// at the given offsets.
+struct Wire {
+  const uint8_t* p;
+  int b, L;
+  long long off_nmask, off_hq, off_len;
+};
+
+__device__ __forceinline__ int wire_len(const Wire& w, int i) {
+  const uint8_t* lb = w.p + w.off_len + 4ll * i;
+  return (int)((uint32_t)lb[0] | ((uint32_t)lb[1] << 8) |
+               ((uint32_t)lb[2] << 16) | ((uint32_t)lb[3] << 24));
+}
+
+// The canonical mer and its qual bit (all k bases high quality) of the
+// window of read i that ends at position p, read straight off the wire;
+// false where there is no window (p < k - 1, p past the read, or a
+// non-ACGT base in it).
+__device__ __forceinline__ bool wire_window(const Wire& w, int i, int p,
+                                            int k, uint64_t* key,
+                                            bool* qual) {
+  if (p < k - 1 || p >= wire_len(w, i)) return false;
+  const int c4 = (w.L + 3) / 4, c8 = (w.L + 7) / 8;
+  const uint8_t* pc = w.p + (long long)i * c4;
+  const uint8_t* nm = w.p + w.off_nmask + (long long)i * c8;
+  const uint8_t* hp = w.p + w.off_hq + (long long)i * c8;
+  uint64_t f = 0, r = 0;
+  bool q = true;
+  for (int j = 0; j < k; ++j) {  // base at p-j -> bit 2j of f
+    const int at = p - j;
+    if ((nm[at >> 3] >> (at & 7)) & 1) return false;  // non-ACGT
+    const uint32_t c = (pc[at >> 2] >> (2 * (at & 3))) & 3u;
+    f |= (uint64_t)c << (2 * j);
+    r |= (uint64_t)(3 - c) << (2 * (k - 1 - j));
+    q &= ((hp[at >> 3] >> (at & 7)) & 1) != 0;
+  }
+  *key = canonical(f, r);
+  *qual = q;
+  return true;
+}
+
+// The count-min sketch's cell h (0 or 1) of a canonical mer: the two
+// hash streams of sketch.py:_H_C over the mer's high and low 32-bit
+// words, h = mix(hi, ca) ^ mix(lo ^ cb, cb), all mod 2^32.
+__device__ __forceinline__ uint32_t sketch_mix(uint32_t x, uint32_t c) {
+  x *= c | 1u;
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  return x;
+}
+
+__device__ __forceinline__ uint32_t sketch_addr(uint64_t key, int h,
+                                                uint32_t mask) {
+  const uint32_t ca = h ? 0xC2B2AE35u : 0x9E3779B9u;
+  const uint32_t cb = h ? 0x27D4EB2Fu : 0x85EBCA6Bu;
+  const uint32_t hi = (uint32_t)(key >> 32), lo = (uint32_t)key;
+  return (sketch_mix(hi, ca) ^ sketch_mix(lo ^ cb, cb)) & mask;
+}
+
+// The count-min query: the smaller of the mer's two cells (0, 1 or 2).
+__device__ __forceinline__ int sketch_query(const uint8_t* __restrict__ cells,
+                                            uint64_t key, uint32_t mask) {
+  const int a = cells[sketch_addr(key, 0, mask)];
+  const int b = cells[sketch_addr(key, 1, mask)];
+  return a < b ? a : b;
+}
+
+// Add each thread's v[j] to out[j] with one atomic per block and value
+// (a warp shuffle sum, then the block's warps). Every thread of the block
+// must call it; blockDim.x is a multiple of 32.
+template <int NV>
+__device__ __forceinline__ void block_add(unsigned long long (&v)[NV],
+                                          unsigned long long* out) {
+  __shared__ unsigned long long part[32][NV];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    unsigned long long x = v[j];
+    for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(0xFFFFFFFFu, x, o);
+    if (lane == 0) part[w][j] = x;
+  }
+  __syncthreads();
+  if (w == 0) {
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      unsigned long long x = lane < nw ? part[lane][j] : 0ull;
+      for (int o = 16; o > 0; o >>= 1)
+        x += __shfl_down_sync(0xFFFFFFFFu, x, o);
+      if (lane == 0 && x) atomicAdd(out + j, x);
+    }
+  }
 }
 
 // The value word (count << 1) | qual of the key in its 512-byte row, or

@@ -9,14 +9,15 @@
 // (tile_insert_observations :1405).
 //
 // Design: one thread per window end reads its k bases straight from the
-// packed wire (2-bit codes, N mask, qual>=threshold plane), builds the
-// canonical mer and its qual bit, hashes it, and claims a slot of its
-// 64-slot row with ONE 64-bit atomicCAS on the adjacent (rlo, rhi) tag
-// words, expecting the empty pair (table.cuh claim_add, shared with HK8's
-// grow); the count goes to the slot with atomicAdd (hq or lq). The TPU's
-// rounds, compaction and phantom tags do not exist here. A key that meets
-// 64 other keys reports `failed`; the caller grows (HK8) and re-inserts
-// those observations, one thread each, through the keys entry.
+// packed wire (2-bit codes, N mask, qual>=threshold plane; table.cuh
+// wire_window, shared with HK9 and HK11), builds the canonical mer and its
+// qual bit, hashes it, and claims a slot of its 64-slot row with ONE
+// 64-bit atomicCAS on the adjacent (rlo, rhi) tag words, expecting the
+// empty pair (table.cuh claim_add, shared with HK8 and HK11); the count
+// goes to the slot with atomicAdd (hq or lq). The TPU's rounds, compaction
+// and phantom tags do not exist here. A key that meets 64 other keys
+// reports `failed`; the caller grows (HK8) and re-inserts those
+// observations, one thread each, through the keys entry.
 //
 // Bound: bytes. The scan stops at the first empty or matching slot, so
 // at the build's load an insert touches one 32-byte sector of tags (read,
@@ -25,37 +26,17 @@
 // sectors for each distinct key (chip_smoke.py computes it).
 #include "table.cuh"
 
-__global__ void insert_reads_kernel(const uint8_t* __restrict__ wire, int b,
-                                    int L, long long off_nmask,
-                                    long long off_hq, long long off_len,
-                                    int k, int rb, int bits, uint32_t* tag,
-                                    uint32_t* hq, uint32_t* lq,
-                                    uint8_t* failed, long long* fkeys,
-                                    int* full) {
+__global__ void insert_reads_kernel(Wire w, int k, int rb, int bits,
+                                    uint32_t* tag, uint32_t* hq,
+                                    uint32_t* lq, uint8_t* failed,
+                                    long long* fkeys, int* full) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)b * L) return;
-  const int i = (int)(idx / L);
-  const int p = (int)(idx % L);
-  const int c4 = (L + 3) / 4, c8 = (L + 7) / 8;
-  const uint8_t* lb = wire + off_len + 4ll * i;
-  const int len = (int)((uint32_t)lb[0] | ((uint32_t)lb[1] << 8) |
-                        ((uint32_t)lb[2] << 16) | ((uint32_t)lb[3] << 24));
+  if (idx >= (long long)w.b * w.L) return;
   failed[idx] = 0;
-  if (p < k - 1 || p >= len) return;
-  const uint8_t* pc = wire + (long long)i * c4;
-  const uint8_t* nm = wire + off_nmask + (long long)i * c8;
-  const uint8_t* hp = wire + off_hq + (long long)i * c8;
-  uint64_t f = 0, r = 0;
-  bool qual = true;
-  for (int j = 0; j < k; ++j) {  // base at p-j -> bit 2j of f
-    const int q = p - j;
-    if ((nm[q >> 3] >> (q & 7)) & 1) return;  // non-ACGT: no window
-    const uint32_t c = (pc[q >> 2] >> (2 * (q & 3))) & 3u;
-    f |= (uint64_t)c << (2 * j);
-    r |= (uint64_t)(3 - c) << (2 * (k - 1 - j));
-    qual &= ((hp[q >> 3] >> (q & 7)) & 1) != 0;
-  }
-  const uint64_t key = canonical(f, r);
+  uint64_t key;
+  bool qual;
+  if (!wire_window(w, (int)(idx / w.L), (int)(idx % w.L), k, &key, &qual))
+    return;
   KeyParts kp = key_parts(key, k, rb, bits);
   if (!claim_add(tag, hq, lq, kp, qual ? 1u : 0u, qual ? 0u : 1u)) {
     failed[idx] = qual ? 3 : 1;
@@ -92,8 +73,8 @@ extern "C" int tile_insert_reads(const uint8_t* wire, int b, int L,
   const long long n = (long long)b * L;
   if (n > 0)
     insert_reads_kernel<<<grid_for(n, 256), 256, 0, (cudaStream_t)stream>>>(
-        wire, b, L, off_nmask, off_hq, off_len, k, rb, bits, tag, hq, lq,
-        failed, fkeys, full);
+        Wire{wire, b, L, off_nmask, off_hq, off_len}, k, rb, bits, tag, hq,
+        lq, failed, fkeys, full);
   return (int)cudaGetLastError();
 }
 

@@ -31,7 +31,8 @@ CSRC = os.path.join(HERE, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(HERE), "_build")
 
 KERNELS = ("tile_insert", "tile_seal", "tile_lookup", "extend_reads",
-           "stage2_head", "tile_export", "tile_load", "tile_grow")
+           "stage2_head", "tile_export", "tile_load", "tile_grow",
+           "batch_aggregate", "sketch_update", "gated_insert", "tile_floor")
 
 NVCC_FLAGS = ["-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-gencode", "arch=compute_90a,code=sm_90a", "-Xptxas", "-v"]
@@ -63,6 +64,21 @@ SIGNATURES = {
     "tile_load": {"tile_load": [_P, _LL, _LL, _I, _I, _P, _P, _P, _P, _P]},
     "tile_grow": {"tile_grow": [_P, _P, _P, _LL, _I, _I, _P, _P, _P, _P,
                                 _P]},
+    "batch_aggregate": {
+        "batch_aggregate": [_P, _I, _I, _LL, _LL, _LL, _I, _I, _P, _P, _P,
+                            _P],
+    },
+    "sketch_update": {
+        "sketch_update": [_P, _P, _P, _LL, _I, _P, _P],
+        "sketch_min": [_P, _LL, _I, _P, _P, _P],
+    },
+    "gated_insert": {
+        "gated_insert_reads": [_P, _I, _I, _LL, _LL, _LL, _I, _I, _I, _P, _I,
+                               _P, _P, _P, _P, _P, _P, _P, _P],
+        "gated_insert_lanes": [_P, _P, _P, _P, _LL, _I, _I, _I, _P, _P, _P,
+                               _P, _P, _P, _P],
+    },
+    "tile_floor": {"tile_floor": [_P, _LL, _I, _I, _P]},
 }
 
 

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the eight hand-written kernels.
+"""Plain PyTorch versions of the twelve hand-written kernels.
 
 Each function computes what its CUDA kernel computes (csrc/*.cu) with
 ordinary tensor operations. The wrappers in kernels/__init__.py call
@@ -21,6 +21,9 @@ M32 = 0xFFFFFFFF
 EMPTY = 0xFFFFFFFF  # an empty tag word (quorum_tpu.ops.ctable._EMPTY_TAG)
 TSLOTS = 64
 _ROUND_C = (0x9E3779B9, 0x85EBCA6B, 0xC2B2AE35, 0x27D4EB2F)
+# the sketch's two hash streams (quorum_tpu.ops.sketch._H_C)
+_SKETCH_C = ((0x9E3779B9, 0x85EBCA6B), (0xC2B2AE35, 0x27D4EB2F))
+SKETCH_SAT = 2  # cells saturate at 2: {0, 1, >= 2} is all the gate reads
 _LOOKUP_CHUNK = 1 << 18
 
 
@@ -170,11 +173,12 @@ def tile_insert_reads(bstate, meta, wire, b: int, length: int, thresholds,
 
 
 def tile_seal(bstate, meta):
-    """K7: duplicate-tag check, fold into the query layout
+    """K7 + K19: duplicate-tag check, fold into the query layout
     ``lo = rlo << (bits+1) | q << bits | min(cnt, max_val)``, ``hi =
-    rhi``, and the (occupied, distinct-hq, total-hq) statistics.
-    Returns (rows int32 [rows, 128], stats int64 [4] = dup, occupied,
-    distinct_hq, total_hq)."""
+    rhi``, and the (occupied, distinct-hq, total-hq) statistics, plus
+    the occupied slots with exactly one observation (hq + lq == 1,
+    sketch.singleton_entries). Returns (rows int32 [rows, 128], stats
+    int64 [5] = dup, occupied, distinct_hq, total_hq, singletons)."""
     t = bstate.tag.view(-1, TSLOTS, 2)
     tlo, thi = u32(t[..., 0]), u32(t[..., 1])
     hq = u32(bstate.hq.view(-1, TSLOTS))
@@ -197,7 +201,8 @@ def tile_seal(bstate, meta):
     same = ((khi[:, 1:] == khi[:, :-1]) & (klo[:, 1:] == klo[:, :-1])
             & (khi[:, 1:] != M32))
     stats = torch.stack([same.any().to(torch.int64), occ.sum(),
-                         q.sum(), torch.where(q, cnt, 0).sum()])
+                         q.sum(), torch.where(q, cnt, 0).sum(),
+                         (occ & (hq + lq == 1)).sum()])
     return rows, stats
 
 
@@ -608,3 +613,121 @@ def tile_grow(bstate, meta, new, new_meta, chunk: int = 1 << 22) -> bool:
                             hq[idx], lq[idx]).all():
             return True
     return False
+
+
+# --------------------------------------------------------------- HK9
+
+
+def batch_aggregate(wire, b: int, length: int, thresholds, qual_thresh: int,
+                    k: int):
+    """K3 (ctable._aggregate_obs_impl at cap = n, as sketch._distinct_lanes
+    calls it): the batch's distinct canonical mers as lanes -- keys int64,
+    hq / lq int32 (the mer's observations in the batch by qual class).
+    Lanes come in ascending key order here; HK9's come in its
+    scratch-hash order with empty lanes (key -1) between."""
+    codes, hqb = widen_wire(wire, b, length, thresholds, qual_thresh)
+    keys, qual, valid = extract_observations(codes, hqb, k)
+    ukeys, inv = torch.unique(keys[valid], return_inverse=True)
+    q = qual[valid].to(torch.int32)
+    hq = torch.zeros(ukeys.numel(), dtype=torch.int32, device=wire.device)
+    hq.index_add_(0, inv, q)
+    lq = torch.zeros_like(hq).index_add_(0, inv, 1 - q)
+    return ukeys, hq, lq
+
+
+# --------------------------------------------------------------- HK10
+
+
+def _sketch_mix(x, c: int):
+    x = _mul32(x, c | 1)
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    return x ^ (x >> 15)
+
+
+def sketch_addrs(keys, cells_log2: int):
+    """The two sketch cells of each canonical int64 mer (int64 indices):
+    sketch.sketch_addrs over the mer's high and low 32-bit words,
+    h = mix(hi, ca) ^ mix(lo ^ cb, cb), unsigned 32-bit arithmetic."""
+    mask = (1 << cells_log2) - 1
+    hi = (keys >> 32) & M32
+    lo = keys & M32
+    return [(_sketch_mix(hi, ca) ^ _sketch_mix(lo ^ cb, cb)) & mask
+            for ca, cb in _SKETCH_C]
+
+
+def sketch_min(cells, cells_log2: int, keys):
+    """K17's count-min query (sketch.sketch_min): min(cell[a1], cell[a2])
+    per lane as int32, 0 where the lane is empty (key < 0)."""
+    a1, a2 = sketch_addrs(keys, cells_log2)
+    v = torch.minimum(cells[a1], cells[a2]).to(torch.int32)
+    return torch.where(keys >= 0, v, 0)
+
+
+def sketch_update(cells, cells_log2: int, keys, hq, lq) -> None:
+    """K17's update (sketch._sketch_update_lanes), in place: for hash 1
+    then hash 2, gather old = cells[a], then scatter-max
+    min(2, old + min(mult, 2)) over the batch's distinct lanes (mult =
+    hq + lq; empty lanes, key < 0, take no part)."""
+    valid = keys >= 0
+    k = keys[valid]
+    mult = (hq[valid].to(torch.int64) + lq[valid].to(torch.int64)).clamp(
+        max=SKETCH_SAT)
+    for a in sketch_addrs(k, cells_log2):
+        new = (cells[a].to(torch.int64) + mult).clamp(max=SKETCH_SAT)
+        cells.scatter_reduce_(0, a, new.to(torch.uint8), "amax")
+
+
+# --------------------------------------------------------------- HK11
+
+
+def gated_insert_reads(bstate, meta, cells, cells_log2: int, wire, b: int,
+                       length: int, thresholds, qual_thresh: int):
+    """K18, two-pass mode (sketch._gated_insert_core): HK1 on the
+    observations whose mer the finished sketch saw >= 2 times. Returns
+    ((keys, qual) of the gated observations that found no room,
+    dropped int64 [2] = the observations that failed the gate, hq and
+    lq)."""
+    codes, hqb = widen_wire(wire, b, length, thresholds, qual_thresh)
+    keys, qual, valid = extract_observations(codes, hqb, meta.k)
+    keys, qual = keys[valid], qual[valid]
+    gate = sketch_min(cells, cells_log2, keys) >= SKETCH_SAT
+    dropped = torch.stack([(qual & ~gate).sum(), (~qual & ~gate).sum()])
+    keys, qual = keys[gate], qual[gate]
+    placed = insert_keys(bstate, meta, keys, qual)
+    return (keys[~placed], qual[~placed]), dropped
+
+
+def gated_insert_lanes(bstate, meta, keys, hq, lq, old):
+    """K18, inline mode (sketch._gated_insert_core): over a batch's
+    distinct lanes (HK9) with `old` = the pre-batch sketch's query of
+    each, the gate opens at old + min(mult, 2) >= 2; where old == 1 the
+    deferred first observation is credited back (+1 hq if the lane saw
+    a high-quality observation, else +1 lq) and the lane's counts go in
+    with one claim. Returns (failed bool per lane: gated but no room,
+    dropped int64 [2] = the gated-out lanes' hq and lq totals)."""
+    h = hq.to(torch.int64)
+    l = lq.to(torch.int64)
+    o = old.to(torch.int64)
+    gate = (keys >= 0) & (o + (h + l).clamp(max=SKETCH_SAT) >= SKETCH_SAT)
+    retro = gate & (o == 1)
+    drop = (keys >= 0) & ~gate
+    dropped = torch.stack([h[drop].sum(), l[drop].sum()])
+    idx = torch.nonzero(gate).squeeze(1)
+    addr, rlo, rhi = tile_key_parts(keys[idx], meta)
+    placed = insert_parts(bstate, meta, addr, rlo, rhi,
+                          (h + (retro & (h > 0)))[idx],
+                          (l + (retro & (h == 0)))[idx])
+    failed = torch.zeros(keys.shape[0], dtype=torch.bool, device=keys.device)
+    failed[idx[~placed]] = True
+    return failed, dropped
+
+
+# --------------------------------------------------------------- HK12
+
+
+def tile_floor(rows, meta, floor: int) -> None:
+    """K21 (ctable.tile_floor), in place: entries whose stored count
+    (lo & max_val) is below `floor` lose both words."""
+    r = rows.view(-1, TSLOTS, 2)
+    r.masked_fill_(((r[..., 0] & meta.max_val) < floor)[..., None], 0)

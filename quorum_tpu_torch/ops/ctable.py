@@ -124,12 +124,25 @@ def tile_insert_pending(bstate: TBuildState, meta: TileMeta,
 
 def tile_seal(bstate: TBuildState, meta: TileMeta):
     """End of build (HK2): duplicate check + fold + stats in one launch.
-    Returns (TileState, dup, n_occupied, distinct_hq, total_hq); the
-    statistics are exact integers (the JAX package sums total_hq in
-    float32, equal below 2^24)."""
+    Returns (TileState, dup, n_occupied, distinct_hq, total_hq,
+    singletons); the statistics are exact integers (the JAX package sums
+    total_hq in float32, equal below 2^24). `singletons` counts the
+    entries with exactly one observation (sketch.singleton_entries: in
+    a two-pass prefiltered build, the sketch's false passes)."""
     rows, stats = kernels.tile_seal(bstate, meta)
-    dup, occ, distinct, total = (int(x) for x in stats.cpu())
-    return TileState(rows), bool(dup), occ, distinct, total
+    dup, occ, distinct, total, singles = (int(x) for x in stats.cpu())
+    return TileState(rows), bool(dup), occ, distinct, total, singles
+
+
+def tile_floor(state: TileState, meta: TileMeta, floor: int) -> TileState:
+    """The presence floor (K21, HK12): entries whose stored count is
+    below `floor` become empty, IN PLACE on the sealed rows (the JAX
+    package returns a new plane; the port saves the copy). A no-op for
+    floor <= 1. Flooring the full table and the two-pass prefiltered
+    one gives the same rows (ops/sketch)."""
+    if floor > 1:
+        kernels.tile_floor(state.rows, meta, floor)
+    return state
 
 
 def tile_export_v4(state: TileState, meta: TileMeta) -> np.ndarray:

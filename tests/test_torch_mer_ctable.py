@@ -105,7 +105,7 @@ def built(tmp_path_factory):
                             batch_size=48, device="cpu")
     tstate, tmeta, tstats = tcdb.build_database(
         [], tcfg, torch.device("cpu"),
-        batches=_batches(7, 3, 48, 80, jax_side=False))
+        batches_factory=lambda: _batches(7, 3, 48, 80, jax_side=False))
     tdb.write_db(str(d / "port.qdb"), tstate, tmeta,
                  n_entries=tstats.distinct)
     return dict(dir=d, jstate=jstate, jmeta=jmeta, jstats=jstats,
@@ -135,7 +135,7 @@ def test_seal_stats_match_jax():
     tfull, _pend = kernels.tile_insert_reads(
         bt, meta_t, torch.from_numpy(pk.to_wire()), 64, 80, pk.thresholds, QT)
     assert not tfull
-    st, tdup, tocc, tdist, ttotal = tct.tile_seal(bt, meta_t)
+    st, tdup, tocc, tdist, ttotal, _singles = tct.tile_seal(bt, meta_t)
     assert (tdup, tocc, tdist, ttotal) == (bool(dup), int(occ), int(dist),
                                            int(total))
     # same content: the canonical exports agree byte for byte

@@ -59,8 +59,9 @@ def grown(request):
                                       batches=_batches(k, 3, jax_side=True))
     tcfg = tcdb.BuildConfig(k=k, bits=7, qual_thresh=QT, initial_size=100,
                             batch_size=48, device="cpu")
-    ts, tm, tst = tcdb.build_database([], tcfg, torch.device("cpu"),
-                                      batches=_batches(k, 3, jax_side=False))
+    ts, tm, tst = tcdb.build_database(
+        [], tcfg, torch.device("cpu"),
+        batches_factory=lambda: _batches(k, 3, jax_side=False))
     assert tst.grows >= 2 and (tm.k, tm.rb_log2) == (jm.k, jm.rb_log2)
     return js, jm, jst, ts, tm, tst
 
@@ -124,7 +125,7 @@ def test_grow_matches_jax_by_export_payload(k, rb):
     gt, gtm = tct.tile_grow_build(bt, tm)
     assert gtm.rb_log2 == gjm.rb_log2 == rb + 1
     sj, _dup, occ, _d, _t = jct.tile_seal(gj, gjm)
-    st, dup, tocc, _td, _tt = tct.tile_seal(gt, gtm)
+    st, dup, tocc, _td, _tt, _singles = tct.tile_seal(gt, gtm)
     assert not dup and tocc == int(occ) > 0
     assert np.array_equal(tct.tile_export_v4(st, gtm),
                           _jax_payload(sj, gjm, int(occ)))
@@ -148,7 +149,7 @@ def test_pending_duplicates_reinsert_to_the_same_payload():
     bt = tct.make_tile_build(tm, "cpu")
     left_k, left_q = tct.tile_insert_pending(bt, tm, keys, qual)
     assert left_k.numel() == 0 and left_q.numel() == 0
-    st, dup, occ, dist, total = tct.tile_seal(bt, tm)
+    st, dup, occ, dist, total, _singles = tct.tile_seal(bt, tm)
     jm = jct.TileMeta(k=13, bits=7, rb_log2=7)
     k64 = keys.numpy()
     bj, full, _placed = jct.tile_insert_observations(
