@@ -4,13 +4,14 @@
     python3 chip_smoke.py          # from the root of a checkout
 
 Phases, each printing one JSON line:
-  build    compile the twelve CUDA kernels from csrc/ with nvcc (sm_90a)
+  build    compile the thirteen CUDA kernels from csrc/ with nvcc (sm_90a)
   kernels  hold each kernel against its plain PyTorch version on the
            card, at the main path's shapes (8192 x 160 batches, a
            2^22-row table), plus a small table that grows
   golden   the stage CLIs reproduce tests/golden/expected*.fa/.log with
-           --device cuda; the quorum driver's --device cuda output is
-           byte-equal to its --device cpu output
+           --device cuda; the quorum driver's --device cuda output, and
+           its --partitions 4 --device cuda output, are byte-equal to
+           its --device cpu output
   full     the quorum driver on a seeded E. coli-size FASTQ (random
            4,641,652 bp genome, 150 bp reads at 40x, 1% substitutions,
            ~10% low-quality bases, k = 24); launch counts are reset
@@ -33,6 +34,17 @@ Phases, each printing one JSON line:
            header and .fa/.log, inline held to its guarantees, peak
            memory beside the two_binary run's; launch counts reset
            before and read after each driver run
+  partitions  the same FASTQ through the driver with --partitions 4 at
+           the full run's -s (four passes into 2^20-row tables, HK13,
+           one shard each, stage 2 from the manifest): payload and
+           .fa/.log equal to the full run's, each stage's peak device
+           memory beside the full run's; then with --prefilter two-pass
+           too: payload, header and .fa/.log equal to the two-pass
+           run's; then quorum_create_database --partitions 4 at a -s
+           one doubling short of what the passes need, fed the full
+           run's packed batches: exactly one geometry restart, and the
+           two_binary run's payload (same final geometry); launch
+           counts reset before and read after each run
   pending  HK1's keys entry on the leftovers the two-binary build meets:
            the full run's batches into a table of the two_binary
            phase's first size; at each overflow the doubled table (HK8)
@@ -45,14 +57,19 @@ Phases, each printing one JSON line:
            that batch HK9 aggregating it, HK10 querying and updating a
            2^30-cell sketch that holds the other batches, and HK11's
            two-pass and inline entries inserting it into copies of the
-           table, each held against its plain version and timed
-  table    HK7 loading and HK6 exporting the full run's database, and
-           HK5, HK3 and HK4 on one of its batches against that table,
-           and HK12 flooring it at 2, each held against its plain
-           version and timed there
-Then one {"kernels": [...]} line (launches from the full, two_binary
-and the four prefilter driver runs, times and bounds from the kernels,
-loaded and table phases), the
+           table, each held against its plain version and timed; then
+           HK1's and HK11's partition entries (pass 1 of 4) inserting it
+           into copies of a 2^20-row pass table that holds the other
+           batches' pass-1 mers, and HK13 rebasing that table sealed
+           (and a copy with a foreign entry planted, which must set
+           `bad`), each held against its plain version and timed
+  table    HK7 loading and HK6 exporting the full run's database (and
+           HK6's compact entry compacting it), and HK5, HK3 and HK4 on
+           one of its batches against that table, and HK12 flooring it
+           at 2, each held against its plain version and timed there
+Then one {"kernels": [...]} line (launches from the full, two_binary,
+the four prefilter and the three partitioned runs, times and bounds
+from the kernels, loaded and table phases), the
 card's name and power limit from nvidia-smi, and {"ok": true, "device":
 {...}} as the last line.
 Exits non-zero, with no result line, when CUDA is unavailable, outside
@@ -109,6 +126,8 @@ SOURCES = {  # kernel -> (source in the repo, TPU program it replaces)
                      "quorum_tpu/ops/sketch.py:208"),
     "tile_floor": ("quorum_tpu_torch/kernels/csrc/tile_floor.cu",
                    "quorum_tpu/ops/ctable.py:1608"),
+    "tile_departition": ("quorum_tpu_torch/kernels/csrc/tile_departition.cu",
+                         "quorum_tpu/ops/ctable.py:1566"),
 }
 # the kernels each main-path run must launch (HK3's probe runs inside
 # HK5 and HK4; the query CLI is its caller)
@@ -128,6 +147,19 @@ PATH_KERNELS = {
 PATH_KERNELS.update({
     p + "_grow": PATH_KERNELS[p] + ("tile_grow", "tile_insert")
     for p in ("prefilter_two_pass", "prefilter_inline")})
+# the partitioned paths: each pass seals, rebases (HK13) and exports its
+# shard; stage 2 loads the manifest (HK7); the restart run is stage 1
+PATH_KERNELS.update({
+    "partitions": ("tile_insert", "tile_seal", "tile_departition",
+                   "tile_export", "tile_load", "stage2_head", "extend_reads"),
+    "partitions_two_pass": ("batch_aggregate", "sketch_update",
+                            "gated_insert", "tile_seal", "tile_departition",
+                            "tile_export", "tile_load", "tile_floor",
+                            "stage2_head", "extend_reads"),
+    "partitions_restart": ("tile_insert", "tile_seal", "tile_departition",
+                           "tile_export"),
+})
+PARTS = 4  # --partitions in the partitioned runs
 
 
 class SmokeFailure(Exception):
@@ -278,6 +310,45 @@ def kernel_ms(fn, name: str, reps: int, setup=None, detail=None) -> float:
         detail["span"] = median(spans)
         detail.update({f: median(v) for f, v in per.items()})
     return median(times)
+
+
+class StagePeaks:
+    """Each stage's peak device memory in one quorum driver run, less
+    what this script held on the card when the run began: the peak
+    statistic is read and reset where the driver calls stage 2 (its
+    error_correct_reads.main, wrapped for the run)."""
+
+    def __enter__(self):
+        import torch
+
+        from quorum_tpu_torch.cli import error_correct_reads as ec
+
+        self.ec, self.orig = ec, ec.main
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        self.resident = torch.cuda.memory_allocated()
+        self.stage1 = self.stage2 = None
+
+        def stage2(*a, **kw):
+            torch.cuda.synchronize()
+            self.stage1 = torch.cuda.max_memory_allocated() - self.resident
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                return self.orig(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                self.stage2 = (torch.cuda.max_memory_allocated()
+                               - self.resident)
+
+        ec.main = stage2
+        return self
+
+    def __exit__(self, *exc):
+        self.ec.main = self.orig
+        return False
+
+    def as_dict(self) -> dict:
+        return {"stage1": self.stage1, "stage2": self.stage2}
 
 
 # ------------------------------------------------------------- phases
@@ -553,10 +624,15 @@ def phase_golden():
         check(quorum.main(["-s", "64k", "-k", "13", "-p",
                            os.path.join(d, f"drv_{dev}"), "--device", dev,
                            reads]) == 0, f"golden driver ({dev})")
-    res["driver_cuda_eq_cpu"] = all(
-        filecmp.cmp(os.path.join(d, f"drv_cuda{ext}"),
-                    os.path.join(d, f"drv_cpu{ext}"), shallow=False)
-        for ext in (".fa", ".log"))
+    check(quorum.main(["-s", "64k", "-k", "13", "-p",
+                       os.path.join(d, "drv_part"), "--device", "cuda",
+                       "--partitions", str(PARTS), reads]) == 0,
+          "golden driver (--partitions)")
+    for tag in ("cuda", "part"):
+        res[f"driver_{tag}_eq_cpu"] = all(
+            filecmp.cmp(os.path.join(d, f"drv_{tag}{ext}"),
+                        os.path.join(d, f"drv_cpu{ext}"), shallow=False)
+            for ext in (".fa", ".log"))
     emit({"phase": "golden", **res})
     check(all(res.values()), f"golden mismatch: {res}")
 
@@ -578,14 +654,14 @@ def phase_full(card: str) -> dict:
     bases = n * READ_LEN
     size = table_size(bases, GENOME_BP)
     prefix = os.path.join(WORK, "full")
-    torch.cuda.reset_peak_memory_stats()
     report: dict = {}
     STATS.reset()
     STATS.timing = True
-    t1 = time.perf_counter()
-    rc = quorum.main(["-s", str(size), "-k", str(K), "-p", prefix,
-                      "--device", "cuda", fq], report=report)
-    wall = time.perf_counter() - t1
+    with StagePeaks() as peaks:
+        t1 = time.perf_counter()
+        rc = quorum.main(["-s", str(size), "-k", str(K), "-p", prefix,
+                          "--device", "cuda", fq], report=report)
+        wall = time.perf_counter() - t1
     STATS.timing = False
     launches = dict(STATS.launches)
     kms = STATS.kernel_ms()
@@ -628,7 +704,8 @@ def phase_full(card: str) -> dict:
           "fastq_gen_s": round(gen_s, 3), "stage1_s": round(s1, 3),
           "stage2_s": round(s2, 3), "wall_s": round(wall, 3),
           "gbases_per_hour": round(bases / (s1 + s2) * 3600 / 1e9, 4),
-          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "max_memory_allocated": max(peaks.stage1, peaks.stage2),
+          "max_memory_allocated_by_stage": peaks.as_dict(),
           "corrected_share": round(ec.corrected / n, 6),
           "distinct_mers": build.distinct, "grows": build.grows,
           "cutoff": ec.cutoff,
@@ -642,7 +719,8 @@ def phase_full(card: str) -> dict:
           "sample_errors_in_out": [errs_in, errs_out, checked],
           "launches": launches})
     return dict(launches=launches, codes=codes, quals=quals, size=size,
-                max_memory=torch.cuda.max_memory_allocated(),
+                max_memory=max(peaks.stage1, peaks.stage2),
+                peaks=peaks.as_dict(),
                 grows=build.grows, fastq=fq, prefix=prefix,
                 db=prefix + "_mer_database.jf", build=build,
                 insert_ms_per_launch=kms["tile_insert"]
@@ -747,7 +825,8 @@ def phase_two_binary(card: str, full: dict) -> dict:
     check(same_payload == (rb == rb_full),
           "payload bytes disagree with the table geometry")
     check(same_out, "two-binary .fa/.log differ from the full run's")
-    return dict(launches=launches, rb_start=rb_full - 4, peak=peak)
+    return dict(launches=launches, rb_start=rb_full - 4, peak=peak, db=db,
+                rb_end=rb)
 
 
 def driver_run(card: str, full: dict, mode: str, size: int = 0) -> dict:
@@ -1009,7 +1088,139 @@ def phase_prefilter(card: str, full: dict, two_binary: dict) -> dict:
     return {"prefilter_two_pass": two["launches"],
             "prefilter_inline": inl["launches"],
             "prefilter_two_pass_grow": two_g["launches"],
-            "prefilter_inline_grow": inl_g["launches"]}
+            "prefilter_inline_grow": inl_g["launches"]}, two
+
+
+def partition_run(card: str, full: dict, path: str, extra: list) -> dict:
+    """The quorum driver on the full run's FASTQ at the full run's -s
+    with --partitions 4 and `extra`; launch counts reset just before,
+    read just after. Prints the stage and sketch seconds, launches,
+    kernel seconds and each stage's peak device memory."""
+    from quorum_tpu_torch.cli import quorum
+    from quorum_tpu_torch.io import db_format
+    from quorum_tpu_torch.kernels.loader import STATS
+
+    prefix = os.path.join(WORK, path)
+    report: dict = {}
+    STATS.reset()
+    STATS.timing = True
+    with StagePeaks() as peaks:
+        t0 = time.perf_counter()
+        rc = quorum.main(["-s", str(full["size"]), "-k", str(K), "-p", prefix,
+                          "--device", "cuda", "--partitions", str(PARTS),
+                          *extra, full["fastq"]], report=report)
+        wall = time.perf_counter() - t0
+    STATS.timing = False
+    launches = dict(STATS.launches)
+    kms = STATS.kernel_ms()
+    check(rc == 0, f"{path} driver rc {rc}")
+    for name in PATH_KERNELS[path]:
+        check(launches[name] > 0, f"{name} was not launched on the {path} path")
+    build, ec = report["build"], report["ec"]
+    db = prefix + "_mer_database.jf"
+    h = db_format.read_header(db)
+    emit({"phase": path, "card": card, "size": full["size"],
+          "partitions": h["n_shards"], "rb_log2": h["rb_log2"],
+          "grows": build.grows, "entries": h["n_entries"],
+          "stage1_s": round(report["stage1_s"], 3),
+          "sketch_pass_s": round(build.sketch_seconds, 3),
+          "stage1_parse_pack_s": round(report["stage1_host_s"], 3),
+          "stage2_s": round(report["stage2_s"], 3),
+          "stage2_device_s": round(ec.device_s, 3),
+          "stage2_host_s": round(ec.host_s, 3),
+          "wall_s": round(wall, 3), "cutoff": ec.cutoff,
+          "presence_floor": ec.presence_floor,
+          "gbases_per_hour": round(ec.bases_in / (report["stage1_s"]
+                                                  + report["stage2_s"])
+                                   * 3600 / 1e9, 4),
+          "max_memory_allocated_by_stage": peaks.as_dict(),
+          "max_memory_allocated_by_stage_full": full["peaks"],
+          "launches": launches,
+          "kernel_s": {k: round(v / 1e3, 4) for k, v in kms.items()},
+          "kernel_ms_per_launch": {k: round(v / launches[k], 5)
+                                   for k, v in kms.items() if launches[k]}})
+    return dict(launches=launches, prefix=prefix, db=db, header=h,
+                build=build, ec=ec, peaks=peaks.as_dict())
+
+
+def phase_partitions(card: str, full: dict, two_pass: dict,
+                     two_binary: dict) -> dict:
+    """The partitioned multi-pass stage 1 at full width. --partitions 4
+    at the full run's -s builds the full run's global geometry in four
+    2^20-row passes: the manifest's payload is the full run's single
+    file's and the .fa/.log are the full run's, with stage 1's peak
+    device memory about a quarter of the full run's. With --prefilter
+    two-pass too: the payload, the header's prefilter, poisson_stats and
+    n_entries, and the .fa/.log are the two-pass run's. Then
+    quorum_create_database --partitions 4 at a -s one doubling short of
+    the geometry the two_binary build grew to, fed the full run's
+    batches already packed (the driver's route into stage 1; it spares
+    five parses): the passes fill, restart once at twice the rows, and
+    end with the two_binary run's payload."""
+    from quorum_tpu_torch.cli import create_database as cdb
+    from quorum_tpu_torch.io import db_format
+    from quorum_tpu_torch.io.fastq import ReadBatch
+    from quorum_tpu_torch.kernels.loader import STATS
+
+    part = partition_run(card, full, "partitions", [])
+    res = dict(
+        same_payload_as_full=(db_format.db_payload_bytes(part["db"])
+                              == db_format.db_payload_bytes(full["db"])),
+        same_fa_log_as_full=same_fa_log(part["prefix"], full["prefix"]),
+        fewer_stage1_bytes=part["peaks"]["stage1"] < full["peaks"]["stage1"])
+    emit({"phase": "partitions_check", "card": card, **res})
+    check(all(res.values()), f"partitions against the full run: {res}")
+
+    pt = partition_run(card, full, "partitions_two_pass",
+                       ["--prefilter", "two-pass"])
+    h, h2 = pt["header"], two_pass["header"]
+    res = dict(
+        same_payload_as_two_pass=(db_format.db_payload_bytes(pt["db"])
+                                  == db_format.db_payload_bytes(
+                                      two_pass["db"])),
+        same_header_as_two_pass=all(h[key] == h2[key] for key in
+                                    ("prefilter", "poisson_stats",
+                                     "n_entries")),
+        same_fa_log_as_two_pass=same_fa_log(pt["prefix"],
+                                            two_pass["prefix"]))
+    emit({"phase": "partitions_two_pass_check", "card": card,
+          "prefilter": h["prefilter"], **res})
+    check(all(res.values()), f"partitions two-pass against two-pass: {res}")
+
+    rb_need = two_binary["rb_end"]
+    size = 24 << (rb_need - 1)  # tile_rb_for(size) = rb_need - 1
+    db = os.path.join(WORK, "partitions_restart.jf")
+    handoff: dict = {}
+    STATS.reset()
+    t0 = time.perf_counter()
+    def packed():
+        for pk, _wire in full["wires"]:
+            yield ReadBatch(None, None, pk.lengths, [], pk.n_reads), pk
+
+    rc = cdb.main(["-s", str(size), "-m", str(K), "-q", str(QT), "-b", "7",
+                   "-o", db, "--partitions", str(PARTS), "--device", "cuda",
+                   full["fastq"]], handoff=handoff, batches_factory=packed)
+    build_s = time.perf_counter() - t0
+    restart = dict(STATS.launches)
+    check(rc == 0, f"partitions restart build rc {rc}")
+    for name in PATH_KERNELS["partitions_restart"]:
+        check(restart[name] > 0,
+              f"{name} was not launched on the partitions_restart path")
+    stats = handoff["stats"]
+    rb = db_format.read_header(db)["rb_log2"]
+    res = dict(one_restart=stats.grows == 1, geometry=rb == rb_need,
+               same_payload_as_two_binary=(
+                   db_format.db_payload_bytes(db)
+                   == db_format.db_payload_bytes(two_binary["db"])))
+    emit({"phase": "partitions_restart", "card": card, "size": size,
+          "rb_log2_start": rb_need - 1, "rb_log2_end": rb,
+          "grows": stats.grows, "bases": stats.bases,
+          "entries": stats.distinct, "create_database_s": round(build_s, 3),
+          "launches": restart, **res})
+    check(all(res.values()), f"partitions restart: {res}")
+    return {"partitions": part["launches"],
+            "partitions_two_pass": pt["launches"],
+            "partitions_restart": restart}
 
 
 def phase_table(card: str, full: dict) -> dict:
@@ -1043,6 +1254,16 @@ def phase_table(card: str, full: dict) -> dict:
     export_equal = (torch.equal(ek, ref.tile_export(rows, meta))
                     and ek.cpu().numpy().tobytes() == raw)
     check(export_equal, "tile_export differs from its plain version")
+    del ek
+    # HK6's compact entry (K22), cap = the entries: the occupied slots in
+    # slot order, against its plain version
+    ck = kernels.tile_compact(rows, meta, n)
+    cp = ref.tile_compact(rows, meta, n)
+    compact_equal = (all(torch.equal(x, y) for x, y in zip(ck, cp))
+                     and int(ck[3]) == n)
+    del ck, cp
+    check(compact_equal, "tile_export's compact entry differs from its "
+          "plain version")
     row_bytes = meta.rows * 512
     export_parts: dict = {}
     out = {
@@ -1053,11 +1274,19 @@ def phase_table(card: str, full: dict) -> dict:
             plain_ms=event_ms(lambda: ref.tile_load(payload, meta, n), 2),
             bound_bytes=len(raw) + row_bytes),
         "tile_export": dict(
-            equal=export_equal, n=n,
+            equal=export_equal and compact_equal, n=n,
             ms=kernel_ms(lambda: kernels.tile_export(rows, meta),
                          "tile_export", 5, detail=export_parts),
             plain_ms=event_ms(lambda: ref.tile_export(rows, meta), 2),
-            bound_bytes=row_bytes + len(raw)),
+            bound_bytes=row_bytes + len(raw),
+            # the rows read once, three 4-byte words written per entry
+            compact=dict(
+                equal=compact_equal,
+                ms=kernel_ms(lambda: kernels.tile_compact(rows, meta, n),
+                             "tile_export", 5),
+                plain_ms=event_ms(lambda: ref.tile_compact(rows, meta, n),
+                                  2),
+                bound_bytes=row_bytes + 12 * n)),
     }
     codes, quals = full["codes"], full["quals"]
     i = -(-codes.shape[0] // BATCH) - 2
@@ -1288,10 +1517,13 @@ def phase_loaded(card: str, full: dict) -> dict:
           "seal_plain_ms": round(plain_seal, 5),
           "grow": {k: v for k, v in grow.items() if k != "equal"}})
     del loaded
-    return {"tile_insert": dict(n=int(valid.sum()), ms=ms, plain_ms=plain,
-                                bound_bytes=bound_bytes),
-            "tile_seal": dict(ms=ms_seal, plain_ms=plain_seal),
-            "tile_grow": grow, **pre}
+    out = {"tile_insert": dict(n=int(valid.sum()), ms=ms, plain_ms=plain,
+                               bound_bytes=bound_bytes),
+           "tile_seal": dict(ms=ms_seal, plain_ms=plain_seal),
+           "tile_grow": grow}
+    for name, v in pre.items():
+        out.setdefault(name, {}).update(v)
+    return out
 
 
 def prefilter_kernels(card: str, full: dict, loaded, meta, timed: int) -> dict:
@@ -1460,7 +1692,9 @@ def prefilter_kernels(card: str, full: dict, loaded, meta, timed: int) -> dict:
                   + 32 * (int(gated.sum()) + new_inl) + 64 * n_cls,
                   dropped=dk.tolist(), gated_lanes=int(gated.sum()),
                   failed=int(fk.sum()), new_keys=new_inl)
-    del work, sk, pre
+    del work, pre
+    part = partition_kernels(card, full, timed, sk.cells, cl)
+    del sk
     gi = dict(equal=two_equal and inl_equal, n=n_obs, **two, inline=inline)
     emit({"phase": "loaded_prefilter", "card": card, "batch": timed,
           "observations": n_obs, "lanes": n_lanes, "slots": slots,
@@ -1468,7 +1702,186 @@ def prefilter_kernels(card: str, full: dict, loaded, meta, timed: int) -> dict:
                   for k, v in d.items()}
              for nm, d in (("batch_aggregate", agg), ("sketch_update", sku),
                            ("gated_insert", gi))}})
-    return {"batch_aggregate": agg, "sketch_update": sku, "gated_insert": gi}
+    out = {"batch_aggregate": agg, "sketch_update": sku, "gated_insert": gi}
+    for name, v in part.items():
+        out.setdefault(name, {}).update(v)
+    return out
+
+
+def partition_kernels(card: str, full: dict, timed: int, cells,
+                      cl: int) -> dict:
+    """HK1's and HK11's partition entries and HK13 at the partitioned
+    build's shapes (--partitions 4 at the full run's -s: 2^20-row pass
+    tables). The full run's other batches go through HK1's partition
+    entry for pass 1 into a pass table; batch `timed` then goes into
+    copies of it through HK1's partition entry and its plain version,
+    and through HK11's two-pass entry (behind `cells`, the finished
+    2^30-cell sketch) and its plain version: equal sealed exports (HK2,
+    HK6), statistics and dropped counts; each timed. Then HK2 seals the
+    pass table and HK13 and its plain version rebase copies of it: equal
+    rows, `bad` clear; a copy with a foreign entry planted (an entry's
+    remainder bit 0 flipped, written to an empty slot of its row) sets
+    `bad` in both. HK13 is timed in place on a copy restored before
+    each launch.
+    Byte bounds (3.35 TB/s), from this batch's data: HK1 and HK11 as in
+    the loaded phase, over the observations pass 1 owns (HK11: plus the
+    distinct cell sectors of the owned mers, read once); HK13 the pass
+    table read once and each 32-byte sector holding an entry written
+    once."""
+    import torch
+
+    from quorum_tpu_torch import kernels
+    from quorum_tpu_torch.kernels import reference as ref
+    from quorum_tpu_torch.ops import ctable
+
+    part, g = 1, PARTS.bit_length() - 1
+    dev = cells.device
+    lmeta = ctable.TileMeta(K, 7, ctable.tile_rb_for(full["size"], K, 7) - g)
+    wires = full["wires"]
+    table = ctable.make_tile_build(lmeta, dev)
+    for i, (pk, wire) in enumerate(wires):
+        if i != timed:
+            f, _left = kernels.tile_insert_reads(
+                table, lmeta, wire, BATCH, pk.length, pk.thresholds, QT,
+                part, PARTS)
+            check(not f, "pass table reported full")
+    pk, wire = wires[timed]
+    wargs = (wire, BATCH, pk.length, pk.thresholds, QT)
+
+    def copy(st):
+        return ctable.TBuildState(*(t.clone() for t in st))
+
+    def sealed(st):
+        rows, stats = kernels.tile_seal(st, lmeta)
+        return kernels.tile_export(rows, lmeta), stats
+
+    def occupied(st):
+        return int((st.tag[:, 0::2] != -1).sum())
+
+    work = copy(table)
+
+    def reset():
+        for dst, src in zip(work, table):
+            dst.copy_(src)
+
+    # the observations pass 1 owns, for the bounds
+    cw, hqb = ref.widen_wire(*wargs)
+    okeys, oqual, ovalid = ref.extract_observations(cw, hqb, K)
+    okeys, oqual = okeys[ovalid], oqual[ovalid].to(torch.int64)
+    own = ref.partition_mask(okeys, lmeta, part, PARTS)
+    okeys, oqual = okeys[own], oqual[own]
+    del cw, hqb, ovalid, own
+    before = occupied(table)
+
+    # --- HK1's partition entry
+    a, b = copy(table), copy(table)
+    fk, _left = kernels.tile_insert_reads(a, lmeta, *wargs, part, PARTS)
+    left_p, _q = ref.tile_insert_reads(b, lmeta, *wargs, part, PARTS)
+    new_ins = occupied(a) - before
+    ea, sa = sealed(a)
+    eb, sb = sealed(b)
+    del a, b
+    ins_equal = (not fk and left_p.numel() == 0 and torch.equal(sa, sb)
+                 and torch.equal(ea, eb))
+    del ea, eb
+    check(ins_equal, "tile_insert's partition entry differs from its plain "
+          "version")
+    ins = dict(equal=ins_equal, n=okeys.numel(), new_keys=new_ins,
+               ms=kernel_ms(lambda: kernels.tile_insert_reads(
+                   work, lmeta, *wargs, part, PARTS), "tile_insert", 5,
+                   reset),
+               plain_ms=event_ms(lambda: ref.tile_insert_reads(
+                   work, lmeta, *wargs, part, PARTS), 2, reset),
+               bound_bytes=wire.numel()
+               + 32 * (torch.unique(okeys).numel() + new_ins)
+               + 64 * torch.unique(okeys * 2 + oqual).numel())
+
+    # --- HK11's partition entry (two-pass), behind the finished sketch
+    gargs = (lmeta, cells, cl, *wargs, part, PARTS)
+    a, b = copy(table), copy(table)
+    fk, (left_k, _lq), drop_k = kernels.gated_insert_reads(a, *gargs)
+    (left_p, _pq), drop_p = ref.gated_insert_reads(b, *gargs)
+    new_gate = occupied(a) - before
+    ea, sa = sealed(a)
+    eb, sb = sealed(b)
+    del a, b
+    gate_equal = (not fk and left_k.numel() == 0 and left_p.numel() == 0
+                  and torch.equal(drop_k, drop_p) and torch.equal(sa, sb)
+                  and torch.equal(ea, eb))
+    del ea, eb
+    check(gate_equal, "gated_insert's partition entry differs from its plain "
+          "version")
+    gate = ref.sketch_min(cells, cl, okeys) >= 2
+    ukeys = torch.unique(okeys)
+    sectors = torch.unique(torch.cat(ref.sketch_addrs(ukeys, cl)) >> 5).numel()
+    gated = dict(
+        equal=gate_equal, n=okeys.numel(), new_keys=new_gate,
+        dropped=drop_k.tolist(),
+        ms=kernel_ms(lambda: kernels.gated_insert_reads(work, *gargs),
+                     "gated_insert", 5, reset),
+        plain_ms=event_ms(lambda: ref.gated_insert_reads(work, *gargs), 2,
+                          reset),
+        bound_bytes=wire.numel()
+        + 32 * (torch.unique(okeys[gate]).numel() + new_gate)
+        + 64 * torch.unique(okeys[gate] * 2 + oqual[gate]).numel()
+        + 32 * sectors)
+    del work, okeys, oqual, gate, ukeys
+
+    # --- HK13 on the sealed pass table
+    rows, _stats = kernels.tile_seal(table, lmeta)
+    del table
+    occ = (rows[:, 0::2] & lmeta.max_val) != 0
+    entries = int(occ.sum())
+    written = int(occ.view(lmeta.rows, -1, 4).any(2).sum())
+    del occ
+    rk, rp = rows.clone(), rows.clone()
+    bk = kernels.tile_departition(rk, lmeta, g, part)
+    bp = ref.tile_departition(rp, lmeta, g, part)
+    dep_equal = (torch.equal(rk, rp) and int(bk) == 0 and int(bp) == 0
+                 and not torch.equal(rk, rows))
+    del rk, rp
+    # a foreign entry: the first entry of a row with room, its remainder's
+    # bit 0 flipped, written to that row's first empty slot
+    planted = rows.clone()
+    slots = planted.view(lmeta.rows, -1, 2)
+    live = (slots[..., 0] & lmeta.max_val) != 0
+    r = int(torch.nonzero(live.any(1) & ~live.all(1))[0])
+    s_in = int(torch.nonzero(live[r])[0])
+    s_out = int(torch.nonzero(~live[r])[0])
+    slots[r, s_out, 0] = slots[r, s_in, 0] ^ (1 << (lmeta.bits + 1))
+    slots[r, s_out, 1] = slots[r, s_in, 1]
+    pk_, pp_ = planted.clone(), planted
+    bad_k = int(kernels.tile_departition(pk_, lmeta, g, part))
+    bad_p = int(ref.tile_departition(pp_, lmeta, g, part))
+    del pk_, pp_, planted, slots, live
+    dep_equal = dep_equal and bad_k == 1 and bad_p == 1
+    check(dep_equal, f"tile_departition differs from its plain version (a "
+          f"planted entry: bad {bad_k}, plain {bad_p})")
+    work = rows.clone()
+
+    def restore():
+        work.copy_(rows)
+
+    dep = dict(equal=dep_equal, n=lmeta.rows * 64, entries=entries,
+               written_sectors=written,
+               ms=kernel_ms(lambda: kernels.tile_departition(work, lmeta, g,
+                                                             part),
+                            "tile_departition", 5, restore),
+               plain_ms=event_ms(lambda: ref.tile_departition(work, lmeta, g,
+                                                              part), 2,
+                                 restore),
+               bound_bytes=lmeta.rows * 512 + 32 * written)
+    del work, rows
+    emit({"phase": "loaded_partitions", "card": card, "batch": timed,
+          "partition": part, "of": PARTS, "pass_rows": lmeta.rows,
+          "pass_table_entries_before": before,
+          **{nm: {k: (round(v, 5) if isinstance(v, float) else v)
+                  for k, v in d.items()}
+             for nm, d in (("tile_insert", ins), ("gated_insert", gated),
+                           ("tile_departition", dep))}})
+    return {"tile_insert": {"partition": ins},
+            "gated_insert": {"partition": gated},
+            "tile_departition": dep}
 
 
 def grow_loaded(loaded, meta) -> dict:
@@ -1539,7 +1952,8 @@ def run() -> int:
         full = phase_full(card)
         two = phase_two_binary(card, full)
         full["wires"] = full_wires(full)
-        prefilter = phase_prefilter(card, full, two)
+        prefilter, two_pass = phase_prefilter(card, full, two)
+        partitions = phase_partitions(card, full, two_pass, two)
         phase_pending(card, full, two["rb_start"])
         for name, v in phase_loaded(card, full).items():
             stats.setdefault(name, {}).update(v)
@@ -1551,7 +1965,7 @@ def run() -> int:
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     by_path = {"full": full["launches"], "two_binary": two["launches"],
-               **prefilter}
+               **prefilter, **partitions}
     def bound_ms(nbytes):
         return round(nbytes / H100_BYTES_PER_S * 1e3, 5)
 
@@ -1562,13 +1976,15 @@ def run() -> int:
         entries = {e: {"ms": round(v[e]["ms"], 5),
                        "plain_ms": round(v[e]["plain_ms"], 5),
                        "bound_ms": bound_ms(v[e]["bound_bytes"])}
-                   for e in ("query", "inline") if e in v}
+                   for e in ("query", "inline", "compact", "partition")
+                   if e in v}
+        equal = v["equal"] and all(v[e].get("equal", True) for e in entries)
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces,
                      "launches": sum(p[name] for p in by_path.values()),
                      "launches_by_path": {k: p[name]
                                           for k, p in by_path.items()},
-                     "max_abs_err": 0 if v["equal"] else None,
+                     "max_abs_err": 0 if equal else None,
                      "ms": round(v["ms"], 5),
                      "plain_ms": round(v["plain_ms"], 5),
                      "bound_ms": bound_ms(v["bound_bytes"]),

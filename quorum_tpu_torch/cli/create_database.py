@@ -1,10 +1,13 @@
 """quorum_create_database (port): flags -s -m -b -q/-Q -o -t
---db-version --batch-size --prefilter --device, as the reference CLI
-(src/create_database_cmdline.yaggo) and quorum_tpu's stage-1 CLI.
+--db-version --db-layout --batch-size --prefilter --partitions --device,
+as the reference CLI (src/create_database_cmdline.yaggo) and
+quorum_tpu's stage-1 CLI.
 
     python -m quorum_tpu_torch.cli.create_database -s 64k -m 13 -b 7 \\
         -q 38 -o db.jf reads.fastq
     ... --prefilter two-pass ...   # drop singletons; declares floor 2
+    ... --partitions 4 ...         # 4 passes at 1/4 the table memory;
+                                   # db.jf is a manifest over 4 shards
 """
 
 from __future__ import annotations
@@ -17,6 +20,44 @@ from ..models.create_database import BuildConfig, create_database_main
 from ..ops.sketch import PREFILTER_MODES, prefilter_default
 
 _SUFFIX = {"k": 10**3, "M": 10**6, "G": 10**9, "T": 10**12}
+
+# quorum_tpu's flags whose paths are not ported yet: accepted by the
+# parser so that a run that asks for them is refused with a reason
+UNPORTED = {
+    "checkpoint_dir": "--checkpoint-dir (checkpoints and --resume)",
+    "resume": "--resume (checkpoints and --resume)",
+    "coordinator": "--coordinator (the multi-host fleet)",
+    "num_processes": "--num-processes (the multi-host fleet)",
+    "process_id": "--process-id (the multi-host fleet)",
+}
+
+
+def add_unported_args(p: argparse.ArgumentParser) -> None:
+    """--devices and the flags of UNPORTED, as quorum_tpu spells them;
+    refuse_unported() turns any use beyond one card into an error."""
+    p.add_argument("--devices", default="1",
+                   help="Devices to run on: 1 (the port runs on one card; "
+                        "--devices N is not ported yet)")
+    p.add_argument("--checkpoint-dir", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--resume", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--coordinator", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--num-processes", type=int, default=None,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--process-id", type=int, default=None,
+                   help=argparse.SUPPRESS)
+
+
+def refuse_unported(args, prog: str) -> bool:
+    """Print why and return True if `args` ask for a path the port does
+    not have yet."""
+    asked = [flag for dest, flag in UNPORTED.items()
+             if getattr(args, dest) not in (None, False)]
+    if args.devices != "1":
+        asked.append(f"--devices {args.devices} (multi-GPU)")
+    for flag in asked:
+        print(f"{prog}: {flag} is not ported to quorum_tpu_torch yet",
+              file=sys.stderr)
+    return bool(asked)
 
 
 def parse_size(s: str) -> int:
@@ -47,8 +88,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--db-version", type=int, choices=(4, 5), default=5,
                    help="Export version: 5 (default) carries CRC32C "
                         "digests, 4 is the bare layout (same payload)")
+    p.add_argument("--db-layout", choices=("single", "sharded"),
+                   default="single",
+                   help="On-disk layout: single (default) writes one file; "
+                        "sharded writes <output>.shard-K-of-S.qdb files "
+                        "under a sealed manifest at <output> (same payload "
+                        "bytes; implied by --partitions P > 1)")
     p.add_argument("--batch-size", type=int, default=8192,
                    help="Reads per device batch")
+    p.add_argument("--partitions", type=int, default=1, metavar="P",
+                   help="Build the table in P sequential passes over the "
+                        "input (a power of two <= 256), each counting one "
+                        "disjoint leading-bit row range at 1/P the table "
+                        "memory and exporting it as one shard of the "
+                        "sharded manifest; the reassembled payload is a "
+                        "single-pass build's")
     p.add_argument("--prefilter", choices=("auto",) + PREFILTER_MODES,
                    default="auto",
                    help="Singleton prefilter: two-pass streams the input "
@@ -61,6 +115,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (plain PyTorch versions of "
                         "the kernels)")
+    add_unported_args(p)
     p.add_argument("reads", nargs="+", help="Read files")
     return p
 
@@ -85,15 +140,35 @@ def main(argv=None, handoff: dict | None = None,
     if not 1 <= args.mer <= 31:
         print("Mer length must be between 1 and 31", file=sys.stderr)
         return 1
+    if refuse_unported(args, "quorum_create_database"):
+        return 1
     resolve_device(args.device)  # no card for --device cuda: raise here
+    P = args.partitions
+    if P < 1 or P > 256 or (P & (P - 1)):
+        print(f"--partitions must be a power of two in [1, 256], "
+              f"got {P}", file=sys.stderr)
+        return 1
+    auto = args.prefilter == "auto"
+    prefilter = prefilter_default() if auto else args.prefilter
+    if prefilter == "inline" and P > 1:
+        if not auto:
+            print("--prefilter=inline supports neither --partitions "
+                  "nor --checkpoint-dir (the online sketch is "
+                  "neither pass-stable nor snapshotted); use "
+                  "--prefilter=two-pass", file=sys.stderr)
+            return 1
+        # a default from the environment degrades; only the flag refuses
+        print("Prefilter default inline does not compose with "
+              "--partitions; running unfiltered", file=sys.stderr)
+        prefilter = "off"
     cfg = BuildConfig(
         k=args.mer, bits=args.bits,
         qual_thresh=(ord(args.min_qual_char) if args.min_qual_char
                      is not None else args.min_qual_value),
         initial_size=parse_size(args.size), batch_size=args.batch_size,
-        db_version=args.db_version, device=args.device,
-        prefilter=(prefilter_default() if args.prefilter == "auto"
-                   else args.prefilter))
+        db_version=args.db_version, device=args.device, prefilter=prefilter,
+        # the partitioned export IS the sharded manifest
+        db_layout="sharded" if P > 1 else args.db_layout, partitions=P)
     try:
         create_database_main(args.reads, args.output, cfg,
                              cmdline=list(sys.argv), handoff=handoff,

@@ -6,6 +6,11 @@ ONCE, builds the mer table (stage 1), hands it to stage 2 in-process
     python -m quorum_tpu_torch.cli.quorum -s 64k -k 13 -p out reads.fastq
     python -m quorum_tpu_torch.cli.quorum --device cpu ...   # plain torch
     python -m quorum_tpu_torch.cli.quorum --prefilter two-pass ...
+    python -m quorum_tpu_torch.cli.quorum --partitions 4 ...
+
+With --partitions P > 1 stage 1 writes a sharded manifest pass by pass
+and keeps no table on the card, so stage 2 loads the manifest from disk
+(HK7); the batches the first pass parsed still replay into stage 2.
 """
 
 from __future__ import annotations
@@ -72,9 +77,20 @@ def build_parser() -> argparse.ArgumentParser:
                         "via a sketch pass; inline = online). The database "
                         "declares its presence floor and stage 2 applies "
                         "it. auto = QUORUM_PREFILTER env, else off")
+    p.add_argument("--db-layout", choices=("single", "sharded"),
+                   default="single",
+                   help="Mer-database on-disk layout: single (default) "
+                        "writes one file; sharded writes shard files under "
+                        "a sealed manifest (same payload bytes)")
+    p.add_argument("--partitions", type=int, default=1, metavar="P",
+                   help="Build the mer database in P sequential passes "
+                        "(power of two <= 256), each at 1/P the table "
+                        "memory, exported straight into the sharded "
+                        "manifest; byte-identical payload")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (plain PyTorch versions of "
                         "the kernels)")
+    cdb_cli.add_unported_args(p)
     p.add_argument("reads", nargs="*", help="Input fastq files")
     return p
 
@@ -119,7 +135,19 @@ def main(argv=None, report: dict | None = None) -> int:
     if not args.reads:
         print("No sequence files. See quorum --help.", file=sys.stderr)
         return 1
+    if cdb_cli.refuse_unported(args, "quorum"):
+        return 1
     resolve_device(args.device)  # no card for --device cuda: raise here
+    P = args.partitions
+    if P < 1 or P > 256 or (P & (P - 1)):
+        print(f"quorum: --partitions must be a power of two in "
+              f"[1, 256], got {P}", file=sys.stderr)
+        return 1
+    if args.prefilter == "inline" and P > 1:
+        print("quorum: --prefilter=inline supports neither "
+              "--partitions nor --checkpoint-dir; use "
+              "--prefilter=two-pass", file=sys.stderr)
+        return 1
     min_q = args.min_q_char
     if min_q is None:
         try:
@@ -132,17 +160,21 @@ def main(argv=None, report: dict | None = None) -> int:
     cdb_argv = ["-s", args.size, "-m", str(args.kmer_len), "-q", str(t1),
                 "-b", "7", "-o", db_file, "--batch-size",
                 str(args.batch_size), "--db-version", str(args.db_version),
-                "--device", args.device]
+                "--db-layout", args.db_layout, "--device", args.device]
     if args.prefilter != "auto":
         cdb_argv.extend(["--prefilter", args.prefilter])
+    if P != 1:
+        cdb_argv.extend(["--partitions", str(P)])
 
     # one parse + pack for both stages: stage 1's first pass consumes
     # the caching generator, stage 2 replays the cached batches packed
     # with ITS quality plane, unless they outgrow REPLAY_CACHE_BYTES
-    # (then stage 2 re-parses); a second stage-1 pass (the two-pass
-    # prefilter) re-parses quietly
+    # (then stage 2 re-parses); later stage-1 passes (the two-pass
+    # prefilter's, the partitions', every pass after a geometry restart)
+    # re-parse quietly. A first pass cut short by a restart leaves the
+    # cache incomplete, and stage 2 re-parses.
     cache: list = []
-    host = {"s1": 0.0, "cached": 0, "keep": True}
+    host = {"s1": 0.0, "cached": 0, "keep": True, "complete": False}
 
     def parsed_batches():
         it = fastq.read_batches(args.reads, args.batch_size)
@@ -178,6 +210,7 @@ def main(argv=None, report: dict | None = None) -> int:
                     cache.clear()
             host["s1"] += time.perf_counter() - t0
             yield b, pk1
+        host["complete"] = True
 
     calls = {"n": 0}
 
@@ -208,15 +241,16 @@ def main(argv=None, report: dict | None = None) -> int:
     ec_argv += ["-o", args.prefix, db_file] + list(args.reads)
     t_s2 = time.perf_counter()
     ec_stats: dict = {}
-    rc = ec_cli.main(ec_argv, db=handoff["db"],
-                     prepacked=_drain(cache) if host["keep"] else None,
+    replay = host["keep"] and host["complete"]
+    rc = ec_cli.main(ec_argv, db=handoff.get("db"),
+                     prepacked=_drain(cache) if replay else None,
                      report=ec_stats)
     if rc != 0:
         print("Error correction failed", file=sys.stderr)
         return 1
     if report is not None:
         report.update(stage1_s=s1_s, stage2_s=time.perf_counter() - t_s2,
-                      stage1_host_s=host["s1"], build=handoff["db"][2],
+                      stage1_host_s=host["s1"], build=handoff["stats"],
                       ec=ec_stats.get("stats"))
     return 0
 

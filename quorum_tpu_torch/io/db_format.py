@@ -1,11 +1,21 @@
-"""On-disk mer database, single-file v4/v5 (counterpart of
-quorum_tpu/io/db_format.py; files are interchangeable both ways).
+"""On-disk mer database: single-file v4/v5 and the sharded manifest
+(counterpart of quorum_tpu/io/db_format.py; files are interchangeable
+both ways).
 
 A JSON header line, then the v4 payload — per-row occupancy counts
 (u8[rows]), the occupied entries' lo words (LE u32) in canonical
 row-major order, then `hi_bytes` byte planes of their hi words. v5 adds
 per-section CRC32C digests to the header and a trailer line carrying the
 header's and the whole file's digests; the payload bytes are the same.
+
+A sharded database is a sealed manifest at PREFIX naming S shard files
+``PREFIX.shard-s-of-S.qdb``: shard s is a self-contained v4/v5 file of
+the global rows [s * rows / S, (s + 1) * rows / S) at the global
+geometry (`layout: shard`), and the manifest carries each shard's
+whole-file digest. The shards' counts planes, then their lo words, then
+each hi byte plane, concatenated in shard order, are the single-file
+payload. The partitioned build (--partitions P) writes one shard a
+pass; --db-layout sharded on one card writes a 1-shard manifest.
 """
 
 from __future__ import annotations
@@ -21,12 +31,14 @@ import numpy as np
 import torch
 
 from ..ops import ctable
-from ..ops.ctable import TileMeta, TileState
+from ..ops.ctable import GlobalMeta, TileMeta, TileState
 from . import integrity
 from .integrity import IntegrityError
 
 FORMAT = "binary/quorum_tpu_db"
 TRAILER_FORMAT = "quorum_tpu_db_trailer/1"
+MANIFEST_FORMAT = "binary/quorum_tpu_db_manifest"
+DB_LAYOUTS = ("single", "sharded")
 DEFAULT_DB_VERSION = 5
 CHECKSUM_CHUNK_BYTES = 4 << 20
 VERIFY_MODES = ("full", "sample", "off")
@@ -80,6 +92,49 @@ def _v5_checksums(buf: np.ndarray, rows_n: int) -> tuple[dict, int]:
     }, payload_crc
 
 
+def _atomic_write(path: str, line: bytes, payload: bytes,
+                  trailer: bytes = b"") -> None:
+    """tmp, fsync, rename, fsync the directory: a killed run never
+    leaves a torn file at `path`."""
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(line)
+        f.write(payload)
+        f.write(trailer)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+    integrity.fsync_dir(path)
+
+
+def _write_payload_file(path: str, header: dict, buf: np.ndarray,
+                        rows_n: int, db_version: int) -> int:
+    """Write one v4/v5 file (header line, payload `buf` of rows_n
+    counts, and for v5 the section digests and the trailer). Returns
+    its whole-file CRC32C (header line + payload), as a manifest
+    records it."""
+    if db_version >= 5:
+        cks, payload_crc = _v5_checksums(buf, rows_n)
+        header["checksum"] = cks
+    else:
+        payload_crc = integrity.crc32c(buf)
+    line = json.dumps(header).encode() + b"\n"
+    hcrc = integrity.crc32c(line)
+    fcrc = integrity.crc32c_combine(hcrc, payload_crc, int(buf.nbytes))
+    trailer = b""
+    if db_version >= 5:
+        trailer = (json.dumps({"format": TRAILER_FORMAT,
+                               "header_crc32c": hcrc,
+                               "file_crc32c": fcrc}) + "\n").encode()
+    _atomic_write(path, line, buf.tobytes(), trailer)
+    return fcrc
+
+
+def _check_version(db_version: int) -> None:
+    if db_version not in (4, 5):
+        raise ValueError(f"db_version must be 4 or 5, got {db_version}")
+
+
 def write_db(path: str, state: TileState, meta: TileMeta,
              cmdline: list[str] | None = None, n_entries: int | None = None,
              db_version: int = DEFAULT_DB_VERSION,
@@ -88,8 +143,7 @@ def write_db(path: str, state: TileState, meta: TileMeta,
     v5 file, atomically (tmp, fsync, rename). `extra_header` merges
     into the header (a prefiltered build's `prefilter` declaration and
     full-table `poisson_stats`); the payload bytes do not change."""
-    if db_version not in (4, 5):
-        raise ValueError(f"db_version must be 4 or 5, got {db_version}")
+    _check_version(db_version)
     buf = ctable.tile_export_v4(state, meta)
     n = int(buf[:meta.rows].sum(dtype=np.int64))
     if n_entries is not None and n_entries != n:
@@ -108,26 +162,92 @@ def write_db(path: str, state: TileState, meta: TileMeta,
         **(extra_header or {}),
         **_header_common(cmdline),
     }
-    trailer = b""
-    if db_version >= 5:
-        cks, payload_crc = _v5_checksums(buf, meta.rows)
-        header["checksum"] = cks
-    line = json.dumps(header).encode() + b"\n"
-    if db_version >= 5:
-        hcrc = integrity.crc32c(line)
-        fcrc = integrity.crc32c_combine(hcrc, payload_crc, int(buf.nbytes))
-        trailer = (json.dumps({"format": TRAILER_FORMAT,
-                               "header_crc32c": hcrc,
-                               "file_crc32c": fcrc}) + "\n").encode()
-    tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
-        f.write(line)
-        f.write(buf.tobytes())
-        f.write(trailer)
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(tmp, path)
-    integrity.fsync_dir(path)
+    _write_payload_file(path, header, buf, meta.rows, db_version)
+
+
+def shard_file_name(prefix: str, shard: int, n_shards: int) -> str:
+    """The on-disk name of one shard of a sharded database."""
+    return f"{prefix}.shard-{shard}-of-{n_shards}.qdb"
+
+
+def write_db_shard_file(path_prefix: str, rows_s: torch.Tensor,
+                        meta: GlobalMeta, s: int, S: int,
+                        cmdline: list[str] | None = None,
+                        db_version: int = DEFAULT_DB_VERSION) -> dict:
+    """Write shard `s` of S: `rows_s`, the sealed rows [s * rows / S,
+    (s + 1) * rows / S) of the GLOBAL geometry `meta` (a partition
+    pass's rows after HK13, or a card's whole table when S = 1),
+    exported by HK6 on their device into ``PREFIX.shard-s-of-S.qdb``, a
+    self-contained v4/v5 file. Returns the manifest record."""
+    _check_version(db_version)
+    rows_local = meta.rows // S
+    if rows_s.shape[0] != rows_local:
+        raise ValueError(f"shard {s} of {S} holds {rows_s.shape[0]} rows, "
+                         f"not {rows_local}")
+    buf = ctable.tile_export_v4(TileState(rows_s), meta)
+    occ = int(buf[:rows_local].sum(dtype=np.int64))
+    shard_path = shard_file_name(path_prefix, s, S)
+    header = {
+        "format": FORMAT,
+        "version": db_version,
+        "layout": "shard",
+        "shard": s,
+        "n_shards": S,
+        "key_len": 2 * meta.k,
+        "bits": meta.bits,
+        "rb_log2": meta.rb_log2,  # GLOBAL geometry
+        "rows": meta.rows,
+        "rows_local": rows_local,
+        "n_entries": occ,
+        "hi_bytes": meta.hi_bytes,
+        "value_bytes": int(buf.nbytes),
+        **_header_common(cmdline),
+    }
+    fcrc = _write_payload_file(shard_path, header, buf, rows_local,
+                               db_version)
+    return {"path": os.path.basename(shard_path), "shard": s,
+            "n_entries": occ, "value_bytes": int(buf.nbytes),
+            "file_crc32c": fcrc}
+
+
+def write_db_manifest(path: str, recs: list, meta: GlobalMeta, S: int,
+                      cmdline: list[str] | None = None,
+                      db_version: int = DEFAULT_DB_VERSION,
+                      extra_header: dict | None = None) -> None:
+    """Commit the sealed manifest over `recs` (write_db_shard_file
+    records, in shard order): every shard file is durable already, and
+    the manifest's rename is the commit point. `extra_header` (the
+    prefilter declaration and poisson_stats) merges into the sealed
+    document, which load_db returns as the header."""
+    manifest = integrity.seal({
+        "format": MANIFEST_FORMAT,
+        "version": db_version,
+        "layout": "sharded",
+        "key_len": 2 * meta.k,
+        "bits": meta.bits,
+        "rb_log2": meta.rb_log2,
+        "rows": meta.rows,
+        "n_shards": S,
+        "n_entries": sum(int(r["n_entries"]) for r in recs),
+        "hi_bytes": meta.hi_bytes,
+        "shards": recs,
+        **(extra_header or {}),
+        **_header_common(cmdline),
+    })
+    _atomic_write(path, json.dumps(manifest).encode() + b"\n", b"")
+
+
+def write_db_sharded(path: str, state: TileState, meta: TileMeta,
+                     cmdline: list[str] | None = None,
+                     db_version: int = DEFAULT_DB_VERSION,
+                     extra_header: dict | None = None) -> None:
+    """`--db-layout sharded` on one card: the table as one shard file
+    and the sealed 1-shard manifest at `path`; its payload
+    (db_payload_bytes) is the single file's."""
+    _check_version(db_version)
+    recs = [write_db_shard_file(path, state.rows, meta, 0, 1, cmdline,
+                                db_version)]
+    write_db_manifest(path, recs, meta, 1, cmdline, db_version, extra_header)
 
 
 def read_header(path: str) -> dict:
@@ -139,16 +259,18 @@ def read_header(path: str) -> dict:
         raise ValueError(
             f"'{path}' is not a quorum_tpu database (no JSON header)"
         ) from None
-    if not isinstance(header, dict) or header.get("format") != FORMAT:
+    if not isinstance(header, dict) \
+            or header.get("format") not in (FORMAT, MANIFEST_FORMAT):
         fmt = header.get("format") if isinstance(header, dict) else None
         raise ValueError(f"Wrong type '{fmt}' for file '{path}'")
     return header
 
 
-def _verify_v5(path: str, header: dict, offset: int, mode: str) -> None:
+def _verify_v5(path: str, header: dict, offset: int, mode: str) -> dict:
     """Check a v5 file's digests: "full" every section plus the derived
     whole-file digest, "sample" the header, the bucket index and a
-    random subset of entry chunks. Raises IntegrityError."""
+    random subset of entry chunks. Raises IntegrityError; returns the
+    trailer."""
     def bad(section, off, msg):
         raise IntegrityError(f"v5 database '{path}': {msg}", path=path,
                              section=section, offset=off)
@@ -207,10 +329,11 @@ def _verify_v5(path: str, header: dict, offset: int, mode: str) -> None:
         if fcrc != int(trailer.get("file_crc32c", -1)):
             bad("trailer", offset + payload_len,
                 "whole-file digest mismatch")
+    return trailer
 
 
 def _read_payload(path: str, offset: int, rows_n: int, n: int,
-                  hi_bytes: int) -> np.ndarray:
+                  hi_bytes: int, what: str = "database") -> np.ndarray:
     """One v4/v5 payload as raw bytes, after its structural refusals
     (size, at most 64 entries a row, counts summing to n_entries)."""
     count = rows_n + (4 + hi_bytes) * n
@@ -218,35 +341,130 @@ def _read_payload(path: str, offset: int, rows_n: int, n: int,
         f.seek(offset)
         payload = np.fromfile(f, np.uint8, count)
     if payload.shape[0] != count:
-        raise IntegrityError(f"corrupt database '{path}': payload "
+        raise IntegrityError(f"corrupt {what} '{path}': payload "
                              "truncated", path=path, section="entries",
                              offset=offset)
     counts = payload[:rows_n]
     if n and int(counts.max()) > ctable.TSLOTS:
         raise IntegrityError(
-            f"corrupt database '{path}': {int(counts.max())} entries in "
+            f"corrupt {what} '{path}': {int(counts.max())} entries in "
             f"one bucket (capacity {ctable.TSLOTS})", path=path,
             section="bucket_index", offset=offset)
     if int(counts.sum(dtype=np.int64)) != n:
         raise IntegrityError(
-            f"corrupt database '{path}': row counts sum "
+            f"corrupt {what} '{path}': row counts sum "
             f"{int(counts.sum(dtype=np.int64))} != n_entries {n}",
             path=path, section="bucket_index", offset=offset)
     return payload
 
 
+def _load_manifest(path: str, header: dict, device, verify: str):
+    """A sharded database through its manifest (quorum_tpu's
+    _read_db_manifest): the seal, every shard's own digests per
+    `verify`, and the manifest's per-shard whole-file digests (a shard
+    swapped or regenerated after the commit refuses even with
+    consistent digests of its own), then every shard's structure; the
+    single-file payload is assembled from the shards on the host and
+    crosses once for one HK7 launch."""
+    if verify != "off":
+        integrity.check_seal(header, "sharded database manifest", path)
+    rb = int(header["rb_log2"])
+    S = int(header["n_shards"])
+    if rb > 24:
+        raise ValueError(
+            f"sharded database '{path}' has rb_log2={rb}, past the "
+            "single-chip geometry cap of 24 — run stage 2 with "
+            "--devices N (the routed layout hosts it row-sharded); "
+            "loading it onto one chip is not supported")
+    meta = TileMeta(k=header["key_len"] // 2, bits=header["bits"],
+                    rb_log2=rb)
+    rows_local = meta.rows // S
+    hi_bytes = int(header["hi_bytes"])
+    if hi_bytes != meta.hi_bytes:
+        raise IntegrityError(
+            f"corrupt sharded database manifest '{path}': hi_bytes "
+            f"{hi_bytes} != {meta.hi_bytes} for this geometry",
+            path=path, section="header", offset=0)
+    recs = header.get("shards") or []
+    if len(recs) != S:
+        raise IntegrityError(
+            f"corrupt sharded database manifest '{path}': {len(recs)} "
+            f"shard records for n_shards={S}", path=path,
+            section="header", offset=0)
+    dirn = os.path.dirname(os.path.abspath(path))
+    counts, los, his = [], [], [[] for _ in range(hi_bytes)]
+    total = 0
+    for s, rec in enumerate(recs):
+        sp = os.path.join(dirn, str(rec["path"]))
+        if not os.path.exists(sp):
+            raise IntegrityError(
+                f"sharded database '{path}' is missing shard {s} "
+                f"('{sp}') — refusing to load a partial table",
+                path=sp, section="shard")
+        sh = read_header(sp)
+        for key, want in (("layout", "shard"), ("shard", s),
+                          ("n_shards", S), ("rb_log2", rb),
+                          ("key_len", header["key_len"]),
+                          ("bits", header["bits"]),
+                          ("n_entries", int(rec["n_entries"]))):
+            if sh.get(key) != want:
+                raise IntegrityError(
+                    f"shard file '{sp}' disagrees with the manifest on "
+                    f"{key} ({sh.get(key)!r} != {want!r})",
+                    path=sp, section="header", offset=0)
+        with open(sp, "rb") as f:
+            offset = len(f.readline(1 << 20))
+        n_s = int(sh["n_entries"])
+        if verify != "off":
+            if int(sh.get("version", 1)) >= 5:
+                got = int(_verify_v5(sp, sh, offset, verify)
+                          .get("file_crc32c", -1))
+            else:
+                got = integrity.crc32c_file(sp)
+            if got != int(rec.get("file_crc32c", -2)):
+                raise IntegrityError(
+                    f"shard file '{sp}' digest {got:#010x} != manifest "
+                    f"{int(rec.get('file_crc32c', -1)):#010x} — the "
+                    "shard was swapped or regenerated after the "
+                    "manifest committed", path=sp, section="shard",
+                    offset=0)
+        pay = _read_payload(sp, offset, rows_local, n_s, hi_bytes,
+                            f"shard {s} of sharded database")
+        counts.append(pay[:rows_local])
+        los.append(pay[rows_local:rows_local + 4 * n_s])
+        base = rows_local + 4 * n_s
+        for j in range(hi_bytes):
+            his[j].append(pay[base + j * n_s:base + (j + 1) * n_s])
+        total += n_s
+    if total != int(header.get("n_entries", total)):
+        raise IntegrityError(
+            f"corrupt sharded database manifest '{path}': shard entries "
+            f"sum {total} != n_entries {header.get('n_entries')}",
+            path=path, section="header", offset=0)
+    payload = np.concatenate(counts + los + [x for pl in his for x in pl])
+    state, stats = ctable.tile_load(payload, meta, total, device)
+    return state, meta, header, stats
+
+
 def load_db(path: str, device="cpu", verify: str = "full"):
-    """Load a single-file v4/v5 database onto `device`. Returns
-    (TileState, TileMeta, header, (n_occupied, distinct_hq, total_hq));
-    the header carries a prefiltered build's `prefilter` and
-    `poisson_stats`.
-    v5 digests and the payload's structure are checked on the host
-    BEFORE any byte reaches the device; then the raw payload crosses
-    once and HK7 decodes and places it there."""
+    """Load a single-file v4/v5 database, or a sharded one through its
+    manifest, onto `device`. Returns (TileState, TileMeta, header,
+    (n_occupied, distinct_hq, total_hq)); the header (a manifest's own)
+    carries a prefiltered build's `prefilter` and `poisson_stats`.
+    Digests and the payload's structure are checked on the host BEFORE
+    any byte reaches the device; then the raw payload crosses once and
+    HK7 decodes and places it there."""
     if verify not in VERIFY_MODES:
         raise ValueError(f"verify must be one of {VERIFY_MODES}, "
                          f"got {verify!r}")
     header = read_header(path)
+    if header.get("format") == MANIFEST_FORMAT:
+        return _load_manifest(path, header, device, verify)
+    if header.get("layout") == "shard":
+        raise ValueError(
+            f"'{path}' is shard {header.get('shard')} of "
+            f"{header.get('n_shards')} — load the sharded database "
+            "through its manifest (the PREFIX the export wrote)")
     version = header.get("version", 1)
     if version not in (4, 5):
         raise ValueError(f"'{path}': database version {version} is not "
@@ -270,7 +488,26 @@ def load_db(path: str, device="cpu", verify: str = "full"):
 
 def db_payload_bytes(path: str) -> bytes:
     """Exactly the table payload of a database file (what byte-parity
-    checks compare; the header is timestamped)."""
+    checks compare; the header is timestamped). A sharded manifest
+    reassembles the single-file payload from its shards: the counts
+    planes, then the lo words, then each hi byte plane, each in shard
+    order."""
     with open(path, "rb") as f:
         header = json.loads(f.readline(1 << 20))
-        return f.read(int(header["value_bytes"]))
+        if header.get("format") != MANIFEST_FORMAT:
+            return f.read(int(header["value_bytes"]))
+    hi_bytes = int(header["hi_bytes"])
+    rows_local = int(header["rows"]) // int(header["n_shards"])
+    dirn = os.path.dirname(os.path.abspath(path))
+    counts, los, his = [], [], [[] for _ in range(hi_bytes)]
+    for rec in header.get("shards") or []:
+        with open(os.path.join(dirn, str(rec["path"])), "rb") as f:
+            sh = json.loads(f.readline(1 << 20))
+            pay = f.read(int(sh["value_bytes"]))
+        n_s = int(sh["n_entries"])
+        counts.append(pay[:rows_local])
+        los.append(pay[rows_local:rows_local + 4 * n_s])
+        base = rows_local + 4 * n_s
+        for j in range(hi_bytes):
+            his[j].append(pay[base + j * n_s:base + (j + 1) * n_s])
+    return b"".join(counts + los + [x for pl in his for x in pl])

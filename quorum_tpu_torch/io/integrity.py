@@ -131,6 +131,29 @@ def crc32c(data, crc: int = 0) -> int:
     return total
 
 
+def crc32c_file(path: str, start: int = 0, length: int | None = None,
+                crc: int = 0, block: int = 8 << 20) -> int:
+    """Streaming CRC32C of `length` bytes of `path` from `start`
+    (None = to EOF), chained from `crc` (a v4 shard file's whole-file
+    digest)."""
+    with open(path, "rb") as f:
+        f.seek(start)
+        remaining = length
+        while remaining is None or remaining > 0:
+            want = block if remaining is None else min(block, remaining)
+            chunk = f.read(want)
+            if not chunk:
+                if remaining is not None:
+                    raise IntegrityError(
+                        f"'{path}' ends {remaining} bytes short of the "
+                        f"digested range", path=path, offset=start)
+                break
+            crc = crc32c(chunk, crc)
+            if remaining is not None:
+                remaining -= len(chunk)
+    return crc
+
+
 SEAL_FIELD = "crc32c"
 
 
@@ -153,7 +176,8 @@ def check_seal(doc: dict, what: str, path: str) -> None:
     if got != int(want):
         raise IntegrityError(
             f"{what} '{path}' failed its header self-digest (crc32c "
-            f"{got:#010x} != recorded {int(want):#010x})",
+            f"{got:#010x} != recorded {int(want):#010x}) — the document "
+            "was altered after it was written",
             path=path, section="header", offset=0)
 
 

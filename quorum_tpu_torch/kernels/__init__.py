@@ -1,4 +1,4 @@
-"""Wrappers of the twelve hand-written Hopper kernels (csrc/*.cu).
+"""Wrappers of the thirteen hand-written Hopper kernels (csrc/*.cu).
 
 Every wrapper checks device, dtype, shape and contiguity, then either
 launches its CUDA kernel (tensors on a CUDA device) or runs the plain
@@ -7,19 +7,24 @@ no fallback: a CUDA tensor always goes to the kernel, and a failed build
 or launch raises.
 
   HK1 tile_insert   stage-1 counting (wire -> canonical mers -> 64-bit
-                    CAS claim in the 64-slot row), plus the keys entry
+                    CAS claim in the 64-slot row; with the partition
+                    filter of a partitioned build), plus the keys entry
                     that re-inserts observations left over by a grow
   HK2 tile_seal     duplicate check + fold + statistics
   HK3 tile_lookup   canonical mer -> value word
   HK4 extend_reads  per-(read, direction) extension with edit logs
   HK5 stage2_head   stage-2 wire widening, window lookups, anchor scan
-  HK6 tile_export   sealed rows -> the v4/v5 payload (sorted, compacted)
+  HK6 tile_export   sealed rows (a table or a row range of one) -> the
+                    v4/v5 payload (sorted, compacted); compact entry:
+                    the occupied slots in slot order
   HK7 tile_load     the v4/v5 payload -> sealed rows + statistics
   HK8 tile_grow     double the build table and re-insert every slot
   HK9 batch_aggregate  a batch's distinct mers with their multiplicities
   HK10 sketch_update   the prefilter's count-min sketch: update, query
   HK11 gated_insert    HK1 behind the sketch (two-pass and inline)
   HK12 tile_floor      the stage-2 presence floor on the sealed rows
+  HK13 tile_departition  a partition pass's sealed rows -> the global
+                       geometry (in place)
 """
 
 from __future__ import annotations
@@ -74,6 +79,13 @@ def _wire_offsets(wire, b: int, length: int, thresholds, qual_thresh: int):
     return ts, (off_nmask, off_hq, b * c4 + b * c8 * (1 + len(ts)))
 
 
+def _check_parts(part: int, n_parts: int):
+    if n_parts < 1 or n_parts > 256 or n_parts & (n_parts - 1) \
+            or not 0 <= part < n_parts:
+        raise ValueError(f"partition {part} of {n_parts}: n_parts must be "
+                         "a power of two in [1, 256] above part")
+
+
 def _pending(failed, keys):
     idx = torch.nonzero(failed).squeeze(1)
     return keys[idx], (failed[idx] >> 1).bool()
@@ -83,21 +95,25 @@ def _pending(failed, keys):
 
 
 def tile_insert_reads(bstate, meta, wire: torch.Tensor, b: int, length: int,
-                      thresholds, qual_thresh: int):
-    """Insert every observation of one packed batch (in place). Returns
-    (full, (keys, qual)) with the observations that found no room."""
+                      thresholds, qual_thresh: int, part: int = 0,
+                      n_parts: int = 1):
+    """Insert every observation of one packed batch (in place) whose mer
+    pass `part` of `n_parts` owns (ref.partition_mask; every mer when
+    n_parts = 1). Returns (full, (keys, qual)) with the observations that
+    found no room."""
     _check_build(bstate, meta)
+    _check_parts(part, n_parts)
     ts, offs = _wire_offsets(wire, b, length, thresholds, qual_thresh)
     if not _on_cuda(wire, bstate.tag):
         keys, qual = ref.tile_insert_reads(bstate, meta, wire, b, length, ts,
-                                           qual_thresh)
+                                           qual_thresh, part, n_parts)
         return bool(keys.numel()), (keys, qual)
     n = b * length
     failed = torch.empty(n, dtype=torch.uint8, device=wire.device)
     fkeys = torch.empty(n, dtype=torch.int64, device=wire.device)
     full = torch.zeros(1, dtype=torch.int32, device=wire.device)
     launch("tile_insert", "tile_insert_reads", wire.data_ptr(), b, length,
-           *offs, meta.k, meta.rb_log2, meta.bits,
+           *offs, meta.k, meta.rb_log2, meta.bits, part, n_parts,
            bstate.tag.data_ptr(), bstate.hq.data_ptr(), bstate.lq.data_ptr(),
            failed.data_ptr(), fkeys.data_ptr(), full.data_ptr())
     if not int(full.item()):
@@ -256,35 +272,76 @@ def stage2_head(rows, meta, wire: torch.Tensor, b: int, length: int,
 # --------------------------------------------------------------- HK6
 
 
-def _scan_scratch(meta, dev):
+def _scan_scratch(nrows: int, dev):
     """HK6/HK7 scratch: chunk sums and per-row first entry (+ total)."""
-    return (torch.empty(-(-meta.rows // 1024), dtype=torch.int64,
-                        device=dev),
-            torch.empty(meta.rows + 1, dtype=torch.int64, device=dev))
+    return (torch.empty(-(-nrows // 1024), dtype=torch.int64, device=dev),
+            torch.empty(nrows + 1, dtype=torch.int64, device=dev))
+
+
+def _check_range(rows, meta) -> int:
+    """A sealed plane that is `meta`'s table or a row range of it (one
+    shard: meta.rows / 2^j rows); returns its row count."""
+    _check(rows, torch.int32, "rows")
+    nrows = rows.shape[0]
+    if rows.dim() != 2 or rows.shape[1] != 2 * ref.TSLOTS or nrows < 1 \
+            or nrows > meta.rows or meta.rows % nrows:
+        raise ValueError("row plane is not the table or a shard of it")
+    if rows.data_ptr() % 16:
+        raise ValueError("rows: must be 16-byte aligned")
+    return nrows
+
+
+def _export_counts(rows, nrows: int, meta):
+    """HK6 pass 1 (inside the caller's launch): per-row occupancy
+    counts and their exclusive scan `first` (first[nrows] = total)."""
+    dev = rows.device
+    counts = torch.empty(nrows, dtype=torch.uint8, device=dev)
+    sums, first = _scan_scratch(nrows, dev)
+    call("tile_export", "tile_export_counts", rows.data_ptr(), nrows,
+         meta.bits, counts.data_ptr(), sums.data_ptr(), first.data_ptr())
+    return counts, first
 
 
 def tile_export(rows: torch.Tensor, meta) -> torch.Tensor:
-    """The v4/v5 payload (uint8 tensor on the rows' device): per-row
-    occupancy counts, the entries' LE u32 lo words in canonical order
-    (each row sorted by (hi, lo)), then `hi_bytes` byte planes of their
-    hi words."""
-    _check_rows(rows, meta)
+    """The v4/v5 payload (uint8 tensor on the rows' device) of `rows`,
+    meta's table or a row range of it at meta's geometry (one shard):
+    per-row occupancy counts, the entries' LE u32 lo words in canonical
+    order (each row sorted by (hi, lo)), then meta.hi_bytes byte planes
+    of their hi words."""
+    nrows = _check_range(rows, meta)
     if not _on_cuda(rows):
         return ref.tile_export(rows, meta)
-    dev = rows.device
-    counts = torch.empty(meta.rows, dtype=torch.uint8, device=dev)
-    sums, first = _scan_scratch(meta, dev)
     with launching("tile_export"):
-        call("tile_export", "tile_export_counts", rows.data_ptr(),
-             meta.rows, meta.bits, counts.data_ptr(), sums.data_ptr(),
-             first.data_ptr())
-        n = int(first[meta.rows].item())  # sizes the payload
-        out = torch.empty(meta.rows + (4 + meta.hi_bytes) * n,
-                          dtype=torch.uint8, device=dev)
-        call("tile_export", "tile_export_rows", rows.data_ptr(), meta.rows,
+        counts, first = _export_counts(rows, nrows, meta)
+        n = int(first[nrows].item())  # sizes the payload
+        out = torch.empty(nrows + (4 + meta.hi_bytes) * n,
+                          dtype=torch.uint8, device=rows.device)
+        call("tile_export", "tile_export_rows", rows.data_ptr(), nrows,
              meta.bits, counts.data_ptr(), first.data_ptr(), n,
              meta.hi_bytes, out.data_ptr())
     return out
+
+
+def tile_compact(rows: torch.Tensor, meta, cap: int):
+    """HK6's compact entry (K22): the occupied slots of `rows` (meta's
+    table or a row range of it) as (row address int32, lo int32, hi
+    int32) in row-major slot order, in `cap` lanes (zeros past the n-th;
+    entries past cap are dropped), and n int64 (0-dim), the occupied
+    slots in all."""
+    nrows = _check_range(rows, meta)
+    if cap < 0:
+        raise ValueError(f"cap must be >= 0, got {cap}")
+    if not _on_cuda(rows):
+        return ref.tile_compact(rows, meta, cap)
+    dev = rows.device
+    addr, lo, hi = (torch.zeros(cap, dtype=torch.int32, device=dev)
+                    for _ in range(3))
+    with launching("tile_export"):
+        _counts, first = _export_counts(rows, nrows, meta)
+        call("tile_export", "tile_export_compact", rows.data_ptr(), nrows,
+             meta.bits, first.data_ptr(), cap, addr.data_ptr(),
+             lo.data_ptr(), hi.data_ptr())
+    return addr, lo, hi, first[nrows]
 
 
 # --------------------------------------------------------------- HK7
@@ -304,7 +361,7 @@ def tile_load(payload: torch.Tensor, meta, n: int):
     rows = torch.empty((meta.rows, 2 * ref.TSLOTS), dtype=torch.int32,
                        device=dev)
     stats = torch.zeros(3, dtype=torch.int64, device=dev)
-    sums, first = _scan_scratch(meta, dev)
+    sums, first = _scan_scratch(meta.rows, dev)
     launch("tile_load", "tile_load", payload.data_ptr(), meta.rows, n,
            meta.hi_bytes, meta.bits, sums.data_ptr(), first.data_ptr(),
            rows.data_ptr(), stats.data_ptr())
@@ -410,19 +467,21 @@ def sketch_update(cells: torch.Tensor, cells_log2: int, keys: torch.Tensor,
 
 def gated_insert_reads(bstate, meta, cells: torch.Tensor, cells_log2: int,
                        wire: torch.Tensor, b: int, length: int, thresholds,
-                       qual_thresh: int):
+                       qual_thresh: int, part: int = 0, n_parts: int = 1):
     """Two-pass prefilter insert of one packed batch (in place): HK1 on
-    the observations whose mer the finished sketch saw >= 2 times.
-    Returns (full, (keys, qual) of the gated observations that found no
-    room, dropped int64 [2] = the observations the gate dropped, hq and
+    the observations whose mer pass `part` of `n_parts` owns and the
+    finished sketch saw >= 2 times (the partition filter first). Returns
+    (full, (keys, qual) of the gated observations that found no room,
+    dropped int64 [2] = the owned observations the gate dropped, hq and
     lq)."""
     _check_build(bstate, meta)
     _check_sketch(cells, cells_log2)
+    _check_parts(part, n_parts)
     ts, offs = _wire_offsets(wire, b, length, thresholds, qual_thresh)
     if not _on_cuda(wire, cells, bstate.tag):
         (keys, qual), dropped = ref.gated_insert_reads(
             bstate, meta, cells, cells_log2, wire, b, length, ts,
-            qual_thresh)
+            qual_thresh, part, n_parts)
         return bool(keys.numel()), (keys, qual), dropped
     dev = wire.device
     n = b * length
@@ -431,7 +490,8 @@ def gated_insert_reads(bstate, meta, cells: torch.Tensor, cells_log2: int,
     full = torch.zeros(1, dtype=torch.int32, device=dev)
     dropped = torch.zeros(2, dtype=torch.int64, device=dev)
     launch("gated_insert", "gated_insert_reads", wire.data_ptr(), b, length,
-           *offs, meta.k, meta.rb_log2, meta.bits, cells.data_ptr(),
+           *offs, meta.k, meta.rb_log2, meta.bits, part, n_parts,
+           cells.data_ptr(),
            cells_log2, bstate.tag.data_ptr(), bstate.hq.data_ptr(),
            bstate.lq.data_ptr(), failed.data_ptr(), fkeys.data_ptr(),
            full.data_ptr(), dropped.data_ptr())
@@ -481,3 +541,23 @@ def tile_floor(rows: torch.Tensor, meta, floor: int) -> None:
         return
     launch("tile_floor", "tile_floor", rows.data_ptr(), meta.rows, meta.bits,
            floor)
+
+
+# --------------------------------------------------------------- HK13
+
+
+def tile_departition(rows: torch.Tensor, meta, g: int, part: int):
+    """Rebase, IN PLACE, pass `part` of 2^g's sealed rows at the local
+    geometry `meta` onto the global geometry meta.rb_log2 + g (K20,
+    ctable.tile_departition_rows). Returns bad int32 [1]: 1 if an
+    occupied slot's dropped remainder bits disagree with `part`."""
+    _check_rows(rows, meta)
+    if not 1 <= g <= 8 or not 0 <= part < 1 << g:
+        raise ValueError(f"partition {part} of 2^{g}: g must be in [1, 8]")
+    if not _on_cuda(rows):
+        return ref.tile_departition(rows, meta, g, part)
+    bad = torch.zeros(1, dtype=torch.int32, device=rows.device)
+    hi_bits = max(0, 2 * meta.k - (meta.rb_log2 + g) - meta.rlo_bits)
+    launch("tile_departition", "tile_departition", rows.data_ptr(),
+           meta.rows, meta.bits, g, part, hi_bits, bad.data_ptr())
+    return bad

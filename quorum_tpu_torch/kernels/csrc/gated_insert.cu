@@ -4,13 +4,16 @@
 // Replaces the TPU path quorum_tpu/ops/sketch.py:208 (_gated_insert_core)
 // and :282 (_gated_insert_wire), the prefiltered twin of HK1's path.
 //
-// two-pass (sketch.py:231-242): HK1's reads entry with a gate. One thread
+// two-pass (sketch.py:224-242): HK1's reads entry with a gate. One thread
 // per window end reads its window off the wire (table.cuh wire_window),
 // queries the FINISHED sketch (read-only here) and inserts with claim_add
 // only when min(cell[a1], cell[a2]) >= 2; an observation that fails the
 // gate is counted into dropped_hq / dropped_lq (a block sum, one atomic
 // per block and value) and is done. Failed claims report `failed` and the
-// key exactly as HK1 does, so the grow loop is unchanged.
+// key exactly as HK1 does, so the grow loop is unchanged. In a partitioned
+// build HK1's partition filter (`part`, `n_parts`) comes BEFORE the gate
+// (sketch.py:224-226): a mer another pass owns is neither inserted nor
+// counted as dropped, so each dropped observation is counted by one pass.
 //
 // inline (sketch.py:244-277): one thread per distinct lane of HK9, with
 // `old` = the PRE-batch sketch's query of the lane (HK10's query entry,
@@ -30,6 +33,7 @@
 #include "table.cuh"
 
 __global__ void gated_reads_kernel(Wire w, int k, int rb, int bits,
+                                   uint32_t part, uint32_t pmask,
                                    const uint8_t* __restrict__ cells,
                                    uint32_t cmask, uint32_t* tag,
                                    uint32_t* hq, uint32_t* lq,
@@ -41,12 +45,14 @@ __global__ void gated_reads_kernel(Wire w, int k, int rb, int bits,
     failed[idx] = 0;
     uint64_t key;
     bool qual;
+    KeyParts kp;
     if (wire_window(w, (int)(idx / w.L), (int)(idx % w.L), k, &key,
-                    &qual)) {
+                    &qual) &&
+        (rem_low(kp = key_parts(key, k, rb, bits), bits) & pmask) == part) {
       if (sketch_query(cells, key, cmask) < 2) {
         d[qual ? 0 : 1] = 1ull;
-      } else if (!claim_add(tag, hq, lq, key_parts(key, k, rb, bits),
-                            qual ? 1u : 0u, qual ? 0u : 1u)) {
+      } else if (!claim_add(tag, hq, lq, kp, qual ? 1u : 0u,
+                            qual ? 0u : 1u)) {
         failed[idx] = qual ? 3 : 1;
         fkeys[idx] = (long long)key;
         *full = 1;
@@ -94,6 +100,7 @@ __global__ void gated_lanes_kernel(const long long* __restrict__ keys,
 extern "C" int gated_insert_reads(const uint8_t* wire, int b, int L,
                                   long long off_nmask, long long off_hq,
                                   long long off_len, int k, int rb, int bits,
+                                  int part, int n_parts,
                                   const uint8_t* cells, int cells_log2,
                                   uint32_t* tag, uint32_t* hq, uint32_t* lq,
                                   uint8_t* failed, long long* fkeys,
@@ -104,8 +111,9 @@ extern "C" int gated_insert_reads(const uint8_t* wire, int b, int L,
   if (n > 0)
     gated_reads_kernel<<<(unsigned)((n + 255) / 256), 256, 0,
                          (cudaStream_t)stream>>>(
-        Wire{wire, b, L, off_nmask, off_hq, off_len}, k, rb, bits, cells,
-        cmask, tag, hq, lq, failed, fkeys, full, dropped);
+        Wire{wire, b, L, off_nmask, off_hq, off_len}, k, rb, bits,
+        (uint32_t)part, (uint32_t)(n_parts - 1), cells, cmask, tag, hq, lq,
+        failed, fkeys, full, dropped);
   return (int)cudaGetLastError();
 }
 

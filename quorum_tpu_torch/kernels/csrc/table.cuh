@@ -58,6 +58,12 @@ __device__ __forceinline__ KeyParts key_parts(uint64_t key, int k, int rb,
   return p;
 }
 
+// The remainder's low 32 bits (rlo holds its low 31 - bits of them): the
+// partition filter's bits (quorum_tpu/ops/ctable.py:1195 partition_mask).
+__device__ __forceinline__ uint32_t rem_low(KeyParts p, int bits) {
+  return p.rlo | (p.rhi << (31 - bits));
+}
+
 __device__ __forceinline__ int preferred_slot(uint32_t rlo, uint32_t rhi) {
   return (int)((rlo ^ (rlo >> 7) ^ (rhi << 3)) & (TSLOTS - 1));
 }

@@ -20,8 +20,22 @@
 // are distinct, so the ranks of the occupied entries are 0..count-1 --
 // and writes each entry at first[row] + rank.
 //
+// The rows may be a row range of a larger table (one shard of a sharded
+// export, or one pass of the partitioned build after HK13 rebased it): the
+// wrapper passes the plane's own row count and the file geometry's
+// hi_bytes.
+//
+// Compact entry (K22, quorum_tpu/ops/ctable.py:764 tile_compact_device):
+// the occupied slots' (row address i32, lo, hi) in row-major SLOT order
+// (not canonical order), packed into `cap` lanes (zeros past the n-th),
+// with n = the occupied slots in all. It reuses pass 1's counts and scan;
+// its own pass, one warp per row again, ranks each occupied slot among
+// the row's occupied slots before it (two ballots and a popcount) and
+// writes its triplet at first[row] + rank when that is below cap.
+//
 // Bound: bytes. The least traffic reads the sealed rows once (512 B a
-// row) and writes the payload once; pass 1 reads the rows a second time.
+// row) and writes the payload once (compact: the three cap-lane planes);
+// pass 1 reads the rows a second time.
 #include "table.cuh"
 
 #define ROWS_PER_BLOCK 8
@@ -90,6 +104,35 @@ __global__ void export_rows_kernel(const uint4* __restrict__ rows,
                     hi_bytes);
 }
 
+__global__ void compact_kernel(const uint4* __restrict__ rows,
+                               long long nrows, uint32_t maxv,
+                               const long long* __restrict__ first,
+                               long long cap, int* __restrict__ addr,
+                               uint32_t* __restrict__ lo,
+                               uint32_t* __restrict__ hi) {
+  const long long row =
+      (long long)blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= nrows) return;  // whole warps
+  const uint4 w = rows[row * 32 + lane];
+  const bool o0 = (w.x & maxv) != 0u, o1 = (w.z & maxv) != 0u;
+  const unsigned m0 = __ballot_sync(FULL_MASK, o0);
+  const unsigned m1 = __ballot_sync(FULL_MASK, o1);
+  const unsigned below = (1u << lane) - 1u;  // slots 2j, 2j + 1 for j < lane
+  const long long e0 = first[row] + __popc(m0 & below) + __popc(m1 & below);
+  const long long e1 = e0 + (o0 ? 1 : 0);
+  if (o0 && e0 < cap) {
+    addr[e0] = (int)row;
+    lo[e0] = w.x;
+    hi[e0] = w.y;
+  }
+  if (o1 && e1 < cap) {
+    addr[e1] = (int)row;
+    lo[e1] = w.z;
+    hi[e1] = w.w;
+  }
+}
+
 static inline unsigned row_blocks(long long nrows) {
   return (unsigned)((nrows + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK);
 }
@@ -118,5 +161,19 @@ extern "C" int tile_export_rows(const uint32_t* rows, long long nrows,
                          (cudaStream_t)stream>>>(
         reinterpret_cast<const uint4*>(rows), nrows, (1u << bits) - 1u,
         counts, first, n, hi_bytes, out);
+  return (int)cudaGetLastError();
+}
+
+// Compact entry, after pass 1: (addr, lo, hi) of cap lanes each, zeroed by
+// the caller.
+extern "C" int tile_export_compact(const uint32_t* rows, long long nrows,
+                                   int bits, const long long* first,
+                                   long long cap, int* addr, uint32_t* lo,
+                                   uint32_t* hi, void* stream) {
+  if (nrows > 0 && cap > 0)
+    compact_kernel<<<row_blocks(nrows), 32 * ROWS_PER_BLOCK, 0,
+                     (cudaStream_t)stream>>>(
+        reinterpret_cast<const uint4*>(rows), nrows, (1u << bits) - 1u,
+        first, cap, addr, lo, hi);
   return (int)cudaGetLastError();
 }

@@ -6,7 +6,9 @@
 // :1174, tile_key_parts :671, the write-then-verify claim rounds
 // _tile_round_body :1054 / _tile_compact_rounds_body :1123) and the
 // re-insert of observations left over after a grow
-// (tile_insert_observations :1405).
+// (tile_insert_observations :1405), with the partition filter of the
+// partitioned multi-pass build fused in (partition_mask :1195, applied at
+// :1258-1260).
 //
 // Design: one thread per window end reads its k bases straight from the
 // packed wire (2-bit codes, N mask, qual>=threshold plane; table.cuh
@@ -19,6 +21,12 @@
 // reports `failed`; the caller grows (HK8) and re-inserts those
 // observations, one thread each, through the keys entry.
 //
+// Partition filter: pass `part` of `n_parts` (a power of two) counts only
+// the mers whose remainder's low log2(n_parts) bits, at the table's own
+// (local) geometry, equal `part` (table.cuh rem_low of the key parts the
+// insert computes anyway); an observation the pass does not own is done,
+// never failed. n_parts = 1 owns every mer.
+//
 // Bound: bytes. The scan stops at the first empty or matching slot, so
 // at the build's load an insert touches one 32-byte sector of tags (read,
 // and written when the key is new) and one 32-byte sector of counters
@@ -27,6 +35,7 @@
 #include "table.cuh"
 
 __global__ void insert_reads_kernel(Wire w, int k, int rb, int bits,
+                                    uint32_t part, uint32_t pmask,
                                     uint32_t* tag, uint32_t* hq,
                                     uint32_t* lq, uint8_t* failed,
                                     long long* fkeys, int* full) {
@@ -38,6 +47,7 @@ __global__ void insert_reads_kernel(Wire w, int k, int rb, int bits,
   if (!wire_window(w, (int)(idx / w.L), (int)(idx % w.L), k, &key, &qual))
     return;
   KeyParts kp = key_parts(key, k, rb, bits);
+  if ((rem_low(kp, bits) & pmask) != part) return;  // another pass's mer
   if (!claim_add(tag, hq, lq, kp, qual ? 1u : 0u, qual ? 0u : 1u)) {
     failed[idx] = qual ? 3 : 1;
     fkeys[idx] = (long long)key;
@@ -67,14 +77,15 @@ static inline unsigned grid_for(long long n, int block) {
 extern "C" int tile_insert_reads(const uint8_t* wire, int b, int L,
                                  long long off_nmask, long long off_hq,
                                  long long off_len, int k, int rb, int bits,
-                                 uint32_t* tag, uint32_t* hq, uint32_t* lq,
-                                 uint8_t* failed, long long* fkeys, int* full,
-                                 void* stream) {
+                                 int part, int n_parts, uint32_t* tag,
+                                 uint32_t* hq, uint32_t* lq, uint8_t* failed,
+                                 long long* fkeys, int* full, void* stream) {
   const long long n = (long long)b * L;
   if (n > 0)
     insert_reads_kernel<<<grid_for(n, 256), 256, 0, (cudaStream_t)stream>>>(
-        Wire{wire, b, L, off_nmask, off_hq, off_len}, k, rb, bits, tag, hq,
-        lq, failed, fkeys, full);
+        Wire{wire, b, L, off_nmask, off_hq, off_len}, k, rb, bits,
+        (uint32_t)part, (uint32_t)(n_parts - 1), tag, hq, lq, failed, fkeys,
+        full);
   return (int)cudaGetLastError();
 }
 

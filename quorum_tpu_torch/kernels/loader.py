@@ -32,7 +32,8 @@ BUILD_ROOT = os.path.join(os.path.dirname(HERE), "_build")
 
 KERNELS = ("tile_insert", "tile_seal", "tile_lookup", "extend_reads",
            "stage2_head", "tile_export", "tile_load", "tile_grow",
-           "batch_aggregate", "sketch_update", "gated_insert", "tile_floor")
+           "batch_aggregate", "sketch_update", "gated_insert", "tile_floor",
+           "tile_departition")
 
 NVCC_FLAGS = ["-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-gencode", "arch=compute_90a,code=sm_90a", "-Xptxas", "-v"]
@@ -42,7 +43,7 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures of the launchers (every one returns cudaGetLastError()).
 SIGNATURES = {
     "tile_insert": {
-        "tile_insert_reads": [_P, _I, _I, _LL, _LL, _LL, _I, _I, _I,
+        "tile_insert_reads": [_P, _I, _I, _LL, _LL, _LL, _I, _I, _I, _I, _I,
                               _P, _P, _P, _P, _P, _P, _P],
         "tile_insert_keys": [_P, _P, _LL, _I, _I, _I, _P, _P, _P, _P, _P],
     },
@@ -60,6 +61,7 @@ SIGNATURES = {
     "tile_export": {
         "tile_export_counts": [_P, _LL, _I, _P, _P, _P, _P],
         "tile_export_rows": [_P, _LL, _I, _P, _P, _LL, _I, _P, _P],
+        "tile_export_compact": [_P, _LL, _I, _P, _LL, _P, _P, _P, _P],
     },
     "tile_load": {"tile_load": [_P, _LL, _LL, _I, _I, _P, _P, _P, _P, _P]},
     "tile_grow": {"tile_grow": [_P, _P, _P, _LL, _I, _I, _P, _P, _P, _P,
@@ -73,12 +75,14 @@ SIGNATURES = {
         "sketch_min": [_P, _LL, _I, _P, _P, _P],
     },
     "gated_insert": {
-        "gated_insert_reads": [_P, _I, _I, _LL, _LL, _LL, _I, _I, _I, _P, _I,
-                               _P, _P, _P, _P, _P, _P, _P, _P],
+        "gated_insert_reads": [_P, _I, _I, _LL, _LL, _LL, _I, _I, _I, _I, _I,
+                               _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
         "gated_insert_lanes": [_P, _P, _P, _P, _LL, _I, _I, _I, _P, _P, _P,
                                _P, _P, _P, _P],
     },
     "tile_floor": {"tile_floor": [_P, _LL, _I, _I, _P]},
+    "tile_departition": {"tile_departition": [_P, _LL, _I, _I, _I, _I, _P,
+                                              _P]},
 }
 
 

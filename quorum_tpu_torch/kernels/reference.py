@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the twelve hand-written kernels.
+"""Plain PyTorch versions of the thirteen hand-written kernels.
 
 Each function computes what its CUDA kernel computes (csrc/*.cu) with
 ordinary tensor operations. The wrappers in kernels/__init__.py call
@@ -79,6 +79,15 @@ def preferred_slot(rlo, rhi):
     return (rlo ^ (rlo >> 7) ^ ((rhi << 3) & M32)) & (TSLOTS - 1)
 
 
+def partition_mask(keys, meta, part: int, n_parts: int):
+    """K20's ownership predicate (ctable.partition_mask): pass `part` of
+    `n_parts` (a power of two) owns the canonical mers whose remainder's
+    low log2(n_parts) bits, at `meta`'s geometry, equal `part` (rlo holds
+    only the low 31 - bits of them)."""
+    _addr, rlo, rhi = tile_key_parts(keys, meta)
+    return ((rlo | (rhi << meta.rlo_bits)) & (n_parts - 1)) == part
+
+
 # --------------------------------------------------------------- HK1
 
 
@@ -157,14 +166,27 @@ def insert_keys(bstate, meta, keys, qual):
     return insert_parts(bstate, meta, addr, rlo, rhi, q, 1 - q)
 
 
-def tile_insert_reads(bstate, meta, wire, b: int, length: int, thresholds,
-                      qual_thresh: int):
-    """HK1 (K1 + K2 + K4 + K5): widen the wire, extract the batch's
-    observations and insert them. Returns (keys, qual) of the valid
-    observations that found no room (empty when the batch fit)."""
+def _owned_observations(wire, b: int, length: int, thresholds,
+                        qual_thresh: int, meta, part: int, n_parts: int):
+    """The batch's valid observations (keys, qual) that pass `part` of
+    `n_parts` owns."""
     codes, hqb = widen_wire(wire, b, length, thresholds, qual_thresh)
     keys, qual, valid = extract_observations(codes, hqb, meta.k)
     keys, qual = keys[valid], qual[valid]
+    if n_parts > 1:
+        own = partition_mask(keys, meta, part, n_parts)
+        keys, qual = keys[own], qual[own]
+    return keys, qual
+
+
+def tile_insert_reads(bstate, meta, wire, b: int, length: int, thresholds,
+                      qual_thresh: int, part: int = 0, n_parts: int = 1):
+    """HK1 (K1 + K2 + K4 + K5, with K20's filter): widen the wire,
+    extract the batch's observations and insert those that pass `part`
+    of `n_parts` owns. Returns (keys, qual) of the inserted observations
+    that found no room (empty when the batch fit)."""
+    keys, qual = _owned_observations(wire, b, length, thresholds,
+                                     qual_thresh, meta, part, n_parts)
     placed = insert_keys(bstate, meta, keys, qual)
     return keys[~placed], qual[~placed]
 
@@ -552,6 +574,25 @@ def tile_export(rows, meta):
     return torch.cat(parts)
 
 
+def tile_compact(rows, meta, cap: int):
+    """K22 (ctable.tile_compact_device): the occupied slots' (row
+    address, lo, hi) in row-major slot order, in `cap` lanes (zeros past
+    the n-th; entries past cap are dropped), and n, the occupied slots
+    in all. Returns (addr int32 [cap], lo int32 [cap], hi int32 [cap],
+    n int64)."""
+    slots = rows.view(-1, 2)
+    idx = torch.nonzero((slots[:, 0] & meta.max_val) != 0).squeeze(1)
+    keep = idx[:cap]
+    out = [torch.zeros(cap, dtype=torch.int32, device=rows.device)
+           for _ in range(3)]
+    m = keep.numel()
+    out[0][:m] = (keep // TSLOTS).to(torch.int32)
+    out[1][:m] = slots[keep, 0]
+    out[2][:m] = slots[keep, 1]
+    return (*out, torch.tensor(idx.numel(), dtype=torch.int64,
+                               device=rows.device))
+
+
 # --------------------------------------------------------------- HK7
 
 
@@ -682,15 +723,16 @@ def sketch_update(cells, cells_log2: int, keys, hq, lq) -> None:
 
 
 def gated_insert_reads(bstate, meta, cells, cells_log2: int, wire, b: int,
-                       length: int, thresholds, qual_thresh: int):
+                       length: int, thresholds, qual_thresh: int,
+                       part: int = 0, n_parts: int = 1):
     """K18, two-pass mode (sketch._gated_insert_core): HK1 on the
-    observations whose mer the finished sketch saw >= 2 times. Returns
-    ((keys, qual) of the gated observations that found no room,
-    dropped int64 [2] = the observations that failed the gate, hq and
-    lq)."""
-    codes, hqb = widen_wire(wire, b, length, thresholds, qual_thresh)
-    keys, qual, valid = extract_observations(codes, hqb, meta.k)
-    keys, qual = keys[valid], qual[valid]
+    observations whose mer the finished sketch saw >= 2 times, after
+    K20's filter (a mer another pass owns is neither inserted nor
+    dropped). Returns ((keys, qual) of the gated observations that found
+    no room, dropped int64 [2] = the owned observations that failed the
+    gate, hq and lq)."""
+    keys, qual = _owned_observations(wire, b, length, thresholds,
+                                     qual_thresh, meta, part, n_parts)
     gate = sketch_min(cells, cells_log2, keys) >= SKETCH_SAT
     dropped = torch.stack([(qual & ~gate).sum(), (~qual & ~gate).sum()])
     keys, qual = keys[gate], qual[gate]
@@ -731,3 +773,30 @@ def tile_floor(rows, meta, floor: int) -> None:
     (lo & max_val) is below `floor` lose both words."""
     r = rows.view(-1, TSLOTS, 2)
     r.masked_fill_(((r[..., 0] & meta.max_val) < floor)[..., None], 0)
+
+
+# --------------------------------------------------------------- HK13
+
+
+def tile_departition(rows, meta, g: int, part: int):
+    """K20's rebase (ctable.tile_departition_rows), in place: each
+    occupied slot of pass `part`'s sealed plane at the local geometry
+    `meta` gets its remainder (hi:rlo, rlo = lo >> (bits + 1)) shifted
+    right by g and repacked at the global geometry rb_log2 + g, hi masked
+    to the global rem_high width, value and qual bits kept; empty slots
+    become (0, 0). Returns bad int32 [1]: 1 if an occupied slot's dropped
+    bits disagree with `part`."""
+    r = rows.view(-1, 2)
+    lo, hi = u32(r[:, 0]), u32(r[:, 1])
+    occ = (lo & meta.max_val) != 0
+    rl, bits = meta.rlo_bits, meta.bits
+    rem = (lo >> (bits + 1)) | (hi << rl)  # < 2^63: rem_bits <= 62
+    bad = (occ & ((rem & ((1 << g) - 1)) != part)).any()
+    grem = rem >> g
+    hi_bits = max(0, 2 * meta.k - (meta.rb_log2 + g) - rl)
+    new_lo = (((grem & ((1 << rl) - 1)) << (bits + 1))
+              | (lo & ((1 << (bits + 1)) - 1)))
+    new_hi = (grem >> rl) & ((1 << min(hi_bits, 32)) - 1)
+    r[:, 0] = i32(torch.where(occ, new_lo, 0))
+    r[:, 1] = i32(torch.where(occ, new_hi, 0))
+    return bad.to(torch.int32).reshape(1)

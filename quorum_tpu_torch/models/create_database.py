@@ -14,6 +14,17 @@ With a prefilter (ops/sketch) the inserts go through HK11 behind a
 count-min sketch: `two-pass` streams the input once into the sketch
 (HK9 + HK10) and once into the table; `inline` gates each batch on the
 sketch as it goes. The grow loop is the same for every mode.
+
+With --partitions P (a power of two) the table is built in P sequential
+passes over the input (quorum_tpu's _build_database_partitioned), each
+into a table of 1/P the rows: pass p counts only the mers whose hash
+remainder's low log2 P bits equal p (HK1's or HK11's partition filter),
+then seals (HK2), rebases its rows onto the global geometry (HK13) and
+exports them as shard p of a sharded database (HK6), and the sealed
+manifest commits last. Peak table memory falls by about P and the
+reassembled payload is the single-pass build's byte for byte. A pass
+whose table fills restarts every pass at twice the rows: growing inside
+a pass would move the partition bits.
 """
 
 from __future__ import annotations
@@ -45,6 +56,12 @@ class BuildConfig:
     # the RESOLVED singleton-prefilter mode (ops/sketch.PREFILTER_MODES);
     # a non-off mode implies the stage-2 presence floor
     prefilter: str = "off"
+    # "single" (one file) or "sharded" (shard files under a sealed
+    # manifest, io/db_format); partitions > 1 implies sharded
+    db_layout: str = "single"
+    # P sequential passes, each counting 1/P of the mers into a table of
+    # 1/P the rows (a power of two in [1, 256])
+    partitions: int = 1
 
 
 @dataclasses.dataclass
@@ -137,6 +154,50 @@ def _insert_pass(wires, meta, bstate, stats: BuildStats, insert: Callable):
     return bstate, meta
 
 
+class _PartitionGrew(Exception):
+    """A partition pass filled its table: every pass restarts at
+    `rb_local` (growing inside a pass would change which remainder bits
+    pick the partition)."""
+
+    def __init__(self, rb_local: int):
+        super().__init__(f"partition pass needs rb_local={rb_local}")
+        self.rb_local = rb_local
+
+
+def _check_config(cfg: BuildConfig) -> None:
+    if cfg.prefilter not in sketch_mod.PREFILTER_MODES:
+        raise ValueError(f"unknown prefilter mode {cfg.prefilter!r} "
+                         f"(one of {sketch_mod.PREFILTER_MODES})")
+    if cfg.db_layout not in db_format.DB_LAYOUTS:
+        raise ValueError(f"unknown db layout {cfg.db_layout!r} "
+                         f"(one of {db_format.DB_LAYOUTS})")
+    P = cfg.partitions
+    if P < 1 or P > 256 or P & (P - 1):
+        raise ValueError(f"--partitions must be a power of two in "
+                         f"[1, 256], got {P}")
+    if P > 1 and cfg.prefilter == "inline":
+        raise ValueError(
+            "--prefilter=inline does not compose with --partitions "
+            "(the online sketch is not pass-stable); use two-pass")
+
+
+def _sketch_pass(factory, cfg: BuildConfig, device, stats: BuildStats):
+    """Pass 1 of the two-pass prefilter: every batch into a fresh sketch
+    (HK9 + HK10); counts reads, bases and batches. Returns (sketch,
+    its meta)."""
+    smeta = sketch_mod.SketchMeta(sketch_mod.cells_log2_for(cfg.initial_size))
+    sk = sketch_mod.make_sketch(smeta, device)
+    stats.sketch_cells_log2 = smeta.cells_log2
+    t_sk = time.perf_counter()
+    for pk, wire in _wires(factory(), cfg, device, stats):
+        sketch_mod.sketch_update_packed(sk, smeta, cfg.k, pk, wire,
+                                        cfg.qual_thresh)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    stats.sketch_seconds = time.perf_counter() - t_sk
+    return sk, smeta
+
+
 def build_database(paths: Sequence[str], cfg: BuildConfig,
                    device: torch.device,
                    batches_factory: Callable[[], Iterable] | None = None):
@@ -146,9 +207,11 @@ def build_database(paths: Sequence[str], cfg: BuildConfig,
     cfg.qual_thresh (the quorum driver shares one parse between both
     stages). One pass calls it once; the two-pass prefilter calls it
     twice, and the first call's pass counts reads and bases."""
-    if cfg.prefilter not in sketch_mod.PREFILTER_MODES:
-        raise ValueError(f"unknown prefilter mode {cfg.prefilter!r} "
-                         f"(one of {sketch_mod.PREFILTER_MODES})")
+    _check_config(cfg)
+    if cfg.partitions > 1:
+        raise ValueError(
+            "partitioned builds stream their export per pass — run "
+            "them through create_database_main, not build_database")
     t0 = time.perf_counter()
     meta = ctable.TileMeta(k=cfg.k, bits=cfg.bits, rb_log2=ctable.tile_rb_for(
         cfg.initial_size, cfg.k, cfg.bits))
@@ -158,7 +221,7 @@ def build_database(paths: Sequence[str], cfg: BuildConfig,
         def batches_factory():
             return default_batches(paths, cfg)
     sk = smeta = None
-    if cfg.prefilter != "off":
+    if cfg.prefilter == "inline":
         smeta = sketch_mod.SketchMeta(
             sketch_mod.cells_log2_for(cfg.initial_size))
         sk = sketch_mod.make_sketch(smeta, device)
@@ -177,13 +240,7 @@ def build_database(paths: Sequence[str], cfg: BuildConfig,
 
     if cfg.prefilter == "two-pass":
         # pass 1: every batch into the sketch only
-        t_sk = time.perf_counter()
-        for pk, wire in _wires(batches_factory(), cfg, device, stats):
-            sketch_mod.sketch_update_packed(sk, smeta, cfg.k, pk, wire,
-                                            cfg.qual_thresh)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        stats.sketch_seconds = time.perf_counter() - t_sk
+        sk, smeta = _sketch_pass(batches_factory, cfg, device, stats)
         wires = _wires(batches_factory(), cfg, device)
     else:
         wires = _wires(batches_factory(), cfg, device, stats)
@@ -206,21 +263,144 @@ def build_database(paths: Sequence[str], cfg: BuildConfig,
     return state, meta, stats
 
 
+def _partition_pass(factory, cfg: BuildConfig, device, stats: BuildStats,
+                    rb_local: int, p: int, sk, smeta) -> tuple:
+    """Pass `p` of a partitioned build at the local geometry rb_local:
+    insert the mers it owns (HK1, or HK11 behind the finished sketch),
+    seal (HK2) and rebase onto the global geometry (HK13). Counts reads,
+    bases and batches when stats.batches is still 0. Returns (the global
+    rows of this pass, occupied, distinct_hq, total_hq, singletons).
+    Raises _PartitionGrew on a full row."""
+    P = cfg.partitions
+    lmeta = ctable.TileMeta(k=cfg.k, bits=cfg.bits, rb_log2=rb_local)
+    bstate = ctable.make_tile_build(lmeta, device)
+    count = stats if stats.batches == 0 else None
+    for pk, wire in _wires(factory(), cfg, device, count):
+        if sk is None:
+            full, _left = kernels.tile_insert_reads(
+                bstate, lmeta, wire, pk.n_reads, pk.length, pk.thresholds,
+                cfg.qual_thresh, p, P)
+        else:
+            full, _left, d_hq, d_lq = sketch_mod.tile_insert_reads_packed_gated(
+                bstate, lmeta, sk, smeta, pk, wire, cfg.qual_thresh,
+                "two-pass", p, P)
+            stats.prefilter_dropped += d_hq + d_lq
+            stats.prefilter_dropped_hq += d_hq
+        if full:
+            if rb_local >= 24:
+                raise RuntimeError("Hash is full")
+            raise _PartitionGrew(rb_local + 1)
+    state, dup, occ, distinct, total, singles = ctable.tile_seal(bstate, lmeta)
+    del bstate
+    if dup:
+        raise RuntimeError("internal error: duplicate tag pair in a bucket")
+    state, bad = ctable.tile_departition_rows(state, lmeta, P.bit_length() - 1,
+                                              p)
+    if bad:
+        raise RuntimeError("internal error: partition pass counted a mer "
+                           "outside its bin")
+    return state.rows, occ, distinct, total, singles
+
+
+def _build_partitioned(paths: Sequence[str], cfg: BuildConfig, output: str,
+                       device: torch.device,
+                       batches_factory: Callable[[], Iterable] | None,
+                       cmdline: list[str] | None) -> BuildStats:
+    """The partitioned multi-pass build (quorum_tpu's
+    _build_database_partitioned at one device, without its checkpoint
+    cursor): P passes, each exported as shard p of the global geometry
+    as it finishes, then the sealed manifest at `output`. With two-pass
+    the sketch pass runs once and survives geometry restarts. Returns
+    the BuildStats; no table stays on the card."""
+    _check_config(cfg)
+    t0 = time.perf_counter()
+    P = cfg.partitions
+    g = P.bit_length() - 1
+    rb_req = ctable.tile_rb_for(cfg.initial_size, cfg.k, cfg.bits)
+    rb_local = min(24, max(rb_req - g, ctable.min_tile_rb_log2(cfg.k, cfg.bits),
+                           4))
+    stats = BuildStats(prefilter_mode=cfg.prefilter)
+    if batches_factory is None:
+        def batches_factory():
+            return default_batches(paths, cfg)
+    sk = smeta = None
+    if cfg.prefilter == "two-pass":
+        sk, smeta = _sketch_pass(batches_factory, cfg, device, stats)
+    for _ in range(MAX_GROWS + 1):
+        gmeta = ctable.GlobalMeta(k=cfg.k, bits=cfg.bits, rb_log2=rb_local + g)
+        recs = []
+        try:
+            for p in range(P):
+                rows, occ, distinct, total, singles = _partition_pass(
+                    batches_factory, cfg, device, stats, rb_local, p, sk,
+                    smeta)
+                recs.append(db_format.write_db_shard_file(
+                    output, rows, gmeta, p, P, cmdline, cfg.db_version))
+                del rows
+                stats.distinct += occ
+                stats.poisson_distinct_hq += distinct
+                stats.poisson_total_hq += total
+                stats.singletons += singles
+                if sk is not None:
+                    stats.prefilter_false_pass += singles
+            break
+        except _PartitionGrew as e:
+            print(f"Partition pass overflowed at local rb_log2={rb_local}; "
+                  f"restarting all passes at {e.rb_local}", file=sys.stderr)
+            stats.grows += 1
+            for field in ("distinct", "poisson_distinct_hq", "poisson_total_hq",
+                          "singletons", "prefilter_dropped",
+                          "prefilter_dropped_hq", "prefilter_false_pass",
+                          "reads", "bases", "batches"):
+                setattr(stats, field, 0)
+            rb_local = e.rb_local
+    else:
+        raise RuntimeError("Hash is full")
+    del sk
+    stats.distinct_hq = stats.poisson_distinct_hq
+    stats.total_hq = stats.poisson_total_hq
+    if smeta is not None:
+        # each dropped hq singleton would have been one distinct hq mer
+        # of count 1 in the full table
+        stats.poisson_distinct_hq += stats.prefilter_dropped_hq
+        stats.poisson_total_hq += stats.prefilter_dropped_hq
+    db_format.write_db_manifest(output, recs, gmeta, P, cmdline,
+                                cfg.db_version, stats.db_extra_header())
+    stats.seconds = time.perf_counter() - t0
+    return stats
+
+
 def create_database_main(paths: Sequence[str], output: str, cfg: BuildConfig,
                          cmdline: list[str] | None = None,
                          handoff: dict | None = None,
                          batches_factory: Callable[[], Iterable] | None = None
                          ) -> BuildStats:
-    """Build, write the database file, and with `handoff` (a dict) keep
-    the device-resident table as handoff["db"] = (state, meta, stats)
-    for an in-process stage 2."""
+    """Build and write the database (one file, or a sharded manifest
+    with --db-layout sharded or --partitions P). With `handoff` (a
+    dict) the BuildStats go to handoff["stats"], and a single-pass
+    build keeps its device-resident table as handoff["db"] = (state,
+    meta, stats) for an in-process stage 2; a partitioned build never
+    holds the whole table, so its stage 2 loads the manifest."""
     from .. import resolve_device
 
     device = resolve_device(cfg.device)
-    state, meta, stats = build_database(paths, cfg, device, batches_factory)
-    db_format.write_db(output, state, meta, cmdline, n_entries=stats.distinct,
-                       db_version=cfg.db_version,
-                       extra_header=stats.db_extra_header())
+    if cfg.partitions > 1:
+        stats = _build_partitioned(paths, cfg, output, device,
+                                   batches_factory, cmdline)
+    else:
+        state, meta, stats = build_database(paths, cfg, device,
+                                            batches_factory)
+        if cfg.db_layout == "sharded":
+            db_format.write_db_sharded(output, state, meta, cmdline,
+                                       db_version=cfg.db_version,
+                                       extra_header=stats.db_extra_header())
+        else:
+            db_format.write_db(output, state, meta, cmdline,
+                               n_entries=stats.distinct,
+                               db_version=cfg.db_version,
+                               extra_header=stats.db_extra_header())
+        if handoff is not None:
+            handoff["db"] = (state, meta, stats)
     if handoff is not None:
-        handoff["db"] = (state, meta, stats)
+        handoff["stats"] = stats
     return stats

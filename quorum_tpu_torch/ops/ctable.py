@@ -27,15 +27,19 @@ TILE = 128
 
 
 @dataclasses.dataclass(frozen=True)
-class TileMeta:
-    """Static geometry of the tile-bucket table."""
+class GlobalMeta:
+    """Geometry of a database file or manifest: the tile layout's fields
+    without the one-card cap, so rb_log2 may pass 24 (the global geometry
+    of a partitioned build, which the JAX package writes through its
+    TileShardedMeta). Only manifests and their shard files are written
+    and read under it; a table on the card is a TileMeta."""
 
     k: int
     bits: int
     rb_log2: int  # log2(number of rows/buckets)
 
     def __post_init__(self):
-        if self.rb_log2 < 0 or self.rb_log2 > 24:
+        if self.rb_log2 < 0:
             raise ValueError(f"rb_log2 out of range: {self.rb_log2}")
         if self.rem_bits - self.rlo_bits > 32:
             raise ValueError(
@@ -63,6 +67,17 @@ class TileMeta:
     def hi_bytes(self) -> int:
         """Live bytes of a hi word in the v4/v5 export."""
         return (max(0, self.rem_bits - self.rlo_bits) + 7) // 8
+
+
+@dataclasses.dataclass(frozen=True)
+class TileMeta(GlobalMeta):
+    """Static geometry of the tile-bucket table on one card: at most
+    2^24 rows."""
+
+    def __post_init__(self):
+        if self.rb_log2 > 24:
+            raise ValueError(f"rb_log2 out of range: {self.rb_log2}")
+        super().__post_init__()
 
 
 class TileState(NamedTuple):
@@ -145,13 +160,48 @@ def tile_floor(state: TileState, meta: TileMeta, floor: int) -> TileState:
     return state
 
 
-def tile_export_v4(state: TileState, meta: TileMeta) -> np.ndarray:
+def tile_export_v4(state: TileState, meta: GlobalMeta) -> np.ndarray:
     """K8 (HK6): the v4/v5 payload -- per-row occupancy counts (u8), the
     occupied entries' lo words (LE u32) in canonical order (each row
     sorted by (empty, hi, lo), so the file is a pure function of the
     table's content), then `hi_bytes` byte planes of their hi words --
-    built on the table's device, then one D2H."""
+    built on the table's device, then one D2H. `state` may be a row
+    range of meta's table (one shard, its rows at meta's geometry)."""
     return kernels.tile_export(state.rows, meta).cpu().numpy()
+
+
+def tile_compact_device(state: TileState, meta: GlobalMeta, cap: int):
+    """K22 (HK6's compact entry): the occupied slots' (row address,
+    lo, hi) in row-major slot order, in `cap` lanes (zeros past the
+    n-th), and n. Returns (addr int32 [cap], lo, hi int32 [cap] holding
+    the u32 bits, n int64 0-dim), on the rows' device."""
+    return kernels.tile_compact(state.rows, meta, cap)
+
+
+def partition_mask(keys: torch.Tensor, meta: TileMeta, part: int,
+                   n_parts: int) -> torch.Tensor:
+    """K20's ownership predicate, plain torch (HK1 and HK11 fuse it):
+    pass `part` of `n_parts` (a power of two) owns the canonical int64
+    mers whose hash remainder's low log2(n_parts) bits at `meta`'s
+    geometry -- equivalently the global row address's leading bits at
+    rb_log2 + log2(n_parts) -- equal `part`. Disjoint and exhaustive, so
+    the passes count every mer exactly once."""
+    return kernels.ref.partition_mask(keys, meta, part, n_parts)
+
+
+def tile_departition_rows(state: TileState, lmeta: TileMeta, g: int,
+                          part: int) -> tuple[TileState, bool]:
+    """K20's rebase (HK13): pass `part`'s sealed rows at the local
+    geometry `lmeta` become rows [part * rows, (part + 1) * rows) of the
+    global geometry rb_log2 + g, bit for bit as a single-pass build
+    would hold them (up to slot order). IN PLACE (the JAX package
+    returns a new plane; the local one is dead once exported, so the
+    port saves a copy). Returns (TileState, bad): `bad` flags an entry
+    whose dropped bits disagree with `part`. g = 0 is the identity."""
+    if g == 0:
+        return state, False
+    bad = kernels.tile_departition(state.rows, lmeta, g, part)
+    return state, bool(bad.item())
 
 
 def tile_load(payload: np.ndarray, meta: TileMeta, n: int, device

@@ -117,19 +117,27 @@ def _lane_observations(failed, keys, hq, lq):
 def tile_insert_reads_packed_gated(bstate, tmeta, sk: SketchState,
                                    smeta: SketchMeta, pk,
                                    wire: torch.Tensor, qual_thresh: int,
-                                   mode: str):
+                                   mode: str, part: int = 0,
+                                   n_parts: int = 1):
     """The prefiltered twin of HK1's batch insert (in place). Returns
     (full, (keys, qual) of the observations that found no room,
     dropped_hq, dropped_lq): the grow loop's contract is HK1's. In
     inline mode the observations of a lane without room go to the grow
     loop one count each, without the retro credit (as in the JAX
     package); a gated-out observation is done, deferred through the
-    sketch."""
+    sketch. Pass `part` of `n_parts` of a partitioned build (two-pass
+    only: the online sketch is not pass-stable) filters the mers before
+    the gate, as the JAX package does (sketch.py:224-238), so the
+    dropped counts cover only the mers this pass owns."""
     if mode == "two-pass":
         full, pending, dropped = kernels.gated_insert_reads(
             bstate, tmeta, sk.cells, smeta.cells_log2, wire, pk.n_reads,
-            pk.length, pk.thresholds, qual_thresh)
+            pk.length, pk.thresholds, qual_thresh, part, n_parts)
     elif mode == "inline":
+        if n_parts > 1:
+            raise ValueError("--prefilter=inline does not compose with "
+                             "--partitions (the online sketch is not "
+                             "pass-stable); use two-pass")
         keys, hq, lq = kernels.batch_aggregate(
             wire, pk.n_reads, pk.length, pk.thresholds, qual_thresh, tmeta.k)
         old = sketch_min(sk, smeta, keys)
