@@ -4,14 +4,20 @@
     python3 chip_smoke.py          # from the root of a checkout
 
 Phases, each printing one JSON line:
-  build    compile the thirteen CUDA kernels from csrc/ with nvcc (sm_90a)
+  build    compile the fourteen CUDA kernels from csrc/ with nvcc (sm_90a)
   kernels  hold each kernel against its plain PyTorch version on the
            card, at the main path's shapes (8192 x 160 batches, a
-           2^22-row table), plus a small table that grows
+           2^22-row table), plus a small table that grows; HK5's and
+           HK4's contaminant entries (kill and trim) and HK14 on their
+           output with a contaminant set of the adapters and a 2 kbp
+           segment of that batch's genome
   golden   the stage CLIs reproduce tests/golden/expected*.fa/.log with
            --device cuda; the quorum driver's --device cuda output, and
            its --partitions 4 --device cuda output, are byte-equal to
-           its --device cpu output
+           its --device cpu output; so are quorum_error_correct_reads'
+           with --contaminant (two 2k-base windows of golden reads),
+           with --contaminant --trim-contaminant and with --homo-trim 3,
+           and the driver's with all three
   full     the quorum driver on a seeded E. coli-size FASTQ (random
            4,641,652 bp genome, 150 bp reads at 40x, 1% substitutions,
            ~10% low-quality bases, k = 24); launch counts are reset
@@ -63,13 +69,24 @@ Phases, each printing one JSON line:
            batches' pass-1 mers, and HK13 rebasing that table sealed
            (and a copy with a foreign entry planted, which must set
            `bad`), each held against its plain version and timed
+  contaminant  quorum_error_correct_reads on its own from the full run's
+           database and FASTQ with --contaminant (the adapter set and a
+           5,000 bp segment of the genome), then with --trim-contaminant:
+           reads whose true sequence holds no contaminant mer keep the
+           full run's records, only such reads are skipped as
+           contaminated (>= 90% of those inside the segment), and no
+           trimmed read keeps a contaminant mer; launch counts reset
+           before and read after each run
   table    HK7 loading and HK6 exporting the full run's database (and
-           HK6's compact entry compacting it), and HK5, HK3 and HK4 on
-           one of its batches against that table, and HK12 flooring it
-           at 2, each held against its plain version and timed there
+           HK6's compact entry compacting it), and HK5, HK3, HK4 and
+           HK14 on the batch of it with the most contaminated reads
+           against that table, HK5's and HK4's contaminant entries
+           (kill and trim) with the contaminant phase's set and HK14 on
+           their output, and HK12 flooring the table at 2, each held
+           against its plain version and timed there
 Then one {"kernels": [...]} line (launches from the full, two_binary,
-the four prefilter and the three partitioned runs, times and bounds
-from the kernels, loaded and table phases), the
+the four prefilter, the three partitioned and the two contaminant
+runs, times and bounds from the kernels, loaded and table phases), the
 card's name and power limit from nvidia-smi, and {"ok": true, "device":
 {...}} as the last line.
 Exits non-zero, with no result line, when CUDA is unavailable, outside
@@ -128,20 +145,25 @@ SOURCES = {  # kernel -> (source in the repo, TPU program it replaces)
                    "quorum_tpu/ops/ctable.py:1608"),
     "tile_departition": ("quorum_tpu_torch/kernels/csrc/tile_departition.cu",
                          "quorum_tpu/ops/ctable.py:1566"),
+    "pack_finish": ("quorum_tpu_torch/kernels/csrc/pack_finish.cu",
+                    "quorum_tpu/models/corrector.py:2038"),
 }
 # the kernels each main-path run must launch (HK3's probe runs inside
-# HK5 and HK4; the query CLI is its caller)
+# HK5 and HK4; the query CLI is its caller); every stage 2 ends a batch
+# with HK14
+S2 = ("stage2_head", "extend_reads", "pack_finish")
 PATH_KERNELS = {
-    "full": ("tile_insert", "tile_seal", "tile_export", "stage2_head",
-             "extend_reads"),
+    "full": ("tile_insert", "tile_seal", "tile_export", *S2),
     "two_binary": ("tile_insert", "tile_grow", "tile_seal", "tile_export",
-                   "tile_load", "stage2_head", "extend_reads"),
+                   "tile_load", *S2),
     "prefilter_two_pass": ("batch_aggregate", "sketch_update", "gated_insert",
-                           "tile_seal", "tile_export", "tile_floor",
-                           "stage2_head", "extend_reads"),
+                           "tile_seal", "tile_export", "tile_floor", *S2),
     "prefilter_inline": ("batch_aggregate", "sketch_update", "gated_insert",
-                         "tile_seal", "tile_export", "tile_floor",
-                         "stage2_head", "extend_reads"),
+                         "tile_seal", "tile_export", "tile_floor", *S2),
+    # stand-alone stage 2 with --contaminant FASTA: HK1 and HK2 count the
+    # contaminant set, HK7 loads the database
+    "contaminant": ("tile_insert", "tile_seal", "tile_load", *S2),
+    "contaminant_trim": ("tile_insert", "tile_seal", "tile_load", *S2),
 }
 # a gated build that grows adds HK8 and HK1's keys entry
 PATH_KERNELS.update({
@@ -151,15 +173,16 @@ PATH_KERNELS.update({
 # shard; stage 2 loads the manifest (HK7); the restart run is stage 1
 PATH_KERNELS.update({
     "partitions": ("tile_insert", "tile_seal", "tile_departition",
-                   "tile_export", "tile_load", "stage2_head", "extend_reads"),
+                   "tile_export", "tile_load", *S2),
     "partitions_two_pass": ("batch_aggregate", "sketch_update",
                             "gated_insert", "tile_seal", "tile_departition",
-                            "tile_export", "tile_load", "tile_floor",
-                            "stage2_head", "extend_reads"),
+                            "tile_export", "tile_load", "tile_floor", *S2),
     "partitions_restart": ("tile_insert", "tile_seal", "tile_departition",
                            "tile_export"),
 })
 PARTS = 4  # --partitions in the partitioned runs
+# the contaminant phase's genome segment: a 5,000 bp spike-in
+SEGMENT = (1_000_000, 1_005_000)
 
 
 class SmokeFailure(Exception):
@@ -189,7 +212,8 @@ def synth_reads(gen, genome_bp: int, coverage: int, low_q: bool = True):
     """Seeded genome and reads (torch.Generator on the CPU): 150 bp from
     random positions and strands, 1% substitutions, ~10% low-quality
     bases. Returns (genome codes, codes [n, 150] int8 with the errors,
-    true codes [n, 150], quals [n, 150] uint8)."""
+    true codes [n, 150], quals [n, 150] uint8, origins [n] int64: each
+    read's first genome position)."""
     import torch
 
     genome = torch.randint(0, 4, (genome_bp,), generator=gen,
@@ -208,7 +232,7 @@ def synth_reads(gen, genome_bp: int, coverage: int, low_q: bool = True):
     if low_q:
         lowq = torch.rand((n, READ_LEN), generator=gen) < LOW_Q_RATE
         hi[lowq] = 33 + 2
-    return genome, codes, true, hi
+    return genome, codes, true, hi, start
 
 
 def write_fastq(path: str, codes, quals):
@@ -249,6 +273,97 @@ def pack_batch(codes, quals, qt: int):
 def table_size(bases: int, genome_bp: int) -> int:
     """-s as bench.py sizes it: genome mers + ~k error mers per error."""
     return int((genome_bp + bases * ERR_RATE * K * 1.3) * 1.25) + 1_000_000
+
+
+def write_contaminant(path: str, segment) -> list:
+    """A contaminant FASTA: the port's adapter set (data.adapter_fasta),
+    then `segment` (genome codes, int8) as one record. Returns the
+    records as (header, sequence)."""
+    import numpy as np
+
+    from quorum_tpu_torch import data
+
+    data.adapter_fasta(path)
+    seq = np.frombuffer(b"ACGT", np.uint8)[segment.numpy()].tobytes().decode()
+    with open(path, "a") as f:
+        f.write(f">segment\n{seq}\n")
+    return list(data.adapter_records()) + [("segment", seq)]
+
+
+def load_contaminant(path: str):
+    """The port's contaminant set of a FASTA at k = K on the card."""
+    from quorum_tpu_torch.io import contaminant
+
+    return contaminant.load_contaminant(path, K, "cuda")
+
+
+_LUT = [-1] * 256
+for _i, _c in enumerate(b"ACGT"):
+    _LUT[_c] = _i
+
+
+def contaminant_set(records):
+    """Every canonical K-mer of the records' ACGT windows, sorted unique
+    int64, in numpy (f = sum c_j 4^(K-1-j), its reverse complement
+    sum (3 - c_j) 4^j), apart from the port's ops/mer."""
+    import numpy as np
+
+    lut = np.array(_LUT, np.int64)
+    p = 4 ** np.arange(K - 1, -1, -1, dtype=np.int64)
+    out = []
+    for _h, seq in records:
+        c = lut[np.frombuffer(seq.encode(), np.uint8)]
+        if len(c) < K:
+            continue
+        w = np.lib.stride_tricks.sliding_window_view(c, K)
+        f, r = w @ p, (3 - w) @ p[::-1]
+        out.append(np.minimum(f, r)[(w >= 0).all(1)])
+    return np.unique(np.concatenate(out))
+
+
+def holds_mer(codes, cset):
+    """Which rows of `codes` (int8 [n, L] on the CPU, -1 = not ACGT)
+    hold an all-ACGT K-mer of `cset` (sorted int64 on the card), with
+    the same arithmetic as contaminant_set, on the card in chunks."""
+    import torch
+
+    p = 4 ** torch.arange(K - 1, -1, -1, device="cuda", dtype=torch.int64)
+    out = torch.zeros(codes.shape[0], dtype=torch.bool)
+    for s in range(0, codes.shape[0], 1 << 15):
+        w = codes[s:s + (1 << 15)].to("cuda", torch.int64).unfold(1, K, 1)
+        c = w.clamp(min=0)
+        m = torch.minimum((c * p).sum(-1), ((3 - c) * p.flip(0)).sum(-1))
+        at = torch.searchsorted(cset, m).clamp(max=cset.numel() - 1)
+        hit = (cset[at] == m) & (w >= 0).all(-1)
+        out[s:s + (1 << 15)] = hit.any(1).cpu()
+    return out
+
+
+def read_outputs(prefix: str):
+    """A stage-2 run's records by read index: {i: .fa record} and {i:
+    .log line} (reads are named r<9 digits>)."""
+    with open(prefix + ".fa", "rb") as f:
+        lines = f.read().split(b"\n")
+    fa = {int(h[2:11]): h + b"\n" + q
+          for h, q in zip(lines[0::2], lines[1::2]) if h}
+    with open(prefix + ".log", "rb") as f:
+        log = {int(ln[9:18]): ln for ln in f.read().split(b"\n") if ln}
+    return fa, log, lines[1::2]
+
+
+def seq_codes(seqs, width: int):
+    """ASCII sequences -> int8 codes [n, width], -1 past each (and for a
+    non-ACGT base)."""
+    import numpy as np
+    import torch
+
+    lens = np.fromiter(map(len, seqs), np.int64, len(seqs))
+    buf = np.frombuffer(b"".join(seqs) + b"N", np.uint8)
+    idx = (np.cumsum(lens) - lens)[:, None] + np.arange(width)[None, :]
+    inside = np.arange(width)[None, :] < lens[:, None]
+    lut = np.array(_LUT, np.int8)
+    return torch.from_numpy(np.where(inside, lut[buf[np.minimum(
+        idx, len(buf) - 1)]], -1).astype(np.int8))
 
 
 # ------------------------------------------------------------- timing
@@ -388,7 +503,7 @@ def phase_kernels(card: str) -> dict:
     gen = torch.Generator().manual_seed(SEED + 1)
     # one full batch at the main path's shape: a 30 kbp genome at 40x
     # (anchors form), inserted into the main path's table geometry
-    _g, codes, _t, quals = synth_reads(gen, 30_720, COVERAGE)
+    genome, codes, _t, quals, _o = synth_reads(gen, 30_720, COVERAGE)
     b = BATCH
     c, q, lengths, pk = pack_batch(codes, quals, QT)
     L = pk.length
@@ -420,7 +535,7 @@ def phase_kernels(card: str) -> dict:
     # a small table that must grow: the whole build, kernels vs plain
     # (plain on the CPU, whose wrappers take the plain versions)
     gsmall = torch.Generator().manual_seed(SEED + 2)
-    _g2, c2, _t2, q2 = synth_reads(gsmall, 4_000, 20)
+    _g2, c2, _t2, q2, _o2 = synth_reads(gsmall, 4_000, 20)
     rb = [packing.pack_reads(c2.numpy(), q2.numpy(),
                              np.full(c2.shape[0], READ_LEN, np.int32),
                              thresholds=(QT,))]
@@ -468,19 +583,29 @@ def phase_kernels(card: str) -> dict:
     c4[rnd_reads, :READ_LEN] = torch.randint(
         0, 4, (int(rnd_reads.sum()), READ_LEN), generator=g4).numpy()
     c4[np.arange(L)[None, :] >= l4[:, None]] = -2
+    # a contaminant set: the adapters and a 2 kbp segment of the genome
+    fa = os.path.join(WORK, "kernels_contaminant.fa")
+    write_contaminant(fa, genome[10_000:12_000])
+    contam = load_contaminant(fa)
     out.update(stage2_kernels(ctable.TileState(rows_k), meta, c4, q, l4,
-                              reps=0))
+                              reps=0, contam=contam))
     emit({"kernels": [{"name": nm, "equal": bool(v["equal"]), "n": v["n"]}
                       for nm, v in out.items()], "card": card})
     return out
 
 
-def stage2_kernels(state, meta, c, q, lengths, reps: int) -> dict:
-    """HK5, HK3 and HK4 against their plain versions on one batch
+def stage2_kernels(state, meta, c, q, lengths, reps: int,
+                   contam=None) -> dict:
+    """HK5, HK3, HK4 and HK14 against their plain versions on one batch
     (codes int8 [B, L] with -1 / -2, quals, lengths) and the table
     `state`; with reps > 0 also timed, with their byte bounds. HK3 looks
-    up the batch's window mers plus as many random (absent) keys."""
-    import numpy as np
+    up the batch's window mers plus as many random (absent) keys; HK14
+    packs HK4's output at the main path's capacity and, as its own
+    entry, at half the entries (the overflow the host packs again).
+    With `contam` (a contaminant table (TileState, TileMeta)), HK5's and
+    HK4's contaminant entries, with and without trimming, and HK14 on
+    their output, each held and timed as entries `contaminant` and
+    `contaminant_trim` of their kernel."""
     import torch
 
     from quorum_tpu_torch import kernels
@@ -495,94 +620,173 @@ def stage2_kernels(state, meta, c, q, lengths, reps: int) -> dict:
     pk = packing.pack_reads(c, q, lengths, thresholds=(cfg.qual_cutoff,))
     wire = torch.from_numpy(pk.to_wire()).to(dev)
     hargs = (state.rows, meta, wire, b, L, pk.thresholds, cfg.qual_cutoff)
-    hkw = dict(skip=cfg.skip, good=cfg.good, anchor_count=cfg.anchor_count)
-    hk = kernels.stage2_head(*hargs, **hkw)
-    hp = ref.stage2_head(*hargs, **hkw)
-    head_equal = all(torch.equal(x, y) for x, y in
-                     zip(hk[:3] + tuple(hk[3]), hp[:3] + tuple(hp[3])))
-    check(head_equal, "stage2_head differs from its plain version")
-    codes, hqb, lens, anc = hk
-    found = anc[0]
-    check(bool(found.any()) and bool((~found).any()),
-          "stage-2 check lacks anchored or unanchored reads")
+    keep = corrector.make_keep_table(meta, cfg, dev)
+    maxe = corrector.log_capacity(L, cfg)
     out = {}
+    modes = [(None, False, None)]
+    if contam is not None:
+        ctab = (contam[0].rows, contam[1])
+        modes += [(ctab, False, "contaminant"), (ctab, True,
+                                                 "contaminant_trim")]
+    for ctab, trim, entry in modes:
+        hkw = dict(skip=cfg.skip, good=cfg.good,
+                   anchor_count=cfg.anchor_count, contam=ctab,
+                   trim_contaminant=trim)
+        hk = kernels.stage2_head(*hargs, **hkw)
+        hp = ref.stage2_head(*hargs, **hkw)
+        head_equal = all(torch.equal(x, y) for x, y in
+                         zip(hk[:3] + tuple(hk[3]), hp[:3] + tuple(hp[3])))
+        check(head_equal, f"stage2_head ({entry or 'plain entry'}) differs "
+              "from its plain version")
+        codes, hqb, lens, anc = hk
+        found, status = anc[0], anc[5]
+        check(bool(found.any()) and bool((~found).any()),
+              "stage-2 check lacks anchored or unanchored reads")
+        if entry == "contaminant":
+            check(bool((status == ref.ST_CONTAMINANT).any()),
+                  "no read killed by the contaminant")
+        tables = [(state.rows, meta)] + ([ctab] if ctab else [])
+        # HK5's least traffic: the wire, its outputs, and one read of the
+        # row of every window the scan must probe (checked-or-valid
+        # windows up to the anchor; all of them in a read without one),
+        # in each table
+        f, r, validk = mer.rolling_kmers(codes, K)
+        sweep = mer.canonical(f, r)
+        p = torch.arange(L, device=dev)[None, :]
+        vw = validk & (p >= cfg.skip + K - 1)
+        need = vw & ((status != 0)[:, None] | (p < anc[1][:, None]))
+        prow = sum(torch.unique(ref.tile_key_parts(sweep[need], m)[0]).numel()
+                   for _rows, m in tables)
+        head = dict(equal=head_equal, n=b,
+                    bound_bytes=wire.numel() + 2 * b * L + 33 * b
+                    + 512 * prow)
+        args = (state.rows, meta, codes, hqb, lens, status, anc[1], anc[2],
+                anc[3], anc[4], keep)
+        kw = dict(window=cfg.effective_window, error=cfg.effective_error,
+                  min_count=cfg.min_count, cutoff=cfg.cutoff, maxe=maxe,
+                  contam=ctab, trim_contaminant=trim)
+        rk = kernels.extend_reads(*args, **kw)
+        probed = []
+        orig = ref.tile_lookup
 
-    # HK5's least traffic: the wire, its outputs, and one read of the
-    # row of every window the scan must probe (checked-or-valid windows
-    # up to the anchor; all of them in a read without one)
-    f, r, validk = mer.rolling_kmers(codes, K)
-    sweep = mer.canonical(f, r)
-    p = torch.arange(L, device=dev)[None, :]
-    vw = validk & (p >= cfg.skip + K - 1)
-    need = vw & (~found[:, None] | (p < anc[1][:, None]))
-    prow = torch.unique(ref.tile_key_parts(sweep[need], meta)[0]).numel()
-    out["stage2_head"] = dict(
-        equal=head_equal, n=b,
-        bound_bytes=wire.numel() + 2 * b * L + 29 * b + 512 * prow)
+        def spy(rows, m, ks):
+            # a contaminant row counts apart from a main-table row
+            probed.append(ref.tile_key_parts(ks, m)[0]
+                          + (meta.rows if rows is not state.rows else 0))
+            return orig(rows, m, ks)
 
-    sweep = sweep.reshape(-1)
-    rnd = torch.randint(0, 1 << 48, (sweep.numel(),), device=dev,
-                        generator=torch.Generator(dev).manual_seed(SEED))
+        ref.tile_lookup = spy
+        try:
+            rp = ref.extend_reads(*args, **kw)
+        finally:
+            ref.tile_lookup = orig
+        ext_equal = _batch_equal(rk, rp, found)
+        check(ext_equal, f"extend_reads ({entry or 'plain entry'}) differs "
+              "from its plain version")
+        paddr = torch.unique(torch.cat(probed)).numel() if probed else 0
+        io_bytes = (2 * b * L + b * 32 + keep.numel()            # inputs
+                    + b * L + 8 * b + 2 * b * (12 + 8 * maxe))   # outputs
+        ext = dict(equal=ext_equal, n=b, bound_bytes=io_bytes + 512 * paddr)
+        pack, over = pack_check(rk, L, reps)
+        if reps:
+            head.update(
+                ms=kernel_ms(lambda: kernels.stage2_head(*hargs, **hkw),
+                             "stage2_head", reps),
+                plain_ms=event_ms(lambda: ref.stage2_head(*hargs, **hkw), 2))
+            ext.update(
+                ms=kernel_ms(lambda: kernels.extend_reads(*args, **kw),
+                             "extend_reads", reps),
+                plain_ms=event_ms(lambda: ref.extend_reads(*args, **kw), 1))
+        if entry is None:
+            out.update(stage2_head=head, extend_reads=ext,
+                       pack_finish=dict(pack, overflow=over))
+        else:
+            out["stage2_head"][entry] = head
+            out["extend_reads"][entry] = ext
+            out["pack_finish"][entry] = pack
+    out.update(lookup_kernel(state, meta, sweep.reshape(-1), reps))
+    return out
+
+
+def lookup_kernel(state, meta, sweep, reps: int) -> dict:
+    """HK3 against its plain version on a batch's window mers plus as
+    many random (absent) keys; timed on the window mers."""
+    import torch
+
+    from quorum_tpu_torch import kernels
+    from quorum_tpu_torch.kernels import reference as ref
+
+    rnd = torch.randint(0, 1 << 48, (sweep.numel(),), device=sweep.device,
+                        generator=torch.Generator(sweep.device)
+                        .manual_seed(SEED))
     lk = torch.cat([sweep, rnd])
     vk = kernels.tile_lookup(state.rows, meta, lk)
     vp = ref.tile_lookup(state.rows, meta, lk)
     lk_equal = torch.equal(vk, vp) and bool((vk[:sweep.numel()] != 0).any())
     check(lk_equal, "tile_lookup differs from its plain version")
     laddr = torch.unique(ref.tile_key_parts(sweep, meta)[0]).numel()
-    out["tile_lookup"] = dict(equal=lk_equal, n=lk.numel(),
-                              bound_bytes=16 * sweep.numel() + 512 * laddr)
-
-    keep = corrector.make_keep_table(meta, cfg, dev)
-    maxe = corrector.log_capacity(L, cfg)
-    args = (state.rows, meta, codes, hqb, lens, *anc, keep)
-    kw = dict(window=cfg.effective_window, error=cfg.effective_error,
-              min_count=cfg.min_count, cutoff=cfg.cutoff, maxe=maxe)
-    rk = kernels.extend_reads(*args, **kw)
-    probed = []
-    orig = ref.tile_lookup
-
-    def spy(rows, m, ks):
-        probed.append(ref.tile_key_parts(ks, m)[0])
-        return orig(rows, m, ks)
-
-    ref.tile_lookup = spy
-    try:
-        rp = ref.extend_reads(*args, **kw)
-    finally:
-        ref.tile_lookup = orig
-    ext_equal = _batch_equal(rk, rp, found)
-    check(ext_equal, "extend_reads differs from its plain version")
-    paddr = torch.unique(torch.cat(probed)).numel() if probed else 0
-    io_bytes = (2 * b * L + b * 29 + keep.numel()          # inputs
-                + b * L + 8 * b + 2 * b * (8 + 8 * maxe))  # outputs
-    out["extend_reads"] = dict(equal=ext_equal, n=b,
-                               bound_bytes=io_bytes + 512 * paddr)
+    out = dict(equal=lk_equal, n=lk.numel(),
+               bound_bytes=16 * sweep.numel() + 512 * laddr)
     if reps:
-        out["stage2_head"].update(
-            ms=kernel_ms(lambda: kernels.stage2_head(*hargs, **hkw),
-                         "stage2_head", reps),
-            plain_ms=event_ms(lambda: ref.stage2_head(*hargs, **hkw), 2))
-        out["tile_lookup"].update(
+        out.update(
             ms=kernel_ms(lambda: kernels.tile_lookup(state.rows, meta, sweep),
                          "tile_lookup", reps),
             plain_ms=event_ms(lambda: ref.tile_lookup(state.rows, meta,
                                                       sweep), 2))
-        out["extend_reads"].update(
-            ms=kernel_ms(lambda: kernels.extend_reads(*args, **kw),
-                         "extend_reads", reps),
-            plain_ms=event_ms(lambda: ref.extend_reads(*args, **kw), 1))
-    return out
+    return {"tile_lookup": out}
+
+
+def pack_check(rk, L: int, reps: int):
+    """HK14 against its plain version on HK4's output `rk`, buffer word
+    for word and merged status, at the main path's first capacity
+    (16384 entries) and at half the batch's entries (entries dropped,
+    `total` past the capacity); with reps > 0 each timed, and its two C
+    launches (the one-block scan `pack_head`, the grid-stride
+    `pack_entries`) apart as `parts_ms`. Byte bound: 24 B a read and
+    8 B a live entry read, the buffer and the status written."""
+    import torch
+
+    from quorum_tpu_torch import kernels
+    from quorum_tpu_torch.kernels import reference as ref
+
+    _out, start, end, lstatus, fwd, bwd, overflow = rk
+    b = start.numel()
+    args = (start, end, lstatus[:b], lstatus[b:], (fwd[0], fwd[2], fwd[3]),
+            (bwd[0], bwd[2], bwd[3]), overflow)
+    res = []
+    total = int((fwd[0].sum() + bwd[0].sum()).item())
+    for cap in (16384, total // 2):
+        bk, sk = kernels.pack_finish(*args, length=L, cap=cap)
+        bp, sp = ref.pack_finish(*args, cap)
+        equal = (torch.equal(bk, bp) and torch.equal(sk, sp)
+                 and int(bk[1]) == total)
+        check(equal, f"pack_finish differs from its plain version (cap "
+              f"{cap}, {total} entries)")
+        d = dict(equal=equal, n=b, entries=total, cap=cap,
+                 bound_bytes=24 * b + 8 * total + 4 + 4 * (2 + 3 * b + cap)
+                 + 4 * b)
+        if reps:
+            parts: dict = {}
+            d.update(ms=kernel_ms(lambda: kernels.pack_finish(
+                *args, length=L, cap=cap), "pack_finish", reps,
+                detail=parts),
+                plain_ms=event_ms(lambda: ref.pack_finish(*args, cap), 2),
+                parts_ms={f: round(t, 5) for f, t in parts.items()})
+        res.append(d)
+    check(total > res[1]["cap"], "the overflow check did not overflow")
+    return res
 
 
 def _batch_equal(a, b, found) -> bool:
-    """extend_reads outputs equal under the test rule: start/end for
-    every read, out inside [start, end) for anchored reads, each log's
-    n and its first n entries."""
+    """extend_reads outputs equal under the test rule: start/end, lane
+    status and the overflow flag for every read, out inside [start,
+    end) for anchored reads, each log's n and its first n entries."""
     import torch
 
-    out_a, s_a, e_a, f_a, b_a = a
-    out_b, s_b, e_b, f_b, b_b = b
-    if not (torch.equal(s_a, s_b) and torch.equal(e_a, e_b)):
+    out_a, s_a, e_a, st_a, f_a, b_a, o_a = a
+    out_b, s_b, e_b, st_b, f_b, b_b, o_b = b
+    if not all(torch.equal(x, y) for x, y in ((s_a, s_b), (e_a, e_b),
+                                              (st_a, st_b), (o_a, o_b))):
         return False
     pos = torch.arange(out_a.shape[1], device=out_a.device)[None, :]
     live = found[:, None] & (pos >= s_a[:, None]) & (pos < e_a[:, None])
@@ -633,6 +837,41 @@ def phase_golden():
             filecmp.cmp(os.path.join(d, f"drv_{tag}{ext}"),
                         os.path.join(d, f"drv_cpu{ext}"), shallow=False)
             for ext in (".fa", ".log"))
+    # the contaminant and homo-trim path: two 2k-base windows of golden
+    # reads as the contaminant (tests/test_error_correct_cli.py)
+    import numpy as np
+
+    from quorum_tpu_torch.io import fastq
+
+    g = next(fastq.read_batches([reads], 256))
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    cfa = os.path.join(d, "contaminant.fa")
+    with open(cfa, "w") as f:
+        for i, (r, at) in enumerate(((3, 10), (40, 20))):
+            w = acgt[g.codes[r, at:at + 26]].tobytes().decode()
+            f.write(f">w{i}\n{w}\n")
+    for tag, extra in (("contaminant", ["--contaminant", cfa]),
+                       ("contaminant_trim", ["--contaminant", cfa,
+                                             "--trim-contaminant"]),
+                       ("homo_trim", ["--homo-trim", "3"])):
+        outs = []
+        for dev in ("cuda", "cpu"):
+            outs.append(os.path.join(d, f"{tag}_{dev}"))
+            check(ec.main(extra + [db, reads, "-o", outs[-1], "--device",
+                                   dev]) == 0, f"golden stage 2 {tag} ({dev})")
+        res[f"{tag}_cuda_eq_cpu"] = same_fa_log(*outs)
+        if tag == "contaminant":
+            with open(outs[0] + ".log") as f:
+                res["contaminant_skips"] = f.read().count("Contaminated read")
+    outs = []
+    for dev in ("cuda", "cpu"):
+        outs.append(os.path.join(d, f"drv_contam_{dev}"))
+        check(quorum.main(["-s", "64k", "-k", "13", "-p", outs[-1],
+                           "--device", dev, "--contaminant", cfa,
+                           "--trim-contaminant", "--homo-trim", "3",
+                           reads]) == 0,
+              f"golden driver with a contaminant ({dev})")
+    res["driver_contaminant_cuda_eq_cpu"] = same_fa_log(*outs)
     emit({"phase": "golden", **res})
     check(all(res.values()), f"golden mismatch: {res}")
 
@@ -646,7 +885,8 @@ def phase_full(card: str) -> dict:
 
     gen = torch.Generator().manual_seed(SEED)
     t0 = time.perf_counter()
-    _genome, codes, true, quals = synth_reads(gen, GENOME_BP, COVERAGE)
+    genome, codes, true, quals, origin = synth_reads(gen, GENOME_BP,
+                                                     COVERAGE)
     n = codes.shape[0]
     fq = os.path.join(WORK, "reads.fastq")
     write_fastq(fq, codes, quals)
@@ -719,6 +959,7 @@ def phase_full(card: str) -> dict:
           "sample_errors_in_out": [errs_in, errs_out, checked],
           "launches": launches})
     return dict(launches=launches, codes=codes, quals=quals, size=size,
+                genome=genome, true=true, origin=origin,
                 max_memory=max(peaks.stage1, peaks.stage2),
                 peaks=peaks.as_dict(),
                 grows=build.grows, fastq=fq, prefix=prefix,
@@ -1223,11 +1464,121 @@ def phase_partitions(card: str, full: dict, two_pass: dict,
             "partitions_restart": restart}
 
 
-def phase_table(card: str, full: dict) -> dict:
+def phase_contaminant(card: str, full: dict) -> dict:
+    """The contaminant path at E. coli size: quorum_error_correct_reads
+    on its own from the full run's database and FASTQ, with
+    --contaminant a FASTA of the port's adapter set and a 5,000 bp
+    segment of the genome (SEGMENT: a spike-in or vector contaminant),
+    first discarding (kill), then with --trim-contaminant. A read is
+    touched when its TRUE codes hold a canonical K-mer of that set
+    (numpy/plain torch here, apart from the port). Kill: every untouched
+    read's record or skip line equals the full run's, every
+    `Contaminated read` skip is a touched read, and >= 90% of the reads
+    lying wholly inside the segment are skipped so. Trim: untouched reads
+    equal the full run's, no read is skipped as contaminated, and no kept
+    sequence holds an all-ACGT K-mer of the set. Launch counts reset
+    before and read after each run."""
+    import numpy as np
+    import torch
+
+    from quorum_tpu_torch.cli import error_correct_reads as ec
+    from quorum_tpu_torch.kernels.loader import STATS
+
+    fa = os.path.join(WORK, "contaminant_set.fa")  # apart from the outputs
+    t0 = time.perf_counter()
+    recs = write_contaminant(fa, full["genome"][SEGMENT[0]:SEGMENT[1]])
+    cset = torch.from_numpy(contaminant_set(recs)).to("cuda")
+    touched = holds_mer(full["true"], cset).numpy()
+    origin = full["origin"].numpy()
+    inside = (origin >= SEGMENT[0]) & (origin + READ_LEN <= SEGMENT[1])
+    base_fa, base_log, _seqs = read_outputs(full["prefix"])
+    prep_s = time.perf_counter() - t0
+    n = len(touched)
+    out = {"launches": {}, "fa": fa, "touched": touched}
+    for tag, extra in (("contaminant", []),
+                       ("contaminant_trim", ["--trim-contaminant"])):
+        prefix = os.path.join(WORK, tag)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        report: dict = {}
+        STATS.reset()
+        STATS.timing = True
+        t1 = time.perf_counter()
+        rc = ec.main(["--device", "cuda", "--contaminant", fa, *extra, "-o",
+                      prefix, full["db"], full["fastq"]], report=report)
+        wall = time.perf_counter() - t1
+        STATS.timing = False
+        launches = dict(STATS.launches)
+        kms = STATS.kernel_ms()
+        peak = torch.cuda.max_memory_allocated() - resident
+        check(rc == 0, f"{tag} stage 2 rc {rc}")
+        for name in PATH_KERNELS[tag]:
+            check(launches[name] > 0, f"{name} was not launched on the "
+                  f"{tag} path")
+        fa_rec, log_rec, seqs = read_outputs(prefix)
+        differ = killed = killed_untouched = changed = 0
+        contam = np.zeros(n, bool)
+        for i in range(n):
+            ln = log_rec.get(i)
+            if ln is not None and ln.endswith(b"Contaminated read"):
+                contam[i] = True
+            same = (fa_rec.get(i) == base_fa.get(i)
+                    and ln == base_log.get(i))
+            if touched[i]:
+                changed += not same and i in fa_rec
+            else:
+                differ += not same
+        killed = int(contam.sum())
+        killed_untouched = int((contam & ~touched).sum())
+        stats = report["stats"]
+        res = {"phase": tag, "card": card, "reads": n,
+               "touched": int(touched.sum()), "inside_segment":
+               int(inside.sum()), "contaminant_mers": cset.numel(),
+               "prep_s": round(prep_s, 3), "skipped": stats.skipped,
+               "skipped_contaminated": killed,
+               "inside_skipped_contaminated": int((contam & inside).sum()),
+               "touched_kept_changed": changed,
+               "untouched_differing": differ,
+               "stage2_s": round(wall, 3),
+               "stage2_device_s": round(stats.device_s, 3),
+               "stage2_host_s": round(stats.host_s, 3),
+               "max_memory_allocated": peak, "resident_before_run": resident,
+               "launches": launches,
+               "kernel_s": {k: round(v / 1e3, 4) for k, v in kms.items()
+                            if launches[k]},
+               "kernel_ms_per_launch": {k: round(v / launches[k], 5)
+                                        for k, v in kms.items()
+                                        if launches[k]}}
+        if extra:
+            kept = holds_mer(seq_codes(seqs, READ_LEN), cset)
+            res["kept_holding_a_set_mer"] = int(kept.sum())
+        emit(res)
+        check(differ == 0, f"{tag}: {differ} untouched reads differ from "
+              "the full run's")
+        if extra:
+            check(killed == 0 and res["kept_holding_a_set_mer"] == 0,
+                  f"{tag}: {killed} reads skipped as contaminated, "
+                  f"{res['kept_holding_a_set_mer']} kept sequences hold a "
+                  "contaminant mer")
+        else:
+            check(killed_untouched == 0, f"{tag}: {killed_untouched} "
+                  "untouched reads skipped as contaminated")
+            check(res["inside_skipped_contaminated"] >= 0.9 * inside.sum(),
+                  f"{tag}: {res['inside_skipped_contaminated']} of "
+                  f"{int(inside.sum())} reads inside the segment skipped")
+        out["launches"][tag] = launches
+    return out
+
+
+def phase_table(card: str, full: dict, contam: dict) -> dict:
     """HK7 loading and HK6 exporting the full run's database, each held
     against its plain version (and HK6 against the file's payload
-    bytes); then HK5, HK3 and HK4 on a late full batch of the run's
-    reads against that table, held and timed there."""
+    bytes); then HK5, HK3, HK4 and HK14 on the full batch of the run's
+    reads that holds the most reads the contaminant phase touched,
+    against that table, held and timed there, and HK5's and HK4's
+    contaminant entries (kill and trim) with the contaminant phase's
+    set, with HK14 on their output."""
     import numpy as np
     import torch
 
@@ -1289,20 +1640,68 @@ def phase_table(card: str, full: dict) -> dict:
                 bound_bytes=row_bytes + 12 * n)),
     }
     codes, quals = full["codes"], full["quals"]
-    i = -(-codes.shape[0] // BATCH) - 2
+    touched = contam["touched"]
+    nb = -(-codes.shape[0] // BATCH)
+    i = int(np.argmax([touched[j * BATCH:(j + 1) * BATCH].sum()
+                       for j in range(nb)]))
     c, q, lengths, _pk = pack_batch(codes[i * BATCH:(i + 1) * BATCH],
                                     quals[i * BATCH:(i + 1) * BATCH], QT)
+    cset = load_contaminant(contam["fa"])
     out.update(stage2_kernels(ctable.TileState(rows), meta, c, q, lengths,
-                              reps=5))
+                              reps=5, contam=cset))
+    out["pack_finish"]["repack"] = repack_check(ctable.TileState(rows), meta,
+                                                c, q, lengths, cset)
     # HK6's wrapper span and its two C launches apart: the span adds the
     # host's wait for the payload size and the buffer's allocation
     out["tile_export"]["parts_ms"] = export_parts
     out["tile_floor"] = floor_table(rows, meta)
     emit({"phase": "table", "card": card, "rows": meta.rows, "entries": n,
           "payload_bytes": len(raw), "batch": i,
+          "batch_touched": int(touched[i * BATCH:(i + 1) * BATCH].sum()),
           **{nm: {k: (round(v, 5) if isinstance(v, float) else v)
                   for k, v in d.items()} for nm, d in out.items()}})
     return out
+
+
+def repack_check(state, meta, c, q, lengths, contam) -> dict:
+    """fetch_finish's exact re-pack on the card: the batch corrected
+    through correct_batch and finish_batch (contaminant kill, so merged
+    statuses cross the re-pack) at the main path's first capacity, then
+    again with the capacity kept for its shape set to half its entries,
+    so that HK14's buffer overflows and the host packs again. The
+    rendered reads must be equal, and the second run must launch HK14
+    twice."""
+    from quorum_tpu_torch.kernels.loader import STATS
+    from quorum_tpu_torch.models import corrector
+
+    cfg = corrector.ECConfig(k=K, cutoff=4, qual_cutoff=33 + 40)
+    cache = corrector._LEAN_CAP_CACHE
+    key = (c.shape[0], corrector.log_capacity(c.shape[1], cfg))
+    saved = dict(cache)
+    runs = []
+    try:
+        for forced in (False, True):
+            cache.clear()
+            if forced:
+                cache[key] = runs[0][2] // 2
+            before = STATS.launches["pack_finish"]
+            res = corrector.correct_batch(state, meta, c, q, lengths, cfg,
+                                          contam=contam)
+            total = int(res.packed[1])
+            reads = corrector.finish_batch(res, c.shape[0], c, cfg)
+            runs.append((reads, STATS.launches["pack_finish"] - before,
+                         total, res.packed.numel() - 2 - 3 * c.shape[0]))
+    finally:
+        cache.clear()
+        cache.update(saved)
+    (first, n1, total, cap1), (again, n2, _t, cap2) = runs
+    equal = first == again
+    killed = sum(r.error == corrector.ERROR_CONTAMINANT for r in first)
+    check(equal and n2 == 2 and cap2 < total and killed > 0,
+          f"the exact re-pack differs (equal {equal}, launches {n2}, cap "
+          f"{cap2} of {total} entries, {killed} contaminated)")
+    return dict(equal=equal, entries=total, cap=cap1, launches=n1,
+                forced_cap=cap2, forced_launches=n2, contaminated=killed)
 
 
 def floor_table(rows, meta) -> dict:
@@ -1957,7 +2356,8 @@ def run() -> int:
         phase_pending(card, full, two["rb_start"])
         for name, v in phase_loaded(card, full).items():
             stats.setdefault(name, {}).update(v)
-        for name, v in phase_table(card, full).items():
+        contam = phase_contaminant(card, full)
+        for name, v in phase_table(card, full, contam).items():
             stats.setdefault(name, {}).update(v)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -1965,7 +2365,7 @@ def run() -> int:
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     by_path = {"full": full["launches"], "two_binary": two["launches"],
-               **prefilter, **partitions}
+               **prefilter, **partitions, **contam["launches"]}
     def bound_ms(nbytes):
         return round(nbytes / H100_BYTES_PER_S * 1e3, 5)
 
@@ -1976,7 +2376,8 @@ def run() -> int:
         entries = {e: {"ms": round(v[e]["ms"], 5),
                        "plain_ms": round(v[e]["plain_ms"], 5),
                        "bound_ms": bound_ms(v[e]["bound_bytes"])}
-                   for e in ("query", "inline", "compact", "partition")
+                   for e in ("query", "inline", "compact", "partition",
+                             "contaminant", "contaminant_trim", "overflow")
                    if e in v}
         equal = v["equal"] and all(v[e].get("equal", True) for e in entries)
         rows.append({"name": name, "route": "cuda", "source": src,

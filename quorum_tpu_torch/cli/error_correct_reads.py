@@ -1,7 +1,8 @@
 """quorum_error_correct_reads (port): the reference-named correction
 flags of quorum_tpu's stage-2 CLI (-m -s -g -a -w -e -p -q -Q -d
---apriori-error-rate --poisson-threshold -o, same defaults) plus
---presence-floor, --batch-size, --verify-db and --device.
+--contaminant --trim-contaminant --homo-trim --apriori-error-rate
+--poisson-threshold -o, same defaults) plus --presence-floor,
+--batch-size, --verify-db and --device.
 
     python -m quorum_tpu_torch.cli.error_correct_reads -p 4 db.jf \\
         reads.fastq -o corrected
@@ -37,6 +38,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Maximum number of error in a window")
     p.add_argument("-o", "--output", default=None, metavar="prefix",
                    help="Output file prefix (default: stdout/stderr)")
+    p.add_argument("--contaminant", metavar="path",
+                   help="Contaminant sequences (fasta/fastq) or k-mer "
+                        "database")
+    p.add_argument("--trim-contaminant", action="store_true",
+                   help="Trim reads containing contaminated k-mers instead "
+                        "of discarding")
+    p.add_argument("--homo-trim", type=int, default=None,
+                   help="Trim homo-polymer run at the 3' end")
     p.add_argument("--apriori-error-rate", type=float, default=0.01,
                    help="Probability of a base being an error")
     p.add_argument("--poisson-threshold", type=float, default=1e-6,
@@ -97,7 +106,8 @@ def main(argv=None, db=None, prepacked=None,
                      apriori_error_rate=args.apriori_error_rate,
                      poisson_threshold=args.poisson_threshold,
                      batch_size=args.batch_size, verify_db=args.verify_db,
-                     device=args.device, presence_floor=args.presence_floor)
+                     device=args.device, presence_floor=args.presence_floor,
+                     contaminant=args.contaminant)
     try:
         stats = run_error_correct(args.db, args.sequence, opts,
                                   qual_cutoff=qual_cutoff, skip=args.skip,
@@ -106,6 +116,8 @@ def main(argv=None, db=None, prepacked=None,
                                   min_count=args.min_count,
                                   window=args.window, error=args.error,
                                   no_discard=args.no_discard,
+                                  homo_trim=args.homo_trim,
+                                  trim_contaminant=args.trim_contaminant,
                                   db=db, prepacked=prepacked)
     except IntegrityError as e:
         print(str(e), file=sys.stderr)

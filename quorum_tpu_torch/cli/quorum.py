@@ -7,6 +7,8 @@ ONCE, builds the mer table (stage 1), hands it to stage 2 in-process
     python -m quorum_tpu_torch.cli.quorum --device cpu ...   # plain torch
     python -m quorum_tpu_torch.cli.quorum --prefilter two-pass ...
     python -m quorum_tpu_torch.cli.quorum --partitions 4 ...
+    python -m quorum_tpu_torch.cli.quorum --contaminant \
+        $(python -m quorum_tpu_torch.data) --trim-contaminant ...
 
 With --partitions P > 1 stage 1 writes a sharded manifest pass by pass
 and keeps no table on the card, so stage 2 loads the manifest from disk
@@ -64,8 +66,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Number of good kmer in a row for anchor")
     p.add_argument("--anchor-count", type=int, default=None,
                    help="Minimum count for an anchor kmer")
+    p.add_argument("--contaminant", default=None,
+                   help="Contaminant sequences")
+    p.add_argument("--trim-contaminant", "--contaminant-trim",
+                   action="store_true",
+                   help="Trim sequences with contaminant mers")
     p.add_argument("-d", "--no-discard", action="store_true",
                    help="Do not discard reads, output a single N (false)")
+    p.add_argument("--homo-trim", type=int, default=None,
+                   help="Trim homo-polymer on 3' end")
     p.add_argument("--batch-size", type=int, default=8192,
                    help="Reads per device batch")
     p.add_argument("--db-version", type=int, choices=(4, 5), default=5,
@@ -233,9 +242,13 @@ def main(argv=None, report: dict | None = None) -> int:
     for flag, val in (("--min-count", args.min_count), ("--skip", args.skip),
                       ("--good", args.anchor),
                       ("--anchor-count", args.anchor_count),
-                      ("--window", args.window), ("--error", args.error)):
+                      ("--window", args.window), ("--error", args.error),
+                      ("--homo-trim", args.homo_trim),
+                      ("--contaminant", args.contaminant)):
         if val is not None:
             ec_argv.extend([flag, str(val)])
+    if args.trim_contaminant:
+        ec_argv.append("--trim-contaminant")
     if args.no_discard:
         ec_argv.append("--no-discard")
     ec_argv += ["-o", args.prefix, db_file] + list(args.reads)

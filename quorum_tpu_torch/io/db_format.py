@@ -32,7 +32,7 @@ import torch
 
 from ..ops import ctable
 from ..ops.ctable import GlobalMeta, TileMeta, TileState
-from . import integrity
+from . import integrity, quorum_db
 from .integrity import IntegrityError
 
 FORMAT = "binary/quorum_tpu_db"
@@ -453,10 +453,18 @@ def load_db(path: str, device="cpu", verify: str = "full"):
     carries a prefiltered build's `prefilter` and `poisson_stats`.
     Digests and the payload's structure are checked on the host BEFORE
     any byte reaches the device; then the raw payload crosses once and
-    HK7 decodes and places it there."""
+    HK7 decodes and places it there. A reference `binary/quorum_db` file
+    (io/quorum_db) is decoded on the host and placed the same way."""
     if verify not in VERIFY_MODES:
         raise ValueError(f"verify must be one of {VERIFY_MODES}, "
                          f"got {verify!r}")
+    if quorum_db.is_ref_db(path):
+        khi, klo, vals, k, bits = quorum_db.read_ref_db(path)
+        state, meta, stats = ctable.tile_from_entries(khi, klo, vals, k,
+                                                      bits, device)
+        header = {"format": quorum_db.REF_FORMAT, "version": 2,
+                  "key_len": 2 * k, "bits": bits, "rb_log2": meta.rb_log2}
+        return state, meta, header, stats
     header = read_header(path)
     if header.get("format") == MANIFEST_FORMAT:
         return _load_manifest(path, header, device, verify)

@@ -1,4 +1,4 @@
-"""Wrappers of the thirteen hand-written Hopper kernels (csrc/*.cu).
+"""Wrappers of the fourteen hand-written Hopper kernels (csrc/*.cu).
 
 Every wrapper checks device, dtype, shape and contiguity, then either
 launches its CUDA kernel (tensors on a CUDA device) or runs the plain
@@ -13,7 +13,9 @@ or launch raises.
   HK2 tile_seal     duplicate check + fold + statistics
   HK3 tile_lookup   canonical mer -> value word
   HK4 extend_reads  per-(read, direction) extension with edit logs
+                    (and the contaminant checks)
   HK5 stage2_head   stage-2 wire widening, window lookups, anchor scan
+                    (and the contaminant probe and kill)
   HK6 tile_export   sealed rows (a table or a row range of one) -> the
                     v4/v5 payload (sorted, compacted); compact entry:
                     the occupied slots in slot order
@@ -25,6 +27,8 @@ or launch raises.
   HK12 tile_floor      the stage-2 presence floor on the sealed rows
   HK13 tile_departition  a partition pass's sealed rows -> the global
                        geometry (in place)
+  HK14 pack_finish     a stage-2 batch's result -> one packed u32 buffer
+                       (the single device-to-host copy of the batch)
 """
 
 from __future__ import annotations
@@ -184,17 +188,33 @@ def tile_lookup(rows: torch.Tensor, meta, keys: torch.Tensor):
 # --------------------------------------------------------------- HK4
 
 
-def extend_reads(rows, meta, codes, hqb, lengths, found, start_off, anc_f,
+def _contam_args(contam, meta):
+    """(rows pointer or None, rb_log2, bits) of an optional contaminant
+    table (rows, meta) at the main table's k."""
+    if contam is None:
+        return None, 0, 0
+    crows, cmeta = contam
+    _check_rows(crows, cmeta)
+    if cmeta.k != meta.k:
+        raise ValueError(f"contaminant table k = {cmeta.k}, main table "
+                         f"k = {meta.k}")
+    return crows.data_ptr(), cmeta.rb_log2, cmeta.bits
+
+
+def extend_reads(rows, meta, codes, hqb, lengths, status0, start_off, anc_f,
                  anc_r, prev0, keep, *, window: int, error: int,
-                 min_count: int, cutoff: int, maxe: int):
-    """Extend every anchored read both ways (see reference.extend_reads
-    for the outputs). All tensors on one device."""
+                 min_count: int, cutoff: int, maxe: int, contam=None,
+                 trim_contaminant: bool = False):
+    """Extend every read whose anchor status is OK both ways, checking
+    the optional contaminant table (rows, meta) (see
+    reference.extend_reads for the outputs). All tensors on one
+    device."""
     _check_rows(rows, meta)
     b, l = codes.shape
     _check(codes, torch.int8, "codes")
     _check(hqb, torch.bool, "hqb")
     _check(lengths, torch.int32, "lengths")
-    _check(found, torch.bool, "found")
+    _check(status0, torch.int32, "status0")
     _check(start_off, torch.int32, "start_off")
     _check(anc_f, torch.int64, "anc_f")
     _check(anc_r, torch.int64, "anc_r")
@@ -202,37 +222,36 @@ def extend_reads(rows, meta, codes, hqb, lengths, found, start_off, anc_f,
     _check(keep, torch.uint8, "keep")
     if tuple(keep.shape) != (4 * meta.max_val + 1, meta.max_val + 1):
         raise ValueError("keep table does not match max_val")
+    cptr, crb, cbits = _contam_args(contam, meta)
     kw = dict(window=window, error=error, min_count=min_count,
               cutoff=cutoff, maxe=maxe)
-    if not _on_cuda(rows, codes, keep):
-        return ref.extend_reads(rows, meta, codes, hqb, lengths, found,
-                                start_off, anc_f, anc_r, prev0, keep, **kw)
+    if not _on_cuda(rows, codes, keep, *(contam[:1] if contam else ())):
+        return ref.extend_reads(rows, meta, codes, hqb, lengths, status0,
+                                start_off, anc_f, anc_r, prev0, keep,
+                                contam=contam,
+                                trim_contaminant=trim_contaminant, **kw)
     dev = codes.device
     out = codes.clone()
     start = torch.empty(b, dtype=torch.int32, device=dev)
     end = torch.empty(b, dtype=torch.int32, device=dev)
+    lstatus = torch.empty(2 * b, dtype=torch.int32, device=dev)
     log_n = torch.empty(2 * b, dtype=torch.int32, device=dev)
     log_lwin = torch.empty(2 * b, dtype=torch.int32, device=dev)
     log_pos = torch.zeros((2 * b, maxe), dtype=torch.int32, device=dev)
     log_meta = torch.zeros((2 * b, maxe), dtype=torch.int32, device=dev)
     overflow = torch.zeros(1, dtype=torch.int32, device=dev)
     launch("extend_reads", "extend_reads", rows.data_ptr(), meta.k,
-           meta.rb_log2, meta.bits, codes.data_ptr(), hqb.data_ptr(),
-           lengths.data_ptr(), found.data_ptr(), start_off.data_ptr(),
-           anc_f.data_ptr(), anc_r.data_ptr(), prev0.data_ptr(),
-           keep.data_ptr(), b, l, window, error, min_count, cutoff, maxe,
-           out.data_ptr(), start.data_ptr(), end.data_ptr(),
+           meta.rb_log2, meta.bits, cptr, crb, cbits, int(trim_contaminant),
+           codes.data_ptr(), hqb.data_ptr(), lengths.data_ptr(),
+           status0.data_ptr(), start_off.data_ptr(), anc_f.data_ptr(),
+           anc_r.data_ptr(), prev0.data_ptr(), keep.data_ptr(), b, l,
+           window, error, min_count, cutoff, maxe, out.data_ptr(),
+           start.data_ptr(), end.data_ptr(), lstatus.data_ptr(),
            log_n.data_ptr(), log_lwin.data_ptr(), log_pos.data_ptr(),
            log_meta.data_ptr(), overflow.data_ptr())
-    if int(overflow.item()):
-        raise RuntimeError(f"log overflow: more than {maxe} entries")
-
-    def i64(*xs):
-        return tuple(x.to(torch.int64) for x in xs)
-
-    fwd = i64(log_n[:b], log_lwin[:b], log_pos[:b], log_meta[:b])
-    bwd = i64(log_n[b:], log_lwin[b:], log_pos[b:], log_meta[b:])
-    return out, start.to(torch.int64), end.to(torch.int64), fwd, bwd
+    fwd = (log_n[:b], log_lwin[:b], log_pos[:b], log_meta[:b])
+    bwd = (log_n[b:], log_lwin[b:], log_pos[b:], log_meta[b:])
+    return out, start, end, lstatus, fwd, bwd, overflow
 
 
 # --------------------------------------------------------------- HK5
@@ -240,17 +259,21 @@ def extend_reads(rows, meta, codes, hqb, lengths, found, start_off, anc_f,
 
 def stage2_head(rows, meta, wire: torch.Tensor, b: int, length: int,
                 thresholds, qual_cutoff: int, *, skip: int, good: int,
-                anchor_count: int):
+                anchor_count: int, contam=None,
+                trim_contaminant: bool = False):
     """One stage-2 batch from its packed wire to HK4's inputs: (codes
     int8 [B, L], hqb bool [B, L] = qual >= qual_cutoff, lengths int32
-    [B], (found bool, start_off int32, f int64, r int64, prev int32))
-    -- the anchors of corrector.find_anchors without a contaminant."""
+    [B], (found bool, start_off int32, f int64, r int64, prev int32,
+    status int32)) -- the anchors of corrector.find_anchors, with the
+    optional contaminant table (rows, meta)."""
     _check_rows(rows, meta)
     ts, offs = _wire_offsets(wire, b, length, thresholds, qual_cutoff)
+    cptr, crb, cbits = _contam_args(contam, meta)
     kw = dict(skip=skip, good=good, anchor_count=anchor_count)
-    if not _on_cuda(rows, wire):
+    if not _on_cuda(rows, wire, *(contam[:1] if contam else ())):
         return ref.stage2_head(rows, meta, wire, b, length, ts, qual_cutoff,
-                               **kw)
+                               contam=contam,
+                               trim_contaminant=trim_contaminant, **kw)
     dev = wire.device
     codes = torch.empty((b, length), dtype=torch.int8, device=dev)
     hqb = torch.empty((b, length), dtype=torch.bool, device=dev)
@@ -260,13 +283,15 @@ def stage2_head(rows, meta, wire: torch.Tensor, b: int, length: int,
     anc_f = torch.empty(b, dtype=torch.int64, device=dev)
     anc_r = torch.empty(b, dtype=torch.int64, device=dev)
     prev = torch.empty(b, dtype=torch.int32, device=dev)
+    status = torch.empty(b, dtype=torch.int32, device=dev)
     launch("stage2_head", "stage2_head", wire.data_ptr(), b, length,
-           *offs, rows.data_ptr(), meta.k,
-           meta.rb_log2, meta.bits, skip, good, anchor_count,
+           *offs, rows.data_ptr(), meta.k, meta.rb_log2, meta.bits, cptr,
+           crb, cbits, int(trim_contaminant), skip, good, anchor_count,
            codes.data_ptr(), hqb.data_ptr(), lengths.data_ptr(),
            found.data_ptr(), start_off.data_ptr(), anc_f.data_ptr(),
-           anc_r.data_ptr(), prev.data_ptr())
-    return codes, hqb, lengths, (found, start_off, anc_f, anc_r, prev)
+           anc_r.data_ptr(), prev.data_ptr(), status.data_ptr())
+    return codes, hqb, lengths, (found, start_off, anc_f, anc_r, prev,
+                                 status)
 
 
 # --------------------------------------------------------------- HK6
@@ -561,3 +586,52 @@ def tile_departition(rows: torch.Tensor, meta, g: int, part: int):
     launch("tile_departition", "tile_departition", rows.data_ptr(),
            meta.rows, meta.bits, g, part, hi_bits, bad.data_ptr())
     return bad
+
+# --------------------------------------------------------------- HK14
+
+
+def pack_finish(start, end, status_f, status_b, fwd, bwd, overflow, *,
+                length: int, cap: int):
+    """K14: one stage-2 batch's result -- start, end, the forward and
+    backward lanes' statuses (int32 [B]), fwd/bwd = (n [B], pos
+    [B, maxe], meta [B, maxe]) int32 logs and HK4's overflow flag -- in
+    one buffer (see reference.pack_finish for the layout) with room for
+    `cap` log entries. Returns (buffer int32 [2 + 3B + cap], merged
+    status int32 [B]). Raises where `length` (the batch's read length)
+    would not fit a biased 16-bit position."""
+    if length >= (1 << 15) - ref.POS_BIAS:
+        raise ValueError(f"read length {length} overflows the int16 packed "
+                         "layout")
+    if cap < 0:
+        raise ValueError(f"cap must be >= 0, got {cap}")
+    b = start.numel()
+    maxe = fwd[1].shape[1]
+    for name, t in (("start", start), ("end", end), ("status_f", status_f),
+                    ("status_b", status_b), ("f_n", fwd[0]),
+                    ("b_n", bwd[0])):
+        _check(t, torch.int32, name)
+        if t.numel() != b:
+            raise ValueError(f"{name}: expected {b} values")
+    for name, t in (("f_pos", fwd[1]), ("f_meta", fwd[2]), ("b_pos", bwd[1]),
+                    ("b_meta", bwd[2])):
+        _check(t, torch.int32, name)
+        if tuple(t.shape) != (b, maxe):
+            raise ValueError(f"{name}: expected shape ({b}, {maxe})")
+    _check(overflow, torch.int32, "overflow")
+    if not _on_cuda(start, end, status_f, status_b, *fwd, *bwd, overflow):
+        return ref.pack_finish(start, end, status_f, status_b, fwd, bwd,
+                               overflow, cap)
+    dev = start.device
+    buf = torch.empty(2 + 3 * b + cap, dtype=torch.int32, device=dev)
+    status = torch.empty(b, dtype=torch.int32, device=dev)
+    offs = torch.empty(b, dtype=torch.int64, device=dev)
+    with launching("pack_finish"):
+        call("pack_finish", "pack_head", start.data_ptr(), end.data_ptr(),
+             status_f.data_ptr(), status_b.data_ptr(), fwd[0].data_ptr(),
+             bwd[0].data_ptr(), overflow.data_ptr(), b, maxe,
+             buf.data_ptr(), status.data_ptr(), offs.data_ptr())
+        call("pack_finish", "pack_entries", fwd[0].data_ptr(),
+             bwd[0].data_ptr(), fwd[1].data_ptr(), fwd[2].data_ptr(),
+             bwd[1].data_ptr(), bwd[2].data_ptr(), b, maxe, cap,
+             offs.data_ptr(), buf.data_ptr())
+    return buf, status

@@ -4,9 +4,11 @@
 // Replaces the TPU path quorum_tpu/models/corrector.py:1095 (extend /
 // _extend_loop :549 with _gba :265, _gba_reduce :238, _log_append :107,
 // _log_remove_last_window :135, _append_trunc :155, _advance_lwin :94),
-// the float32 Poisson term of ops/poisson.py:45 (K15) and the
+// the float32 Poisson term of ops/poisson.py:45 (K15), the
 // reverse-complement frame of _rc_prologue / _bwd_epilogue
-// (corrector.py:1181-1223, K12).
+// (corrector.py:1181-1223, K12) and the contaminant checks of the
+// extension (_contam_hit :286; con1 :806-812, con2 :864-871, con3
+// :962-968).
 //
 // Design: one thread per (read, direction) lane runs the reference's
 // sequential extension (models/oracle.py:350-505, error_correct_reads.cc
@@ -20,14 +22,34 @@
 // outcome over (sum of kept counts, c_ori), so no float math runs here.
 // The edit logs (err_log.hpp) live in global memory, maxe entries a lane.
 //
+// The contaminant entry (CONTAM) probes a second table, with its own
+// geometry (rb, bits), for the shifted mer when the read's base is ACGT
+// and for each substituted mer (log_substitution, error_correct_reads.cc
+// :360-379): a hit logs a truncation at the position and ends the lane
+// under `trim`, else it ends the lane with status ST_CONTAMINANT and no
+// entry. Each lane writes its own status word (the anchor status it
+// started from, or ST_CONTAMINANT); HK14 merges the two lanes of a read,
+// the forward one's first (_bwd_epilogue :1212), so no word is shared.
+//
 // Bound: bytes. Each step of a lane makes 4 probes (16 more on an
 // ambiguous base); the least traffic is one read of every row the run
 // probes, plus the codes/quals in and the corrected bases and logs out.
 #include "table.cuh"
 
+#define ST_OK 0
+#define ST_CONTAMINANT 1
+
 struct Cfg {
-  int k, rb, bits, L, window, error, min_count, cutoff, maxe;
+  int k, rb, bits, crb, cbits, trim, L, window, error, min_count, cutoff,
+      maxe;
 };
+
+__device__ __forceinline__ bool contam_hit(const uint32_t* crows,
+                                           const Cfg& c, uint64_t f,
+                                           uint64_t r) {
+  return probe_row(crows, key_parts(canonical(f, r), c.k, c.crb, c.cbits),
+                   c.cbits) != 0;
+}
 
 // get_best_alternatives (mer_database.hpp:302-329).
 __device__ void gba(const uint32_t* rows, const Cfg& c, uint64_t f,
@@ -97,14 +119,16 @@ __device__ __forceinline__ int sub_meta(int frm, int to) {
   return ((frm >= 0 ? frm : 4) << 1) | ((to >= 0 ? to : 4) << 4);
 }
 
+template <bool CONTAM>
 __global__ void extend_kernel(
-    const uint32_t* __restrict__ rows, Cfg c, const int8_t* __restrict__ codes,
+    const uint32_t* __restrict__ rows, const uint32_t* __restrict__ crows,
+    Cfg c, const int8_t* __restrict__ codes,
     const uint8_t* __restrict__ hqb, const int* __restrict__ lengths,
-    const uint8_t* __restrict__ found, const int* __restrict__ start_off,
+    const int* __restrict__ status0, const int* __restrict__ start_off,
     const long long* __restrict__ anc_f, const long long* __restrict__ anc_r,
     const int* __restrict__ prev0, const uint8_t* __restrict__ keep, int B,
-    int8_t* out, int* start, int* end, int* log_n, int* log_lwin,
-    int* log_pos, int* log_meta, int* overflow) {
+    int8_t* out, int* start, int* end, int* lstatus, int* log_n,
+    int* log_lwin, int* log_pos, int* log_meta, int* overflow) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= 2 * B) return;
   const int i = lane < B ? lane : lane - B;
@@ -113,8 +137,10 @@ __global__ void extend_kernel(
   const int so = start_off[i];
   Log lg{log_pos + (size_t)lane * c.maxe, log_meta + (size_t)lane * c.maxe,
          0, 0, d, c.window, c.error, c.maxe, overflow};
-  if (!found[i]) {
+  int st = status0[i];
+  if (st != ST_OK) {  // not anchored
     if (d > 0) end[i] = so; else start[i] = so - k;
+    lstatus[lane] = st;
     log_n[lane] = 0;
     log_lwin[lane] = 0;
     return;
@@ -135,6 +161,10 @@ __global__ void extend_kernel(
     const int cpos = pos;
     pos += d;
     dir_shift(f, r, ori >= 0 ? ori : (d > 0 ? 0 : 3), d, k);
+    if (CONTAM && ori >= 0 && contam_hit(crows, c, f, r)) {  // con1
+      if (c.trim) lg.truncation(cpos); else st = ST_CONTAMINANT;
+      break;
+    }
     int counts[4], ucode, level, count;
     gba(rows, c, f, r, d, counts, ucode, level, count);
     if (count == 0) {
@@ -145,6 +175,10 @@ __global__ void extend_kernel(
       prev = counts[ucode];
       if (ori != ucode) {
         dir_replace0(f, r, ucode, d, k);
+        if (CONTAM && contam_hit(crows, c, f, r)) {  // con2
+          if (c.trim) lg.truncation(cpos); else st = ST_CONTAMINANT;
+          break;
+        }
         if (lg.append(cpos, sub_meta(ori, ucode))) {
           const int diff = lg.remove_last_window();
           lg.truncation(cpos - d * diff);
@@ -227,6 +261,10 @@ __global__ void extend_kernel(
       }
       if (check >= 0 && check != ori) {
         dir_replace0(f, r, check, d, k);
+        if (CONTAM && contam_hit(crows, c, f, r)) {  // con3
+          if (c.trim) lg.truncation(cpos); else st = ST_CONTAMINANT;
+          break;
+        }
         if (lg.append(cpos, sub_meta(ori, check))) {
           const int diff = lg.remove_last_window();
           lg.truncation(cpos - d * diff);
@@ -243,23 +281,33 @@ __global__ void extend_kernel(
     opos += d;
   }
   if (d > 0) end[i] = opos; else start[i] = opos + 1;
+  lstatus[lane] = st;
   log_n[lane] = lg.n;
   log_lwin[lane] = lg.lwin;
 }
 
+// `crows` null: the entry without a contaminant.
 extern "C" int extend_reads(
-    const uint32_t* rows, int k, int rb, int bits, const int8_t* codes,
-    const uint8_t* hqb, const int* lengths, const uint8_t* found,
-    const int* start_off, const long long* anc_f, const long long* anc_r,
-    const int* prev0, const uint8_t* keep, int B, int L, int window,
-    int error, int min_count, int cutoff, int maxe, int8_t* out, int* start,
-    int* end, int* log_n, int* log_lwin, int* log_pos, int* log_meta,
-    int* overflow, void* stream) {
-  Cfg c{k, rb, bits, L, window, error, min_count, cutoff, maxe};
-  if (B > 0)
-    extend_kernel<<<(2 * B + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
-        rows, c, codes, hqb, lengths, found, start_off, anc_f, anc_r, prev0,
-        keep, B, out, start, end, log_n, log_lwin, log_pos, log_meta,
-        overflow);
+    const uint32_t* rows, int k, int rb, int bits, const uint32_t* crows,
+    int crb, int cbits, int trim, const int8_t* codes, const uint8_t* hqb,
+    const int* lengths, const int* status0, const int* start_off,
+    const long long* anc_f, const long long* anc_r, const int* prev0,
+    const uint8_t* keep, int B, int L, int window, int error, int min_count,
+    int cutoff, int maxe, int8_t* out, int* start, int* end, int* lstatus,
+    int* log_n, int* log_lwin, int* log_pos, int* log_meta, int* overflow,
+    void* stream) {
+  Cfg c{k, rb, bits, crb, cbits, trim, L, window, error, min_count, cutoff,
+        maxe};
+  const unsigned grid = (unsigned)((2 * B + 127) / 128);
+  if (B > 0 && crows)
+    extend_kernel<true><<<grid, 128, 0, (cudaStream_t)stream>>>(
+        rows, crows, c, codes, hqb, lengths, status0, start_off, anc_f,
+        anc_r, prev0, keep, B, out, start, end, lstatus, log_n, log_lwin,
+        log_pos, log_meta, overflow);
+  else if (B > 0)
+    extend_kernel<false><<<grid, 128, 0, (cudaStream_t)stream>>>(
+        rows, crows, c, codes, hqb, lengths, status0, start_off, anc_f,
+        anc_r, prev0, keep, B, out, start, end, lstatus, log_n, log_lwin,
+        log_pos, log_meta, overflow);
   return (int)cudaGetLastError();
 }

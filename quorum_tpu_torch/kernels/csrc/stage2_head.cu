@@ -5,7 +5,9 @@
 // unpack_codes_device, synth_quals_device: K1), mer.rolling_kmers :192
 // and mer.canonical :151 (K2), and quorum_tpu/models/corrector.py:312
 // (_position_sweep: one lookup per window, K10) with find_anchors :348
-// (the closed-form anchor scan, K11), without a contaminant.
+// (the closed-form anchor scan, K11), and their contaminant halves: the
+// contaminant lookup of _position_sweep (:327-333) and the kill of
+// find_anchors (:393-406).
 //
 // Design: one warp per read; lanes stride the read's positions, 32 at a
 // time. A lane reads its base straight from the packed wire as HK1 does
@@ -22,21 +24,35 @@
 // anchor is found. Where there is none, the outputs are the plain
 // version's: position 0's mers and value, start_off 1.
 //
+// The contaminant entry (CONTAM) probes one more table, with its own
+// geometry (rb, bits), for every valid window past `skip` until the
+// anchor: a member window is neither good nor a reset, and unless `trim`
+// the first checked member before the anchor (a ballot per chunk) kills
+// the read. The scan goes on to the anchor all the same, since start_off
+// is one past it (find_anchors), and the kernel writes the read's status
+// (OK, ST_CONTAMINANT, ST_NO_ANCHOR) in both entries.
+//
 // Bound: bytes. The wire in, the codes and qual planes and the anchors
 // out, and one read of the 512-byte row of every probed window (HK3's
-// count per probe).
+// count per probe), in each table probed.
 #include "table.cuh"
 
 #define HEAD_WARPS 4
 
+#define ST_OK 0
+#define ST_CONTAMINANT 1
+#define ST_NO_ANCHOR 2
+
 struct HeadCfg {
-  int k, rb, bits, skip, good, anchor_count;
+  int k, rb, bits, crb, cbits, trim, skip, good, anchor_count;
 };
 
+template <bool CONTAM>
 __global__ void head_kernel(const uint8_t* __restrict__ wire, int B, int L,
                             long long off_nmask, long long off_hq,
                             long long off_len,
-                            const uint32_t* __restrict__ rows, HeadCfg c,
+                            const uint32_t* __restrict__ rows,
+                            const uint32_t* __restrict__ crows, HeadCfg c,
                             int8_t* __restrict__ codes,
                             uint8_t* __restrict__ hqb,
                             int* __restrict__ lengths,
@@ -44,7 +60,8 @@ __global__ void head_kernel(const uint8_t* __restrict__ wire, int B, int L,
                             int* __restrict__ start_off,
                             long long* __restrict__ anc_f,
                             long long* __restrict__ anc_r,
-                            int* __restrict__ prev) {
+                            int* __restrict__ prev,
+                            int* __restrict__ status) {
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * HEAD_WARPS + (threadIdx.x >> 5);
   if (i >= B) return;  // whole warps
@@ -57,12 +74,12 @@ __global__ void head_kernel(const uint8_t* __restrict__ wire, int B, int L,
   const uint8_t* hp = wire + off_hq + (long long)i * c8;
   const int k = c.k;
   int run = 0;
-  bool hit_found = false;
-  int hit_p = 0, hit_v = 0, v0 = 0;
+  bool hit_found = false, kill_found = false;
+  int hit_p = 0, hit_v = 0, v0 = 0, kill_p = 0;
   unsigned long long hit_f = 0, hit_r = 0, f0 = 0, r0 = 0;
   for (int base = 0; base < L; base += 32) {
     const int p = base + lane;
-    bool a = false, z = false;
+    bool a = false, z = false, kill = false;
     unsigned long long f = 0, r = 0;
     int vhq = 0;
     if (p < L) {
@@ -86,13 +103,19 @@ __global__ void head_kernel(const uint8_t* __restrict__ wire, int B, int L,
       }
       const bool vw = valid && p >= c.skip + k - 1;
       const bool checked = vw && p <= len - 2;
+      bool con = false;
       if (vw && !hit_found) {
-        const uint32_t val = probe_row(
-            rows, key_parts(canonical(f, r), k, c.rb, c.bits), c.bits);
+        const uint64_t m = canonical(f, r);
+        const uint32_t val = probe_row(rows, key_parts(m, k, c.rb, c.bits),
+                                       c.bits);
         vhq = (val & 1u) ? (int)(val >> 1) : 0;
+        if (CONTAM)
+          con = probe_row(crows, key_parts(m, k, c.crb, c.cbits),
+                          c.cbits) != 0;
       }
-      a = checked && vhq >= c.anchor_count;
-      z = !vw || (checked && vhq < c.anchor_count);
+      a = checked && !con && vhq >= c.anchor_count;
+      z = !vw || (checked && !con && vhq < c.anchor_count);
+      kill = CONTAM && !c.trim && checked && con;
     }
     if (base == 0) {
       f0 = __shfl_sync(FULL_MASK, f, 0);
@@ -112,6 +135,13 @@ __global__ void head_kernel(const uint8_t* __restrict__ wire, int B, int L,
       myrun = run + __popc(am & upto);
     }
     const unsigned hm = __ballot_sync(FULL_MASK, a && myrun >= c.good);
+    if (CONTAM) {  // the first kill before the anchor (none after it)
+      const unsigned km = __ballot_sync(FULL_MASK, kill);
+      if (km && !hit_found && !kill_found) {
+        kill_found = true;
+        kill_p = base + __ffs(km) - 1;
+      }
+    }
     if (hm && !hit_found) {
       const int hl = __ffs(hm) - 1;
       hit_found = true;
@@ -123,28 +153,37 @@ __global__ void head_kernel(const uint8_t* __restrict__ wire, int B, int L,
     run = __shfl_sync(FULL_MASK, myrun, 31);
   }
   if (lane == 0) {
+    const bool killed = kill_found && (!hit_found || kill_p < hit_p);
+    const bool ok = hit_found && !killed;
     lengths[i] = len;
-    found[i] = hit_found;
+    found[i] = ok;
     start_off[i] = (hit_found ? hit_p : 0) + 1;
-    anc_f[i] = (long long)(hit_found ? hit_f : f0);
-    anc_r[i] = (long long)(hit_found ? hit_r : r0);
-    prev[i] = hit_found ? hit_v : v0;
+    anc_f[i] = (long long)(ok ? hit_f : f0);
+    anc_r[i] = (long long)(ok ? hit_r : r0);
+    prev[i] = ok ? hit_v : v0;
+    status[i] = ok ? ST_OK : killed ? ST_CONTAMINANT : ST_NO_ANCHOR;
   }
 }
 
+// `crows` null: the entry without a contaminant.
 extern "C" int stage2_head(const uint8_t* wire, int B, int L,
                            long long off_nmask, long long off_hq,
                            long long off_len, const uint32_t* rows, int k,
-                           int rb, int bits, int skip, int good,
+                           int rb, int bits, const uint32_t* crows, int crb,
+                           int cbits, int trim, int skip, int good,
                            int anchor_count, int8_t* codes, uint8_t* hqb,
                            int* lengths, uint8_t* found, int* start_off,
                            long long* anc_f, long long* anc_r, int* prev,
-                           void* stream) {
-  HeadCfg c{k, rb, bits, skip, good, anchor_count};
-  if (B > 0)
-    head_kernel<<<(unsigned)((B + HEAD_WARPS - 1) / HEAD_WARPS),
-                  32 * HEAD_WARPS, 0, (cudaStream_t)stream>>>(
-        wire, B, L, off_nmask, off_hq, off_len, rows, c, codes, hqb, lengths,
-        found, start_off, anc_f, anc_r, prev);
+                           int* status, void* stream) {
+  HeadCfg c{k, rb, bits, crb, cbits, trim, skip, good, anchor_count};
+  const unsigned grid = (unsigned)((B + HEAD_WARPS - 1) / HEAD_WARPS);
+  if (B > 0 && crows)
+    head_kernel<true><<<grid, 32 * HEAD_WARPS, 0, (cudaStream_t)stream>>>(
+        wire, B, L, off_nmask, off_hq, off_len, rows, crows, c, codes, hqb,
+        lengths, found, start_off, anc_f, anc_r, prev, status);
+  else if (B > 0)
+    head_kernel<false><<<grid, 32 * HEAD_WARPS, 0, (cudaStream_t)stream>>>(
+        wire, B, L, off_nmask, off_hq, off_len, rows, crows, c, codes, hqb,
+        lengths, found, start_off, anc_f, anc_r, prev, status);
   return (int)cudaGetLastError();
 }

@@ -33,7 +33,7 @@ BUILD_ROOT = os.path.join(os.path.dirname(HERE), "_build")
 KERNELS = ("tile_insert", "tile_seal", "tile_lookup", "extend_reads",
            "stage2_head", "tile_export", "tile_load", "tile_grow",
            "batch_aggregate", "sketch_update", "gated_insert", "tile_floor",
-           "tile_departition")
+           "tile_departition", "pack_finish")
 
 NVCC_FLAGS = ["-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-gencode", "arch=compute_90a,code=sm_90a", "-Xptxas", "-v"]
@@ -50,13 +50,14 @@ SIGNATURES = {
     "tile_seal": {"tile_seal": [_P, _P, _P, _LL, _I, _P, _P, _P]},
     "tile_lookup": {"tile_lookup": [_P, _P, _LL, _I, _I, _I, _P, _P]},
     "extend_reads": {
-        "extend_reads": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                         _P, _P, _P],
+        "extend_reads": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P,
+                         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                         _P, _P, _P, _P, _P, _P, _P, _P],
     },
     "stage2_head": {
-        "stage2_head": [_P, _I, _I, _LL, _LL, _LL, _P, _I, _I, _I, _I, _I,
-                        _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+        "stage2_head": [_P, _I, _I, _LL, _LL, _LL, _P, _I, _I, _I, _P, _I,
+                        _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _P, _P],
     },
     "tile_export": {
         "tile_export_counts": [_P, _LL, _I, _P, _P, _P, _P],
@@ -83,6 +84,10 @@ SIGNATURES = {
     "tile_floor": {"tile_floor": [_P, _LL, _I, _I, _P]},
     "tile_departition": {"tile_departition": [_P, _LL, _I, _I, _I, _I, _P,
                                               _P]},
+    "pack_finish": {
+        "pack_head": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+        "pack_entries": [_P, _P, _P, _P, _P, _P, _I, _I, _LL, _P, _P, _P],
+    },
 }
 
 

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the thirteen hand-written kernels.
+"""Plain PyTorch versions of the fourteen hand-written kernels.
 
 Each function computes what its CUDA kernel computes (csrc/*.cu) with
 ordinary tensor operations. The wrappers in kernels/__init__.py call
@@ -25,6 +25,11 @@ _ROUND_C = (0x9E3779B9, 0x85EBCA6B, 0xC2B2AE35, 0x27D4EB2F)
 _SKETCH_C = ((0x9E3779B9, 0x85EBCA6B), (0xC2B2AE35, 0x27D4EB2F))
 SKETCH_SAT = 2  # cells saturate at 2: {0, 1, >= 2} is all the gate reads
 _LOOKUP_CHUNK = 1 << 18
+# read statuses the stage-2 kernels write (quorum_tpu's corrector.OK,
+# ST_CONTAMINANT, ST_NO_ANCHOR)
+OK, ST_CONTAMINANT, ST_NO_ANCHOR = 0, 1, 2
+# HK14: log positions cross biased in u16 lanes (corrector._POS_BIAS)
+POS_BIAS = 4
 
 
 def u32(x: torch.Tensor) -> torch.Tensor:
@@ -333,16 +338,36 @@ def _sub_meta(frm, to):
             | (torch.where(to >= 0, to, 4) << 4))
 
 
-def extend_reads(rows, meta, codes, hqb, lengths, found, start_off, anc_f,
+def _contam_hit(contam, f, r, mask):
+    """`mask` lanes whose mer (f, r) is in the contaminant table
+    (corrector._contam_hit); all False without one."""
+    hit = torch.zeros_like(mask)
+    idx = torch.nonzero(mask).squeeze(1)
+    if contam is not None and idx.numel():
+        crows, cmeta = contam
+        hit[idx] = tile_lookup(crows, cmeta,
+                               mer.canonical(f[idx], r[idx])) != 0
+    return hit
+
+
+def extend_reads(rows, meta, codes, hqb, lengths, status0, start_off, anc_f,
                  anc_r, prev0, keep, *, window: int, error: int,
-                 min_count: int, cutoff: int, maxe: int):
+                 min_count: int, cutoff: int, maxe: int, contam=None,
+                 trim_contaminant: bool = False):
     """HK4 (K13 + K15): the reference's extension (oracle._extend,
     error_correct_reads.cc:384-565) for every (read, direction) lane in
     lockstep, both directions stepped directly in the read's own frame
-    (d = +1 lanes then d = -1 lanes). Backward lanes shift a non-ACGT
-    base in as T, the code the JAX package's reverse-complement frame
-    gives it. Returns (out int8 [B, L], start, end, (fwd n, lwin, pos,
-    meta), (bwd n, lwin, pos, meta)) with int64 log fields."""
+    (d = +1 lanes then d = -1 lanes), from the reads whose anchor status
+    `status0` is OK. Backward lanes shift a non-ACGT base in as T, the
+    code the JAX package's reverse-complement frame gives it. With a
+    contaminant table `contam` = (rows, meta), a lane checks the shifted
+    mer (an ACGT base only) and each substituted mer; a hit truncates
+    the lane at the position under `trim_contaminant`, else stops it
+    with status ST_CONTAMINANT and no log entry. Returns (out int8
+    [B, L], start, end, lane status [2B] (status0 of both lanes, where
+    the lane met no contaminant), (fwd n, lwin, pos, meta), (bwd n,
+    lwin, pos, meta), overflow [1] = 1 where a log outgrew maxe
+    entries), all int32."""
     b, l = codes.shape
     dev = codes.device
     k = meta.k
@@ -359,7 +384,9 @@ def extend_reads(rows, meta, codes, hqb, lengths, found, start_off, anc_f,
     pos = torch.cat([so, so - k - 1])
     end = torch.cat([ln, torch.full_like(ln, -1)])
     opos = pos.clone()
-    alive = torch.cat([found, found]).bool()
+    found = status0 == OK
+    alive = torch.cat([found, found])
+    lstatus = torch.cat([status0, status0]).to(torch.int32)
     out = codes.clone()
     logs = _Logs(nl, maxe, d, window, error, dev)
     maxv = meta.max_val
@@ -383,6 +410,9 @@ def extend_reads(rows, meta, codes, hqb, lengths, found, start_off, anc_f,
         code = torch.where(ori >= 0, ori, torch.where(d > 0, 0, 3))
         nf, nr = mer.dir_shift(f, r, code, d, k)
         f, r = torch.where(act, nf, f), torch.where(act, nr, r)
+        # contaminant on the shifted mer (error_correct_reads.cc:401-407)
+        con1 = _contam_hit(contam, f, r, act & (ori >= 0))
+        act = act & ~con1
         counts, ucode, level, count = _gba(rows, meta, f, r, d, act)
 
         t0 = act & (count == 0)
@@ -391,12 +421,15 @@ def extend_reads(rows, meta, codes, hqb, lengths, found, start_off, anc_f,
         sub1 = c1 & (ori != ucode)
         nf, nr = mer.dir_replace0(f, r, ucode, d, k)
         f, r = torch.where(c1, nf, f), torch.where(c1, nr, r)
+        # log_substitution checks the substituted mer first (cc:360-379)
+        con2 = _contam_hit(contam, f, r, sub1)
+        sub1 = sub1 & ~con2
         trip1 = logs.append(sub1, cpos, _sub_meta(ori, ucode))
         diff1 = logs.remove_last_window(trip1)
         logs.append(trip1, trunc_raw(cpos - d * diff1),
                     torch.ones_like(lane))
         opos = torch.where(trip1, opos - d * diff1, opos)
-        write = c1 & ~trip1
+        write = c1 & ~trip1 & ~con2
 
         cm = act & (count > 1)
         has_ori = cm & (ori >= 0)
@@ -415,35 +448,46 @@ def extend_reads(rows, meta, codes, hqb, lengths, found, start_off, anc_f,
         trip2 = torch.zeros_like(act)
         t_c = torch.zeros_like(act)
         amb_w = torch.zeros_like(act)
+        con3 = torch.zeros_like(act)
         ia = torch.nonzero(ambig).squeeze(1)
         if ia.numel():
-            (trip2, t_c, amb_w, f, r, opos) = _ambiguous(
+            (trip2, t_c, amb_w, con3, f, r, opos) = _ambiguous(
                 rows, meta, logs, ia, f, r, d, pos, end, read, codes64,
-                counts, level, prev, ori, cpos, opos, min_count, nl)
-        logs.append(t0 | t_a | t_b | t_c, trunc_raw(cpos),
-                    torch.ones_like(lane))
-        alive = alive & ~(t0 | trip1 | t_a | t_b | trip2 | t_c)
+                counts, level, prev, ori, cpos, opos, min_count, nl, contam)
+        con = con1 | con2 | con3
+        trunc = t0 | t_a | t_b | t_c
+        if trim_contaminant:
+            trunc = trunc | con
+        else:
+            lstatus = torch.where(con, ST_CONTAMINANT, lstatus)
+        logs.append(trunc, trunc_raw(cpos), torch.ones_like(lane))
+        alive = alive & ~(t0 | trip1 | t_a | t_b | trip2 | t_c | con)
         write = write | keep_s | amb_w
         w = torch.nonzero(write).squeeze(1)
         out[read[w], opos[w]] = mer.dir_base0(f[w], d[w], k).to(torch.int8)
         opos = torch.where(write, opos + d, opos)
 
-    if logs.overflow:
-        raise RuntimeError(f"log overflow: more than {maxe} entries")
-    not_found = ~found.bool()
-    end_f = torch.where(not_found, so, opos[:b])
-    start = torch.where(not_found, so - k, opos[b:] + 1)
-    fwd = (logs.n[:b], logs.lwin[:b], logs.pos[:b], logs.meta[:b])
-    bwd = (logs.n[b:], logs.lwin[b:], logs.pos[b:], logs.meta[b:])
-    return out, start, end_f, fwd, bwd
+    end_f = torch.where(found, opos[:b], so)
+    start = torch.where(found, opos[b:] + 1, so - k)
+
+    def i32s(*xs):
+        return tuple(x.to(torch.int32) for x in xs)
+
+    overflow = torch.tensor([int(logs.overflow)], dtype=torch.int32,
+                            device=dev)
+    return (out, *i32s(start, end_f), lstatus,
+            i32s(logs.n[:b], logs.lwin[:b], logs.pos[:b], logs.meta[:b]),
+            i32s(logs.n[b:], logs.lwin[b:], logs.pos[b:], logs.meta[b:]),
+            overflow)
 
 
 def _ambiguous(rows, meta, logs, ia, f, r, d, pos, end, read, codes64,
-               counts, level, prev, ori, cpos, opos, min_count, nl):
+               counts, level, prev, ori, cpos, opos, min_count, nl, contam):
     """The multiple-alternatives path (error_correct_reads.cc:473-545)
     for the lanes `ia`: continuation probe, then the tie-break chain
     including the int-overflow dead code (prev_count <= min_count never
-    substitutes; oracle module docstring)."""
+    substitutes; oracle module docstring), then the substitution's
+    contaminant check."""
     k = meta.k
     da = d[ia]
     pa = pos[ia]
@@ -494,14 +538,16 @@ def _ambiguous(rows, meta, logs, ia, f, r, d, pos, end, read, codes64,
         return o
 
     sub2 = full(do_rep & (check != ori[ia]))
+    con3 = _contam_hit(contam, f, r, sub2)
+    sub2 = sub2 & ~con3
     check_f = full(check, -1)
     trip2 = logs.append(sub2, cpos, _sub_meta(ori, check_f))
     diff2 = logs.remove_last_window(trip2)
     logs.append(trip2, cpos - d * diff2 + (d < 0), torch.ones_like(pos))
     opos = torch.where(trip2, opos - d * diff2, opos)
-    amb = full(torch.ones_like(do_rep))
+    amb = full(torch.ones_like(do_rep)) & ~con3
     t_c = amb & ~trip2 & (ori < 0) & (check_f < 0)
-    return trip2, t_c, amb & ~trip2 & ~t_c, f, r, opos
+    return trip2, t_c, amb & ~trip2 & ~t_c, con3, f, r, opos
 
 
 # --------------------------------------------------------------- HK5
@@ -509,39 +555,56 @@ def _ambiguous(rows, meta, logs, ia, f, r, d, pos, end, read, codes64,
 
 def stage2_head(rows, meta, wire, b: int, length: int, thresholds,
                 qual_cutoff: int, *, skip: int, good: int,
-                anchor_count: int):
-    """K1 + K2 + K10 + K11 (corrector.find_anchors without a
-    contaminant): widen the wire, look every window's canonical mer up
-    (non-ACGT bases enter the mer as A; such windows are invalid), and
-    anchor each read at the first p where `good` consecutive checked
-    windows had an hq count >= anchor_count; invalid windows and low
-    checked counts reset the run. Returns (codes, hqb, lengths int32,
-    (found, start_off int32, f, r, prev int32)); a read without an
-    anchor gets position 0's mers and value and start_off 1."""
+                anchor_count: int, contam=None,
+                trim_contaminant: bool = False):
+    """K1 + K2 + K10 + K11 (corrector.find_anchors): widen the wire,
+    look every window's canonical mer up (non-ACGT bases enter the mer
+    as A; such windows are invalid), and anchor each read at the first p
+    where `good` consecutive checked windows had an hq count >=
+    anchor_count; invalid windows and low checked counts reset the run.
+    With a contaminant table `contam` = (rows, meta), a valid window
+    (past `skip`) whose mer is a member is neither good nor a reset, and
+    unless `trim_contaminant` a checked one before the anchor kills the
+    read (ST_CONTAMINANT). Returns (codes, hqb, lengths int32, (found,
+    start_off int32, f, r, prev int32, status int32)); start_off is one
+    past the first window whose run reaches `good` (1 where there is
+    none), and a read that is not anchored gets position 0's mers and
+    value."""
     k = meta.k
     _pc, _nm, _hq, lengths = mer.wire_parts(wire, b, length, thresholds)
     codes, hqb = widen_wire(wire, b, length, thresholds, qual_cutoff)
     f, r, validk = mer.rolling_kmers(codes, k)
-    vals = tile_lookup(rows, meta, mer.canonical(f, r).reshape(-1)
-                       ).view(b, length)
+    canon = mer.canonical(f, r)
+    vals = tile_lookup(rows, meta, canon.reshape(-1)).view(b, length)
     p = torch.arange(length, device=codes.device)[None, :]
     vw = validk & (p >= skip + k - 1)
     val_hq = torch.where(vw & ((vals & 1) == 1), vals >> 1, 0)
     checked = vw & (p <= lengths[:, None].to(torch.int64) - 2)
-    a = checked & (val_hq >= anchor_count)
-    z = ~vw | (checked & (val_hq < anchor_count))
+    con = _contam_hit(contam, canon.reshape(-1), canon.reshape(-1),
+                      vw.reshape(-1)).view(b, length)  # canonical(x, x) = x
+    a = checked & ~con & (val_hq >= anchor_count)
+    z = ~vw | (checked & ~con & (val_hq < anchor_count))
     cum_a = torch.cumsum(a.to(torch.int64), dim=1)
     last_z = torch.cummax(torch.where(z, p, -1), dim=1).values
     cum_at_z = torch.gather(cum_a, 1, last_z.clamp(min=0))
     run = cum_a - torch.where(last_z >= 0, cum_at_z, 0)
     hit = a & (run >= good)
-    found = hit.any(dim=1)
+    has_hit = hit.any(dim=1)
     anchor_p = torch.argmax(hit.to(torch.uint8), dim=1)
+    kill = checked & con
+    killed = torch.zeros_like(has_hit)
+    if not trim_contaminant:
+        kill_p = torch.argmax(kill.to(torch.uint8), dim=1)
+        killed = kill.any(dim=1) & (~has_hit | (kill_p < anchor_p))
+    found = has_hit & ~killed
+    status = torch.where(found, OK, torch.where(killed, ST_CONTAMINANT,
+                                                ST_NO_ANCHOR))
     ap = torch.where(found, anchor_p, 0)[:, None]
     return codes, hqb, lengths.to(torch.int32), (
         found, (anchor_p + 1).to(torch.int32), torch.gather(f, 1, ap)[:, 0],
         torch.gather(r, 1, ap)[:, 0],
-        torch.gather(val_hq, 1, ap)[:, 0].to(torch.int32))
+        torch.gather(val_hq, 1, ap)[:, 0].to(torch.int32),
+        status.to(torch.int32))
 
 
 # --------------------------------------------------------------- HK6
@@ -800,3 +863,45 @@ def tile_departition(rows, meta, g: int, part: int):
     r[:, 0] = i32(torch.where(occ, new_lo, 0))
     r[:, 1] = i32(torch.where(occ, new_hi, 0))
     return bad.to(torch.int32).reshape(1)
+
+
+# --------------------------------------------------------------- HK14
+
+
+def pack_finish(start, end, status_f, status_b, fwd, bwd, overflow,
+                cap: int):
+    """K14 (corrector._pack_finish_lean): one batch's result in one u32
+    buffer (int32 storage), [maxn][total] [B x start << 16 | end]
+    [B x status << 16 | f_n] [B x b_n] [cap x (pos + POS_BIAS) << 16 |
+    meta], each field cut to 16 bits, read i's forward then backward
+    entries at the exclusive prefix sum of f_n + b_n (entries past cap
+    dropped; `total` tells). The read status is the forward lane's where
+    it is not OK, else the backward lane's; maxn is the longest log,
+    raised past maxe where `overflow` [1] is set. `fwd`/`bwd` are
+    (n [B], pos [B, maxe], meta [B, maxe]). Returns (buffer, status
+    int32 [B])."""
+    dev = start.device
+    f_n, f_pos, f_meta = (x.to(torch.int64) for x in fwd)
+    b_n, b_pos, b_meta = (x.to(torch.int64) for x in bwd)
+    status = torch.where(status_f != OK, status_f, status_b)
+    tot = f_n + b_n
+    offs = torch.cumsum(tot, 0) - tot
+    maxe = f_pos.shape[1]
+    j = torch.arange(maxe, device=dev)[None, :]
+    flat = torch.zeros(cap, dtype=torch.int64, device=dev)
+    for n, pos, meta, base in ((f_n, f_pos, f_meta, offs),
+                               (b_n, b_pos, b_meta, offs + f_n)):
+        slot = base[:, None] + j
+        live = (j < n[:, None]) & (slot < cap)
+        flat[slot[live]] = ((((pos + POS_BIAS) & 0xFFFF) << 16)
+                            | (meta & 0xFFFF))[live]
+    zero = torch.zeros(1, dtype=torch.int64, device=dev)
+    maxn = torch.cat([zero, f_n, b_n]).max()
+    maxn = torch.where(overflow[0] != 0, torch.clamp(maxn, min=maxe + 1),
+                       maxn)
+    geom = torch.stack([maxn, tot.sum()])
+    h1 = ((start.to(torch.int64) & 0xFFFF) << 16) | (end.to(torch.int64)
+                                                      & 0xFFFF)
+    h2 = ((status.to(torch.int64) & 0xFFFF) << 16) | (f_n & 0xFFFF)
+    return (i32(torch.cat([geom, h1, h2, b_n & 0xFFFF, flat])),
+            status.to(torch.int32))

@@ -24,6 +24,8 @@ class ECConfig:
     qual_cutoff: int = DEFAULT_QUAL_CUTOFF  # ASCII code
     window: int = 10
     error: int = 3
+    homo_trim: int | None = None  # --homo-trim: trim a 3' homopolymer
+    trim_contaminant: bool = False  # --trim-contaminant: trim, not skip
     no_discard: bool = False
     collision_prob: float = 0.01 / 3.0
     poisson_threshold: float = 1e-6
@@ -43,5 +45,11 @@ class ECConfig:
     def effective_error(self) -> int:
         return self.error if self.error else self.k // 2
 
+    @property
+    def do_homo_trim(self) -> bool:
+        return self.homo_trim is not None
 
+
+ERROR_CONTAMINANT = "Contaminated read"
 ERROR_NO_STARTING_MER = "No high quality mer"
+ERROR_HOMOPOLYMER = "Entire read is an homopolymer"

@@ -17,6 +17,7 @@ from typing import Iterable, Sequence
 
 import torch
 
+from ..io import contaminant as contaminant_mod
 from ..io import db_format, fastq, packing
 from ..ops import ctable
 from ..ops.poisson import compute_poisson_cutoff
@@ -58,6 +59,8 @@ class ECOptions:
     # --presence-floor: entries with count < N are absent (0 = the
     # database's declared prefilter floor, else none)
     presence_floor: int = 0
+    # --contaminant: sequences or a mer database (io/contaminant)
+    contaminant: str | None = None
 
 
 def resolve_cutoff(opts: ECOptions, stats: tuple[int, int],
@@ -81,7 +84,8 @@ def run_error_correct(db_path: str, sequences: Sequence[str],
                       opts: ECOptions, qual_cutoff: int = DEFAULT_QUAL_CUTOFF,
                       skip: int = 1, good: int = 2, anchor_count: int = 3,
                       min_count: int = 1, window: int = 10, error: int = 3,
-                      no_discard: bool = False, db=None,
+                      no_discard: bool = False, homo_trim: int | None = None,
+                      trim_contaminant: bool = False, db=None,
                       prepacked: Iterable | None = None) -> ECStats:
     """Run stage 2. `db` is an in-process handoff (state, meta, build
     stats) that skips reading the database file; `prepacked` replays
@@ -115,10 +119,15 @@ def run_error_correct(db_path: str, sequences: Sequence[str],
     cfg = ECConfig(k=meta.k, skip=skip, good=good,
                    anchor_count=anchor_count, min_count=min_count,
                    cutoff=cutoff, qual_cutoff=qual_cutoff, window=window,
-                   error=error, no_discard=no_discard,
+                   error=error, homo_trim=homo_trim,
+                   trim_contaminant=trim_contaminant, no_discard=no_discard,
                    collision_prob=opts.apriori_error_rate / 3.0,
                    poisson_threshold=opts.poisson_threshold)
     keep = make_keep_table(meta, cfg, device)
+    contam = None
+    if opts.contaminant is not None:
+        contam = contaminant_mod.load_contaminant(opts.contaminant, cfg.k,
+                                                  device)
     stats = ECStats(cutoff=cutoff, presence_floor=floor)
     if prepacked is None:
         prepacked = ((b, packing.pack_reads(b.codes, b.quals, b.lengths,
@@ -135,11 +144,11 @@ def run_error_correct(db_path: str, sequences: Sequence[str],
                 break
             batch, pk = item
             t1 = time.perf_counter()
-            res = correct_batch_packed(state, meta, pk, cfg, keep)
+            res = correct_batch_packed(state, meta, pk, cfg, keep, contam)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             t2 = time.perf_counter()
-            results = finish_batch(res, batch.n, batch.codes)
+            results = finish_batch(res, batch.n, batch.codes, cfg)
             fa_parts, log_parts = [], []
             for hdr, r in zip(batch.headers, results):
                 fa, lg = render_result(hdr, r, cfg)

@@ -215,3 +215,38 @@ def tile_load(payload: np.ndarray, meta: TileMeta, n: int, device
                                     meta, n)
     occ, distinct, total = (int(x) for x in stats.cpu())
     return TileState(rows), (occ, distinct, total)
+
+
+def tile_from_entries(khi, klo, vals, k: int, bits: int, device
+                      ) -> tuple[TileState, TileMeta, tuple[int, int, int]]:
+    """K9 from raw entries (quorum_tpu's ctable.tile_from_entries):
+    canonical mers as (khi, klo) u32 halves with their value words
+    ``count << 1 | qual`` become a sealed table on `device`. The host
+    hashes and ranks them (one stable sort by row; the rows double while
+    one would take more than 64) into a v4 payload, which HK7 places.
+    Returns (TileState, TileMeta, (n_occupied, distinct_hq, total_hq))."""
+    khi = np.asarray(khi, np.uint32)
+    klo = np.asarray(klo, np.uint32)
+    vals = np.asarray(vals, np.uint32)
+    n = len(vals)
+    keys = torch.from_numpy((khi.astype(np.int64) << 32)
+                            | klo.astype(np.int64))
+    rb = tile_rb_for(n, k, bits)
+    while True:
+        meta = TileMeta(k=k, bits=bits, rb_log2=rb)
+        addr, rlo, rhi = (x.numpy() for x in
+                          kernels.ref.tile_key_parts(keys, meta))
+        counts = np.bincount(addr, minlength=meta.rows)
+        if n == 0 or counts.max() <= TSLOTS:
+            break
+        rb += 1
+    order = np.argsort(addr, kind="stable")
+    count = np.minimum(vals[order] >> 1, meta.max_val).astype(np.int64)
+    lo = (rlo[order] << (bits + 1)) | ((vals[order] & 1) << bits) | count
+    hi = rhi[order]
+    payload = np.concatenate(
+        [counts.astype(np.uint8), lo.astype("<u4").view(np.uint8)]
+        + [((hi >> (8 * j)) & 0xFF).astype(np.uint8)
+           for j in range(meta.hi_bytes)])
+    state, stats = tile_load(payload, meta, n, device)
+    return state, meta, stats
