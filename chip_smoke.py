@@ -4,7 +4,7 @@
     python3 chip_smoke.py          # from the root of a checkout
 
 Phases, each printing one JSON line:
-  build    compile the fourteen CUDA kernels from csrc/ with nvcc (sm_90a)
+  build    compile the fifteen CUDA kernels from csrc/ with nvcc (sm_90a)
   kernels  hold each kernel against its plain PyTorch version on the
            card, at the main path's shapes (8192 x 160 batches, a
            2^22-row table), plus a small table that grows; HK5's and
@@ -84,9 +84,26 @@ Phases, each printing one JSON line:
            (kill and trim) with the contaminant phase's set and HK14 on
            their output, and HK12 flooring the table at 2, each held
            against its plain version and timed there
+  devices  --devices 4 on a mesh of four entries over the host's cards
+           (all naming the card on a one-card host), fed the full run's
+           packed batches: quorum_create_database's sharded build at the
+           full run's -s (both layouts' payloads and the shards'
+           occupancy equal to the full run's; route, copy, insert and
+           seal seconds; peak memory), the replicated stage 2 on its
+           table (.fa/.log equal to the full run's, one table copy:
+           its peak above the resident table under the table's size),
+           the sharded build from the two_binary run's -s (its payload
+           and number of grows), HK15 and HK1's and HK8's shard entries
+           against their plain versions on batch 150 and a loaded
+           4-shard table, timed (HK15 beside torch.sort of its owner
+           words); then quorum --devices 2 on the full FASTQ where the
+           host has two cards, else that run held refused with a line
+           saying so; launch counts reset before the build and read
+           after stage 2, and again around the grown build
 Then one {"kernels": [...]} line (launches from the full, two_binary,
-the four prefilter, the three partitioned and the two contaminant
-runs, times and bounds from the kernels, loaded and table phases), the
+the four prefilter, the three partitioned, the two contaminant and the
+two devices runs, times and bounds from the kernels, loaded, table and
+devices phases), the
 card's name and power limit from nvidia-smi, and {"ok": true, "device":
 {...}} as the last line.
 Exits non-zero, with no result line, when CUDA is unavailable, outside
@@ -147,6 +164,13 @@ SOURCES = {  # kernel -> (source in the repo, TPU program it replaces)
                          "quorum_tpu/ops/ctable.py:1566"),
     "pack_finish": ("quorum_tpu_torch/kernels/csrc/pack_finish.cu",
                     "quorum_tpu/models/corrector.py:2038"),
+    "shard_route": ("quorum_tpu_torch/kernels/csrc/shard_route.cu",
+                    "quorum_tpu/parallel/tile_sharded.py:275"),
+    # HK1's and HK8's shard entries, counted apart from their kernels
+    "tile_insert_shard": ("quorum_tpu_torch/kernels/csrc/tile_insert.cu",
+                          "quorum_tpu/parallel/tile_sharded.py:286"),
+    "tile_grow_shard": ("quorum_tpu_torch/kernels/csrc/tile_grow.cu",
+                        "quorum_tpu/parallel/tile_sharded.py:483"),
 }
 # the kernels each main-path run must launch (HK3's probe runs inside
 # HK5 and HK4; the query CLI is its caller); every stage 2 ends a batch
@@ -180,6 +204,21 @@ PATH_KERNELS.update({
     "partitions_restart": ("tile_insert", "tile_seal", "tile_departition",
                            "tile_export"),
 })
+# --devices 4 on a mesh of four entries: the sharded build with its
+# export and the replicated stage 2; the grown build is stage 1 only
+PATH_KERNELS.update({
+    "devices": ("shard_route", "tile_insert_shard", "tile_seal",
+                "tile_export", *S2),
+    "devices_single": ("shard_route", "tile_insert_shard", "tile_seal",
+                       "tile_export"),
+    "devices_grow": ("shard_route", "tile_insert_shard", "tile_grow_shard",
+                     "tile_seal", "tile_export"),
+})
+# the sharded build's device time by step (CUDA events, STATS.timing):
+# the step's name -> the counter or span its events are kept under
+SPLIT = {"route": "shard_route", "exchange": "exchange",
+         "insert": "tile_insert_shard", "grow": "tile_grow_shard",
+         "seal": "tile_seal", "export": "tile_export"}
 PARTS = 4  # --partitions in the partitioned runs
 # the contaminant phase's genome segment: a 5,000 bp spike-in
 SEGMENT = (1_000_000, 1_005_000)
@@ -413,9 +452,10 @@ def kernel_ms(fn, name: str, reps: int, setup=None, detail=None) -> float:
         finally:
             STATS.timing = False
         torch.cuda.synchronize()
-        span = [a.elapsed_time(b) for n, a, b in STATS.events if n == name]
-        check(len(span) == 1, f"{name}: expected one timed launch")
-        spans.append(span[0])
+        # one wrapper call: one event, or one a phase (a bucket pass)
+        ev = [(a, b) for n, a, b in STATS.events if n == name]
+        check(len(ev) in (1, 2), f"{name}: expected one timed launch")
+        spans.append(ev[0][0].elapsed_time(ev[-1][1]))
         calls = [(f, a.elapsed_time(b)) for n, f, a, b in STATS.calls
                  if n == name]
         times.append(sum(t for _f, t in calls))
@@ -1067,7 +1107,7 @@ def phase_two_binary(card: str, full: dict) -> dict:
           "payload bytes disagree with the table geometry")
     check(same_out, "two-binary .fa/.log differ from the full run's")
     return dict(launches=launches, rb_start=rb_full - 4, peak=peak, db=db,
-                rb_end=rb)
+                rb_end=rb, grows=build.grows)
 
 
 def driver_run(card: str, full: dict, mode: str, size: int = 0) -> dict:
@@ -2329,6 +2369,423 @@ def grow_loaded(loaded, meta) -> dict:
                 plain_ms=plain, bound_bytes=meta.rows * 1024 + 64 * live)
 
 
+DEVICES = 4  # shards of the devices phase: a mesh of four entries
+
+
+def devices_mesh():
+    """Four mesh entries over the host's cards, in turn: on a one-card
+    host all four name the card."""
+    import torch
+
+    from quorum_tpu_torch.parallel import tile_sharded as ts
+
+    n = torch.cuda.device_count()
+    return ts.make_mesh(DEVICES, devices=[torch.device("cuda", i % n)
+                                          for i in range(DEVICES)])
+
+
+def packed_batches(full: dict):
+    """The full run's stage-1 batches, already packed (no parse)."""
+    from quorum_tpu_torch.io.fastq import ReadBatch
+
+    for pk, _wire in full["wires"]:
+        yield ReadBatch(None, None, pk.lengths, [],
+                        int((pk.lengths > 0).sum())), pk
+
+
+def stage2_batches(full: dict):
+    """The full run's reads as the driver replays them into stage 2:
+    each batch with the parser's headers, packed with stage 2's quality
+    plane (no parse)."""
+    from quorum_tpu_torch.io.fastq import ReadBatch
+    from quorum_tpu_torch.models.ec_config import DEFAULT_QUAL_CUTOFF
+
+    codes, quals = full["codes"], full["quals"]
+    for i in range(0, codes.shape[0], BATCH):
+        c, _q, lengths, pk = pack_batch(codes[i:i + BATCH],
+                                        quals[i:i + BATCH],
+                                        DEFAULT_QUAL_CUTOFF)
+        n = min(BATCH, codes.shape[0] - i)
+        yield ReadBatch(c, None, lengths,
+                        [f"r{j:09d}" for j in range(i, i + n)], n), pk
+
+
+def sharded_build(full: dict, mesh, size: int, db: str,
+                  layout: str = "sharded") -> dict:
+    """quorum_create_database's stage 1 with --devices 4 --db-layout
+    `layout` on `mesh` at -s `size`, fed the full run's packed batches;
+    launch counts reset just before and read just after, kernels and
+    the bucket exchange timed by CUDA events. Returns the handoff,
+    launches, kernel ms, seconds and the peak device memory above what
+    was resident."""
+    import torch
+
+    from quorum_tpu_torch.kernels.loader import STATS
+    from quorum_tpu_torch.models import create_database as cdb
+
+    cfg = cdb.BuildConfig(k=K, bits=7, qual_thresh=QT, initial_size=size,
+                          batch_size=BATCH, device="cuda", devices=DEVICES,
+                          db_layout=layout)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    handoff: dict = {}
+    STATS.reset()
+    STATS.timing = True
+    t0 = time.perf_counter()
+    cdb.create_database_main([], db, cfg, handoff=handoff,
+                             batches_factory=lambda: packed_batches(full),
+                             mesh=mesh)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    STATS.timing = False
+    return dict(handoff=handoff, launches=dict(STATS.launches),
+                kms=STATS.kernel_ms(), seconds=seconds,
+                peak=torch.cuda.max_memory_allocated() - resident)
+
+
+def plain_grow(bstate, meta, mesh):
+    """tile_sharded.grow through HK8's shard entry's plain versions."""
+    import dataclasses
+
+    from quorum_tpu_torch.kernels import reference as ref
+    from quorum_tpu_torch.ops import ctable
+    from quorum_tpu_torch.parallel import tile_sharded as ts
+
+    nmeta = dataclasses.replace(meta, rb_log2=meta.rb_log2 + 1)
+    sent = [ref.grow_shard(b, meta, s) for s, b in enumerate(bstate.shards)]
+    recv = ts._exchange([(lanes, sizes.tolist()) for lanes, sizes in sent],
+                        mesh)
+    del sent
+    shards = []
+    for d, lanes in enumerate(recv):
+        new = ctable.make_tile_build(nmeta.local_meta, mesh[d])
+        check(not ref.grow_place(new, lanes), "plain grow found no room")
+        shards.append(new)
+    return ctable.ShardedBuildState(tuple(shards)), nmeta
+
+
+def sealed_exports(bstate, meta) -> list:
+    """Each shard sealed (HK2) and exported (HK6's row-range entry) at
+    the global geometry, with HK2's statistics."""
+    from quorum_tpu_torch import kernels
+
+    out = []
+    for b in bstate.shards:
+        rows, stats = kernels.tile_seal(b, meta.local_meta)
+        out.append((kernels.tile_export(rows, meta), stats))
+        del rows
+    return out
+
+
+def devices_kernels(card: str, full: dict, mesh, rb: int) -> dict:
+    """HK15, HK1's shard entry and HK8's shard entry on batch `timed` of
+    the full run against a 4-shard build table at the full geometry that
+    holds every other batch, each held against its plain version on the
+    same inputs and timed. HK15 routes shard 0's rows of the batch (its
+    library yardstick: torch.sort of the lanes' owner words, stable);
+    HK1's shard entry counts the lanes routed to shard 0 into a copy of
+    its slice; HK8's shard entry doubles the loaded table (all four
+    shards: eight wrapper calls, twelve C launches). Byte bounds: HK15
+    the sub-wire read and 8 B a lane written; HK1's shard entry 9 B a
+    lane plus the tag and counter sectors of phase_loaded; HK8's shard
+    entry 1 KiB an old row read plus a tag and a counter sector a live
+    key written."""
+    import torch
+
+    from quorum_tpu_torch import kernels
+    from quorum_tpu_torch.io import packing
+    from quorum_tpu_torch.kernels import reference as ref
+    from quorum_tpu_torch.kernels.loader import STATS
+    from quorum_tpu_torch.ops import ctable
+    from quorum_tpu_torch.parallel import tile_sharded as ts
+
+    meta = ts.TileShardedMeta(k=K, bits=7, rb_log2=rb, n_shards=DEVICES)
+    wires = full["wires"]
+    timed = len(wires) - 2
+    loaded = ts.make_build_state(meta, mesh)
+    for i, (pk, _wire) in enumerate(wires):
+        if i != timed:
+            loaded, _m, grows = ts.build_step_wire(loaded, meta, mesh, pk, QT)
+            check(grows == 0, "loaded sharded table grew")
+    pk = wires[timed][0]
+    subs = packing.split_rows(pk, DEVICES)
+    out = {}
+
+    # HK15 on shard 0's rows of the batch
+    sub = subs[0]
+    wire0 = torch.from_numpy(sub.to_wire()).to(mesh[0])
+    job = (wire0, sub.n_reads, sub.length, sub.thresholds)
+
+    def route():
+        return kernels.shard_route([job], QT, meta)[0]
+
+    lanes_k, sizes_k = route()
+    lanes_p, sizes_p = ref.shard_route(*job, QT, meta)
+    at = [0]
+    for n in sizes_k:
+        at.append(at[-1] + n)
+    equal = sizes_k == sizes_p.tolist() and all(
+        torch.equal(torch.sort(lanes_k[a:b]).values,
+                    torch.sort(lanes_p[a:b]).values)
+        for a, b in zip(at, at[1:]))
+    check(equal, "shard_route differs from its plain version")
+    owner = ref.shard_key_parts(lanes_k >> 1, meta)[0]
+    out["shard_route"] = dict(
+        equal=equal, n=lanes_k.numel(), sizes=sizes_k,
+        ms=kernel_ms(route, "shard_route", 5),
+        plain_ms=event_ms(lambda: ref.shard_route(*job, QT, meta), 3),
+        library_ms=event_ms(lambda: torch.sort(owner, stable=True), 5),
+        bound_bytes=wire0.numel() + 8 * lanes_k.numel())
+    del lanes_p, owner
+
+    # HK1's shard entry: the batch routed, the lanes for shard 0
+    sent = kernels.shard_route(
+        [(torch.from_numpy(sb.to_wire()).to(mesh[s]), sb.n_reads, sb.length,
+          sb.thresholds) for s, sb in enumerate(subs)], QT, meta)
+    lanes = ts._exchange(sent, mesh)[0]
+    del sent
+    base = loaded.shards[0]
+    work = ctable.TBuildState(*(t.clone() for t in base))
+    plain = ctable.TBuildState(*(t.clone() for t in base))
+
+    def reset():
+        for dst, src in zip(work, base):
+            dst.copy_(src)
+
+    before = int((work.tag[:, 0::2] != -1).sum())
+    placed_k = kernels.tile_insert_shard(work, meta, lanes)
+    placed_p = ref.insert_shard(plain, meta, lanes)
+    new_keys = int((work.tag[:, 0::2] != -1).sum()) - before
+    local = meta.local_meta
+    rk, sk = kernels.tile_seal(work, local)
+    rp, sp = kernels.tile_seal(plain, local)
+    equal = (torch.equal(placed_k, placed_p) and bool(placed_k.all())
+             and torch.equal(sk, sp)
+             and torch.equal(kernels.tile_export(rk, meta),
+                             kernels.tile_export(rp, meta)))
+    del rk, rp, plain
+    check(equal, "tile_insert_shard differs from its plain version")
+    n_keys = torch.unique(lanes >> 1).numel()
+    n_classes = torch.unique(lanes).numel()
+    out["tile_insert_shard"] = dict(
+        equal=equal, n=lanes.numel(), new_keys=new_keys,
+        ms=kernel_ms(lambda: kernels.tile_insert_shard(work, meta, lanes),
+                     "tile_insert_shard", 5, reset),
+        plain_ms=event_ms(lambda: ref.insert_shard(work, meta, lanes), 2,
+                          reset),
+        bound_bytes=(9 * lanes.numel() + 32 * (n_keys + new_keys)
+                     + 64 * n_classes))
+    del work, lanes
+
+    # HK8's shard entry: the loaded table doubled
+    grown, gmeta = ts.grow(loaded, meta, mesh)
+    exp_k = sealed_exports(grown, gmeta)
+    del grown
+    grown, _gm = plain_grow(loaded, meta, mesh)
+    exp_p = sealed_exports(grown, gmeta)
+    del grown
+    equal = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                for a, b in zip(exp_k, exp_p))
+    live = sum(int(st[1]) for _e, st in exp_k)
+    del exp_k, exp_p
+    check(equal, "tile_grow_shard differs from its plain version")
+    grow_ms, span_ms = [], []
+    for _ in range(3):
+        STATS.events.clear()
+        STATS.calls.clear()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        STATS.timing = True
+        a.record()
+        try:
+            grown, _gm = ts.grow(loaded, meta, mesh)
+        finally:
+            STATS.timing = False
+        b.record()
+        torch.cuda.synchronize()
+        del grown
+        calls = [x.elapsed_time(y) for n, _f, x, y in STATS.calls
+                 if n == "tile_grow_shard"]
+        check(len(calls) == 3 * DEVICES, "grow: expected 12 C launches")
+        grow_ms.append(sum(calls))
+        span_ms.append(a.elapsed_time(b))
+    out["tile_grow_shard"] = dict(
+        equal=equal, live_keys=live, ms=sorted(grow_ms)[1],
+        span_ms=sorted(span_ms)[1],
+        plain_ms=event_ms(lambda: plain_grow(loaded, meta, mesh), 1),
+        bound_bytes=meta.rows * 1024 + 64 * live)
+    del loaded
+    emit({"phase": "devices_kernels", "card": card, "batch": timed,
+          "shards": DEVICES, "rb_log2": rb,
+          **{name: {k: (round(v, 5) if isinstance(v, float) else v)
+                    for k, v in d.items()} for name, d in out.items()}})
+    return out
+
+
+def phase_devices(card: str, full: dict, two: dict) -> dict:
+    """--devices N at full width on a mesh of four entries (all naming
+    the card on a one-card host), fed the full run's packed batches:
+    the sharded build at the full run's -s (its payload and the shards'
+    occupancy against the full run's), the replicated stage 2 on its
+    table (.fa/.log against the full run's, one table copy on a
+    repeated device; the path's launches are the build's and stage
+    2's), the build again with --db-layout single (its payload, its
+    launches), the sharded grow from the two_binary run's -s
+    (its payload and grows), the new kernels against their plain
+    versions, and the quorum driver with --devices 2 (run where the
+    host has two cards, else held refused)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from quorum_tpu_torch.cli import quorum
+    from quorum_tpu_torch.io import db_format
+    from quorum_tpu_torch.kernels.loader import STATS
+    from quorum_tpu_torch.models import error_correct as ec
+    from quorum_tpu_torch.parallel import tile_sharded as ts
+
+    t_phase = time.perf_counter()
+    mesh = devices_mesh()
+    full_payload = db_format.db_payload_bytes(full["db"])
+    db = os.path.join(WORK, "devices.jf")
+    b1 = sharded_build(full, mesh, full["size"], db)
+    state, meta, stats = b1["handoff"]["db"]
+    one_copy = all(r is state.whole for r in ts.replicate_table(state, mesh))
+
+    prefix = os.path.join(WORK, "devices")
+    opts = ec.ECOptions(output=prefix, device="cuda", devices=DEVICES,
+                        batch_size=BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    STATS.reset()
+    STATS.timing = True
+    t0 = time.perf_counter()
+    ecs = ec.run_error_correct(full["fastq"], [full["fastq"]], opts,
+                               db=b1["handoff"]["db"],
+                               prepacked=stage2_batches(full), mesh=mesh)
+    torch.cuda.synchronize()
+    s2 = time.perf_counter() - t0
+    STATS.timing = False
+    peak2 = torch.cuda.max_memory_allocated() - resident
+    # the path's launches: the build's (read as it returned) and stage 2's
+    launches = {k: v + STATS.launches[k] for k, v in b1["launches"].items()}
+    kms = STATS.kernel_ms()
+    for name in PATH_KERNELS["devices"]:
+        check(launches[name] > 0, f"{name} was not launched on the devices "
+              "path")
+    table_bytes = meta.rows * 512
+    occ = stats.shard_occupancy
+    split = {k: round(b1["kms"][name] / 1e3, 4) for k, name in SPLIT.items()}
+    res = dict(
+        same_payload_sharded=db_format.db_payload_bytes(db) == full_payload,
+        same_occupancy=sum(occ) == full["build"].distinct,
+        same_fa_log=same_fa_log(prefix, full["prefix"]),
+        one_table_copy=one_copy and peak2 < table_bytes)
+    emit({"phase": "devices", "card": card, "shards": DEVICES,
+          "mesh": [str(d) for d in mesh], "size": full["size"],
+          "rb_log2": meta.rb_log2, "grows": stats.grows,
+          "shard_occupancy": occ, "entries": sum(occ),
+          "entries_full": full["build"].distinct,
+          "occupancy_spread": round(max(occ) / min(occ), 6),
+          "stage1_s": round(b1["seconds"], 3),
+          "stage1_device_split_s": split,
+          "stage1_peak_memory": b1["peak"],
+          "stage1_peak_memory_full": full["peaks"]["stage1"],
+          "stage1_launches": b1["launches"],
+          "stage2_s": round(s2, 3), "stage2_device_s": round(ecs.device_s, 3),
+          "stage2_host_s": round(ecs.host_s, 3),
+          "stage2_peak_memory_above_table": peak2,
+          "table_bytes": table_bytes,
+          "stage2_peak_memory_full": full["peaks"]["stage2"],
+          "corrected": ecs.corrected, "skipped": ecs.skipped,
+          "launches": launches,
+          "stage2_kernel_s": {k: round(v / 1e3, 4) for k, v in kms.items()},
+          "stage2_kernel_ms_per_launch": {
+              k: round(v / STATS.launches[k], 5) for k, v in kms.items()
+              if STATS.launches.get(k)},
+          **res})
+    check(all(res.values()), f"devices against the full run: {res}")
+    rb = meta.rb_log2
+    del state, meta, stats, b1
+
+    # --db-layout single: the shards gathered onto the lead device and
+    # written as one file, in a run of its own
+    single = os.path.join(WORK, "devices_single.jf")
+    b1s = sharded_build(full, mesh, full["size"], single, layout="single")
+    for name in PATH_KERNELS["devices_single"]:
+        check(b1s["launches"][name] > 0, f"{name} was not launched on the "
+              "devices_single path")
+    res = dict(same_payload_single=db_format.db_payload_bytes(single)
+               == full_payload)
+    emit({"phase": "devices_single", "card": card, "shards": DEVICES,
+          "stage1_s": round(b1s["seconds"], 3),
+          "stage1_device_split_s": {
+              k: round(b1s["kms"][name] / 1e3, 4)
+              for k, name in SPLIT.items()},
+          "stage1_peak_memory": b1s["peak"], "launches": b1s["launches"],
+          **res})
+    check(all(res.values()), f"devices_single against the full run: {res}")
+    single_launches = b1s["launches"]
+    del b1s
+
+    dbg = os.path.join(WORK, "devices_grow.jf")
+    b2 = sharded_build(full, mesh, 24 << two["rb_start"], dbg)
+    stats_g = b2["handoff"]["stats"]
+    for name in PATH_KERNELS["devices_grow"]:
+        check(b2["launches"][name] > 0,
+              f"{name} was not launched on the devices_grow path")
+    res = dict(same_grows=stats_g.grows == two["grows"],
+               same_payload_as_two_binary=(
+                   db_format.db_payload_bytes(dbg)
+                   == db_format.db_payload_bytes(two["db"])))
+    emit({"phase": "devices_grow", "card": card, "shards": DEVICES,
+          "size": 24 << two["rb_start"], "rb_log2_start": two["rb_start"],
+          "rb_log2_end": b2["handoff"]["db"][1].rb_log2,
+          "grows": stats_g.grows, "grows_two_binary": two["grows"],
+          "stage1_s": round(b2["seconds"], 3),
+          "stage1_device_split_s": {
+              k: round(b2["kms"][name] / 1e3, 4)
+              for k, name in SPLIT.items()},
+          "stage1_peak_memory": b2["peak"], "launches": b2["launches"],
+          "kernel_s": {k: round(v / 1e3, 4) for k, v in b2["kms"].items()},
+          **res})
+    check(all(res.values()), f"devices_grow against two_binary: {res}")
+    grow_launches = b2["launches"]
+    del b2
+
+    kern = devices_kernels(card, full, mesh, rb)
+
+    n_cards = torch.cuda.device_count()
+    cli_prefix = os.path.join(WORK, "devices_cli")
+    argv = ["-s", str(full["size"]), "-k", str(K), "-p", cli_prefix,
+            "--device", "cuda", "--devices", "2", full["fastq"]]
+    if n_cards >= 2:
+        rc = quorum.main(argv)
+        cli = dict(two_card_run=True, rc=rc,
+                   same_fa_log=rc == 0 and same_fa_log(cli_prefix,
+                                                       full["prefix"]))
+        check(cli["same_fa_log"], "quorum --devices 2 differs from full")
+    else:
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = quorum.main(argv)
+        want = "--devices 2 but only 1 local device(s) present"
+        cli = dict(two_card_run=False, rc=rc, refused=want in err.getvalue())
+        check(rc == 1 and cli["refused"],
+              f"quorum --devices 2 on one card: rc {rc}, {err.getvalue()!r}")
+        print(f"devices: the two-card CLI run (quorum --devices 2) was not "
+              f"possible on this host ({n_cards} CUDA device); no copy "
+              "between two cards was run", flush=True)
+    emit({"phase": "devices_cli", "card": card, "cards": n_cards, **cli,
+          "phase_s": round(time.perf_counter() - t_phase, 3)})
+    return dict(launches=launches, single_launches=single_launches,
+                grow_launches=grow_launches, kernels=kern)
+
+
 def run() -> int:
     import torch
 
@@ -2359,13 +2816,19 @@ def run() -> int:
         contam = phase_contaminant(card, full)
         for name, v in phase_table(card, full, contam).items():
             stats.setdefault(name, {}).update(v)
+        devices = phase_devices(card, full, two)
+        for name, v in devices["kernels"].items():
+            stats.setdefault(name, {}).update(v)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     by_path = {"full": full["launches"], "two_binary": two["launches"],
-               **prefilter, **partitions, **contam["launches"]}
+               **prefilter, **partitions, **contam["launches"],
+               "devices": devices["launches"],
+               "devices_single": devices["single_launches"],
+               "devices_grow": devices["grow_launches"]}
     def bound_ms(nbytes):
         return round(nbytes / H100_BYTES_PER_S * 1e3, 5)
 
@@ -2389,7 +2852,10 @@ def run() -> int:
                      "ms": round(v["ms"], 5),
                      "plain_ms": round(v["plain_ms"], 5),
                      "bound_ms": bound_ms(v["bound_bytes"]),
-                     "bound_by": "bytes", "library_ms": None, **entries})
+                     "bound_by": "bytes",
+                     "library_ms": (round(v["library_ms"], 5)
+                                    if "library_ms" in v else None),
+                     **entries})
     emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,6 +1,6 @@
 """quorum_create_database (port): flags -s -m -b -q/-Q -o -t
---db-version --db-layout --batch-size --prefilter --partitions --device,
-as the reference CLI (src/create_database_cmdline.yaggo) and
+--db-version --db-layout --batch-size --prefilter --partitions --devices
+--device, as the reference CLI (src/create_database_cmdline.yaggo) and
 quorum_tpu's stage-1 CLI.
 
     python -m quorum_tpu_torch.cli.create_database -s 64k -m 13 -b 7 \\
@@ -8,6 +8,7 @@ quorum_tpu's stage-1 CLI.
     ... --prefilter two-pass ...   # drop singletons; declares floor 2
     ... --partitions 4 ...         # 4 passes at 1/4 the table memory;
                                    # db.jf is a manifest over 4 shards
+    ... --devices 2 ...            # the table sharded over 2 cards
 """
 
 from __future__ import annotations
@@ -18,8 +19,9 @@ import sys
 from .. import resolve_device
 from ..models.create_database import BuildConfig, create_database_main
 from ..ops.sketch import PREFILTER_MODES, prefilter_default
-
-_SUFFIX = {"k": 10**3, "M": 10**6, "G": 10**9, "T": 10**12}
+from ..parallel.tile_sharded import (explicit_devices,
+                                     resolve_devices_and_batch)
+from ..utils.sizes import parse_size
 
 # quorum_tpu's flags whose paths are not ported yet: accepted by the
 # parser so that a run that asks for them is refused with a reason
@@ -32,12 +34,56 @@ UNPORTED = {
 }
 
 
+# why a path runs on one device only (quorum_tpu runs it over a mesh)
+PARTITIONS_ON_ONE = ("--partitions with --devices N is not ported to "
+                     "quorum_tpu_torch yet")
+PREFILTER_ON_ONE = ("--prefilter composes with --devices 1 today; use "
+                    "--partitions for multi-pass capacity over a mesh")
+
+
+def add_devices_arg(p: argparse.ArgumentParser, what: str) -> None:
+    """--devices as quorum_tpu spells it (default auto)."""
+    p.add_argument("--devices", default="auto", metavar="N",
+                   help=f"{what} over N local devices (power of two; 'all' "
+                        "= every CUDA device, 'auto' = all CUDA devices, or "
+                        "1 with --device cpu, where an explicit N runs N "
+                        "shards on the CPU; auto and all fall back to one "
+                        "device, with a note, where the sharded path is not "
+                        "ported: --partitions, --prefilter, a table past the "
+                        "replicated stage-2 layout). Output is "
+                        "byte-identical to --devices 1")
+
+
+def resolve_devices_arg(args, prog: str) -> bool:
+    """Resolve args.devices (and round args.batch_size up to a multiple
+    of it) with quorum_tpu's messages; False, after printing why, where
+    the count is not usable. Sets args.devices_auto: the count came from
+    auto/all, not from the user."""
+    args.devices_auto = not explicit_devices(args.devices)
+    try:
+        args.devices, args.batch_size = resolve_devices_and_batch(
+            args.devices, args.batch_size, prog, device=args.device)
+    except ValueError as e:
+        print(str(e), file=sys.stderr)
+        return False
+    return True
+
+
+def one_device_for(args, prog: str, why: str) -> bool:
+    """args.devices is N > 1 on a path that runs on one device only
+    (`why`). With auto/all, note it and go on with args.devices = 1
+    (True); an explicit N is the caller's to refuse (False)."""
+    if not args.devices_auto:
+        return False
+    print(f"{prog}: {why}; --devices auto goes on with one device "
+          f"instead of {args.devices}", file=sys.stderr)
+    args.devices = 1
+    return True
+
+
 def add_unported_args(p: argparse.ArgumentParser) -> None:
-    """--devices and the flags of UNPORTED, as quorum_tpu spells them;
-    refuse_unported() turns any use beyond one card into an error."""
-    p.add_argument("--devices", default="1",
-                   help="Devices to run on: 1 (the port runs on one card; "
-                        "--devices N is not ported yet)")
+    """The flags of UNPORTED, as quorum_tpu spells them;
+    refuse_unported() turns any use into an error."""
     p.add_argument("--checkpoint-dir", default=None, help=argparse.SUPPRESS)
     p.add_argument("--resume", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--coordinator", default=None, help=argparse.SUPPRESS)
@@ -52,20 +98,10 @@ def refuse_unported(args, prog: str) -> bool:
     not have yet."""
     asked = [flag for dest, flag in UNPORTED.items()
              if getattr(args, dest) not in (None, False)]
-    if args.devices != "1":
-        asked.append(f"--devices {args.devices} (multi-GPU)")
     for flag in asked:
         print(f"{prog}: {flag} is not ported to quorum_tpu_torch yet",
               file=sys.stderr)
     return bool(asked)
-
-
-def parse_size(s: str) -> int:
-    """Size with an optional decimal k/M/G/T suffix."""
-    s = s.strip()
-    if s and s[-1] in _SUFFIX:
-        return int(s[:-1]) * _SUFFIX[s[-1]]
-    return int(s)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -115,6 +151,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (plain PyTorch versions of "
                         "the kernels)")
+    add_devices_arg(p, "Build the table sharded by leading row bits")
     add_unported_args(p)
     p.add_argument("reads", nargs="+", help="Read files")
     return p
@@ -142,6 +179,8 @@ def main(argv=None, handoff: dict | None = None,
         return 1
     if refuse_unported(args, "quorum_create_database"):
         return 1
+    if not resolve_devices_arg(args, "quorum_create_database"):
+        return 1
     resolve_device(args.device)  # no card for --device cuda: raise here
     P = args.partitions
     if P < 1 or P > 256 or (P & (P - 1)):
@@ -150,6 +189,21 @@ def main(argv=None, handoff: dict | None = None,
         return 1
     auto = args.prefilter == "auto"
     prefilter = prefilter_default() if auto else args.prefilter
+    prog = "quorum_create_database"
+    if not auto and prefilter != "off" and args.devices > 1 and \
+            not one_device_for(args, prog, PREFILTER_ON_ONE):
+        print(PREFILTER_ON_ONE, file=sys.stderr)
+        return 1
+    if P > 1 and args.devices > 1 and not one_device_for(
+            args, prog, PARTITIONS_ON_ONE):
+        print(f"{prog}: {PARTITIONS_ON_ONE}", file=sys.stderr)
+        return 1
+    if prefilter != "off" and args.devices > 1:
+        # a default from the environment degrades; only the flag refuses
+        print(f"Prefilter default {prefilter} does not compose with "
+              f"--devices {args.devices}; running unfiltered",
+              file=sys.stderr)
+        prefilter = "off"
     if prefilter == "inline" and P > 1:
         if not auto:
             print("--prefilter=inline supports neither --partitions "
@@ -168,7 +222,8 @@ def main(argv=None, handoff: dict | None = None,
         initial_size=parse_size(args.size), batch_size=args.batch_size,
         db_version=args.db_version, device=args.device, prefilter=prefilter,
         # the partitioned export IS the sharded manifest
-        db_layout="sharded" if P > 1 else args.db_layout, partitions=P)
+        db_layout="sharded" if P > 1 else args.db_layout, partitions=P,
+        devices=args.devices)
     try:
         create_database_main(args.reads, args.output, cfg,
                              cmdline=list(sys.argv), handoff=handoff,

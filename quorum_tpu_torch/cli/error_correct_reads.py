@@ -2,7 +2,7 @@
 flags of quorum_tpu's stage-2 CLI (-m -s -g -a -w -e -p -q -Q -d
 --contaminant --trim-contaminant --homo-trim --apriori-error-rate
 --poisson-threshold -o, same defaults) plus --presence-floor,
---batch-size, --verify-db and --device.
+--batch-size, --verify-db, --devices and --device.
 
     python -m quorum_tpu_torch.cli.error_correct_reads -p 4 db.jf \\
         reads.fastq -o corrected
@@ -17,6 +17,7 @@ from .. import resolve_device
 from ..io.integrity import IntegrityError
 from ..models.ec_config import DEFAULT_QUAL_CUTOFF
 from ..models.error_correct import ECOptions, run_error_correct
+from .create_database import add_devices_arg, resolve_devices_arg
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -72,6 +73,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (plain PyTorch versions of "
                         "the kernels)")
+    add_devices_arg(p, "Correct data-parallel (the table replicated)")
     p.add_argument("db", help="Mer database")
     p.add_argument("sequence", nargs="+", help="Input sequence")
     return p
@@ -101,13 +103,16 @@ def main(argv=None, db=None, prepacked=None,
         ord(args.qual_cutoff_char) if args.qual_cutoff_char is not None
         else args.qual_cutoff_value if args.qual_cutoff_value is not None
         else DEFAULT_QUAL_CUTOFF)
+    if not resolve_devices_arg(args, "quorum_error_correct_reads"):
+        return 1
     resolve_device(args.device)  # no card for --device cuda: raise here
     opts = ECOptions(output=args.output, cutoff=args.cutoff,
                      apriori_error_rate=args.apriori_error_rate,
                      poisson_threshold=args.poisson_threshold,
                      batch_size=args.batch_size, verify_db=args.verify_db,
                      device=args.device, presence_floor=args.presence_floor,
-                     contaminant=args.contaminant)
+                     contaminant=args.contaminant, devices=args.devices,
+                     devices_auto=args.devices_auto)
     try:
         stats = run_error_correct(args.db, args.sequence, opts,
                                   qual_cutoff=qual_cutoff, skip=args.skip,

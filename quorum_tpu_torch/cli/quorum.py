@@ -7,12 +7,15 @@ ONCE, builds the mer table (stage 1), hands it to stage 2 in-process
     python -m quorum_tpu_torch.cli.quorum --device cpu ...   # plain torch
     python -m quorum_tpu_torch.cli.quorum --prefilter two-pass ...
     python -m quorum_tpu_torch.cli.quorum --partitions 4 ...
+    python -m quorum_tpu_torch.cli.quorum --devices 2 ...   # two cards
     python -m quorum_tpu_torch.cli.quorum --contaminant \
         $(python -m quorum_tpu_torch.data) --trim-contaminant ...
 
 With --partitions P > 1 stage 1 writes a sharded manifest pass by pass
 and keeps no table on the card, so stage 2 loads the manifest from disk
 (HK7); the batches the first pass parsed still replay into stage 2.
+With --devices N the driver resolves the count once and hands it to
+both stages (parallel/tile_sharded); the output is --devices 1's.
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ from .. import resolve_device
 from ..io import fastq, packing
 from ..models.ec_config import DEFAULT_QUAL_CUTOFF
 from ..ops.sketch import PREFILTER_MODES
+from ..parallel import tile_sharded as ts
+from ..utils.sizes import parse_size
 from . import create_database as cdb_cli
 from . import error_correct_reads as ec_cli
 
@@ -99,6 +104,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (plain PyTorch versions of "
                         "the kernels)")
+    cdb_cli.add_devices_arg(
+        p, "Scale out (stage 1 builds the table sharded by leading row "
+           "bits, stage 2 corrects data-parallel with the table "
+           "replicated)")
     cdb_cli.add_unported_args(p)
     p.add_argument("reads", nargs="*", help="Input fastq files")
     return p
@@ -146,12 +155,33 @@ def main(argv=None, report: dict | None = None) -> int:
         return 1
     if cdb_cli.refuse_unported(args, "quorum"):
         return 1
+    # resolve once and forward the count to both stages
+    if not cdb_cli.resolve_devices_arg(args, "quorum"):
+        return 1
     resolve_device(args.device)  # no card for --device cuda: raise here
     P = args.partitions
     if P < 1 or P > 256 or (P & (P - 1)):
         print(f"quorum: --partitions must be a power of two in "
               f"[1, 256], got {P}", file=sys.stderr)
         return 1
+    # where the sharded path is not ported, auto/all go on with one
+    # device and an explicit N is refused, before any stage runs
+    if args.prefilter not in ("auto", "off") and args.devices > 1 and \
+            not cdb_cli.one_device_for(args, "quorum",
+                                       cdb_cli.PREFILTER_ON_ONE):
+        print(f"quorum: {cdb_cli.PREFILTER_ON_ONE}", file=sys.stderr)
+        return 1
+    if P > 1 and args.devices > 1 and not cdb_cli.one_device_for(
+            args, "quorum", cdb_cli.PARTITIONS_ON_ONE):
+        print(f"quorum: {cdb_cli.PARTITIONS_ON_ONE}", file=sys.stderr)
+        return 1
+    if args.devices > 1:
+        why = ts.routed_reason(ts.initial_rb(
+            parse_size(args.size), args.kmer_len, 7, args.devices))
+        if why is not None and not cdb_cli.one_device_for(args, "quorum",
+                                                          why):
+            print(f"quorum: {why}", file=sys.stderr)
+            return 1
     if args.prefilter == "inline" and P > 1:
         print("quorum: --prefilter=inline supports neither "
               "--partitions nor --checkpoint-dir; use "
@@ -169,7 +199,8 @@ def main(argv=None, report: dict | None = None) -> int:
     cdb_argv = ["-s", args.size, "-m", str(args.kmer_len), "-q", str(t1),
                 "-b", "7", "-o", db_file, "--batch-size",
                 str(args.batch_size), "--db-version", str(args.db_version),
-                "--db-layout", args.db_layout, "--device", args.device]
+                "--db-layout", args.db_layout, "--device", args.device,
+                "--devices", str(args.devices)]
     if args.prefilter != "auto":
         cdb_argv.extend(["--prefilter", args.prefilter])
     if P != 1:
@@ -236,9 +267,14 @@ def main(argv=None, report: dict | None = None) -> int:
               "passed to the -s switch is too small.", file=sys.stderr)
         return 1
     s1_s = time.perf_counter() - t_s1
+    if args.devices > 1 and "db" in handoff:
+        # the table grew past the replicated stage-2 layout
+        why = ts.routed_reason(handoff["db"][1].rb_log2)
+        if why is not None:
+            cdb_cli.one_device_for(args, "quorum", why)
 
     ec_argv = ["--batch-size", str(args.batch_size), "--device",
-               args.device]
+               args.device, "--devices", str(args.devices)]
     for flag, val in (("--min-count", args.min_count), ("--skip", args.skip),
                       ("--good", args.anchor),
                       ("--anchor-count", args.anchor_count),

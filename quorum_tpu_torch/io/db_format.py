@@ -237,17 +237,28 @@ def write_db_manifest(path: str, recs: list, meta: GlobalMeta, S: int,
     _atomic_write(path, json.dumps(manifest).encode() + b"\n", b"")
 
 
-def write_db_sharded(path: str, state: TileState, meta: TileMeta,
+def write_db_sharded(path: str, state, meta: GlobalMeta,
                      cmdline: list[str] | None = None,
                      db_version: int = DEFAULT_DB_VERSION,
                      extra_header: dict | None = None) -> None:
-    """`--db-layout sharded` on one card: the table as one shard file
-    and the sealed 1-shard manifest at `path`; its payload
-    (db_payload_bytes) is the single file's."""
+    """`--db-layout sharded`: one shard file per shard of a row-sharded
+    table (a ShardedTileState under its TileShardedMeta, --devices N),
+    each exported by HK6's row-range entry on its own device, with no
+    gather; or one card's table as a 1-shard manifest. Then the sealed
+    manifest at `path`; its payload (db_payload_bytes) is the single
+    file's."""
     _check_version(db_version)
-    recs = [write_db_shard_file(path, state.rows, meta, 0, 1, cmdline,
-                                db_version)]
-    write_db_manifest(path, recs, meta, 1, cmdline, db_version, extra_header)
+    from ..kernels import device_scope
+
+    shards = (state.shards if isinstance(state, ctable.ShardedTileState)
+              else (state.rows,))
+    S = len(shards)
+    recs = []
+    for s, rows in enumerate(shards):
+        with device_scope(rows.device):
+            recs.append(write_db_shard_file(path, rows, meta, s, S, cmdline,
+                                            db_version))
+    write_db_manifest(path, recs, meta, S, cmdline, db_version, extra_header)
 
 
 def read_header(path: str) -> dict:
@@ -373,9 +384,10 @@ def _load_manifest(path: str, header: dict, device, verify: str):
     if rb > 24:
         raise ValueError(
             f"sharded database '{path}' has rb_log2={rb}, past the "
-            "single-chip geometry cap of 24 — run stage 2 with "
-            "--devices N (the routed layout hosts it row-sharded); "
-            "loading it onto one chip is not supported")
+            "single-chip geometry cap of 24 — the JAX package hosts it "
+            "row-sharded with --devices N (its routed stage-2 layout, "
+            "not ported to quorum_tpu_torch yet); loading it onto one "
+            "chip is not supported")
     meta = TileMeta(k=header["key_len"] // 2, bits=header["bits"],
                     rb_log2=rb)
     rows_local = meta.rows // S

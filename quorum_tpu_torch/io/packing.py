@@ -74,3 +74,20 @@ def pack_reads(codes: np.ndarray, quals: np.ndarray, lengths: np.ndarray,
           for t in thresholds}
     return PackedReads(pcodes=pcodes, nmask=nmask, hq=hq,
                        lengths=np.asarray(lengths, np.int32), length=l)
+
+
+def split_rows(pk: PackedReads, n: int) -> list[PackedReads]:
+    """The batch's rows in `n` equal contiguous ranges, each a packed
+    batch of its own with every plane of `pk` (a shard's reads under
+    --devices N, as each shard of the JAX package's mesh widens its row
+    range of the wire). The batch's rows must divide by n."""
+    b = pk.n_reads
+    if n < 1 or b % n:
+        raise ValueError(f"batch rows {b} not divisible by {n} shards — "
+                         "round --batch-size up to a multiple of --devices")
+    step = b // n
+    return [PackedReads(pcodes=pk.pcodes[i:i + step],
+                        nmask=pk.nmask[i:i + step],
+                        hq={t: p[i:i + step] for t, p in pk.hq.items()},
+                        lengths=pk.lengths[i:i + step], length=pk.length)
+            for i in range(0, b, step)]

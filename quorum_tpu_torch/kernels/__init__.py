@@ -1,4 +1,4 @@
-"""Wrappers of the fourteen hand-written Hopper kernels (csrc/*.cu).
+"""Wrappers of the fifteen hand-written Hopper kernels (csrc/*.cu).
 
 Every wrapper checks device, dtype, shape and contiguity, then either
 launches its CUDA kernel (tensors on a CUDA device) or runs the plain
@@ -9,7 +9,9 @@ or launch raises.
   HK1 tile_insert   stage-1 counting (wire -> canonical mers -> 64-bit
                     CAS claim in the 64-slot row; with the partition
                     filter of a partitioned build), plus the keys entry
-                    that re-inserts observations left over by a grow
+                    that re-inserts observations left over by a grow,
+                    and the shard entry that counts routed lanes in one
+                    shard's slice (--devices N)
   HK2 tile_seal     duplicate check + fold + statistics
   HK3 tile_lookup   canonical mer -> value word
   HK4 extend_reads  per-(read, direction) extension with edit logs
@@ -20,7 +22,9 @@ or launch raises.
                     v4/v5 payload (sorted, compacted); compact entry:
                     the occupied slots in slot order
   HK7 tile_load     the v4/v5 payload -> sealed rows + statistics
-  HK8 tile_grow     double the build table and re-insert every slot
+  HK8 tile_grow     double the build table and re-insert every slot;
+                    shard entry: the same for a table sharded by
+                    leading row bits (bucket by new shard, then place)
   HK9 batch_aggregate  a batch's distinct mers with their multiplicities
   HK10 sketch_update   the prefilter's count-min sketch: update, query
   HK11 gated_insert    HK1 behind the sketch (two-pass and inline)
@@ -29,14 +33,24 @@ or launch raises.
                        geometry (in place)
   HK14 pack_finish     a stage-2 batch's result -> one packed u32 buffer
                        (the single device-to-host copy of the batch)
+  HK15 shard_route     a batch's observations (or left-over lanes) in
+                       exact buckets by the shard that owns their row
+
+The sharded wrappers (HK15, the shard entries) launch on their tensors'
+device; the others on the current device, which the sharded paths set
+with `device_scope`.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
 from . import reference as ref
 from .loader import call, launch, launching
+
+MAX_SHARDS = 1024  # the bucket passes keep 12 bytes a shard in shared memory
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
@@ -47,6 +61,15 @@ def _on_cuda(*tensors: torch.Tensor) -> bool:
     if dev not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev == "cuda"
+
+
+def device_scope(dev: torch.device):
+    """Make `dev` the current CUDA device (its current stream takes the
+    launches); nothing for the CPU."""
+    dev = torch.device(dev)
+    if dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
 
 
 def _check(t: torch.Tensor, dtype, name: str, align8: bool = False):
@@ -88,6 +111,45 @@ def _check_parts(part: int, n_parts: int):
             or not 0 <= part < n_parts:
         raise ValueError(f"partition {part} of {n_parts}: n_parts must be "
                          "a power of two in [1, 256] above part")
+
+
+def _check_shards(meta):
+    S = meta.n_shards
+    if S < 1 or S > MAX_SHARDS or S & (S - 1):
+        raise ValueError(f"{S} shards: a power of two in [1, {MAX_SHARDS}]")
+
+
+def _buckets(counter: str, lib: str, fn: str, jobs: list, S: int,
+             lane_shape: tuple, dtype) -> list:
+    """Exact owner buckets for each job (the arguments of C launcher
+    `fn` of `lib`, and the device it runs on), counted once a job as
+    `counter`: phase 0 counts each owner's lanes on every job's device,
+    the host then reads the S counts of each (every count pass is in
+    flight before the first read waits) and scans them, and phase 1
+    scatters each job's lanes into their exact buckets. Returns, in job
+    order, (lanes [n, *lane_shape] in owner order, sizes: S ints)."""
+    counts = []
+    for args, dev in jobs:
+        with device_scope(dev), launching(counter):
+            c = torch.zeros(S, dtype=torch.int64, device=dev)
+            call(lib, fn, *args, 0, c.data_ptr(), None)
+        counts.append(c)
+    sizes = [c.cpu() for c in counts]
+    out = []
+    for (args, dev), n in zip(jobs, sizes):
+        with device_scope(dev), launching(counter, count=False):
+            cursor = (torch.cumsum(n, 0) - n).to(dev)
+            lanes = torch.empty((int(n.sum()), *lane_shape), dtype=dtype,
+                                device=dev)
+            call(lib, fn, *args, 1, cursor.data_ptr(), lanes.data_ptr())
+        out.append((lanes, n.tolist()))
+    return out
+
+
+def _listed(plain):
+    """A plain version's (lanes, sizes tensor) as a wrapper returns it."""
+    lanes, sizes = plain
+    return lanes, sizes.tolist()
 
 
 def _pending(failed, keys):
@@ -144,17 +206,45 @@ def tile_insert_keys(bstate, meta, keys: torch.Tensor, qual: torch.Tensor):
     return placed.bool()
 
 
+def tile_insert_shard(bstate, meta, lanes: torch.Tensor):
+    """HK1's shard entry: count lanes routed to one shard (HK15's words
+    (key << 1) | qual, one observation each) in `bstate`, that shard's
+    slice of the table sharded as `meta` (TileShardedMeta) describes.
+    Returns `placed` (bool per lane; False where the row is full)."""
+    _check_shards(meta)
+    _check_build(bstate, meta.local_meta)
+    _check(lanes, torch.int64, "lanes")
+    if not _on_cuda(lanes, bstate.tag):
+        return ref.insert_shard(bstate, meta, lanes)
+    placed = torch.empty(lanes.numel(), dtype=torch.uint8,
+                         device=lanes.device)
+    with device_scope(lanes.device), launching("tile_insert_shard"):
+        call("tile_insert", "tile_insert_shard", lanes.data_ptr(),
+             lanes.numel(), meta.k, meta.rb_log2, meta.bits, meta.local_rb,
+             bstate.tag.data_ptr(), bstate.hq.data_ptr(),
+             bstate.lq.data_ptr(), placed.data_ptr())
+    return placed.bool()
+
+
 # --------------------------------------------------------------- HK2
 
 
-def tile_seal(bstate, meta):
+def tile_seal(bstate, meta, out: torch.Tensor | None = None):
     """Returns (rows int32 [rows, 128], stats int64 [5] = dup, occupied,
-    distinct_hq, total_hq, singletons: slots with hq + lq == 1)."""
+    distinct_hq, total_hq, singletons: slots with hq + lq == 1). With
+    `out` (int32 [rows, 128], contiguous) the rows are written there."""
     _check_build(bstate, meta)
+    if out is not None:
+        _check(out, torch.int32, "out", align8=True)
+        if out.shape != bstate.tag.shape or out.device != bstate.tag.device:
+            raise ValueError("out does not match the build table")
     if not _on_cuda(bstate.tag):
-        return ref.tile_seal(bstate, meta)
+        rows, stats = ref.tile_seal(bstate, meta)
+        if out is not None:
+            rows = out.copy_(rows)
+        return rows, stats
     dev = bstate.tag.device
-    rows = torch.empty_like(bstate.tag)
+    rows = torch.empty_like(bstate.tag) if out is None else out
     stats = torch.zeros(5, dtype=torch.int64, device=dev)
     launch("tile_seal", "tile_seal", bstate.tag.data_ptr(),
            bstate.hq.data_ptr(), bstate.lq.data_ptr(), meta.rows, meta.bits,
@@ -416,6 +506,47 @@ def tile_grow(bstate, meta, new, new_meta) -> bool:
     return bool(full.item())
 
 
+def tile_grow_shard(shards: list, meta) -> list:
+    """HK8's shard entry, pass 1: the live slots of every shard
+    (`shards[s]`, shard s's slice under the sharded geometry `meta`
+    before the doubling) as lanes int32 [n, 5] = (row, rlo, rhi, hq, lq)
+    of the doubled geometry, in exact buckets by their new shard.
+    Returns [(lanes, sizes: S ints)] in shard order; tile_grow_place
+    claims each bucket on its shard."""
+    _check_shards(meta)
+    if len(shards) != meta.n_shards:
+        raise ValueError(f"{len(shards)} shards of {meta.n_shards}")
+    for b in shards:
+        _check_build(b, meta.local_meta)
+    if not _on_cuda(*(b.tag for b in shards)):
+        return [_listed(ref.grow_shard(b, meta, s))
+                for s, b in enumerate(shards)]
+    return _buckets("tile_grow_shard", "tile_grow", "tile_grow_shard",
+                    [([b.tag.data_ptr(), b.hq.data_ptr(), b.lq.data_ptr(),
+                       meta.local_rb, s, meta.owner_bits, meta.rlo_bits],
+                      b.tag.device) for s, b in enumerate(shards)],
+                    meta.n_shards, (5,), torch.int32)
+
+
+def tile_grow_place(new, new_meta, lanes: torch.Tensor) -> bool:
+    """HK8's shard entry, pass 2: claim the grow lanes routed to one
+    shard in `new`, its fresh slice under the doubled sharded geometry
+    `new_meta`. Returns True if a lane found no room (it cannot)."""
+    _check_shards(new_meta)
+    _check_build(new, new_meta.local_meta)
+    _check(lanes, torch.int32, "lanes")
+    if lanes.dim() != 2 or lanes.shape[1] != 5:
+        raise ValueError("grow lanes must be int32 [n, 5]")
+    if not _on_cuda(lanes, new.tag):
+        return ref.grow_place(new, lanes)
+    full = torch.zeros(1, dtype=torch.int32, device=lanes.device)
+    with device_scope(lanes.device), launching("tile_grow_shard"):
+        call("tile_grow", "tile_grow_place", lanes.data_ptr(), lanes.shape[0],
+             new.tag.data_ptr(), new.hq.data_ptr(), new.lq.data_ptr(),
+             full.data_ptr())
+        return bool(full.item())
+
+
 # --------------------------------------------------------------- HK9
 
 
@@ -635,3 +766,43 @@ def pack_finish(start, end, status_f, status_b, fwd, bwd, overflow, *,
              bwd[1].data_ptr(), bwd[2].data_ptr(), b, maxe, cap,
              offs.data_ptr(), buf.data_ptr())
     return buf, status
+
+
+# --------------------------------------------------------------- HK15
+
+
+def shard_route(batches: list, qual_thresh: int, meta) -> list:
+    """HK15: for each packed batch (wire, b, length, thresholds) -- one
+    a shard, each a shard's row range of one batch, on that shard's
+    device -- every observation as a lane (key << 1) | qual int64, in
+    exact buckets by the shard that owns the mer's row under `meta`
+    (TileShardedMeta). Returns [(lanes, sizes: S ints)] in batch order;
+    bucket o is lanes[sum(sizes[:o]):sum(sizes[:o + 1])], in the
+    launch's order."""
+    _check_shards(meta)
+    parsed = [(w, b, n, *_wire_offsets(w, b, n, t, qual_thresh))
+              for w, b, n, t in batches]
+    if not _on_cuda(*(p[0] for p in parsed)):
+        return [_listed(ref.shard_route(w, b, n, ts, qual_thresh, meta))
+                for w, b, n, ts, _offs in parsed]
+    return _buckets("shard_route", "shard_route", "shard_route_wire",
+                    [([w.data_ptr(), b, n, *offs, meta.k, meta.rb_log2,
+                       meta.bits, meta.local_rb, meta.n_shards], w.device)
+                     for w, b, n, _ts, offs in parsed],
+                    meta.n_shards, (), torch.int64)
+
+
+def shard_route_lanes(lanes: list, meta) -> list:
+    """HK15's lanes entry: each tensor of lanes (key << 1) | qual (the
+    observations a full row left over, one tensor a shard, routed again
+    after the grow) in exact buckets by their owner under `meta`.
+    Returns [(lanes, sizes: S ints)] in the same order."""
+    _check_shards(meta)
+    for x in lanes:
+        _check(x, torch.int64, "lanes")
+    if not _on_cuda(*lanes):
+        return [_listed(ref.shard_route_lanes(x, meta)) for x in lanes]
+    return _buckets("shard_route", "shard_route", "shard_route_lanes",
+                    [([x.data_ptr(), x.numel(), meta.k, meta.rb_log2,
+                       meta.bits, meta.local_rb, meta.n_shards], x.device)
+                     for x in lanes], meta.n_shards, (), torch.int64)

@@ -359,3 +359,79 @@ static inline cudaError_t row_offsets(const uint8_t* counts, long long rows,
       counts, rows, sums, first);
   return cudaGetLastError();
 }
+
+// ------------------------------------------------------------------
+// Exact owner buckets (HK15 and HK8's shard entry). A source maps lane i
+// to (owner, lane) or to nothing: `bool Src::get(long long i, int* owner,
+// typename Src::Lane* lane) const`. Pass 1 counts each owner's lanes
+// (a block histogram in shared memory, one global atomic per block and
+// owner); the host scans the S counts into each bucket's first lane;
+// pass 2 scatters every lane to its owner's bucket, each block reserving
+// its range of a bucket with one atomic per owner and placing its lanes
+// at their ranks in the block. No lane can miss its bucket, so no pass
+// re-routes; the order inside a bucket is the launch's own. Both passes
+// take 12 * S bytes of dynamic shared memory.
+
+template <class Src>
+__global__ void bucket_count_kernel(Src src, long long n, int S,
+                                    unsigned long long* __restrict__ counts) {
+  extern __shared__ unsigned long long bucket_smem[];
+  unsigned* cnt = reinterpret_cast<unsigned*>(bucket_smem + S);
+  for (int j = threadIdx.x; j < S; j += blockDim.x) cnt[j] = 0;
+  __syncthreads();
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  int owner = -1;
+  typename Src::Lane lane;
+  if (i < n && src.get(i, &owner, &lane)) atomicAdd(&cnt[owner], 1u);
+  __syncthreads();
+  for (int j = threadIdx.x; j < S; j += blockDim.x)
+    if (cnt[j]) atomicAdd(counts + j, (unsigned long long)cnt[j]);
+}
+
+template <class Src>
+__global__ void bucket_scatter_kernel(Src src, long long n, int S,
+                                      unsigned long long* __restrict__ cursor,
+                                      typename Src::Lane* __restrict__ out) {
+  extern __shared__ unsigned long long bucket_smem[];
+  unsigned long long* base = bucket_smem;
+  unsigned* cnt = reinterpret_cast<unsigned*>(bucket_smem + S);
+  for (int j = threadIdx.x; j < S; j += blockDim.x) cnt[j] = 0;
+  __syncthreads();
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  int owner = -1;
+  unsigned rank = 0;
+  typename Src::Lane lane;
+  if (i < n && src.get(i, &owner, &lane)) rank = atomicAdd(&cnt[owner], 1u);
+  __syncthreads();
+  for (int j = threadIdx.x; j < S; j += blockDim.x)
+    if (cnt[j]) base[j] = atomicAdd(cursor + j, (unsigned long long)cnt[j]);
+  __syncthreads();
+  if (owner >= 0) out[base[owner] + rank] = lane;
+}
+
+#define BUCKET_THREADS 256
+
+template <class Src>
+static inline cudaError_t bucket_count(Src src, long long n, int S,
+                                       unsigned long long* counts,
+                                       cudaStream_t stream) {
+  if (n > 0)
+    bucket_count_kernel<Src><<<(unsigned)((n + BUCKET_THREADS - 1) /
+                                          BUCKET_THREADS),
+                               BUCKET_THREADS, 12 * (size_t)S, stream>>>(
+        src, n, S, counts);
+  return cudaGetLastError();
+}
+
+template <class Src>
+static inline cudaError_t bucket_scatter(Src src, long long n, int S,
+                                         unsigned long long* cursor,
+                                         typename Src::Lane* out,
+                                         cudaStream_t stream) {
+  if (n > 0)
+    bucket_scatter_kernel<Src><<<(unsigned)((n + BUCKET_THREADS - 1) /
+                                            BUCKET_THREADS),
+                                 BUCKET_THREADS, 12 * (size_t)S, stream>>>(
+        src, n, S, cursor, out);
+  return cudaGetLastError();
+}

@@ -21,6 +21,16 @@
 // reports `failed`; the caller grows (HK8) and re-inserts those
 // observations, one thread each, through the keys entry.
 //
+// Shard entry (--devices N): the receiving half of the sharded build
+// (quorum_tpu/parallel/tile_sharded.py:286-329, the claim rounds of
+// _routed_insert_local on the shard's slice). It takes the lanes HK15
+// routed to this shard, (key << 1) | qual, one observation each, and
+// claims through claim_add with the key parts of the GLOBAL geometry and
+// the row localized to the shard (the address's low local_rb bits; its
+// leading bits name the shard). A lane that meets a full row reports
+// not placed; the caller grows every shard and routes it again, so each
+// observation counts exactly once.
+//
 // Partition filter: pass `part` of `n_parts` (a power of two) counts only
 // the mers whose remainder's low log2(n_parts) bits, at the table's own
 // (local) geometry, equal `part` (table.cuh rem_low of the key parts the
@@ -31,7 +41,8 @@
 // at the build's load an insert touches one 32-byte sector of tags (read,
 // and written when the key is new) and one 32-byte sector of counters
 // (read and written); the least work of a batch is the wire plus those
-// sectors for each distinct key (chip_smoke.py computes it).
+// sectors for each distinct key (chip_smoke.py computes it). The shard
+// entry reads 8 bytes a lane in place of the wire and writes a flag.
 #include "table.cuh"
 
 __global__ void insert_reads_kernel(Wire w, int k, int rb, int bits,
@@ -70,6 +81,20 @@ __global__ void insert_keys_kernel(const long long* __restrict__ keys,
                         q, 1u - q);
 }
 
+__global__ void insert_shard_kernel(const long long* __restrict__ lanes,
+                                    long long n, int k, int rb, int bits,
+                                    int local_rb, uint32_t* tag,
+                                    uint32_t* hq, uint32_t* lq,
+                                    uint8_t* placed) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const long long v = lanes[i];
+  KeyParts p = key_parts((uint64_t)v >> 1, k, rb, bits);
+  p.addr &= (1u << local_rb) - 1u;
+  const uint32_t q = (uint32_t)(v & 1);
+  placed[i] = claim_add(tag, hq, lq, p, q, 1u - q);
+}
+
 static inline unsigned grid_for(long long n, int block) {
   return (unsigned)((n + block - 1) / block);
 }
@@ -96,5 +121,15 @@ extern "C" int tile_insert_keys(const long long* keys, const uint8_t* qual,
   if (n > 0)
     insert_keys_kernel<<<grid_for(n, 256), 256, 0, (cudaStream_t)stream>>>(
         keys, qual, n, k, rb, bits, tag, hq, lq, placed);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tile_insert_shard(const long long* lanes, long long n, int k,
+                                 int rb, int bits, int local_rb,
+                                 uint32_t* tag, uint32_t* hq, uint32_t* lq,
+                                 uint8_t* placed, void* stream) {
+  if (n > 0)
+    insert_shard_kernel<<<grid_for(n, 256), 256, 0, (cudaStream_t)stream>>>(
+        lanes, n, k, rb, bits, local_rb, tag, hq, lq, placed);
   return (int)cudaGetLastError();
 }

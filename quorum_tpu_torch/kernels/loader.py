@@ -8,9 +8,10 @@ keyed by a digest of every source and the flags, so a checkout builds
 its kernels from the sources it holds and a changed source rebuilds.
 All sources compile in parallel (one nvcc each).
 
-`STATS` counts the launches of each kernel (a wrapper adds one where it
-launches, nowhere else: one per wrapper call, whatever number of C
-launchers the call enqueues) and, when `STATS.timing` is on, keeps CUDA
+`STATS` counts the launches of each kernel, and of each entry counted
+apart (ENTRIES), under its name (a wrapper adds one where it launches,
+nowhere else: one per wrapper call, whatever number of C launchers the
+call enqueues) and, when `STATS.timing` is on, keeps CUDA
 events around everything the wrapper call enqueues (`events`) and
 around each C launch (`calls`): for a wrapper with two C launches and
 host work between them the two differ by the device's idle gap.
@@ -33,7 +34,11 @@ BUILD_ROOT = os.path.join(os.path.dirname(HERE), "_build")
 KERNELS = ("tile_insert", "tile_seal", "tile_lookup", "extend_reads",
            "stage2_head", "tile_export", "tile_load", "tile_grow",
            "batch_aggregate", "sketch_update", "gated_insert", "tile_floor",
-           "tile_departition", "pack_finish")
+           "tile_departition", "pack_finish", "shard_route")
+# entries of a kernel counted apart from it (HK1's and HK8's shard
+# entries, on the --devices N path)
+ENTRIES = ("tile_insert_shard", "tile_grow_shard")
+COUNTERS = KERNELS + ENTRIES
 
 NVCC_FLAGS = ["-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-gencode", "arch=compute_90a,code=sm_90a", "-Xptxas", "-v"]
@@ -46,6 +51,7 @@ SIGNATURES = {
         "tile_insert_reads": [_P, _I, _I, _LL, _LL, _LL, _I, _I, _I, _I, _I,
                               _P, _P, _P, _P, _P, _P, _P],
         "tile_insert_keys": [_P, _P, _LL, _I, _I, _I, _P, _P, _P, _P, _P],
+        "tile_insert_shard": [_P, _LL, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     },
     "tile_seal": {"tile_seal": [_P, _P, _P, _LL, _I, _P, _P, _P]},
     "tile_lookup": {"tile_lookup": [_P, _P, _LL, _I, _I, _I, _P, _P]},
@@ -65,8 +71,11 @@ SIGNATURES = {
         "tile_export_compact": [_P, _LL, _I, _P, _LL, _P, _P, _P, _P],
     },
     "tile_load": {"tile_load": [_P, _LL, _LL, _I, _I, _P, _P, _P, _P, _P]},
-    "tile_grow": {"tile_grow": [_P, _P, _P, _LL, _I, _I, _P, _P, _P, _P,
-                                _P]},
+    "tile_grow": {
+        "tile_grow": [_P, _P, _P, _LL, _I, _I, _P, _P, _P, _P, _P],
+        "tile_grow_shard": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+        "tile_grow_place": [_P, _LL, _P, _P, _P, _P, _P],
+    },
     "batch_aggregate": {
         "batch_aggregate": [_P, _I, _I, _LL, _LL, _LL, _I, _I, _P, _P, _P,
                             _P],
@@ -88,6 +97,11 @@ SIGNATURES = {
         "pack_head": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
         "pack_entries": [_P, _P, _P, _P, _P, _P, _I, _I, _LL, _P, _P, _P],
     },
+    "shard_route": {
+        "shard_route_wire": [_P, _I, _I, _LL, _LL, _LL, _I, _I, _I, _I, _I,
+                             _I, _P, _P, _P],
+        "shard_route_lanes": [_P, _LL, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    },
 }
 
 
@@ -95,8 +109,9 @@ class KernelStats:
     """Launch counts per kernel, and optional CUDA-event timing."""
 
     def __init__(self):
-        self.launches = {name: 0 for name in KERNELS}
+        self.launches = {name: 0 for name in COUNTERS}
         self.timing = False
+        self.current: str | None = None  # the counter being launched
         self.events: list = []  # (kernel, start event, end event)
         self.calls: list = []  # (kernel, C launcher, start, end)
 
@@ -107,13 +122,12 @@ class KernelStats:
         self.calls.clear()
 
     def kernel_ms(self) -> dict:
-        """Summed event time per kernel (synchronizes the device)."""
-        import torch
-
-        torch.cuda.synchronize()
-        out = {name: 0.0 for name in KERNELS}
+        """Summed event time per kernel, and per span (waits for every
+        event, on whichever device it was recorded)."""
+        out = {name: 0.0 for name in COUNTERS}
         for name, a, b in self.events:
-            out[name] += a.elapsed_time(b)
+            b.synchronize()
+            out[name] = out.get(name, 0.0) + a.elapsed_time(b)
         return out
 
 
@@ -188,27 +202,35 @@ def library(name: str) -> ctypes.CDLL:
 
 
 @contextlib.contextmanager
-def launching(name: str):
-    """Count one launch of kernel `name` and, when timing, time all the
-    work its wrapper enqueues inside the block."""
+def launching(name: str, count: bool = True):
+    """Count one launch of kernel `name` (unless `count` is False: a
+    later phase of a launch already counted, or work that is no kernel,
+    such as the sharded build's bucket exchange) and, when timing, time
+    all the work enqueued inside the block on the current device's
+    current stream."""
     import torch
 
-    STATS.launches[name] += 1
-    if not STATS.timing:
+    if count:
+        STATS.launches[name] += 1
+    outer, STATS.current = STATS.current, name
+    try:
+        if not STATS.timing:
+            yield
+            return
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
         yield
-        return
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    yield
-    b.record()
-    STATS.events.append((name, a, b))
+        b.record()
+        STATS.events.append((name, a, b))
+    finally:
+        STATS.current = outer
 
 
 def call(name: str, fn: str, *args) -> None:
     """Call C launcher `fn` of kernel `name` on the current stream and
     raise if CUDA refused the launch (no count: see `launching`; timed
-    on its own when timing)."""
+    on its own when timing, under the name being launched)."""
     import torch
 
     c_fn = getattr(library(name), fn)
@@ -220,7 +242,7 @@ def call(name: str, fn: str, *args) -> None:
     rc = c_fn(*args, stream.cuda_stream)
     if STATS.timing:
         b.record(stream)
-        STATS.calls.append((name, fn, a, b))
+        STATS.calls.append((STATS.current or name, fn, a, b))
     if rc != 0:
         raise RuntimeError(f"{name}.{fn}: CUDA launch failed with error {rc}")
 

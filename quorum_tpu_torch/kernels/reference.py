@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the fourteen hand-written kernels.
+"""Plain PyTorch versions of the fifteen hand-written kernels.
 
 Each function computes what its CUDA kernel computes (csrc/*.cu) with
 ordinary tensor operations. The wrappers in kernels/__init__.py call
@@ -194,6 +194,26 @@ def tile_insert_reads(bstate, meta, wire, b: int, length: int, thresholds,
                                      qual_thresh, meta, part, n_parts)
     placed = insert_keys(bstate, meta, keys, qual)
     return keys[~placed], qual[~placed]
+
+
+def shard_key_parts(keys, meta):
+    """Canonical int64 mers -> (owner, local row, rlo, rhi) int64 under
+    a table sharded by leading row bits (parallel/tile_sharded
+    .TileShardedMeta): the key parts of the GLOBAL geometry, the
+    address split into its leading owner_bits (the shard) and its low
+    local_rb bits (the row in the shard)."""
+    addr, rlo, rhi = tile_key_parts(keys, meta)
+    return (addr >> meta.local_rb, addr & ((1 << meta.local_rb) - 1), rlo,
+            rhi)
+
+
+def insert_shard(bstate, meta, lanes):
+    """HK1's shard entry: insert lanes routed to this shard (HK15's
+    words (key << 1) | qual, one observation each) into its slice of the
+    table sharded as `meta` describes. Returns `placed` per lane."""
+    _owner, row, rlo, rhi = shard_key_parts(lanes >> 1, meta)
+    q = lanes & 1
+    return insert_parts(bstate, meta, row, rlo, rhi, q, 1 - q)
 
 
 # --------------------------------------------------------------- HK2
@@ -719,6 +739,41 @@ def tile_grow(bstate, meta, new, new_meta, chunk: int = 1 << 22) -> bool:
     return False
 
 
+def grow_shard(bstate, meta, s: int):
+    """HK8's shard entry, pass 1: shard `s`'s live slots under `meta`
+    (the geometry before the doubling) as lanes int32 [n, 5] of (row,
+    rlo, rhi, hq, lq) in the doubled geometry, bucketed by their new
+    shard (slot order inside a bucket), and the bucket sizes int64 [S].
+    The doubled address is addr | (rlo & 1) << rb, so the new shard is
+    ((rlo & 1) << (owner_bits - 1)) | (s >> 1) and the row there
+    (s & 1) << local_rb | row; at owner_bits = 0, shard 0 and HK8's
+    address."""
+    tag = bstate.tag.view(-1)
+    rlo, rhi = u32(tag[0::2]), u32(tag[1::2])
+    hq, lq = u32(bstate.hq), u32(bstate.lq)
+    idx = torch.nonzero((rlo != EMPTY) & ((hq | lq) != 0)).squeeze(1)
+    row, bit = idx // TSLOTS, rlo[idx] & 1
+    ob, lrb = meta.owner_bits, meta.local_rb
+    if ob == 0:
+        owner = torch.zeros_like(idx)
+        row = row | (bit << lrb)
+    else:
+        owner = (bit << (ob - 1)) | (s >> 1)
+        row = ((s & 1) << lrb) | row
+    nrlo = (rlo[idx] >> 1) | ((rhi[idx] & 1) << (meta.rlo_bits - 1))
+    lanes = torch.stack([row, nrlo, rhi[idx] >> 1, hq[idx], lq[idx]], 1)
+    return bucket(owner, i32(lanes), meta.n_shards)
+
+
+def grow_place(new, lanes) -> bool:
+    """HK8's shard entry, pass 2: claim the lanes routed to a shard in
+    its fresh doubled slice `new`. Returns True if a lane found no room
+    (it cannot)."""
+    x = u32(lanes)
+    return not bool(insert_parts(new, None, x[:, 0], x[:, 1], x[:, 2],
+                                 x[:, 3], x[:, 4]).all())
+
+
 # --------------------------------------------------------------- HK9
 
 
@@ -905,3 +960,33 @@ def pack_finish(start, end, status_f, status_b, fwd, bwd, overflow,
     h2 = ((status.to(torch.int64) & 0xFFFF) << 16) | (f_n & 0xFFFF)
     return (i32(torch.cat([geom, h1, h2, b_n & 0xFFFF, flat])),
             status.to(torch.int32))
+
+
+# --------------------------------------------------------------- HK15
+
+
+def bucket(owner, lanes, n_shards: int):
+    """`lanes` in exact owner buckets: stably ordered by owner, with the
+    bucket sizes int64 [n_shards]."""
+    order = torch.sort(owner, stable=True).indices
+    return lanes[order], torch.bincount(owner, minlength=n_shards)
+
+
+def shard_route(wire, b: int, length: int, thresholds, qual_thresh: int,
+                meta):
+    """HK15: the batch's observations (widen, extract) as lanes
+    (key << 1) | qual int64, bucketed by the shard that owns the mer's
+    row under `meta` (observation order inside a bucket), and the
+    bucket sizes int64 [S]."""
+    codes, hqb = widen_wire(wire, b, length, thresholds, qual_thresh)
+    keys, qual, valid = extract_observations(codes, hqb, meta.k)
+    keys, qual = keys[valid], qual[valid].to(torch.int64)
+    owner = shard_key_parts(keys, meta)[0]
+    return bucket(owner, (keys << 1) | qual, meta.n_shards)
+
+
+def shard_route_lanes(lanes, meta):
+    """HK15's lanes entry: lanes (key << 1) | qual bucketed again by
+    their owner under `meta` (after a grow)."""
+    return bucket(shard_key_parts(lanes >> 1, meta)[0], lanes,
+                  meta.n_shards)

@@ -108,12 +108,32 @@ def correct_batch(state: TileState, meta: TileMeta, codes, quals, lengths,
                                 contam)
 
 
+class Lanes(NamedTuple):
+    """HK4's per-read output of one batch (or of one shard's rows of
+    it), before HK14 packs it."""
+
+    out: torch.Tensor       # int8 [B, L]
+    start: torch.Tensor     # int32 [B]
+    end: torch.Tensor       # int32 [B]
+    status_f: torch.Tensor  # int32 [B]: the forward lane's status
+    status_b: torch.Tensor  # int32 [B]: the backward lane's status
+    fwd_log: LogState
+    bwd_log: LogState
+    overflow: torch.Tensor  # int32 [1]: a log outgrew maxe
+
+
 def correct_batch_packed(state: TileState, meta: TileMeta, packed,
                          cfg: ECConfig, keep: torch.Tensor,
                          contam=None) -> BatchResult:
     """correct_batch over the packed wire (io/packing): one H2D buffer,
     then HK5 (widening, sweep, anchors), HK4 (extension) and HK14 (the
     packed result) on the table's device."""
+    return pack_batch(extend_batch(state, meta, packed, cfg, keep, contam))
+
+
+def extend_batch(state: TileState, meta: TileMeta, packed, cfg: ECConfig,
+                 keep: torch.Tensor, contam=None) -> Lanes:
+    """HK5 and HK4 on one packed batch, on the table's device."""
     packed.require_plane(cfg.qual_cutoff)
     if contam is not None and contam[1].k != cfg.k:
         raise ValueError(
@@ -128,18 +148,44 @@ def correct_batch_packed(state: TileState, meta: TileMeta, packed,
         cfg.qual_cutoff, skip=cfg.skip, good=cfg.good,
         anchor_count=cfg.anchor_count, **ckw)
     anc = Anchors(*anc)
-    maxe = log_capacity(length, cfg)
     out, start, end, lstatus, fwd, bwd, overflow = kernels.extend_reads(
         state.rows, meta, codes, hqb, lengths, anc.status, anc.start_off,
         anc.f, anc.r, anc.prev, keep, window=cfg.effective_window,
         error=cfg.effective_error, min_count=cfg.min_count,
-        cutoff=cfg.cutoff, maxe=maxe, **ckw)
-    fwd, bwd = LogState(*fwd), LogState(*bwd)
+        cutoff=cfg.cutoff, maxe=log_capacity(length, cfg), **ckw)
+    return Lanes(out, start, end, lstatus[:b], lstatus[b:], LogState(*fwd),
+                 LogState(*bwd), overflow)
+
+
+def merge_lanes(parts: list, device) -> Lanes:
+    """Shards' Lanes of consecutive row ranges of one batch as the
+    batch's Lanes on `device` (the overflow flags summed)."""
+
+    def cat(xs):
+        return torch.cat([x.to(device) for x in xs])
+
+    logs = [LogState(*(cat(f) for f in zip(*(getattr(p, name)
+                                              for p in parts))))
+            for name in ("fwd_log", "bwd_log")]
+    return Lanes(*(cat([getattr(p, f) for p in parts])
+                   for f in ("out", "start", "end", "status_f", "status_b")),
+                 *logs,
+                 torch.stack([p.overflow.to(device) for p in parts]).sum(
+                     0, dtype=torch.int32))
+
+
+def pack_batch(lanes: Lanes) -> BatchResult:
+    """HK14 on one batch's Lanes: the BatchResult with its one packed
+    buffer, on the lanes' device."""
+    b, maxe = lanes.fwd_log.pos.shape
+    fwd, bwd = lanes.fwd_log, lanes.bwd_log
     buf, status = kernels.pack_finish(
-        start, end, lstatus[:b], lstatus[b:], (fwd.n, fwd.pos, fwd.meta),
-        (bwd.n, bwd.pos, bwd.meta), overflow, length=length,
+        lanes.start, lanes.end, lanes.status_f, lanes.status_b,
+        (fwd.n, fwd.pos, fwd.meta), (bwd.n, bwd.pos, bwd.meta),
+        lanes.overflow, length=lanes.out.shape[1],
         cap=_LEAN_CAP_CACHE.get((b, maxe), 16384))
-    return BatchResult(out, start, end, status, fwd, bwd, buf)
+    return BatchResult(lanes.out, lanes.start, lanes.end, status, fwd, bwd,
+                       buf)
 
 
 # ------------------------------------------------------------ host finish

@@ -25,6 +25,14 @@ manifest commits last. Peak table memory falls by about P and the
 reassembled payload is the single-pass build's byte for byte. A pass
 whose table fills restarts every pass at twice the rows: growing inside
 a pass would move the partition bits.
+
+With --devices N (a power of two) the table is sharded by leading row
+bits over N devices (parallel/tile_sharded, quorum_tpu's
+_build_database_sharded without its checkpoints): each shard routes
+its row range of every batch to the owners of its mers (HK15), each
+owner counts what it receives (HK1's shard entry), a full row doubles
+every shard (HK8's shard entry), and HK2 seals each shard. The shards
+concatenate to the one-card table, so the payload is the same.
 """
 
 from __future__ import annotations
@@ -40,9 +48,7 @@ from .. import kernels
 from ..io import db_format, fastq, packing
 from ..ops import ctable
 from ..ops import sketch as sketch_mod
-
-MAX_GROWS = 16  # doublings one batch may ask for
-
+from ..ops.ctable import MAX_GROWS
 
 @dataclasses.dataclass(frozen=True)
 class BuildConfig:
@@ -62,6 +68,8 @@ class BuildConfig:
     # P sequential passes, each counting 1/P of the mers into a table of
     # 1/P the rows (a power of two in [1, 256])
     partitions: int = 1
+    # shards by leading row bits over this many devices (a power of two)
+    devices: int = 1
 
 
 @dataclasses.dataclass
@@ -88,6 +96,8 @@ class BuildStats:
     sketch_seconds: float = 0.0
     poisson_distinct_hq: int = 0
     poisson_total_hq: int = 0
+    # --devices N: entries per shard
+    shard_occupancy: list = dataclasses.field(default_factory=list)
 
     def db_extra_header(self) -> dict | None:
         """The prefilter declaration and corrected Poisson statistics for
@@ -179,6 +189,17 @@ def _check_config(cfg: BuildConfig) -> None:
         raise ValueError(
             "--prefilter=inline does not compose with --partitions "
             "(the online sketch is not pass-stable); use two-pass")
+    D = cfg.devices
+    if D < 1 or D & (D - 1):
+        raise ValueError(f"--devices must be a power of two (leading-bit "
+                         f"shard layout), got {D}")
+    if D > 1 and cfg.prefilter != "off":
+        raise ValueError(
+            "--prefilter composes with --devices 1 today; use "
+            "--partitions for multi-pass capacity over a mesh")
+    if D > 1 and P > 1:
+        raise ValueError("--partitions with --devices N is not ported to "
+                         "quorum_tpu_torch yet")
 
 
 def _sketch_pass(factory, cfg: BuildConfig, device, stats: BuildStats):
@@ -200,26 +221,31 @@ def _sketch_pass(factory, cfg: BuildConfig, device, stats: BuildStats):
 
 def build_database(paths: Sequence[str], cfg: BuildConfig,
                    device: torch.device,
-                   batches_factory: Callable[[], Iterable] | None = None):
+                   batches_factory: Callable[[], Iterable] | None = None,
+                   mesh: list | None = None):
     """Run stage 1. Returns (TileState, TileMeta, BuildStats).
     `batches_factory` overrides the disk reader: each call returns a
     FRESH iterable of (ReadBatch, PackedReads) pairs whose planes include
     cfg.qual_thresh (the quorum driver shares one parse between both
     stages). One pass calls it once; the two-pass prefilter calls it
-    twice, and the first call's pass counts reads and bases."""
+    twice, and the first call's pass counts reads and bases. `mesh`
+    (cfg.devices > 1) names the shards' devices; by default the first
+    cfg.devices devices of `device`'s type (tile_sharded.make_mesh)."""
     _check_config(cfg)
     if cfg.partitions > 1:
         raise ValueError(
             "partitioned builds stream their export per pass — run "
             "them through create_database_main, not build_database")
     t0 = time.perf_counter()
+    if batches_factory is None:
+        def batches_factory():
+            return default_batches(paths, cfg)
+    if cfg.devices > 1:
+        return _build_sharded(cfg, device, batches_factory, t0, mesh)
     meta = ctable.TileMeta(k=cfg.k, bits=cfg.bits, rb_log2=ctable.tile_rb_for(
         cfg.initial_size, cfg.k, cfg.bits))
     bstate = ctable.make_tile_build(meta, device)
     stats = BuildStats(prefilter_mode=cfg.prefilter)
-    if batches_factory is None:
-        def batches_factory():
-            return default_batches(paths, cfg)
     sk = smeta = None
     if cfg.prefilter == "inline":
         smeta = sketch_mod.SketchMeta(
@@ -259,6 +285,42 @@ def build_database(paths: Sequence[str], cfg: BuildConfig,
         stats.prefilter_false_pass = singles
         stats.poisson_distinct_hq = distinct + stats.prefilter_dropped_hq
         stats.poisson_total_hq = total + stats.prefilter_dropped_hq
+    stats.seconds = time.perf_counter() - t0
+    return state, meta, stats
+
+
+def _build_sharded(cfg: BuildConfig, device: torch.device,
+                   batches_factory: Callable[[], Iterable], t0: float,
+                   mesh: list | None):
+    """Stage 1 over a mesh of cfg.devices devices (quorum_tpu's
+    _build_database_sharded without checkpoints). Returns
+    (ShardedTileState, TileShardedMeta, BuildStats)."""
+    from ..parallel import tile_sharded as ts
+
+    S = cfg.devices
+    if mesh is None:
+        mesh = ts.make_mesh(S, device=device)
+    if len(mesh) != S:
+        raise ValueError(f"a mesh of {len(mesh)} devices for --devices {S}")
+    meta = ts.TileShardedMeta(
+        k=cfg.k, bits=cfg.bits, n_shards=S,
+        rb_log2=ts.initial_rb(cfg.initial_size, cfg.k, cfg.bits, S))
+    bstate = ts.make_build_state(meta, mesh)
+    stats = BuildStats()
+    for batch, pk in batches_factory():
+        stats.batches += 1
+        stats.reads += batch.n
+        stats.bases += int(batch.lengths.sum())
+        bstate, meta, grows = ts.build_step_wire(bstate, meta, mesh, pk,
+                                                 cfg.qual_thresh)
+        stats.grows += grows
+    state, seal = ts.finalize(bstate, meta, mesh)
+    del bstate
+    if int(seal[:, 0].sum()):
+        raise RuntimeError("internal error: duplicate tag pair in a bucket")
+    stats.distinct, stats.distinct_hq, stats.total_hq, stats.singletons = (
+        int(x) for x in seal[:, 1:].sum(0))
+    stats.shard_occupancy = ts.shard_occupancy(seal)
     stats.seconds = time.perf_counter() - t0
     return state, meta, stats
 
@@ -373,14 +435,16 @@ def _build_partitioned(paths: Sequence[str], cfg: BuildConfig, output: str,
 def create_database_main(paths: Sequence[str], output: str, cfg: BuildConfig,
                          cmdline: list[str] | None = None,
                          handoff: dict | None = None,
-                         batches_factory: Callable[[], Iterable] | None = None
-                         ) -> BuildStats:
+                         batches_factory: Callable[[], Iterable] | None = None,
+                         mesh: list | None = None) -> BuildStats:
     """Build and write the database (one file, or a sharded manifest
     with --db-layout sharded or --partitions P). With `handoff` (a
     dict) the BuildStats go to handoff["stats"], and a single-pass
     build keeps its device-resident table as handoff["db"] = (state,
     meta, stats) for an in-process stage 2; a partitioned build never
-    holds the whole table, so its stage 2 loads the manifest."""
+    holds the whole table, so its stage 2 loads the manifest. A
+    --devices N build writes one shard file per shard (sharded layout)
+    or its table gathered onto the lead device (single)."""
     from .. import resolve_device
 
     device = resolve_device(cfg.device)
@@ -389,8 +453,16 @@ def create_database_main(paths: Sequence[str], output: str, cfg: BuildConfig,
                                    batches_factory, cmdline)
     else:
         state, meta, stats = build_database(paths, cfg, device,
-                                            batches_factory)
-        if cfg.db_layout == "sharded":
+                                            batches_factory, mesh)
+        if cfg.devices > 1 and cfg.db_layout == "single":
+            from ..parallel import tile_sharded as ts
+
+            whole, wmeta = ts.gather_table(state, meta)
+            db_format.write_db(output, whole, wmeta, cmdline,
+                               n_entries=stats.distinct,
+                               db_version=cfg.db_version)
+            del whole
+        elif cfg.db_layout == "sharded":
             db_format.write_db_sharded(output, state, meta, cmdline,
                                        db_version=cfg.db_version,
                                        extra_header=stats.db_extra_header())

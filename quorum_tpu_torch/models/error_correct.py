@@ -15,8 +15,6 @@ import sys
 import time
 from typing import Iterable, Sequence
 
-import torch
-
 from ..io import contaminant as contaminant_mod
 from ..io import db_format, fastq, packing
 from ..ops import ctable
@@ -61,6 +59,12 @@ class ECOptions:
     presence_floor: int = 0
     # --contaminant: sequences or a mer database (io/contaminant)
     contaminant: str | None = None
+    # --devices N: correct each batch's reads in N row ranges, one a
+    # device, against the table replicated on each (parallel/tile_sharded)
+    devices: int = 1
+    # the count came from --devices auto/all: a table the replicated
+    # layout cannot hold is corrected on one device instead (with a note)
+    devices_auto: bool = False
 
 
 def resolve_cutoff(opts: ECOptions, stats: tuple[int, int],
@@ -86,15 +90,26 @@ def run_error_correct(db_path: str, sequences: Sequence[str],
                       min_count: int = 1, window: int = 10, error: int = 3,
                       no_discard: bool = False, homo_trim: int | None = None,
                       trim_contaminant: bool = False, db=None,
-                      prepacked: Iterable | None = None) -> ECStats:
+                      prepacked: Iterable | None = None,
+                      mesh: list | None = None) -> ECStats:
     """Run stage 2. `db` is an in-process handoff (state, meta, build
     stats) that skips reading the database file; `prepacked` replays
     (ReadBatch, PackedReads) pairs packed with the qual_cutoff plane
     instead of parsing `sequences` again. A handed-off table is floored
-    in place."""
+    in place. With opts.devices > 1 the batches are corrected over a
+    mesh of that many devices (a --devices N build hands off its
+    row-sharded table): `mesh`, or by default the first opts.devices
+    devices of opts.device's type. A row-sharded table corrected on one
+    device is gathered onto the lead shard's device first."""
     from .. import resolve_device
+    from ..parallel import tile_sharded as ts
 
     device = resolve_device(opts.device)
+    devices = opts.devices
+    if devices > 1 and opts.batch_size % devices:
+        raise RuntimeError(
+            f"--batch-size {opts.batch_size} is not divisible by "
+            f"--devices {devices}; round it up")
     if db is not None:
         # the header fields the build wrote into the file
         state, meta, bstats = db
@@ -104,6 +119,15 @@ def run_error_correct(db_path: str, sequences: Sequence[str],
         state, meta, header, (_occ, distinct, total) = db_format.load_db(
             db_path, device=device, verify=opts.verify_db)
         table_stats = (distinct, total)
+    if devices > 1 and opts.devices_auto:
+        why = ts.routed_reason(meta.rb_log2)
+        if why is not None:
+            print(f"quorum_error_correct_reads: {why}; --devices auto goes "
+                  f"on with one device instead of {devices}",
+                  file=sys.stderr)
+            devices = 1
+    if devices == 1 and isinstance(state, ctable.ShardedTileState):
+        state, meta = ts.gather_table(state, meta)
     cutoff = resolve_cutoff(opts, table_stats, header)
     if cutoff == 0 and opts.cutoff is None:
         raise RuntimeError(
@@ -115,7 +139,10 @@ def run_error_correct(db_path: str, sequences: Sequence[str],
     floor = opts.presence_floor
     if floor <= 0:
         floor = int((header.get("prefilter") or {}).get("min_obs", 1))
-    state = ctable.tile_floor(state, meta, floor)
+    if isinstance(state, ctable.ShardedTileState):
+        state = ts.floor(state, meta, floor)
+    else:
+        state = ctable.tile_floor(state, meta, floor)
     cfg = ECConfig(k=meta.k, skip=skip, good=good,
                    anchor_count=anchor_count, min_count=min_count,
                    cutoff=cutoff, qual_cutoff=qual_cutoff, window=window,
@@ -123,11 +150,20 @@ def run_error_correct(db_path: str, sequences: Sequence[str],
                    trim_contaminant=trim_contaminant, no_discard=no_discard,
                    collision_prob=opts.apriori_error_rate / 3.0,
                    poisson_threshold=opts.poisson_threshold)
-    keep = make_keep_table(meta, cfg, device)
     contam = None
     if opts.contaminant is not None:
         contam = contaminant_mod.load_contaminant(opts.contaminant, cfg.k,
                                                   device)
+    if devices > 1:
+        if mesh is None:
+            mesh = ts.make_mesh(devices, device=device)
+        correct = ts.ShardedCorrector(mesh, state, meta, cfg, contam)
+    else:
+        mesh = [device]
+        keep = make_keep_table(meta, cfg, device)
+
+        def correct(pk):
+            return correct_batch_packed(state, meta, pk, cfg, keep, contam)
     stats = ECStats(cutoff=cutoff, presence_floor=floor)
     if prepacked is None:
         prepacked = ((b, packing.pack_reads(b.codes, b.quals, b.lengths,
@@ -144,9 +180,8 @@ def run_error_correct(db_path: str, sequences: Sequence[str],
                 break
             batch, pk = item
             t1 = time.perf_counter()
-            res = correct_batch_packed(state, meta, pk, cfg, keep, contam)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
+            res = correct(pk)
+            ts.synchronize(mesh)
             t2 = time.perf_counter()
             results = finish_batch(res, batch.n, batch.codes, cfg)
             fa_parts, log_parts = [], []

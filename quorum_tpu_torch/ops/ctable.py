@@ -24,6 +24,7 @@ from .. import kernels
 from ..kernels.reference import TSLOTS
 
 TILE = 128
+MAX_GROWS = 16  # doublings one batch may ask for, on one card or a mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,6 +94,26 @@ class TBuildState(NamedTuple):
     tag: torch.Tensor
     hq: torch.Tensor
     lq: torch.Tensor
+
+
+class ShardedTileState(NamedTuple):
+    """Sealed table sharded by leading row bits (--devices N): shard s
+    holds the global rows [s * rows / S, (s + 1) * rows / S) on its own
+    device. Concatenated in shard order, the shards are the single-card
+    table row for row."""
+
+    shards: tuple  # of int32 [rows / S, 128]
+    # the whole plane where every shard is a row range of it (a mesh
+    # that names one device), else None
+    whole: torch.Tensor | None = None
+
+
+class ShardedBuildState(NamedTuple):
+    """Build-side table sharded by leading row bits: one TBuildState a
+    shard, on its device, whose row planes concatenate to the
+    single-card build table's."""
+
+    shards: tuple  # of TBuildState
 
 
 def min_tile_rb_log2(k: int, bits: int) -> int:

@@ -1,0 +1,455 @@
+"""Stage 1 and stage 2 over several devices (`--devices N`) on the tile
+table sharded by leading row bits (counterpart of
+quorum_tpu/parallel/tile_sharded.py, in its replicated stage-2 layout).
+
+Layout: the GLOBAL table has 2^rb_log2 rows addressed by the Feistel-
+mixed key; shard s of the mesh owns rows [s * 2^local_rb, (s + 1) *
+2^local_rb), those whose address has s as its leading owner_bits. Tags
+hold the GLOBAL key parts and only the row is localized, so the shards,
+concatenated, are the single-card table row for row: the export, the
+stage-2 lookups and the output bytes equal `--devices 1`'s.
+
+A mesh is a list of torch devices, one a shard, held by ONE process.
+It may name one device more than once (one card standing in for
+several, or the CPU in the tests), as the JAX package's virtual CPU
+mesh does; the shards then share that device's memory and its stream.
+
+* Stage 1 (build_step_wire): each shard takes its row range of the
+  batch's packed wire, and HK15 buckets its observations by owner; the
+  host copies each bucket to its owner's device (JAX's lax.all_to_all,
+  here device-to-device copies between launches; a copy onto the
+  lanes' own device is none); HK1's shard entry counts each owner's
+  lanes in its slice. Lanes that meet a full row come back pending;
+  every shard then doubles (grow: HK8's shard entry buckets each live
+  slot by its new shard, the buckets cross, its place pass claims
+  them) and the pending lanes route again under the doubled geometry,
+  so every observation counts exactly once. HK2 seals each shard.
+* Stage 2 (ShardedCorrector): the table replicated once on each
+  distinct device of the mesh; each batch's reads split into N equal
+  row ranges, HK5 and HK4 correct each range on its shard's device,
+  and one HK14 packs the global result on the lead device, so the
+  host's finish and render are those of one card. A table past
+  replicate_cap_bytes() or past rb_log2 24 needs JAX's routed layout,
+  which is not ported yet: it raises.
+
+torch.distributed is not used: NCCL takes one process per card and
+refuses two ranks on one card, and the exchange here is between
+tensors of one process.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import sys
+
+import torch
+
+from .. import kernels
+from ..io import packing
+from ..kernels import device_scope
+from ..kernels.loader import launching
+from ..ops import ctable
+from ..ops.ctable import (MAX_GROWS, GlobalMeta, ShardedBuildState,
+                          ShardedTileState, TileMeta, TileState)
+from ..utils.sizes import parse_size
+
+
+def _device(d) -> torch.device:
+    """`d` as tensors on it report their device: a CUDA device with its
+    index, the CPU without one."""
+    dev = torch.device(d)
+    if dev.type == "cpu":
+        return torch.device("cpu")
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def make_mesh(n_devices: int, devices=None, device="cuda"
+              ) -> list[torch.device]:
+    """The host-local mesh of n shards: a list of n torch devices.
+    `devices` may name one device more than once; by default the first
+    n CUDA devices, or the CPU n times for device="cpu"."""
+    if devices is not None:
+        devs = [_device(d) for d in devices]
+    elif torch.device(device).type == "cpu":
+        devs = [torch.device("cpu")] * n_devices
+    else:
+        devs = [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    if len(devs) < n_devices:
+        raise ValueError(f"need {n_devices} devices, have {len(devs)}")
+    return devs[:n_devices]
+
+
+def distinct(mesh) -> list[torch.device]:
+    """The mesh's devices, each once, in mesh order."""
+    return list(dict.fromkeys(mesh))
+
+
+def synchronize(mesh) -> None:
+    for dev in distinct(mesh):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+
+def resolve_devices(spec, device="cuda") -> int:
+    """`--devices` semantics shared by the three CLIs (quorum_tpu's
+    resolve_devices): `auto` (the default) takes every CUDA device and 1
+    on the CPU; `all` forces every CUDA device; an integer asks for that
+    many. auto and all round DOWN to the largest power of two present.
+    On the CPU an explicit N runs N shards on the CPU (the tests' mesh);
+    on CUDA, N must be present. Anything above 1 must be a power of two
+    (the leading-bit shard layout)."""
+    cuda = torch.device(device).type == "cuda"
+    avail = torch.cuda.device_count() if cuda else 1
+    pow2 = 1 << (avail.bit_length() - 1) if avail else 1
+    if spec is None or spec in ("", "auto"):
+        return pow2 if cuda else 1
+    if spec == "all":
+        n = pow2
+    else:
+        try:
+            n = int(spec)
+        except (TypeError, ValueError):
+            raise ValueError(
+                f"--devices must be an integer, 'all' or 'auto', got "
+                f"{spec!r}") from None
+    if n < 1:
+        raise ValueError(f"--devices must be >= 1, got {n}")
+    if cuda and n > avail:
+        raise ValueError(
+            f"--devices {n} but only {avail} local device(s) present")
+    if n & (n - 1):
+        raise ValueError(
+            f"--devices must be a power of two (leading-bit shard "
+            f"layout), got {n}")
+    return n
+
+
+def explicit_devices(spec) -> bool:
+    """Whether a `--devices` value names a count (not auto/all)."""
+    return spec not in (None, "", "auto", "all")
+
+
+def resolve_devices_and_batch(spec, batch_size: int, prog: str, err=None,
+                              device="cuda") -> tuple[int, int]:
+    """The one `--devices` CLI policy: resolve the device count and
+    round `--batch-size` UP to a multiple of it (each shard takes an
+    equal row range of every batch), noting the round-up as `prog` on
+    `err` (default stderr)."""
+    out = err if err is not None else sys.stderr
+    devices = resolve_devices(spec, device)
+    if batch_size % devices:
+        batch_size += devices - batch_size % devices
+        print(f"{prog}: rounding --batch-size up to {batch_size} "
+              f"(multiple of --devices {devices})", file=out)
+    return devices, batch_size
+
+
+@dataclasses.dataclass(frozen=True)
+class TileShardedMeta(GlobalMeta):
+    """Geometry of a tile table sharded by leading row bits over
+    n_shards devices: the GLOBAL geometry (rb_log2 may pass the
+    one-card cap of 24) and each shard's local one (local_rb <= 24)."""
+
+    n_shards: int = 1
+
+    def __post_init__(self):
+        S = self.n_shards
+        if S < 1 or S & (S - 1):
+            raise ValueError("n_shards must be a power of two")
+        if self.owner_bits > self.rb_log2:
+            raise ValueError("more shards than buckets")
+        if self.local_rb > 24:
+            raise ValueError(
+                f"local rb_log2 {self.local_rb} exceeds the per-chip cap")
+        super().__post_init__()
+
+    @property
+    def owner_bits(self) -> int:
+        return self.n_shards.bit_length() - 1
+
+    @property
+    def local_rb(self) -> int:
+        return self.rb_log2 - self.owner_bits
+
+    @property
+    def local_meta(self) -> TileMeta:
+        return TileMeta(k=self.k, bits=self.bits, rb_log2=self.local_rb)
+
+
+def initial_rb(initial_size: int, k: int, bits: int, n_shards: int) -> int:
+    """The global rb_log2 a sharded build starts at for `-s
+    initial_size`: the one-card sizing, at least a few rows a shard and
+    at most the per-card cap on every shard (growth lifts it from
+    there), as the JAX package clamps it."""
+    owner_bits = n_shards.bit_length() - 1
+    rb = ctable.tile_rb_for(initial_size, k, bits)
+    return min(max(rb, owner_bits + 4), 24 + owner_bits)
+
+
+def make_build_state(meta: TileShardedMeta, mesh) -> ShardedBuildState:
+    """An empty build table: shard s's slice on mesh[s]."""
+    return ShardedBuildState(tuple(ctable.make_tile_build(meta.local_meta, d)
+                                   for d in mesh))
+
+
+def _exchange(sent, mesh) -> list:
+    """The all-to-all: sent[s] = (lanes on mesh[s] in owner buckets,
+    their S sizes) -> for each owner o, its buckets from every shard in
+    shard order, on mesh[o]. Copies between devices are ordered after
+    the sender's and before the receiver's current streams (torch's
+    cross-device copy); a bucket already on its owner's device is a
+    view, not a copy."""
+    recv = []
+    for o, dev in enumerate(mesh):
+        with device_scope(dev), launching("exchange", count=False):
+            parts = []
+            for lanes, sizes in sent:
+                a, n = sum(sizes[:o]), sizes[o]
+                if n:
+                    parts.append(lanes[a:a + n].to(dev, non_blocking=True))
+            if len(parts) == 1:
+                recv.append(parts[0])
+            elif parts:
+                recv.append(torch.cat(parts))
+            else:
+                lanes = sent[0][0]
+                recv.append(lanes.new_empty((0, *lanes.shape[1:]),
+                                            device=dev))
+    return recv
+
+
+def _insert(bstate: ShardedBuildState, meta: TileShardedMeta, mesh,
+            recv) -> list:
+    """HK1's shard entry on every owner (all launched before the first
+    wait); returns each owner's lanes that found no room (on its
+    device)."""
+    placed = [kernels.tile_insert_shard(bstate.shards[o], meta, lanes)
+              for o, lanes in enumerate(recv)]
+    pending = []
+    for o, (lanes, ok) in enumerate(zip(recv, placed)):
+        with device_scope(mesh[o]):
+            pending.append(lanes[~ok])
+    return pending
+
+
+def build_step_wire(bstate: ShardedBuildState, meta: TileShardedMeta, mesh,
+                    pk: packing.PackedReads, qual_thresh: int):
+    """Count one packed batch into the sharded build table (JAX's
+    build_step_wire and its caller's grow loop): each shard routes its
+    row range of the batch (HK15), the buckets cross to their owners,
+    each owner counts them (HK1's shard entry); lanes that found no room
+    re-route after a doubling of every shard (grow), as often as needed.
+    Each step is launched on every shard before the host waits on any:
+    the waits are HK15's bucket counts and the unplaced lanes' sizes.
+    Returns (bstate, meta, grows)."""
+    pk.require_plane(qual_thresh)
+    subs = packing.split_rows(pk, meta.n_shards)
+    wires = [torch.from_numpy(sub.to_wire()).to(mesh[s])
+             for s, sub in enumerate(subs)]
+    sent = kernels.shard_route(
+        [(w, sub.n_reads, sub.length, sub.thresholds)
+         for w, sub in zip(wires, subs)], qual_thresh, meta)
+    del wires
+    grows = 0
+    while True:
+        recv = _exchange(sent, mesh)
+        del sent
+        pending = _insert(bstate, meta, mesh, recv)
+        del recv
+        if not any(p.numel() for p in pending):
+            return bstate, meta, grows
+        if grows >= MAX_GROWS:
+            raise RuntimeError("Hash is full")
+        print(f"Hash table full at {meta.rows} buckets; doubling",
+              file=sys.stderr)
+        bstate, meta = grow(bstate, meta, mesh)
+        grows += 1
+        sent = kernels.shard_route_lanes(pending, meta)
+        del pending
+
+
+def grow(bstate: ShardedBuildState, meta: TileShardedMeta, mesh
+         ) -> tuple[ShardedBuildState, TileShardedMeta]:
+    """Double the GLOBAL geometry: every shard's live slots move to the
+    shard that owns their doubled address (HK8's shard entry buckets
+    them, the buckets cross, its place pass claims them in fresh
+    doubled slices). One doubling always suffices (a new row takes keys
+    of one old row), where JAX's grow may double again. Raises "Hash is
+    full" past a local geometry of 2^24 rows."""
+    try:
+        nmeta = dataclasses.replace(meta, rb_log2=meta.rb_log2 + 1)
+    except ValueError as e:
+        raise RuntimeError("Hash is full") from e
+    sent = kernels.tile_grow_shard(list(bstate.shards), meta)
+    recv = _exchange(sent, mesh)
+    del sent
+    shards = []
+    for d, lanes in enumerate(recv):
+        new = ctable.make_tile_build(nmeta.local_meta, mesh[d])
+        if kernels.tile_grow_place(new, nmeta, lanes):
+            raise RuntimeError("Hash is full")
+        shards.append(new)
+    return ShardedBuildState(tuple(shards)), nmeta
+
+
+def finalize(bstate: ShardedBuildState, meta: TileShardedMeta, mesh):
+    """Seal every shard (HK2 on its device). On a mesh that names one
+    device only, the sealed shards are row ranges of ONE plane there
+    (ShardedTileState.whole), so stage 2 replicates without a copy.
+    Returns (ShardedTileState, stats int64 [S, 5] on the host: HK2's dup,
+    occupied, distinct_hq, total_hq, singletons per shard)."""
+    local = meta.local_meta
+    whole = None
+    if len(distinct(mesh)) == 1:
+        whole = torch.empty((meta.rows, ctable.TILE), dtype=torch.int32,
+                            device=mesh[0])
+    rows, stats = [], []
+    for s, b in enumerate(bstate.shards):
+        out = None if whole is None else whole[s * local.rows:
+                                               (s + 1) * local.rows]
+        with device_scope(mesh[s]):
+            r, st = kernels.tile_seal(b, local, out=out)
+        rows.append(r)
+        stats.append(st)
+    return (ShardedTileState(tuple(rows), whole),
+            torch.stack([st.cpu() for st in stats]))
+
+
+def shard_occupancy(seal_stats) -> list[int]:
+    """Distinct mers per shard (HK2's occupied count of each shard, the
+    load-balance number JAX's shard_occupancy reports)."""
+    return [int(x) for x in seal_stats[:, 1]]
+
+
+def floor(state: ShardedTileState, meta: TileShardedMeta,
+          presence_floor: int) -> ShardedTileState:
+    """The presence floor (HK12) on every shard, in place."""
+    for rows in state.shards:
+        with device_scope(rows.device):
+            ctable.tile_floor(TileState(rows), meta.local_meta,
+                              presence_floor)
+    return state
+
+
+def gather_table(state: ShardedTileState, meta: TileShardedMeta
+                 ) -> tuple[TileState, TileMeta]:
+    """The row-sharded table as one card's table on the lead shard's
+    device (the concatenated shards; no copy where they already are
+    one plane there)."""
+    if meta.rb_log2 > 24:
+        raise ValueError("table exceeds the single-chip geometry")
+    lead = state.shards[0].device
+    if state.whole is not None and state.whole.device == lead:
+        rows = state.whole
+    else:
+        with device_scope(lead):
+            rows = torch.cat([r.to(lead) for r in state.shards])
+    return TileState(rows), TileMeta(k=meta.k, bits=meta.bits,
+                                     rb_log2=meta.rb_log2)
+
+
+def replicate_table(state, mesh) -> list:
+    """The sealed rows once on each distinct device of the mesh (a
+    ShardedTileState or one card's TileState); returns the plane of each
+    mesh entry, the same tensor where entries name one device. A plane
+    already on a device is not copied there."""
+    copies: dict = {}
+    for dev in distinct(mesh):
+        if isinstance(state, TileState):
+            copies[dev] = state.rows.to(dev)
+        elif state.whole is not None and state.whole.device == dev:
+            copies[dev] = state.whole
+        else:
+            with device_scope(dev):
+                parts = [r.to(dev) for r in state.shards]
+                copies[dev] = (parts[0] if len(parts) == 1
+                               else torch.cat(parts))
+    return [copies[d] for d in mesh]
+
+
+def replicate_cap_bytes() -> int:
+    """Stage-2 layout threshold: tables at or under this many bytes are
+    replicated per device; bigger ones need the routed layout.
+    QUORUM_REPLICATE_TABLE_BYTES (k/M/G/T suffixes, decimal), as the
+    JAX package reads it; default 4 GiB."""
+    raw = os.environ.get("QUORUM_REPLICATE_TABLE_BYTES")
+    if raw:
+        try:
+            return parse_size(raw)
+        except ValueError:
+            pass
+    return 4 * 1024 ** 3
+
+
+def table_bytes(rb_log2: int) -> int:
+    """Bytes of a sealed table of 2^rb_log2 rows."""
+    return (1 << rb_log2) * ctable.TILE * 4
+
+
+def routed_reason(rb_log2: int, cap: int | None = None) -> str | None:
+    """Why a table of 2^rb_log2 rows cannot take the replicated stage-2
+    layout (past rb_log2 24, or over `cap`, by default
+    replicate_cap_bytes()); None where it can."""
+    cap = replicate_cap_bytes() if cap is None else cap
+    nbytes = table_bytes(rb_log2)
+    if rb_log2 <= 24 and nbytes <= cap:
+        return None
+    return (f"the table ({nbytes} bytes, rb_log2 {rb_log2}) exceeds the "
+            f"replicated stage-2 layout (at most {cap} bytes, "
+            "QUORUM_REPLICATE_TABLE_BYTES, and rb_log2 24): it needs the "
+            "routed stage-2 layout, which is not ported to "
+            "quorum_tpu_torch yet")
+
+
+def correct_step_wire(mesh, rows: list, tmeta: TileMeta,
+                      pk: packing.PackedReads, cfg, keeps: list,
+                      contams: list):
+    """One stage-2 batch over the mesh (JAX's correct_step_wire with
+    tmeta=): shard s corrects its row range of the batch (HK5, HK4) on
+    mesh[s] against rows[s]; the lanes gather on the lead device and
+    one HK14 packs the global result, so the finish buffer, and the
+    bytes rendered from it, are one card's."""
+    from ..models import corrector
+
+    parts = []
+    for s, sub in enumerate(packing.split_rows(pk, len(mesh))):
+        with device_scope(mesh[s]):
+            parts.append(corrector.extend_batch(
+                TileState(rows[s]), tmeta, sub, cfg, keeps[s], contams[s]))
+    with device_scope(mesh[0]):
+        return corrector.pack_batch(corrector.merge_lanes(parts, mesh[0]))
+
+
+class ShardedCorrector:
+    """Stage 2 over a local mesh in the replicated layout: the table
+    (a ShardedTileState or one card's TileState) once on each distinct
+    device, then `(pk) -> BatchResult` per batch, a drop-in for
+    corrector.correct_batch_packed. Where JAX would pick its routed
+    layout (rb_log2 > 24, or a table over replicate_cap_bytes()), this
+    raises: that layout is not ported yet."""
+
+    def __init__(self, mesh, state, meta, cfg, contam=None,
+                 replicate_max_bytes: int | None = None):
+        from ..models.corrector import make_keep_table
+
+        self.mesh, self.cfg = list(mesh), cfg
+        why = routed_reason(meta.rb_log2, replicate_max_bytes)
+        if why is not None:
+            raise RuntimeError(why)
+        self.tmeta = TileMeta(k=meta.k, bits=meta.bits, rb_log2=meta.rb_log2)
+        self.rows = replicate_table(state, self.mesh)
+        keep, ctab = {}, {}
+        for dev in distinct(self.mesh):
+            keep[dev] = make_keep_table(self.tmeta, cfg, dev)
+            ctab[dev] = (None if contam is None else
+                         (TileState(contam[0].rows.to(dev)), contam[1]))
+        self.keeps = [keep[d] for d in self.mesh]
+        self.contams = [ctab[d] for d in self.mesh]
+
+    def __call__(self, pk: packing.PackedReads):
+        return correct_step_wire(self.mesh, self.rows, self.tmeta, pk,
+                                 self.cfg, self.keeps, self.contams)

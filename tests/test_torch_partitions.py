@@ -355,7 +355,7 @@ def test_sharded_layout_writes_one_shard(golden_dbs):
     (["--partitions", "512"], "power of two in [1, 256], got 512"),
     (["--partitions", "4", "--prefilter", "inline"],
      "supports neither --partitions"),
-    (["--devices", "2"], "--devices 2"),
+    (["--devices", "3"], "--devices must be a power of two"),
     (["--checkpoint-dir", "ck"], "--checkpoint-dir"),
 ])
 def test_stage1_cli_refuses(tmp_path, capsys, argv, msg):
