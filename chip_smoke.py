@@ -4,7 +4,8 @@
     python3 chip_smoke.py          # from the root of a checkout
 
 Phases, each printing one JSON line:
-  build    compile the fifteen CUDA kernels from csrc/ with nvcc (sm_90a)
+  build    compile the fifteen CUDA kernels (and their entries) from csrc/
+           with nvcc (sm_90a)
   kernels  hold each kernel against its plain PyTorch version on the
            card, at the main path's shapes (8192 x 160 batches, a
            2^22-row table), plus a small table that grows; HK5's and
@@ -82,8 +83,10 @@ Phases, each printing one JSON line:
            HK14 on the batch of it with the most contaminated reads
            against that table, HK5's and HK4's contaminant entries
            (kill and trim) with the contaminant phase's set and HK14 on
-           their output, and HK12 flooring the table at 2, each held
-           against its plain version and timed there
+           their output, HK5's and HK4's sharded-table entries in the
+           same three modes on that table taken as four shards (also
+           held against the plane entries), and HK12 flooring the table
+           at 2, each held against its plain version and timed there
   devices  --devices 4 on a mesh of four entries over the host's cards
            (all naming the card on a one-card host), fed the full run's
            packed batches: quorum_create_database's sharded build at the
@@ -92,20 +95,41 @@ Phases, each printing one JSON line:
            seal seconds; peak memory), the replicated stage 2 on its
            table (.fa/.log equal to the full run's, one table copy:
            its peak above the resident table under the table's size),
-           the sharded build from the two_binary run's -s (its payload
-           and number of grows), HK15 and HK1's and HK8's shard entries
-           against their plain versions on batch 150 and a loaded
-           4-shard table, timed (HK15 beside torch.sort of its owner
-           words); then quorum --devices 2 on the full FASTQ where the
-           host has two cards, else that run held refused with a line
-           saying so; launch counts reset before the build and read
-           after stage 2, and again around the grown build
+           HK3's shard entry on that table against its plain version,
+           the same stage 2 with the replicate cap forced under the
+           table (devices_routed_cap: the routed layout, .fa/.log equal,
+           its device step beside the replicated one's), the sharded
+           build from the two_binary run's -s (its payload and number of
+           grows), HK15 (and its partition entry) and HK1's and HK8's
+           shard entries against their plain versions on batch 150 and a
+           loaded 4-shard table, timed (HK15 beside torch.sort of its
+           owner words); then quorum --devices 2 on the full FASTQ where
+           the host has two cards, else that run held refused with a
+           line saying so; launch counts reset before the build and read
+           after stage 2, and again around each later run
+  devices_partitions  --partitions 4 --devices 4 on that mesh at the full
+           run's -s, fed the packed batches: four passes of sharded
+           builds through HK15's partition entry, HK13, one manifest
+           whose payload is the full run's and the partitions run's; HK15's
+           partition entry launched on every shard in every batch of
+           every pass; quorum --devices 2 --partitions 4 where the host
+           has two cards, else a line saying it was not run
+  devices_routed  the sharded build at 8x the full run's -s (rb_log2 25,
+           4 x 2^23 rows, a 16 GiB table over 32 GiB of build state),
+           written as a manifest; the routed stage 2 on the in-process
+           handoff and again from the manifest (one HK7 launch a shard):
+           .fa/.log equal to the full run's, the shards' occupancy
+           summing to its entries, no replicated copy (stage-2 peak
+           above the shards under 1 GiB); query_step (HK3's shard entry)
+           on 1,048,576 of the table's mers against the full run's
+           values for them
 Then one {"kernels": [...]} line (launches from the full, two_binary,
-the four prefilter, the three partitioned, the two contaminant and the
-two devices runs, times and bounds from the kernels, loaded, table and
-devices phases), the
-card's name and power limit from nvidia-smi, and {"ok": true, "device":
-{...}} as the last line.
+the four prefilter, the three partitioned, the two contaminant, the
+devices runs and the routed and partitioned mesh runs, times and bounds
+from the kernels, loaded, table and devices phases; HK5's and HK4's
+sharded-table entries from the table phase, on its table as four
+shards), the card's name and power limit from nvidia-smi, and {"ok":
+true, "device": {...}} as the last line.
 Exits non-zero, with no result line, when CUDA is unavailable, outside
 a checkout, or when any phase fails. Imports nothing of JAX.
 """
@@ -171,6 +195,17 @@ SOURCES = {  # kernel -> (source in the repo, TPU program it replaces)
                           "quorum_tpu/parallel/tile_sharded.py:286"),
     "tile_grow_shard": ("quorum_tpu_torch/kernels/csrc/tile_grow.cu",
                         "quorum_tpu/parallel/tile_sharded.py:483"),
+    # the routed stage-2 layout: HK3's shard entry, HK5's and HK4's
+    # sharded-table entries; --partitions with --devices: HK15's
+    # partition entry
+    "tile_lookup_shard": ("quorum_tpu_torch/kernels/csrc/tile_lookup.cu",
+                          "quorum_tpu/parallel/tile_sharded.py:706"),
+    "stage2_head_shard": ("quorum_tpu_torch/kernels/csrc/stage2_head.cu",
+                          "quorum_tpu/parallel/tile_sharded.py:878"),
+    "extend_reads_shard": ("quorum_tpu_torch/kernels/csrc/extend_reads.cu",
+                           "quorum_tpu/parallel/tile_sharded.py:909"),
+    "shard_route_part": ("quorum_tpu_torch/kernels/csrc/shard_route.cu",
+                         "quorum_tpu/parallel/tile_sharded.py:421"),
 }
 # the kernels each main-path run must launch (HK3's probe runs inside
 # HK5 and HK4; the query CLI is its caller); every stage 2 ends a batch
@@ -213,6 +248,19 @@ PATH_KERNELS.update({
                        "tile_export"),
     "devices_grow": ("shard_route", "tile_insert_shard", "tile_grow_shard",
                      "tile_seal", "tile_export"),
+})
+# the routed stage-2 layout: the 2^25-row build, its stage 2 on the
+# handoff and the routed query; its stage 2 from the manifest (HK7 a
+# shard); the devices table's stage 2 under a forced replicate cap; and
+# --partitions 4 over the mesh (stage 1)
+S2_SHARD = ("stage2_head_shard", "extend_reads_shard", "pack_finish")
+PATH_KERNELS.update({
+    "devices_routed": ("shard_route", "tile_insert_shard", "tile_seal",
+                       "tile_export", "tile_lookup_shard", *S2_SHARD),
+    "devices_routed_manifest": ("tile_load", *S2_SHARD),
+    "devices_routed_cap": S2_SHARD,
+    "devices_partitions": ("shard_route_part", "tile_insert_shard",
+                           "tile_seal", "tile_departition", "tile_export"),
 })
 # the sharded build's device time by step (CUDA events, STATS.timing):
 # the step's name -> the counter or span its events are kept under
@@ -774,6 +822,90 @@ def lookup_kernel(state, meta, sweep, reps: int) -> dict:
             plain_ms=event_ms(lambda: ref.tile_lookup(state.rows, meta,
                                                       sweep), 2))
     return {"tile_lookup": out}
+
+
+def shard_stage2_kernels(state, meta, c, q, lengths, reps: int, contam,
+                         plane: dict) -> dict:
+    """HK5's and HK4's sharded-table entries on stage2_kernels' batch and
+    table, the table taken as DEVICES row ranges of its plane (a
+    RoutedTileMeta; on one card every shard is local), in the same three
+    modes (none, contaminant kill, trim): each held against its plain
+    version (the routed lookup over the shard planes) and against the
+    plane entry's output on the same inputs, and timed. They read the
+    plane entries' rows, so their byte bounds are `plane`'s."""
+    import torch
+
+    from quorum_tpu_torch import kernels
+    from quorum_tpu_torch.io import packing
+    from quorum_tpu_torch.kernels import reference as ref
+    from quorum_tpu_torch.models import corrector
+    from quorum_tpu_torch.parallel import tile_sharded as ts
+
+    dev = state.rows.device
+    b, L = c.shape
+    smeta = ts.RoutedTileMeta(k=meta.k, bits=meta.bits,
+                              rb_log2=meta.rb_log2, n_shards=DEVICES)
+    shards = list(ts.row_shards(state, smeta, [dev] * DEVICES).shards)
+    cfg = corrector.ECConfig(k=K, cutoff=4, qual_cutoff=33 + 40)
+    pk = packing.pack_reads(c, q, lengths, thresholds=(cfg.qual_cutoff,))
+    wire = torch.from_numpy(pk.to_wire()).to(dev)
+    tail = (wire, b, L, pk.thresholds, cfg.qual_cutoff)
+    keep = corrector.make_keep_table(meta, cfg, dev)
+    maxe = corrector.log_capacity(L, cfg)
+    ctab = (contam[0].rows, contam[1])
+    out = {"stage2_head_shard": {}, "extend_reads_shard": {}}
+    for mtab, trim, entry in ((None, False, None),
+                              (ctab, False, "contaminant"),
+                              (ctab, True, "contaminant_trim")):
+        hkw = dict(skip=cfg.skip, good=cfg.good,
+                   anchor_count=cfg.anchor_count, contam=mtab,
+                   trim_contaminant=trim)
+        hk = kernels.stage2_head(shards, smeta, *tail, **hkw)
+        hp = ref.stage2_head(shards, smeta, *tail, **hkw)
+        h1 = kernels.stage2_head(state.rows, meta, *tail, **hkw)
+        flat = [x[:3] + tuple(x[3]) for x in (hk, hp, h1)]
+        head_equal = all(torch.equal(x, y) and torch.equal(x, z)
+                         for x, y, z in zip(*flat))
+        check(head_equal, f"stage2_head's sharded-table entry "
+              f"({entry or 'plain entry'}) differs from its plain version "
+              "or the plane entry")
+        codes, hqb, lens, anc = hk
+        rest = (codes, hqb, lens, anc[5], anc[1], anc[2], anc[3], anc[4],
+                keep)
+        kw = dict(window=cfg.effective_window, error=cfg.effective_error,
+                  min_count=cfg.min_count, cutoff=cfg.cutoff, maxe=maxe,
+                  contam=mtab, trim_contaminant=trim)
+        ek = kernels.extend_reads(shards, smeta, *rest, **kw)
+        ext_equal = (_batch_equal(ek, ref.extend_reads(shards, smeta, *rest,
+                                                       **kw), anc[0])
+                     and _batch_equal(ek, kernels.extend_reads(
+                         state.rows, meta, *rest, **kw), anc[0]))
+        check(ext_equal, f"extend_reads' sharded-table entry "
+              f"({entry or 'plain entry'}) differs from its plain version "
+              "or the plane entry")
+        pb = {n: plane[n] if entry is None else plane[n][entry]
+              for n in ("stage2_head", "extend_reads")}
+        head = dict(equal=head_equal, n=b,
+                    bound_bytes=pb["stage2_head"]["bound_bytes"],
+                    ms=kernel_ms(lambda: kernels.stage2_head(
+                        shards, smeta, *tail, **hkw), "stage2_head_shard",
+                        reps),
+                    plain_ms=event_ms(lambda: ref.stage2_head(
+                        shards, smeta, *tail, **hkw), 2))
+        ext = dict(equal=ext_equal, n=b,
+                   bound_bytes=pb["extend_reads"]["bound_bytes"],
+                   ms=kernel_ms(lambda: kernels.extend_reads(
+                       shards, smeta, *rest, **kw), "extend_reads_shard",
+                       reps),
+                   plain_ms=event_ms(lambda: ref.extend_reads(
+                       shards, smeta, *rest, **kw), 1))
+        if entry is None:
+            out["stage2_head_shard"].update(head)
+            out["extend_reads_shard"].update(ext)
+        else:
+            out["stage2_head_shard"][entry] = head
+            out["extend_reads_shard"][entry] = ext
+    return out
 
 
 def pack_check(rk, L: int, reps: int):
@@ -1444,6 +1576,7 @@ def phase_partitions(card: str, full: dict, two_pass: dict,
     from quorum_tpu_torch.kernels.loader import STATS
 
     part = partition_run(card, full, "partitions", [])
+    full["partitions_peaks"] = part["peaks"]
     res = dict(
         same_payload_as_full=(db_format.db_payload_bytes(part["db"])
                               == db_format.db_payload_bytes(full["db"])),
@@ -1618,7 +1751,8 @@ def phase_table(card: str, full: dict, contam: dict) -> dict:
     reads that holds the most reads the contaminant phase touched,
     against that table, held and timed there, and HK5's and HK4's
     contaminant entries (kill and trim) with the contaminant phase's
-    set, with HK14 on their output."""
+    set, with HK14 on their output; then HK5's and HK4's sharded-table
+    entries, in the same modes, on that table taken as four shards."""
     import numpy as np
     import torch
 
@@ -1689,6 +1823,8 @@ def phase_table(card: str, full: dict, contam: dict) -> dict:
     cset = load_contaminant(contam["fa"])
     out.update(stage2_kernels(ctable.TileState(rows), meta, c, q, lengths,
                               reps=5, contam=cset))
+    out.update(shard_stage2_kernels(ctable.TileState(rows), meta, c, q,
+                                    lengths, 5, cset, out))
     out["pack_finish"]["repack"] = repack_check(ctable.TileState(rows), meta,
                                                 c, q, lengths, cset)
     # HK6's wrapper span and its two C launches apart: the span adds the
@@ -2411,9 +2547,10 @@ def stage2_batches(full: dict):
 
 
 def sharded_build(full: dict, mesh, size: int, db: str,
-                  layout: str = "sharded") -> dict:
+                  layout: str = "sharded", partitions: int = 1) -> dict:
     """quorum_create_database's stage 1 with --devices 4 --db-layout
-    `layout` on `mesh` at -s `size`, fed the full run's packed batches;
+    `layout` (--partitions `partitions`) on `mesh` at -s `size`, fed the
+    full run's packed batches;
     launch counts reset just before and read just after, kernels and
     the bucket exchange timed by CUDA events. Returns the handoff,
     launches, kernel ms, seconds and the peak device memory above what
@@ -2425,7 +2562,7 @@ def sharded_build(full: dict, mesh, size: int, db: str,
 
     cfg = cdb.BuildConfig(k=K, bits=7, qual_thresh=QT, initial_size=size,
                           batch_size=BATCH, device="cuda", devices=DEVICES,
-                          db_layout=layout)
+                          db_layout=layout, partitions=partitions)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
@@ -2530,6 +2667,33 @@ def devices_kernels(card: str, full: dict, mesh, rb: int) -> dict:
                     torch.sort(lanes_p[a:b]).values)
         for a, b in zip(at, at[1:]))
     check(equal, "shard_route differs from its plain version")
+    # HK15's partition entry: the same rows, pass 1 of PARTS at the pass
+    # geometry of --partitions PARTS over the mesh
+    pmeta = ts.TileShardedMeta(k=K, bits=7,
+                               rb_log2=rb - (PARTS.bit_length() - 1),
+                               n_shards=DEVICES)
+
+    def route_part():
+        return kernels.shard_route([job], QT, pmeta, 1, PARTS)[0]
+
+    part_k, psizes_k = route_part()
+    part_p, psizes_p = ref.shard_route(*job, QT, pmeta, 1, PARTS)
+    pat = [0]
+    for n in psizes_k:
+        pat.append(pat[-1] + n)
+    part_equal = psizes_k == psizes_p.tolist() and all(
+        torch.equal(torch.sort(part_k[a:b]).values,
+                    torch.sort(part_p[a:b]).values)
+        for a, b in zip(pat, pat[1:]))
+    check(part_equal, "shard_route's partition entry differs from its "
+          "plain version")
+    out["shard_route_part"] = dict(
+        equal=part_equal, n=part_k.numel(), sizes=psizes_k,
+        ms=kernel_ms(route_part, "shard_route_part", 5),
+        plain_ms=event_ms(lambda: ref.shard_route(*job, QT, pmeta, 1, PARTS),
+                          3),
+        bound_bytes=wire0.numel() + 8 * part_k.numel())
+    del part_k, part_p
     owner = ref.shard_key_parts(lanes_k >> 1, meta)[0]
     out["shard_route"] = dict(
         equal=equal, n=lanes_k.numel(), sizes=sizes_k,
@@ -2709,6 +2873,13 @@ def phase_devices(card: str, full: dict, two: dict) -> dict:
               if STATS.launches.get(k)},
           **res})
     check(all(res.values()), f"devices against the full run: {res}")
+    lookup = shard_lookup_kernel(state, meta, full)
+    emit({"phase": "devices_lookup", "card": card, "shards": DEVICES,
+          "rb_log2": meta.rb_log2,
+          "tile_lookup_shard": {k: (round(v, 5) if isinstance(v, float)
+                                    else v) for k, v in lookup.items()}})
+    cap = routed_cap_run(card, full, b1["handoff"]["db"], mesh, ecs, kms,
+                         launches)
     rb = meta.rb_log2
     del state, meta, stats, b1
 
@@ -2782,8 +2953,350 @@ def phase_devices(card: str, full: dict, two: dict) -> dict:
               "between two cards was run", flush=True)
     emit({"phase": "devices_cli", "card": card, "cards": n_cards, **cli,
           "phase_s": round(time.perf_counter() - t_phase, 3)})
+    kern["tile_lookup_shard"] = lookup
     return dict(launches=launches, single_launches=single_launches,
-                grow_launches=grow_launches, kernels=kern)
+                grow_launches=grow_launches, cap_launches=cap, kernels=kern)
+
+
+def shard_lookup_kernel(state, meta, full: dict) -> dict:
+    """HK3's shard entry on the devices phase's sealed four-shard table
+    (4 x 2^20 rows): the window mers of one of the full run's stage-2
+    batches plus as many random keys, held against its plain version
+    (the routed lookup over the shard planes) and, where the shards are
+    row ranges of one plane (a mesh naming one card), against HK3 on
+    that plane, and timed on the window mers (HK3's plane entry too, on
+    the same keys: the pointer table's cost). Byte bound: 16 B a key and
+    one 512-byte row per distinct row touched."""
+    import torch
+
+    from quorum_tpu_torch import kernels
+    from quorum_tpu_torch.kernels import reference as ref
+    from quorum_tpu_torch.ops import mer
+    from quorum_tpu_torch.ops.ctable import TileMeta
+
+    codes = full["codes"][:BATCH].to("cuda", torch.int8)
+    f, r, valid = mer.rolling_kmers(codes, K)
+    sweep = mer.canonical(f, r)[valid]
+    rnd = torch.randint(0, 1 << 48, (sweep.numel(),), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(SEED))
+    keys = torch.cat([sweep, rnd])
+    shards = list(state.shards)
+    vk = kernels.tile_lookup(shards, meta, keys)
+    plane = TileMeta(k=meta.k, bits=meta.bits, rb_log2=meta.rb_log2)
+    equal = (torch.equal(vk, ref.lookup(shards, meta, keys))
+             and (state.whole is None or torch.equal(
+                 vk, kernels.tile_lookup(state.whole, plane, keys)))
+             and bool((vk[:sweep.numel()] != 0).all()))
+    check(equal, "tile_lookup's shard entry differs from its plain version")
+    rows = torch.unique(ref.tile_key_parts(sweep, meta)[0]).numel()
+    out = dict(equal=equal, n=keys.numel(),
+               ms=kernel_ms(lambda: kernels.tile_lookup(shards, meta, sweep),
+                            "tile_lookup_shard", 5),
+               plain_ms=event_ms(lambda: ref.lookup(shards, meta, sweep), 2),
+               bound_bytes=16 * sweep.numel() + 512 * rows)
+    if state.whole is not None:  # the plane entry on the same keys
+        out["plane_ms"] = kernel_ms(
+            lambda: kernels.tile_lookup(state.whole, plane, sweep),
+            "tile_lookup", 5)
+    return out
+
+
+def routed_cap_run(card: str, full: dict, db, mesh, rep, rep_kms: dict,
+                   rep_launches: dict) -> dict:
+    """devices_routed_cap: the replicated devices run's stage 2 again on
+    the same table (4 x 2^20 rows, 2 GiB) with the replicate cap forced
+    under it (QUORUM_REPLICATE_TABLE_BYTES=1G, the lever JAX reads), so
+    ShardedCorrector takes the routed layout on the shards as they are:
+    .fa/.log equal to the full run's and to the replicated run's, its
+    device step beside the replicated layout's from this call. Returns
+    its launches."""
+    import torch
+
+    from quorum_tpu_torch.kernels.loader import STATS
+    from quorum_tpu_torch.models import error_correct as ec
+
+    prefix = os.path.join(WORK, "devices_routed_cap")
+    opts = ec.ECOptions(output=prefix, device="cuda", devices=DEVICES,
+                        batch_size=BATCH)
+    before = os.environ.get("QUORUM_REPLICATE_TABLE_BYTES")
+    os.environ["QUORUM_REPLICATE_TABLE_BYTES"] = "1G"
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        STATS.reset()
+        STATS.timing = True
+        t0 = time.perf_counter()
+        ecs = ec.run_error_correct(full["fastq"], [full["fastq"]], opts,
+                                   db=db, prepacked=stage2_batches(full),
+                                   mesh=mesh)
+        torch.cuda.synchronize()
+        s2 = time.perf_counter() - t0
+        STATS.timing = False
+    finally:
+        if before is None:
+            del os.environ["QUORUM_REPLICATE_TABLE_BYTES"]
+        else:
+            os.environ["QUORUM_REPLICATE_TABLE_BYTES"] = before
+    launches = dict(STATS.launches)
+    kms = STATS.kernel_ms()
+    for name in PATH_KERNELS["devices_routed_cap"]:
+        check(launches[name] > 0, f"{name} was not launched on the "
+              "devices_routed_cap path")
+    res = dict(same_fa_log=same_fa_log(prefix, full["prefix"]),
+               same_as_replicated=same_fa_log(
+                   prefix, os.path.join(WORK, "devices")),
+               no_replicated_probe=launches["extend_reads"] == 0,
+               no_table_copy=(torch.cuda.max_memory_allocated() - resident
+                              < (1 << 30)))
+    emit({"phase": "devices_routed_cap", "card": card, "shards": DEVICES,
+          "replicate_cap": "1G", "table_bytes": db[1].rows * 512,
+          "stage2_s": round(s2, 3),
+          "stage2_device_s": round(ecs.device_s, 3),
+          "stage2_device_s_replicated": round(rep.device_s, 3),
+          "device_step_ratio": round(ecs.device_s / rep.device_s, 4),
+          "stage2_host_s": round(ecs.host_s, 3),
+          "hk4_s": round(kms["extend_reads_shard"] / 1e3, 4),
+          "hk4_s_replicated": round(rep_kms["extend_reads"] / 1e3, 4),
+          "hk5_s": round(kms["stage2_head_shard"] / 1e3, 4),
+          "hk5_s_replicated": round(rep_kms["stage2_head"] / 1e3, 4),
+          "hk4_launches": launches["extend_reads_shard"],
+          "hk4_launches_replicated": rep_launches["extend_reads"],
+          "stage2_peak_memory_above_table": (torch.cuda.max_memory_allocated()
+                                             - resident),
+          "launches": launches, **res})
+    check(all(res.values()), f"devices_routed_cap: {res}")
+    return launches
+
+
+def phase_devices_partitions(card: str, full: dict) -> dict:
+    """--partitions 4 with --devices 4 on the four-entry mesh at the full
+    run's -s, fed its packed batches (no parse): four passes, each a
+    sharded build of 4 x 2^18 rows through HK15's partition entry, then
+    HK13 and one shard file a pass: the manifest's payload equal to the
+    full run's and to the partitions run's, HK15's partition entry
+    launched on every shard in every batch of the four passes, stage 1's
+    peak beside the partitions run's. Then quorum --devices 2
+    --partitions 4 on the full FASTQ where the host has two cards, else
+    a line saying it was not run."""
+    import torch
+
+    from quorum_tpu_torch.cli import quorum
+    from quorum_tpu_torch.io import db_format
+
+    mesh = devices_mesh()
+    db = os.path.join(WORK, "devices_partitions.jf")
+    b = sharded_build(full, mesh, full["size"], db, partitions=PARTS)
+    launches, stats = b["launches"], b["handoff"]["stats"]
+    for name in PATH_KERNELS["devices_partitions"]:
+        check(launches[name] > 0,
+              f"{name} was not launched on the devices_partitions path")
+    n_batches = len(full["wires"])
+    payload = db_format.db_payload_bytes(db)
+    h = db_format.read_header(db)
+    res = dict(
+        same_payload_as_full=payload == db_format.db_payload_bytes(full["db"]),
+        same_payload_as_partitions=payload == db_format.db_payload_bytes(
+            os.path.join(WORK, "partitions_mer_database.jf")),
+        no_restart=stats.grows == 0,
+        route_every_shard_every_batch=(launches["shard_route_part"]
+                                       == PARTS * n_batches * DEVICES))
+    emit({"phase": "devices_partitions", "card": card, "shards": DEVICES,
+          "partitions": h["n_shards"], "passes": PARTS * (stats.grows + 1),
+          "batches": n_batches, "size": full["size"],
+          "rb_log2": h["rb_log2"], "entries": h["n_entries"],
+          "stage1_s": round(b["seconds"], 3),
+          "stage1_device_split_s": {
+              k: round(b["kms"][name] / 1e3, 4) for k, name in SPLIT.items()},
+          "hk15_partition_s": round(b["kms"]["shard_route_part"] / 1e3, 4),
+          "hk13_s": round(b["kms"]["tile_departition"] / 1e3, 4),
+          "stage1_peak_memory": b["peak"],
+          "stage1_peak_memory_partitions": full["partitions_peaks"]["stage1"],
+          "stage1_peak_memory_full": full["peaks"]["stage1"],
+          "launches": launches, **res})
+    check(all(res.values()), f"devices_partitions: {res}")
+    del b
+
+    n_cards = torch.cuda.device_count()
+    prefix = os.path.join(WORK, "devices_partitions_cli")
+    if n_cards >= 2:
+        rc = quorum.main(["-s", str(full["size"]), "-k", str(K), "-p", prefix,
+                          "--device", "cuda", "--devices", "2",
+                          "--partitions", str(PARTS), full["fastq"]])
+        cli = dict(two_card_run=True, rc=rc,
+                   same_fa_log=rc == 0 and same_fa_log(prefix,
+                                                       full["prefix"]))
+        check(cli["same_fa_log"], "quorum --devices 2 --partitions 4 differs "
+              "from full")
+    else:
+        cli = dict(two_card_run=False)
+        print(f"devices_partitions: quorum --devices 2 --partitions {PARTS} "
+              f"was not run: this host has {n_cards} CUDA device", flush=True)
+    emit({"phase": "devices_partitions_cli", "card": card, "cards": n_cards,
+          **cli})
+    return launches
+
+
+def unmix(full_hash, k: int):
+    """The canonical mers whose Feistel-mixed keys are `full_hash` (int64
+    on the card): the four rounds of ctable's feistel_mix undone."""
+    from quorum_tpu_torch.kernels import reference as ref
+
+    kmask = (1 << k) - 1
+    l, r = (full_hash >> k) & kmask, full_hash & kmask
+    for c in reversed((0x9E3779B9, 0x85EBCA6B, 0xC2B2AE35, 0x27D4EB2F)):
+        l, r = r ^ (ref.mix32((l + c) & 0xFFFFFFFF) & kmask), l
+    return (l << k) | r
+
+
+def routed_stage2(full: dict, mesh, prefix: str, db=None,
+                  path: str | None = None) -> dict:
+    """quorum_error_correct_reads' stage 2 over the mesh on the handoff
+    `db`, or from the database at `path` (the mesh load, timed), fed the
+    full run's replayed batches; launch counts reset before and read
+    after, kernels timed by CUDA events. Returns its stats, seconds,
+    launches, kernel ms, load seconds and peak device memory above what
+    was resident."""
+    import torch
+
+    from quorum_tpu_torch.io import db_format
+    from quorum_tpu_torch.kernels.loader import STATS
+    from quorum_tpu_torch.models import error_correct as ec
+
+    loads = []
+    orig = db_format.load_db
+
+    def timed_load(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return orig(*a, **kw)
+        finally:
+            torch.cuda.synchronize()
+            loads.append(time.perf_counter() - t)
+
+    opts = ec.ECOptions(output=prefix, device="cuda", devices=DEVICES,
+                        batch_size=BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    STATS.reset()
+    STATS.timing = True
+    db_format.load_db = timed_load
+    t0 = time.perf_counter()
+    try:
+        ecs = ec.run_error_correct(path or full["fastq"], [full["fastq"]],
+                                   opts, db=db,
+                                   prepacked=stage2_batches(full), mesh=mesh)
+        torch.cuda.synchronize()
+    finally:
+        db_format.load_db = orig
+        STATS.timing = False
+    return dict(ecs=ecs, seconds=time.perf_counter() - t0,
+                launches=dict(STATS.launches), kms=STATS.kernel_ms(),
+                load_s=sum(loads),
+                peak=torch.cuda.max_memory_allocated() - resident)
+
+
+def phase_devices_routed(card: str, full: dict) -> dict:
+    """The routed stage-2 layout at full width: the sharded build at 8x
+    the full run's -s (rb_log2 25: 4 shards of 2^23 rows, a 16 GiB
+    sealed table over 32 GiB of build state) on the four-entry mesh, fed
+    the full run's packed batches, written with --db-layout sharded;
+    stage 2 on the in-process handoff (routed: past 2^24 rows), the
+    routed query (query_step, HK3's shard entry) of 1,048,576 of the
+    table's mers against the values the full run's table holds for
+    them, then stage 2 again from the manifest (the mesh load, one HK7
+    launch a shard). Holds .fa/.log equal to the full run's for both,
+    the shards' occupancy summing to the full run's entries, the stage-2
+    peak above the resident shards under 1 GiB (no replicated copy)."""
+    import torch
+
+    from quorum_tpu_torch.kernels import reference as ref
+    from quorum_tpu_torch.kernels.loader import STATS
+    from quorum_tpu_torch.parallel import tile_sharded as ts
+
+    mesh = devices_mesh()
+    size = 8 * full["size"]
+    rb = ts.initial_rb(size, K, 7, DEVICES)
+    check(rb == 25, f"-s {size} starts at rb_log2 {rb}, not 25")
+    table = ts.table_bytes(rb)
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks
+    free, _total = torch.cuda.mem_get_info()
+    check(3 * table < free, f"the routed build needs {3 * table} B, "
+          f"{free} B free")
+    # the routed query's mers and their values, from the full run's table
+    content_hash, content_val = table_content(full["db"])
+    pick = torch.linspace(0, content_hash.numel() - 1, 1 << 20,
+                          device="cuda").long()
+    qkeys = unmix(content_hash[pick], K)
+    check(torch.equal(ref.feistel(qkeys, K), content_hash[pick]),
+          "unmix is not feistel's inverse")
+    v = content_val[pick]
+    qwant = ((v & 127) << 1) | (v >> 7)
+    del content_hash, content_val, pick, v
+
+    db = os.path.join(WORK, "devices_routed.jf")
+    b1 = sharded_build(full, mesh, size, db)
+    state, meta, stats = b1["handoff"]["db"]
+    check(meta.rb_log2 == 25 and len(state.shards) == DEVICES,
+          "the routed build's geometry")
+    prefix = os.path.join(WORK, "devices_routed")
+    s2 = routed_stage2(full, mesh, prefix, db=b1["handoff"]["db"])
+    STATS.reset()
+    got = ts.query_step(mesh, meta)(state, qkeys)
+    torch.cuda.synchronize()
+    query_launches = dict(STATS.launches)
+    launches = {k: b1["launches"][k] + s2["launches"][k] + query_launches[k]
+                for k in b1["launches"]}
+    for name in PATH_KERNELS["devices_routed"]:
+        check(launches[name] > 0,
+              f"{name} was not launched on the devices_routed path")
+    occ = stats.shard_occupancy
+    stage1 = dict(b1)
+    del state, meta, stats, b1, stage1["handoff"]
+    torch.cuda.empty_cache()
+
+    s2m = routed_stage2(full, mesh, prefix + "_manifest", path=db)
+    for name in PATH_KERNELS["devices_routed_manifest"]:
+        check(s2m["launches"][name] > 0,
+              f"{name} was not launched on the devices_routed_manifest path")
+    res = dict(
+        same_occupancy=sum(occ) == full["build"].distinct,
+        same_fa_log=same_fa_log(prefix, full["prefix"]),
+        same_fa_log_manifest=same_fa_log(prefix + "_manifest",
+                                         full["prefix"]),
+        query_values=torch.equal(got, qwant),
+        no_replicated_copy=s2["peak"] < (1 << 30),
+        one_load_a_shard=s2m["launches"]["tile_load"] == DEVICES)
+
+    def s2_json(x):
+        return {"stage2_s": round(x["seconds"], 3),
+                "stage2_device_s": round(x["ecs"].device_s, 3),
+                "stage2_host_s": round(x["ecs"].host_s, 3),
+                "hk4_s": round(x["kms"]["extend_reads_shard"] / 1e3, 4),
+                "hk4_launches": x["launches"]["extend_reads_shard"],
+                "hk5_s": round(x["kms"]["stage2_head_shard"] / 1e3, 4),
+                "hk5_launches": x["launches"]["stage2_head_shard"],
+                "hk14_s": round(x["kms"]["pack_finish"] / 1e3, 4)}
+
+    emit({"phase": "devices_routed", "card": card, "shards": DEVICES,
+          "mesh": [str(d) for d in mesh], "size": size, "rb_log2": rb,
+          "rows": 1 << rb, "table_bytes": table,
+          "shard_occupancy": occ, "entries": sum(occ),
+          "stage1_s": round(stage1["seconds"], 3),
+          "stage1_device_split_s": {
+              k: round(stage1["kms"][name] / 1e3, 4)
+              for k, name in SPLIT.items()},
+          "stage1_peak_memory": stage1["peak"],
+          "handoff": {**s2_json(s2),
+                      "stage2_peak_memory_above_shards": s2["peak"]},
+          "manifest": {**s2_json(s2m), "load_s": round(s2m["load_s"], 3),
+                       "stage2_peak_memory_above_table": s2m["peak"] - table},
+          "query_keys": int(qkeys.numel()),
+          "query_launches": query_launches["tile_lookup_shard"],
+          "launches": launches, **res})
+    check(all(res.values()), f"devices_routed: {res}")
+    return dict(launches=launches, manifest_launches=s2m["launches"])
 
 
 def run() -> int:
@@ -2819,6 +3332,8 @@ def run() -> int:
         devices = phase_devices(card, full, two)
         for name, v in devices["kernels"].items():
             stats.setdefault(name, {}).update(v)
+        dev_parts = phase_devices_partitions(card, full)
+        routed = phase_devices_routed(card, full)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2828,7 +3343,11 @@ def run() -> int:
                **prefilter, **partitions, **contam["launches"],
                "devices": devices["launches"],
                "devices_single": devices["single_launches"],
-               "devices_grow": devices["grow_launches"]}
+               "devices_grow": devices["grow_launches"],
+               "devices_routed_cap": devices["cap_launches"],
+               "devices_partitions": dev_parts,
+               "devices_routed": routed["launches"],
+               "devices_routed_manifest": routed["manifest_launches"]}
     def bound_ms(nbytes):
         return round(nbytes / H100_BYTES_PER_S * 1e3, 5)
 

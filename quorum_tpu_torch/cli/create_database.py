@@ -9,6 +9,7 @@ quorum_tpu's stage-1 CLI.
     ... --partitions 4 ...         # 4 passes at 1/4 the table memory;
                                    # db.jf is a manifest over 4 shards
     ... --devices 2 ...            # the table sharded over 2 cards
+    ... --partitions 4 --devices 2 # each pass sharded over 2 cards
 """
 
 from __future__ import annotations
@@ -16,11 +17,12 @@ from __future__ import annotations
 import argparse
 import sys
 
+import torch
+
 from .. import resolve_device
 from ..models.create_database import BuildConfig, create_database_main
 from ..ops.sketch import PREFILTER_MODES, prefilter_default
-from ..parallel.tile_sharded import (explicit_devices,
-                                     resolve_devices_and_batch)
+from ..parallel import tile_sharded as ts
 from ..utils.sizes import parse_size
 
 # quorum_tpu's flags whose paths are not ported yet: accepted by the
@@ -34,9 +36,8 @@ UNPORTED = {
 }
 
 
-# why a path runs on one device only (quorum_tpu runs it over a mesh)
-PARTITIONS_ON_ONE = ("--partitions with --devices N is not ported to "
-                     "quorum_tpu_torch yet")
+# why a path runs on one device only (quorum_tpu refuses it over a mesh
+# too)
 PREFILTER_ON_ONE = ("--prefilter composes with --devices 1 today; use "
                     "--partitions for multi-pass capacity over a mesh")
 
@@ -47,11 +48,12 @@ def add_devices_arg(p: argparse.ArgumentParser, what: str) -> None:
                    help=f"{what} over N local devices (power of two; 'all' "
                         "= every CUDA device, 'auto' = all CUDA devices, or "
                         "1 with --device cpu, where an explicit N runs N "
-                        "shards on the CPU; auto and all fall back to one "
-                        "device, with a note, where the sharded path is not "
-                        "ported: --partitions, --prefilter, a table past the "
-                        "replicated stage-2 layout). Output is "
-                        "byte-identical to --devices 1")
+                        "shards on the CPU; auto and all go on with one "
+                        "device, with a note, where the mesh cannot run: "
+                        "--prefilter, or a table past the replicated "
+                        "stage-2 layout on cards without peer access that "
+                        "one card can hold). Output is byte-identical to "
+                        "--devices 1")
 
 
 def resolve_devices_arg(args, prog: str) -> bool:
@@ -59,9 +61,9 @@ def resolve_devices_arg(args, prog: str) -> bool:
     of it) with quorum_tpu's messages; False, after printing why, where
     the count is not usable. Sets args.devices_auto: the count came from
     auto/all, not from the user."""
-    args.devices_auto = not explicit_devices(args.devices)
+    args.devices_auto = not ts.explicit_devices(args.devices)
     try:
-        args.devices, args.batch_size = resolve_devices_and_batch(
+        args.devices, args.batch_size = ts.resolve_devices_and_batch(
             args.devices, args.batch_size, prog, device=args.device)
     except ValueError as e:
         print(str(e), file=sys.stderr)
@@ -79,6 +81,23 @@ def one_device_for(args, prog: str, why: str) -> bool:
           f"instead of {args.devices}", file=sys.stderr)
     args.devices = 1
     return True
+
+
+def routed_devices_ok(args, prog: str, rb_log2: int) -> bool:
+    """Whether --devices N can correct a table of 2^rb_log2 rows. Where
+    it takes the routed stage-2 layout (tile_sharded.routed_layout) on
+    CUDA devices that lack peer access between them (peer_reason), an
+    explicit N is refused and auto/all go on with one device (a note)
+    if one card can hold the table (rb_log2 <= 24); False, after
+    printing why, where the run cannot go on."""
+    if args.devices <= 1 or not ts.routed_layout(rb_log2) \
+            or torch.device(args.device).type != "cuda":
+        return True
+    why = ts.peer_reason(ts.make_mesh(args.devices))
+    if why is None or (rb_log2 <= 24 and one_device_for(args, prog, why)):
+        return True
+    print(f"{prog}: {why}", file=sys.stderr)
+    return False
 
 
 def add_unported_args(p: argparse.ArgumentParser) -> None:
@@ -193,10 +212,6 @@ def main(argv=None, handoff: dict | None = None,
     if not auto and prefilter != "off" and args.devices > 1 and \
             not one_device_for(args, prog, PREFILTER_ON_ONE):
         print(PREFILTER_ON_ONE, file=sys.stderr)
-        return 1
-    if P > 1 and args.devices > 1 and not one_device_for(
-            args, prog, PARTITIONS_ON_ONE):
-        print(f"{prog}: {PARTITIONS_ON_ONE}", file=sys.stderr)
         return 1
     if prefilter != "off" and args.devices > 1:
         # a default from the environment degrades; only the flag refuses

@@ -14,10 +14,12 @@ import argparse
 import sys
 
 from .. import resolve_device
+from ..io import db_format
 from ..io.integrity import IntegrityError
 from ..models.ec_config import DEFAULT_QUAL_CUTOFF
 from ..models.error_correct import ECOptions, run_error_correct
-from .create_database import add_devices_arg, resolve_devices_arg
+from .create_database import (add_devices_arg, resolve_devices_arg,
+                              routed_devices_ok)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -73,7 +75,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (plain PyTorch versions of "
                         "the kernels)")
-    add_devices_arg(p, "Correct data-parallel (the table replicated)")
+    add_devices_arg(p, "Correct data-parallel (the table replicated, or "
+                       "row-sharded past QUORUM_REPLICATE_TABLE_BYTES or "
+                       "2^24 rows)")
     p.add_argument("db", help="Mer database")
     p.add_argument("sequence", nargs="+", help="Input sequence")
     return p
@@ -103,16 +107,23 @@ def main(argv=None, db=None, prepacked=None,
         ord(args.qual_cutoff_char) if args.qual_cutoff_char is not None
         else args.qual_cutoff_value if args.qual_cutoff_value is not None
         else DEFAULT_QUAL_CUTOFF)
-    if not resolve_devices_arg(args, "quorum_error_correct_reads"):
+    prog = "quorum_error_correct_reads"
+    if not resolve_devices_arg(args, prog):
         return 1
     resolve_device(args.device)  # no card for --device cuda: raise here
+    if args.devices > 1:
+        try:
+            rb = db_format.header_rb_log2(args.db)
+        except (OSError, ValueError):
+            rb = None  # the load reports it
+        if rb is not None and not routed_devices_ok(args, prog, rb):
+            return 1
     opts = ECOptions(output=args.output, cutoff=args.cutoff,
                      apriori_error_rate=args.apriori_error_rate,
                      poisson_threshold=args.poisson_threshold,
                      batch_size=args.batch_size, verify_db=args.verify_db,
                      device=args.device, presence_floor=args.presence_floor,
-                     contaminant=args.contaminant, devices=args.devices,
-                     devices_auto=args.devices_auto)
+                     contaminant=args.contaminant, devices=args.devices)
     try:
         stats = run_error_correct(args.db, args.sequence, opts,
                                   qual_cutoff=qual_cutoff, skip=args.skip,

@@ -15,7 +15,10 @@ With --partitions P > 1 stage 1 writes a sharded manifest pass by pass
 and keeps no table on the card, so stage 2 loads the manifest from disk
 (HK7); the batches the first pass parsed still replay into stage 2.
 With --devices N the driver resolves the count once and hands it to
-both stages (parallel/tile_sharded); the output is --devices 1's.
+both stages (parallel/tile_sharded; with --partitions P every pass is a
+sharded build); stage 2 replicates the table or, past
+QUORUM_REPLICATE_TABLE_BYTES or 2^24 rows, keeps it row-sharded (the
+routed layout). The output is --devices 1's.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import time
 import numpy as np
 
 from .. import resolve_device
-from ..io import fastq, packing
+from ..io import db_format, fastq, packing
 from ..models.ec_config import DEFAULT_QUAL_CUTOFF
 from ..ops.sketch import PREFILTER_MODES
 from ..parallel import tile_sharded as ts
@@ -107,7 +110,8 @@ def build_parser() -> argparse.ArgumentParser:
     cdb_cli.add_devices_arg(
         p, "Scale out (stage 1 builds the table sharded by leading row "
            "bits, stage 2 corrects data-parallel with the table "
-           "replicated)")
+           "replicated, or row-sharded past QUORUM_REPLICATE_TABLE_BYTES "
+           "or 2^24 rows)")
     cdb_cli.add_unported_args(p)
     p.add_argument("reads", nargs="*", help="Input fastq files")
     return p
@@ -171,17 +175,10 @@ def main(argv=None, report: dict | None = None) -> int:
                                        cdb_cli.PREFILTER_ON_ONE):
         print(f"quorum: {cdb_cli.PREFILTER_ON_ONE}", file=sys.stderr)
         return 1
-    if P > 1 and args.devices > 1 and not cdb_cli.one_device_for(
-            args, "quorum", cdb_cli.PARTITIONS_ON_ONE):
-        print(f"quorum: {cdb_cli.PARTITIONS_ON_ONE}", file=sys.stderr)
+    if args.devices > 1 and not cdb_cli.routed_devices_ok(
+            args, "quorum", ts.initial_rb(parse_size(args.size),
+                                          args.kmer_len, 7, args.devices)):
         return 1
-    if args.devices > 1:
-        why = ts.routed_reason(ts.initial_rb(
-            parse_size(args.size), args.kmer_len, 7, args.devices))
-        if why is not None and not cdb_cli.one_device_for(args, "quorum",
-                                                          why):
-            print(f"quorum: {why}", file=sys.stderr)
-            return 1
     if args.prefilter == "inline" and P > 1:
         print("quorum: --prefilter=inline supports neither "
               "--partitions nor --checkpoint-dir; use "
@@ -267,11 +264,10 @@ def main(argv=None, report: dict | None = None) -> int:
               "passed to the -s switch is too small.", file=sys.stderr)
         return 1
     s1_s = time.perf_counter() - t_s1
-    if args.devices > 1 and "db" in handoff:
-        # the table grew past the replicated stage-2 layout
-        why = ts.routed_reason(handoff["db"][1].rb_log2)
-        if why is not None:
-            cdb_cli.one_device_for(args, "quorum", why)
+    # the table may have grown past the replicated stage-2 layout
+    if args.devices > 1 and not cdb_cli.routed_devices_ok(
+            args, "quorum", db_format.header_rb_log2(db_file)):
+        return 1
 
     ec_argv = ["--batch-size", str(args.batch_size), "--device",
                args.device, "--devices", str(args.devices)]

@@ -30,6 +30,7 @@ import time
 import numpy as np
 import torch
 
+from .. import kernels
 from ..ops import ctable
 from ..ops.ctable import GlobalMeta, TileMeta, TileState
 from . import integrity, quorum_db
@@ -277,6 +278,15 @@ def read_header(path: str) -> dict:
     return header
 
 
+def header_rb_log2(path: str) -> int | None:
+    """The table geometry (rb_log2) a database file or manifest declares
+    in its header, or None for a reference `binary/quorum_db` file
+    (whose geometry comes from its entries at load)."""
+    if quorum_db.is_ref_db(path):
+        return None
+    return int(read_header(path)["rb_log2"])
+
+
 def _verify_v5(path: str, header: dict, offset: int, mode: str) -> dict:
     """Check a v5 file's digests: "full" every section plus the derived
     whole-file digest, "sample" the header, the bucket index and a
@@ -369,27 +379,27 @@ def _read_payload(path: str, offset: int, rows_n: int, n: int,
     return payload
 
 
-def _load_manifest(path: str, header: dict, device, verify: str):
+def _load_manifest(path: str, header: dict, verify: str, on_mesh: bool):
     """A sharded database through its manifest (quorum_tpu's
     _read_db_manifest): the seal, every shard's own digests per
     `verify`, and the manifest's per-shard whole-file digests (a shard
     swapped or regenerated after the commit refuses even with
-    consistent digests of its own), then every shard's structure; the
-    single-file payload is assembled from the shards on the host and
-    crosses once for one HK7 launch."""
+    consistent digests of its own), then every shard's structure.
+    Returns (the single-file payload assembled from the shards on the
+    host, its entries, its GlobalMeta). Past rb_log2 24 only a mesh
+    load (`on_mesh`) takes it."""
     if verify != "off":
         integrity.check_seal(header, "sharded database manifest", path)
     rb = int(header["rb_log2"])
     S = int(header["n_shards"])
-    if rb > 24:
+    if rb > 24 and not on_mesh:
         raise ValueError(
             f"sharded database '{path}' has rb_log2={rb}, past the "
-            "single-chip geometry cap of 24 — the JAX package hosts it "
-            "row-sharded with --devices N (its routed stage-2 layout, "
-            "not ported to quorum_tpu_torch yet); loading it onto one "
-            "chip is not supported")
-    meta = TileMeta(k=header["key_len"] // 2, bits=header["bits"],
-                    rb_log2=rb)
+            "single-chip geometry cap of 24 — run stage 2 with --devices "
+            "N (the routed layout hosts it row-sharded); loading it onto "
+            "one chip is not supported")
+    meta = GlobalMeta(k=header["key_len"] // 2, bits=header["bits"],
+                      rb_log2=rb)
     rows_local = meta.rows // S
     hi_bytes = int(header["hi_bytes"])
     if hi_bytes != meta.hi_bytes:
@@ -454,11 +464,42 @@ def _load_manifest(path: str, header: dict, device, verify: str):
             f"sum {total} != n_entries {header.get('n_entries')}",
             path=path, section="header", offset=0)
     payload = np.concatenate(counts + los + [x for pl in his for x in pl])
-    state, stats = ctable.tile_load(payload, meta, total, device)
-    return state, meta, header, stats
+    return payload, total, meta
 
 
-def load_db(path: str, device="cpu", verify: str = "full"):
+def _load_on_mesh(payload: np.ndarray, n: int, gmeta: GlobalMeta, mesh):
+    """A checked single-file payload of n entries row-sharded over the
+    mesh: shard s's row range of it (its counts, and its entries' lo
+    words and hi byte planes) crosses to mesh[s], and HK7's row-range
+    load places it there, one launch a shard. Returns (ShardedTileState,
+    TileShardedMeta, summed (occupied, distinct_hq, total_hq))."""
+    from ..kernels import device_scope
+    from ..parallel.tile_sharded import TileShardedMeta
+
+    meta = TileShardedMeta(k=gmeta.k, bits=gmeta.bits,
+                           rb_log2=gmeta.rb_log2, n_shards=len(mesh))
+    per = 1 << meta.local_rb
+    counts = payload[:meta.rows]
+    first = np.concatenate([[0], np.cumsum(
+        counts.reshape(len(mesh), per).sum(1, dtype=np.int64))])
+    lo0, hi0 = meta.rows, meta.rows + 4 * n
+    shards, totals = [], np.zeros(3, np.int64)
+    for s, dev in enumerate(mesh):
+        a, b = int(first[s]), int(first[s + 1])
+        sub = np.concatenate(
+            [counts[s * per:(s + 1) * per], payload[lo0 + 4 * a:lo0 + 4 * b]]
+            + [payload[hi0 + j * n + a:hi0 + j * n + b]
+               for j in range(meta.hi_bytes)])
+        with device_scope(dev):
+            rows, st = kernels.tile_load(torch.from_numpy(sub).to(dev), meta,
+                                         b - a, per)
+        shards.append(rows)
+        totals += st.cpu().numpy()
+    return (ctable.ShardedTileState(tuple(shards)), meta,
+            tuple(int(x) for x in totals))
+
+
+def load_db(path: str, device="cpu", verify: str = "full", mesh=None):
     """Load a single-file v4/v5 database, or a sharded one through its
     manifest, onto `device`. Returns (TileState, TileMeta, header,
     (n_occupied, distinct_hq, total_hq)); the header (a manifest's own)
@@ -466,10 +507,20 @@ def load_db(path: str, device="cpu", verify: str = "full"):
     Digests and the payload's structure are checked on the host BEFORE
     any byte reaches the device; then the raw payload crosses once and
     HK7 decodes and places it there. A reference `binary/quorum_db` file
-    (io/quorum_db) is decoded on the host and placed the same way."""
+    (io/quorum_db) is decoded on the host and placed the same way.
+
+    With `mesh` (a list of devices, --devices N's routed stage-2
+    layout) the table is loaded row-sharded instead, shard s of
+    len(mesh) on mesh[s] (_load_on_mesh), as (ShardedTileState,
+    TileShardedMeta, header, stats); only such a load takes a table past
+    rb_log2 24 (a manifest the JAX package or a --devices N build
+    wrote)."""
     if verify not in VERIFY_MODES:
         raise ValueError(f"verify must be one of {VERIFY_MODES}, "
                          f"got {verify!r}")
+    if mesh is not None and quorum_db.is_ref_db(path):
+        raise ValueError(f"'{path}' is a reference quorum_db file; it "
+                         "loads onto one device only")
     if quorum_db.is_ref_db(path):
         khi, klo, vals, k, bits = quorum_db.read_ref_db(path)
         state, meta, stats = ctable.tile_from_entries(khi, klo, vals, k,
@@ -479,7 +530,14 @@ def load_db(path: str, device="cpu", verify: str = "full"):
         return state, meta, header, stats
     header = read_header(path)
     if header.get("format") == MANIFEST_FORMAT:
-        return _load_manifest(path, header, device, verify)
+        payload, n, gmeta = _load_manifest(path, header, verify,
+                                           mesh is not None)
+        if mesh is not None:
+            state, meta, stats = _load_on_mesh(payload, n, gmeta, mesh)
+            return state, meta, header, stats
+        meta = TileMeta(k=gmeta.k, bits=gmeta.bits, rb_log2=gmeta.rb_log2)
+        state, stats = ctable.tile_load(payload, meta, n, device)
+        return state, meta, header, stats
     if header.get("layout") == "shard":
         raise ValueError(
             f"'{path}' is shard {header.get('shard')} of "
@@ -502,6 +560,9 @@ def load_db(path: str, device="cpu", verify: str = "full"):
             section="header", offset=0)
     n = int(header["n_entries"])
     payload = _read_payload(path, offset, meta.rows, n, meta.hi_bytes)
+    if mesh is not None:
+        state, meta, stats = _load_on_mesh(payload, n, meta, mesh)
+        return state, meta, header, stats
     state, stats = ctable.tile_load(payload, meta, n, device)
     return state, meta, header, stats
 

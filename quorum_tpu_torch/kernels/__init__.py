@@ -1,4 +1,5 @@
-"""Wrappers of the fifteen hand-written Hopper kernels (csrc/*.cu).
+"""Wrappers of the fifteen hand-written Hopper kernels (csrc/*.cu) and
+their entries.
 
 Every wrapper checks device, dtype, shape and contiguity, then either
 launches its CUDA kernel (tensors on a CUDA device) or runs the plain
@@ -13,11 +14,14 @@ or launch raises.
                     and the shard entry that counts routed lanes in one
                     shard's slice (--devices N)
   HK2 tile_seal     duplicate check + fold + statistics
-  HK3 tile_lookup   canonical mer -> value word
+  HK3 tile_lookup   canonical mer -> value word; shard entry: the same
+                    in a table sharded by leading row bits, read in
+                    place (the routed stage-2 layout)
   HK4 extend_reads  per-(read, direction) extension with edit logs
-                    (and the contaminant checks)
+                    (and the contaminant checks); sharded-table entry
   HK5 stage2_head   stage-2 wire widening, window lookups, anchor scan
-                    (and the contaminant probe and kill)
+                    (and the contaminant probe and kill); sharded-table
+                    entry
   HK6 tile_export   sealed rows (a table or a row range of one) -> the
                     v4/v5 payload (sorted, compacted); compact entry:
                     the occupied slots in slot order
@@ -34,23 +38,35 @@ or launch raises.
   HK14 pack_finish     a stage-2 batch's result -> one packed u32 buffer
                        (the single device-to-host copy of the batch)
   HK15 shard_route     a batch's observations (or left-over lanes) in
-                       exact buckets by the shard that owns their row
+                       exact buckets by the shard that owns their row;
+                       partition entry: only a partition pass's mers
 
 The sharded wrappers (HK15, the shard entries) launch on their tensors'
 device; the others on the current device, which the sharded paths set
-with `device_scope`.
+with `device_scope`. HK3, HK4 and HK5 take the sealed table as one plane
+(int32 [rows, 128] under a TileMeta) or as the planes of a table sharded
+by leading row bits (a list of int32 [2^local_rb, 128], shard s on
+mesh[s], under a TileShardedMeta): the second form launches the
+sharded-table entry, counted apart, whose probes read each row in its
+owner's plane, on another card through peer access (enabled here, once
+per ordered pair of devices).
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 
 import torch
 
 from . import reference as ref
-from .loader import call, launch, launching
+from .loader import call, launch, launching, library
 
 MAX_SHARDS = 1024  # the bucket passes keep 12 bytes a shard in shared memory
+# shards of a table the probes read in place (table.cuh MAX_ROUTED_SHARDS:
+# the pointer table is one kernel parameter)
+MAX_ROUTED_SHARDS = 64
+_PEERS: set = set()  # (device, peer) pairs with peer access enabled
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
@@ -263,15 +279,72 @@ def _check_rows(rows, meta):
         raise ValueError("rows: must be 16-byte aligned")
 
 
-def tile_lookup(rows: torch.Tensor, meta, keys: torch.Tensor):
-    """Value word (int64) of each canonical int64 mer, 0 if absent."""
-    _check_rows(rows, meta)
+def enable_peer_access(dev: torch.device, peers) -> None:
+    """Let kernels on CUDA device `dev` read the memory of each device of
+    `peers` (cudaDeviceEnablePeerAccess once per ordered pair; a pair
+    that names one device needs nothing). Raises where the host does
+    not allow it."""
+    for peer in peers:
+        if peer.type != "cuda" or peer == dev or (dev, peer) in _PEERS:
+            continue
+        if not torch.cuda.can_device_access_peer(dev, peer):
+            raise RuntimeError(f"{dev} cannot access the memory of {peer} "
+                               "(no peer access between them)")
+        rc = library("tile_lookup").enable_peer_access(dev.index, peer.index)
+        if rc != 0:
+            raise RuntimeError(f"enabling peer access {dev} -> {peer} "
+                               f"failed with CUDA error {rc}")
+        _PEERS.add((dev, peer))
+
+
+def _table(rows, meta):
+    """Check a sealed table in either form (one plane under a TileMeta,
+    or a sequence of shard planes under a TileShardedMeta). Returns the
+    tensors it is made of and, for the sharded form, its (pointer array,
+    n_shards, local_rb) launch arguments (None for one plane)."""
+    if isinstance(rows, torch.Tensor):
+        _check_rows(rows, meta)
+        return (rows,), None
+    shards = tuple(rows)
+    S = meta.n_shards
+    if len(shards) != S or not 1 <= S <= MAX_ROUTED_SHARDS:
+        raise ValueError(f"{len(shards)} shard planes for {S} shards (at "
+                         f"most {MAX_ROUTED_SHARDS})")
+    for s, t in enumerate(shards):
+        _check(t, torch.int32, f"shard {s}")
+        if tuple(t.shape) != (1 << meta.local_rb, 2 * ref.TSLOTS):
+            raise ValueError(f"shard {s} does not hold 2^{meta.local_rb} "
+                             "rows")
+        if t.data_ptr() % 16:
+            raise ValueError(f"shard {s}: must be 16-byte aligned")
+    ptrs = (ctypes.c_void_p * S)(*(t.data_ptr() for t in shards))
+    return shards, (ptrs, S, meta.local_rb)
+
+
+def _table_ptrs(rows, parts, sharded, dev, name: str):
+    """The launch's table arguments and the C launcher (also the counter
+    it launches under): one pointer for `name` itself, or the shard
+    pointer array, its count and local_rb for name_shard, the
+    sharded-table entry, with peer access to every shard."""
+    if sharded is None:
+        return [rows.data_ptr()], name
+    enable_peer_access(dev, [t.device for t in parts])
+    return list(sharded), name + "_shard"
+
+
+def tile_lookup(rows, meta, keys: torch.Tensor):
+    """Value word (int64) of each canonical int64 mer, 0 if absent, in
+    `rows`: one plane, or shard planes (HK3's shard entry, K10 routed:
+    tile_sharded.routed_lookup_local)."""
+    parts, sharded = _table(rows, meta)
     _check(keys, torch.int64, "keys")
-    if not _on_cuda(rows, keys):
-        return ref.tile_lookup(rows, meta, keys)
+    if not _on_cuda(keys, *parts):
+        return ref.lookup(rows, meta, keys)
     out = torch.empty_like(keys)
-    launch("tile_lookup", "tile_lookup", rows.data_ptr(), keys.data_ptr(),
-           keys.numel(), meta.k, meta.rb_log2, meta.bits, out.data_ptr())
+    table, fn = _table_ptrs(rows, parts, sharded, keys.device, "tile_lookup")
+    with launching(fn):
+        call("tile_lookup", fn, *table, keys.data_ptr(), keys.numel(),
+             meta.k, meta.rb_log2, meta.bits, out.data_ptr())
     return out
 
 
@@ -297,9 +370,10 @@ def extend_reads(rows, meta, codes, hqb, lengths, status0, start_off, anc_f,
                  trim_contaminant: bool = False):
     """Extend every read whose anchor status is OK both ways, checking
     the optional contaminant table (rows, meta) (see
-    reference.extend_reads for the outputs). All tensors on one
-    device."""
-    _check_rows(rows, meta)
+    reference.extend_reads for the outputs). The table is one plane on
+    the reads' device or shard planes (the sharded-table entry); every
+    other tensor on the reads' device."""
+    parts, sharded = _table(rows, meta)
     b, l = codes.shape
     _check(codes, torch.int8, "codes")
     _check(hqb, torch.bool, "hqb")
@@ -315,7 +389,7 @@ def extend_reads(rows, meta, codes, hqb, lengths, status0, start_off, anc_f,
     cptr, crb, cbits = _contam_args(contam, meta)
     kw = dict(window=window, error=error, min_count=min_count,
               cutoff=cutoff, maxe=maxe)
-    if not _on_cuda(rows, codes, keep, *(contam[:1] if contam else ())):
+    if not _on_cuda(*parts, codes, keep, *(contam[:1] if contam else ())):
         return ref.extend_reads(rows, meta, codes, hqb, lengths, status0,
                                 start_off, anc_f, anc_r, prev0, keep,
                                 contam=contam,
@@ -330,15 +404,17 @@ def extend_reads(rows, meta, codes, hqb, lengths, status0, start_off, anc_f,
     log_pos = torch.zeros((2 * b, maxe), dtype=torch.int32, device=dev)
     log_meta = torch.zeros((2 * b, maxe), dtype=torch.int32, device=dev)
     overflow = torch.zeros(1, dtype=torch.int32, device=dev)
-    launch("extend_reads", "extend_reads", rows.data_ptr(), meta.k,
-           meta.rb_log2, meta.bits, cptr, crb, cbits, int(trim_contaminant),
-           codes.data_ptr(), hqb.data_ptr(), lengths.data_ptr(),
-           status0.data_ptr(), start_off.data_ptr(), anc_f.data_ptr(),
-           anc_r.data_ptr(), prev0.data_ptr(), keep.data_ptr(), b, l,
-           window, error, min_count, cutoff, maxe, out.data_ptr(),
-           start.data_ptr(), end.data_ptr(), lstatus.data_ptr(),
-           log_n.data_ptr(), log_lwin.data_ptr(), log_pos.data_ptr(),
-           log_meta.data_ptr(), overflow.data_ptr())
+    table, fn = _table_ptrs(rows, parts, sharded, dev, "extend_reads")
+    with launching(fn):
+        call("extend_reads", fn, *table, meta.k, meta.rb_log2, meta.bits,
+             cptr, crb, cbits, int(trim_contaminant), codes.data_ptr(),
+             hqb.data_ptr(), lengths.data_ptr(), status0.data_ptr(),
+             start_off.data_ptr(), anc_f.data_ptr(), anc_r.data_ptr(),
+             prev0.data_ptr(), keep.data_ptr(), b, l, window, error,
+             min_count, cutoff, maxe, out.data_ptr(), start.data_ptr(),
+             end.data_ptr(), lstatus.data_ptr(), log_n.data_ptr(),
+             log_lwin.data_ptr(), log_pos.data_ptr(), log_meta.data_ptr(),
+             overflow.data_ptr())
     fwd = (log_n[:b], log_lwin[:b], log_pos[:b], log_meta[:b])
     bwd = (log_n[b:], log_lwin[b:], log_pos[b:], log_meta[b:])
     return out, start, end, lstatus, fwd, bwd, overflow
@@ -355,12 +431,13 @@ def stage2_head(rows, meta, wire: torch.Tensor, b: int, length: int,
     int8 [B, L], hqb bool [B, L] = qual >= qual_cutoff, lengths int32
     [B], (found bool, start_off int32, f int64, r int64, prev int32,
     status int32)) -- the anchors of corrector.find_anchors, with the
-    optional contaminant table (rows, meta)."""
-    _check_rows(rows, meta)
+    optional contaminant table (rows, meta). The table is one plane or
+    shard planes (the sharded-table entry)."""
+    parts, sharded = _table(rows, meta)
     ts, offs = _wire_offsets(wire, b, length, thresholds, qual_cutoff)
     cptr, crb, cbits = _contam_args(contam, meta)
     kw = dict(skip=skip, good=good, anchor_count=anchor_count)
-    if not _on_cuda(rows, wire, *(contam[:1] if contam else ())):
+    if not _on_cuda(*parts, wire, *(contam[:1] if contam else ())):
         return ref.stage2_head(rows, meta, wire, b, length, ts, qual_cutoff,
                                contam=contam,
                                trim_contaminant=trim_contaminant, **kw)
@@ -374,12 +451,14 @@ def stage2_head(rows, meta, wire: torch.Tensor, b: int, length: int,
     anc_r = torch.empty(b, dtype=torch.int64, device=dev)
     prev = torch.empty(b, dtype=torch.int32, device=dev)
     status = torch.empty(b, dtype=torch.int32, device=dev)
-    launch("stage2_head", "stage2_head", wire.data_ptr(), b, length,
-           *offs, rows.data_ptr(), meta.k, meta.rb_log2, meta.bits, cptr,
-           crb, cbits, int(trim_contaminant), skip, good, anchor_count,
-           codes.data_ptr(), hqb.data_ptr(), lengths.data_ptr(),
-           found.data_ptr(), start_off.data_ptr(), anc_f.data_ptr(),
-           anc_r.data_ptr(), prev.data_ptr(), status.data_ptr())
+    table, fn = _table_ptrs(rows, parts, sharded, dev, "stage2_head")
+    with launching(fn):
+        call("stage2_head", fn, wire.data_ptr(), b, length, *offs, *table,
+             meta.k, meta.rb_log2, meta.bits, cptr, crb, cbits,
+             int(trim_contaminant), skip, good, anchor_count,
+             codes.data_ptr(), hqb.data_ptr(), lengths.data_ptr(),
+             found.data_ptr(), start_off.data_ptr(), anc_f.data_ptr(),
+             anc_r.data_ptr(), prev.data_ptr(), status.data_ptr())
     return codes, hqb, lengths, (found, start_off, anc_f, anc_r, prev,
                                  status)
 
@@ -462,22 +541,27 @@ def tile_compact(rows: torch.Tensor, meta, cap: int):
 # --------------------------------------------------------------- HK7
 
 
-def tile_load(payload: torch.Tensor, meta, n: int):
-    """The sealed rows (int32 [rows, 128]) of a v4/v5 payload of n
+def tile_load(payload: torch.Tensor, meta, n: int, nrows: int | None = None):
+    """The sealed rows (int32 [nrows, 128]) of a v4/v5 payload of n
     entries, and their stats int64 [3] = (occupied, distinct_hq,
-    total_hq). The caller has checked the payload's structure (size,
-    at most 64 entries a row, counts summing to n)."""
+    total_hq): meta's table, or with `nrows` a row range of it at meta's
+    geometry (one shard of a table sharded by leading row bits; hi words
+    of meta.hi_bytes). The caller has checked the payload's structure
+    (size, at most 64 entries a row, counts summing to n)."""
+    nrows = meta.rows if nrows is None else nrows
     _check(payload, torch.uint8, "payload")
-    if payload.numel() != meta.rows + (4 + meta.hi_bytes) * n:
+    if nrows < 1 or meta.rows % nrows:
+        raise ValueError("row range is not the table or a shard of it")
+    if payload.numel() != nrows + (4 + meta.hi_bytes) * n:
         raise ValueError("payload size does not match its geometry")
     if not _on_cuda(payload):
-        return ref.tile_load(payload, meta, n)
+        return ref.tile_load(payload, meta, n, nrows)
     dev = payload.device
-    rows = torch.empty((meta.rows, 2 * ref.TSLOTS), dtype=torch.int32,
+    rows = torch.empty((nrows, 2 * ref.TSLOTS), dtype=torch.int32,
                        device=dev)
     stats = torch.zeros(3, dtype=torch.int64, device=dev)
-    sums, first = _scan_scratch(meta.rows, dev)
-    launch("tile_load", "tile_load", payload.data_ptr(), meta.rows, n,
+    sums, first = _scan_scratch(nrows, dev)
+    launch("tile_load", "tile_load", payload.data_ptr(), nrows, n,
            meta.hi_bytes, meta.bits, sums.data_ptr(), first.data_ptr(),
            rows.data_ptr(), stats.data_ptr())
     return rows, stats
@@ -771,23 +855,32 @@ def pack_finish(start, end, status_f, status_b, fwd, bwd, overflow, *,
 # --------------------------------------------------------------- HK15
 
 
-def shard_route(batches: list, qual_thresh: int, meta) -> list:
+def shard_route(batches: list, qual_thresh: int, meta, part: int = 0,
+                n_parts: int = 1) -> list:
     """HK15: for each packed batch (wire, b, length, thresholds) -- one
     a shard, each a shard's row range of one batch, on that shard's
     device -- every observation as a lane (key << 1) | qual int64, in
     exact buckets by the shard that owns the mer's row under `meta`
-    (TileShardedMeta). Returns [(lanes, sizes: S ints)] in batch order;
-    bucket o is lanes[sum(sizes[:o]):sum(sizes[:o + 1])], in the
-    launch's order."""
+    (TileShardedMeta). With n_parts > 1, HK15's partition entry (a pass
+    of the partitioned build): only the observations whose mer pass
+    `part` owns (ref.partition_mask at meta's global geometry). Returns
+    [(lanes, sizes: S ints)] in batch order; bucket o is
+    lanes[sum(sizes[:o]):sum(sizes[:o + 1])], in the launch's order."""
     _check_shards(meta)
+    _check_parts(part, n_parts)
     parsed = [(w, b, n, *_wire_offsets(w, b, n, t, qual_thresh))
               for w, b, n, t in batches]
     if not _on_cuda(*(p[0] for p in parsed)):
-        return [_listed(ref.shard_route(w, b, n, ts, qual_thresh, meta))
+        return [_listed(ref.shard_route(w, b, n, ts, qual_thresh, meta, part,
+                                        n_parts))
                 for w, b, n, ts, _offs in parsed]
-    return _buckets("shard_route", "shard_route", "shard_route_wire",
+    fn, extra = (("shard_route_part", [part, n_parts]) if n_parts > 1
+                 else ("shard_route_wire", []))
+    return _buckets("shard_route_part" if n_parts > 1 else "shard_route",
+                    "shard_route", fn,
                     [([w.data_ptr(), b, n, *offs, meta.k, meta.rb_log2,
-                       meta.bits, meta.local_rb, meta.n_shards], w.device)
+                       meta.bits, meta.local_rb, meta.n_shards, *extra],
+                      w.device)
                      for w, b, n, _ts, offs in parsed],
                     meta.n_shards, (), torch.int64)
 

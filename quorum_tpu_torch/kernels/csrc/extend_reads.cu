@@ -31,9 +31,22 @@
 // started from, or ST_CONTAMINANT); HK14 merges the two lanes of a read,
 // the forward one's first (_bwd_epilogue :1212), so no word is shared.
 //
+// The sharded-table entry (extend_reads_shard) runs the same lanes
+// against a table sharded by leading row bits, read in place (table.cuh
+// ShardRows, the routed stage-2 layout; it replaces the routed lookups
+// of quorum_tpu/parallel/tile_sharded.py:878 correct_step_routed and
+// :909 correct_step_wire(routed_meta=) through corrector._db_lookup
+// :184). JAX's routed extension keeps every shard in lockstep (pmax on
+// the loop condition) around two all_to_all exchanges per lookup; here
+// each lane walks its own extension and a probe reads the owner's row
+// directly, on this card or over NVLink. The contaminant set stays one
+// plane on this card. Both contaminant variants, as for the plane entry.
+//
 // Bound: bytes. Each step of a lane makes 4 probes (16 more on an
 // ambiguous base); the least traffic is one read of every row the run
-// probes, plus the codes/quals in and the corrected bases and logs out.
+// probes, plus the codes/quals in and the corrected bases and logs out;
+// the same for the sharded-table entry (its pointer table is one kernel
+// parameter).
 #include "table.cuh"
 
 #define ST_OK 0
@@ -47,21 +60,20 @@ struct Cfg {
 __device__ __forceinline__ bool contam_hit(const uint32_t* crows,
                                            const Cfg& c, uint64_t f,
                                            uint64_t r) {
-  return probe_row(crows, key_parts(canonical(f, r), c.k, c.crb, c.cbits),
-                   c.cbits) != 0;
+  return probe(PlaneRows{crows}, canonical(f, r), c.k, c.crb, c.cbits) != 0;
 }
 
 // get_best_alternatives (mer_database.hpp:302-329).
-__device__ void gba(const uint32_t* rows, const Cfg& c, uint64_t f,
-                    uint64_t r, int d, int counts[4], int& ucode, int& level,
+template <class Acc>
+__device__ void gba(const Acc& rows, const Cfg& c, uint64_t f, uint64_t r,
+                    int d, int counts[4], int& ucode, int& level,
                     int& count) {
   int cnt[4], q[4];
   level = 0;
   for (int v = 0; v < 4; ++v) {
     uint64_t fv = f, rv = r;
     dir_replace0(fv, rv, v, d, c.k);
-    uint32_t val = probe_row(rows, key_parts(canonical(fv, rv), c.k, c.rb,
-                                             c.bits), c.bits);
+    uint32_t val = probe(rows, canonical(fv, rv), c.k, c.rb, c.bits);
     cnt[v] = (int)(val >> 1);
     q[v] = (int)(val & 1u);
     if (cnt[v] > 0 && q[v] > level) level = q[v];
@@ -119,9 +131,9 @@ __device__ __forceinline__ int sub_meta(int frm, int to) {
   return ((frm >= 0 ? frm : 4) << 1) | ((to >= 0 ? to : 4) << 4);
 }
 
-template <bool CONTAM>
+template <class Acc, bool CONTAM>
 __global__ void extend_kernel(
-    const uint32_t* __restrict__ rows, const uint32_t* __restrict__ crows,
+    const __grid_constant__ Acc rows, const uint32_t* __restrict__ crows,
     Cfg c, const int8_t* __restrict__ codes,
     const uint8_t* __restrict__ hqb, const int* __restrict__ lengths,
     const int* __restrict__ status0, const int* __restrict__ start_off,
@@ -286,6 +298,28 @@ __global__ void extend_kernel(
   log_lwin[lane] = lg.lwin;
 }
 
+template <class Acc>
+static int launch_extend(
+    const Acc& rows, const uint32_t* crows, const Cfg& c,
+    const int8_t* codes, const uint8_t* hqb, const int* lengths,
+    const int* status0, const int* start_off, const long long* anc_f,
+    const long long* anc_r, const int* prev0, const uint8_t* keep, int B,
+    int8_t* out, int* start, int* end, int* lstatus, int* log_n,
+    int* log_lwin, int* log_pos, int* log_meta, int* overflow, void* stream) {
+  const unsigned grid = (unsigned)((2 * B + 127) / 128);
+  if (B > 0 && crows)
+    extend_kernel<Acc, true><<<grid, 128, 0, (cudaStream_t)stream>>>(
+        rows, crows, c, codes, hqb, lengths, status0, start_off, anc_f,
+        anc_r, prev0, keep, B, out, start, end, lstatus, log_n, log_lwin,
+        log_pos, log_meta, overflow);
+  else if (B > 0)
+    extend_kernel<Acc, false><<<grid, 128, 0, (cudaStream_t)stream>>>(
+        rows, crows, c, codes, hqb, lengths, status0, start_off, anc_f,
+        anc_r, prev0, keep, B, out, start, end, lstatus, log_n, log_lwin,
+        log_pos, log_meta, overflow);
+  return (int)cudaGetLastError();
+}
+
 // `crows` null: the entry without a contaminant.
 extern "C" int extend_reads(
     const uint32_t* rows, int k, int rb, int bits, const uint32_t* crows,
@@ -298,16 +332,31 @@ extern "C" int extend_reads(
     void* stream) {
   Cfg c{k, rb, bits, crb, cbits, trim, L, window, error, min_count, cutoff,
         maxe};
-  const unsigned grid = (unsigned)((2 * B + 127) / 128);
-  if (B > 0 && crows)
-    extend_kernel<true><<<grid, 128, 0, (cudaStream_t)stream>>>(
-        rows, crows, c, codes, hqb, lengths, status0, start_off, anc_f,
-        anc_r, prev0, keep, B, out, start, end, lstatus, log_n, log_lwin,
-        log_pos, log_meta, overflow);
-  else if (B > 0)
-    extend_kernel<false><<<grid, 128, 0, (cudaStream_t)stream>>>(
-        rows, crows, c, codes, hqb, lengths, status0, start_off, anc_f,
-        anc_r, prev0, keep, B, out, start, end, lstatus, log_n, log_lwin,
-        log_pos, log_meta, overflow);
-  return (int)cudaGetLastError();
+  return launch_extend(PlaneRows{rows}, crows, c, codes, hqb, lengths,
+                       status0, start_off, anc_f, anc_r, prev0, keep, B, out,
+                       start, end, lstatus, log_n, log_lwin, log_pos,
+                       log_meta, overflow, stream);
+}
+
+// The sharded-table entry: `shards` a host array of n_shards plane
+// pointers (2^local_rb rows each), rb the GLOBAL geometry.
+extern "C" int extend_reads_shard(
+    const uint32_t* const* shards, int n_shards, int local_rb, int k, int rb,
+    int bits, const uint32_t* crows, int crb, int cbits, int trim,
+    const int8_t* codes, const uint8_t* hqb, const int* lengths,
+    const int* status0, const int* start_off, const long long* anc_f,
+    const long long* anc_r, const int* prev0, const uint8_t* keep, int B,
+    int L, int window, int error, int min_count, int cutoff, int maxe,
+    int8_t* out, int* start, int* end, int* lstatus, int* log_n,
+    int* log_lwin, int* log_pos, int* log_meta, int* overflow,
+    void* stream) {
+  ShardRows acc;
+  if (!shard_rows(shards, n_shards, local_rb, &acc))
+    return (int)cudaErrorInvalidValue;
+  Cfg c{k, rb, bits, crb, cbits, trim, L, window, error, min_count, cutoff,
+        maxe};
+  return launch_extend(acc, crows, c, codes, hqb, lengths, status0,
+                       start_off, anc_f, anc_r, prev0, keep, B, out, start,
+                       end, lstatus, log_n, log_lwin, log_pos, log_meta,
+                       overflow, stream);
 }

@@ -22,21 +22,34 @@
 // inside a bucket is the launch's own; the table's content does not
 // depend on it.
 //
+// The partition entry (shard_route_part) is the wire entry of a pass of
+// the partitioned build over the mesh (--partitions P with --devices N;
+// it replaces the filter of quorum_tpu/parallel/tile_sharded.py:421-423,
+// build_step_wire(part=), with ctable.partition_mask :1195): a window
+// whose mer the pass does not own -- the remainder's low log2(n_parts)
+// bits at the pass's global geometry (table.cuh rem_low, so the high tag
+// word supplies them where rlo holds fewer bits, as at -b 25 and -b 30)
+// differ from `part` -- is dropped before it is counted or bucketed.
+//
 // Bound: bytes. It reads the shard's wire once and writes 8 bytes a
-// valid window; the count pass reads the wire a second time (the
-// hash is recomputed rather than stored).
+// valid (owned) window; the count pass reads the wire a second time
+// (the hash is recomputed rather than stored).
 #include "table.cuh"
 
+// part/pmask: pass `part` of pmask + 1 owns the lane (pmask 0: all).
 struct WireSrc {
   typedef long long Lane;
   Wire w;
   int k, rb, bits, local_rb;
+  uint32_t part, pmask;
   __device__ bool get(long long i, int* owner, long long* lane) const {
     uint64_t key;
     bool q;
     if (!wire_window(w, (int)(i / w.L), (int)(i % w.L), k, &key, &q))
       return false;
-    *owner = (int)(key_parts(key, k, rb, bits).addr >> local_rb);
+    const KeyParts kp = key_parts(key, k, rb, bits);
+    if ((rem_low(kp, bits) & pmask) != part) return false;
+    *owner = (int)(kp.addr >> local_rb);
     *lane = (long long)((key << 1) | (q ? 1ull : 0ull));
     return true;
   }
@@ -54,6 +67,16 @@ struct LaneSrc {
   }
 };
 
+static int route_wire(const WireSrc& src, int S, int phase,
+                      unsigned long long* counts_or_cursor, long long* out,
+                      void* stream) {
+  const long long n = (long long)src.w.b * src.w.L;
+  cudaStream_t st = (cudaStream_t)stream;
+  return (int)(phase == 0
+                   ? bucket_count(src, n, S, counts_or_cursor, st)
+                   : bucket_scatter(src, n, S, counts_or_cursor, out, st));
+}
+
 // phase 0: count, phase 1: scatter (cursor = each bucket's first lane).
 extern "C" int shard_route_wire(const uint8_t* wire, int b, int L,
                                 long long off_nmask, long long off_hq,
@@ -62,12 +85,22 @@ extern "C" int shard_route_wire(const uint8_t* wire, int b, int L,
                                 unsigned long long* counts_or_cursor,
                                 long long* out, void* stream) {
   WireSrc src{Wire{wire, b, L, off_nmask, off_hq, off_len}, k, rb, bits,
-              local_rb};
-  const long long n = (long long)b * L;
-  cudaStream_t st = (cudaStream_t)stream;
-  return (int)(phase == 0
-                   ? bucket_count(src, n, S, counts_or_cursor, st)
-                   : bucket_scatter(src, n, S, counts_or_cursor, out, st));
+              local_rb, 0u, 0u};
+  return route_wire(src, S, phase, counts_or_cursor, out, stream);
+}
+
+// The partition entry: only the windows pass `part` of `n_parts` (a power
+// of two) owns at the global geometry rb.
+extern "C" int shard_route_part(const uint8_t* wire, int b, int L,
+                                long long off_nmask, long long off_hq,
+                                long long off_len, int k, int rb, int bits,
+                                int local_rb, int S, int part, int n_parts,
+                                int phase,
+                                unsigned long long* counts_or_cursor,
+                                long long* out, void* stream) {
+  WireSrc src{Wire{wire, b, L, off_nmask, off_hq, off_len}, k, rb, bits,
+              local_rb, (uint32_t)part, (uint32_t)(n_parts - 1)};
+  return route_wire(src, S, phase, counts_or_cursor, out, stream);
 }
 
 extern "C" int shard_route_lanes(const long long* lanes, long long n, int k,

@@ -32,9 +32,21 @@
 // is one past it (find_anchors), and the kernel writes the read's status
 // (OK, ST_CONTAMINANT, ST_NO_ANCHOR) in both entries.
 //
+// The sharded-table entry (stage2_head_shard) is the same kernel probing
+// a table sharded by leading row bits in place (table.cuh ShardRows, the
+// routed stage-2 layout; it replaces the routed lookups of
+// quorum_tpu/parallel/tile_sharded.py:878 correct_step_routed and :909
+// correct_step_wire(routed_meta=), dispatched from corrector._db_lookup
+// :184): each probe reads its row from the shard that owns it, on this
+// card or over NVLink, and gets the value routed_lookup_local would
+// return. The contaminant set stays one plane on this card (replicated,
+// as JAX's crows is P()). Both entries take both contaminant variants.
+//
 // Bound: bytes. The wire in, the codes and qual planes and the anchors
 // out, and one read of the 512-byte row of every probed window (HK3's
-// count per probe), in each table probed.
+// count per probe), in each table probed; the same for the sharded-table
+// entry, whose shard pointer table is one kernel parameter (nothing per
+// probe beyond a shift and a mask).
 #include "table.cuh"
 
 #define HEAD_WARPS 4
@@ -47,11 +59,11 @@ struct HeadCfg {
   int k, rb, bits, crb, cbits, trim, skip, good, anchor_count;
 };
 
-template <bool CONTAM>
+template <class Acc, bool CONTAM>
 __global__ void head_kernel(const uint8_t* __restrict__ wire, int B, int L,
                             long long off_nmask, long long off_hq,
                             long long off_len,
-                            const uint32_t* __restrict__ rows,
+                            const __grid_constant__ Acc rows,
                             const uint32_t* __restrict__ crows, HeadCfg c,
                             int8_t* __restrict__ codes,
                             uint8_t* __restrict__ hqb,
@@ -106,12 +118,10 @@ __global__ void head_kernel(const uint8_t* __restrict__ wire, int B, int L,
       bool con = false;
       if (vw && !hit_found) {
         const uint64_t m = canonical(f, r);
-        const uint32_t val = probe_row(rows, key_parts(m, k, c.rb, c.bits),
-                                       c.bits);
+        const uint32_t val = probe(rows, m, k, c.rb, c.bits);
         vhq = (val & 1u) ? (int)(val >> 1) : 0;
         if (CONTAM)
-          con = probe_row(crows, key_parts(m, k, c.crb, c.cbits),
-                          c.cbits) != 0;
+          con = probe(PlaneRows{crows}, m, k, c.crb, c.cbits) != 0;
       }
       a = checked && !con && vhq >= c.anchor_count;
       z = !vw || (checked && !con && vhq < c.anchor_count);
@@ -165,6 +175,27 @@ __global__ void head_kernel(const uint8_t* __restrict__ wire, int B, int L,
   }
 }
 
+template <class Acc>
+static int launch_head(const uint8_t* wire, int B, int L, long long off_nmask,
+                       long long off_hq, long long off_len, const Acc& rows,
+                       const uint32_t* crows, const HeadCfg& c, int8_t* codes,
+                       uint8_t* hqb, int* lengths, uint8_t* found,
+                       int* start_off, long long* anc_f, long long* anc_r,
+                       int* prev, int* status, void* stream) {
+  const unsigned grid = (unsigned)((B + HEAD_WARPS - 1) / HEAD_WARPS);
+  if (B > 0 && crows)
+    head_kernel<Acc, true><<<grid, 32 * HEAD_WARPS, 0,
+                             (cudaStream_t)stream>>>(
+        wire, B, L, off_nmask, off_hq, off_len, rows, crows, c, codes, hqb,
+        lengths, found, start_off, anc_f, anc_r, prev, status);
+  else if (B > 0)
+    head_kernel<Acc, false><<<grid, 32 * HEAD_WARPS, 0,
+                              (cudaStream_t)stream>>>(
+        wire, B, L, off_nmask, off_hq, off_len, rows, crows, c, codes, hqb,
+        lengths, found, start_off, anc_f, anc_r, prev, status);
+  return (int)cudaGetLastError();
+}
+
 // `crows` null: the entry without a contaminant.
 extern "C" int stage2_head(const uint8_t* wire, int B, int L,
                            long long off_nmask, long long off_hq,
@@ -176,14 +207,30 @@ extern "C" int stage2_head(const uint8_t* wire, int B, int L,
                            long long* anc_f, long long* anc_r, int* prev,
                            int* status, void* stream) {
   HeadCfg c{k, rb, bits, crb, cbits, trim, skip, good, anchor_count};
-  const unsigned grid = (unsigned)((B + HEAD_WARPS - 1) / HEAD_WARPS);
-  if (B > 0 && crows)
-    head_kernel<true><<<grid, 32 * HEAD_WARPS, 0, (cudaStream_t)stream>>>(
-        wire, B, L, off_nmask, off_hq, off_len, rows, crows, c, codes, hqb,
-        lengths, found, start_off, anc_f, anc_r, prev, status);
-  else if (B > 0)
-    head_kernel<false><<<grid, 32 * HEAD_WARPS, 0, (cudaStream_t)stream>>>(
-        wire, B, L, off_nmask, off_hq, off_len, rows, crows, c, codes, hqb,
-        lengths, found, start_off, anc_f, anc_r, prev, status);
-  return (int)cudaGetLastError();
+  return launch_head(wire, B, L, off_nmask, off_hq, off_len, PlaneRows{rows},
+                     crows, c, codes, hqb, lengths, found, start_off, anc_f,
+                     anc_r, prev, status, stream);
+}
+
+// The sharded-table entry: `shards` a host array of n_shards plane
+// pointers (2^local_rb rows each), rb the GLOBAL geometry.
+extern "C" int stage2_head_shard(const uint8_t* wire, int B, int L,
+                                 long long off_nmask, long long off_hq,
+                                 long long off_len,
+                                 const uint32_t* const* shards, int n_shards,
+                                 int local_rb, int k, int rb, int bits,
+                                 const uint32_t* crows, int crb, int cbits,
+                                 int trim, int skip, int good,
+                                 int anchor_count, int8_t* codes,
+                                 uint8_t* hqb, int* lengths, uint8_t* found,
+                                 int* start_off, long long* anc_f,
+                                 long long* anc_r, int* prev, int* status,
+                                 void* stream) {
+  ShardRows acc;
+  if (!shard_rows(shards, n_shards, local_rb, &acc))
+    return (int)cudaErrorInvalidValue;
+  HeadCfg c{k, rb, bits, crb, cbits, trim, skip, good, anchor_count};
+  return launch_head(wire, B, L, off_nmask, off_hq, off_len, acc, crows, c,
+                     codes, hqb, lengths, found, start_off, anc_f, anc_r,
+                     prev, status, stream);
 }

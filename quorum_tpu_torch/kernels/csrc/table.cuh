@@ -4,7 +4,10 @@
 // (quorum_tpu/ops/mer.py:104-190), the window extraction from the packed
 // wire that HK1, HK9 and HK11 share (ctable.extract_observations_impl,
 // ctable.py:1174), the one-row probe that HK3, HK4 and HK5 share
-// (ctable.tile_lookup_impl, ctable.py:677-696), the slot claim that HK1,
+// (ctable.tile_lookup_impl, ctable.py:677-696) with its two row
+// accessors (one plane, or a table sharded by leading row bits:
+// quorum_tpu/parallel/tile_sharded.py:706 routed_lookup_local), the slot
+// claim that HK1,
 // HK8 and HK11 share, the count-min sketch hash of HK10 and HK11
 // (quorum_tpu/ops/sketch.py:111-132), a one-atomic-per-block sum, and the
 // exclusive scan of per-row entry counts that HK6 and HK7 share.
@@ -197,17 +200,57 @@ __device__ __forceinline__ void block_add(unsigned long long (&v)[NV],
   }
 }
 
-// The value word (count << 1) | qual of the key in its 512-byte row, or
-// 0: 32 16-byte loads over the 64 slots, stopping at the match (a key
-// occupies at most one slot of its row).
-__device__ __forceinline__ uint32_t probe_row(const uint32_t* __restrict__ rows,
+// Row accessors of the sealed table, for the probes of HK3, HK4 and HK5:
+// a probe computes the key parts at the table's GLOBAL geometry and asks
+// the accessor for the 512-byte row of its address. PlaneRows is one
+// card's plane. ShardRows is a table sharded by leading row bits over up
+// to MAX_ROUTED_SHARDS planes (the routed stage-2 layout): shard s holds
+// the global rows [s << local_rb, (s + 1) << local_rb), and a shard on
+// another card is read in place through peer access. A kernel takes its
+// accessor by value as a __grid_constant__ parameter, so the shard
+// pointer table is indexed in the parameter space, with no per-thread
+// copy; against PlaneRows the sharded row costs a shift, a mask and one
+// 8-byte parameter load per probe.
+struct PlaneRows {
+  const uint32_t* rows;
+  __device__ __forceinline__ const uint32_t* row(uint32_t addr) const {
+    return rows + (size_t)addr * TILE_WORDS;
+  }
+};
+
+#define MAX_ROUTED_SHARDS 64
+
+struct ShardRows {
+  const uint32_t* shard[MAX_ROUTED_SHARDS];
+  int local_rb;
+  __device__ __forceinline__ const uint32_t* row(uint32_t addr) const {
+    return shard[addr >> local_rb] +
+           (size_t)(addr & ((1u << local_rb) - 1u)) * TILE_WORDS;
+  }
+};
+
+// The accessor of a host array of n shard planes; false past
+// MAX_ROUTED_SHARDS.
+static inline bool shard_rows(const uint32_t* const* shards, int n,
+                              int local_rb, ShardRows* out) {
+  if (n < 1 || n > MAX_ROUTED_SHARDS) return false;
+  for (int s = 0; s < MAX_ROUTED_SHARDS; ++s)
+    out->shard[s] = s < n ? shards[s] : nullptr;
+  out->local_rb = local_rb;
+  return true;
+}
+
+// The value word (count << 1) | qual of the key in `row`, its 512-byte
+// row (an accessor's row(p.addr)), or 0: 32 16-byte loads over the 64
+// slots, stopping at the match (a key occupies at most one slot of its
+// row).
+__device__ __forceinline__ uint32_t probe_row(const uint32_t* __restrict__ row,
                                               KeyParts p, int bits) {
-  const uint4* row = reinterpret_cast<const uint4*>(rows) +
-                     (size_t)p.addr * (TILE_WORDS / 4);
+  const uint4* r4 = reinterpret_cast<const uint4*>(row);
   const uint32_t maxv = (1u << bits) - 1u;
 #pragma unroll 4
   for (int j = 0; j < TILE_WORDS / 4; ++j) {
-    uint4 w = __ldg(row + j);
+    uint4 w = __ldg(r4 + j);
     uint32_t c0 = w.x & maxv, c1 = w.z & maxv;
     if (c0 && (w.x >> (bits + 1)) == p.rlo && w.y == p.rhi)
       return (c0 << 1) | ((w.x >> bits) & 1u);
@@ -215,6 +258,15 @@ __device__ __forceinline__ uint32_t probe_row(const uint32_t* __restrict__ rows,
       return (c1 << 1) | ((w.z >> bits) & 1u);
   }
   return 0;
+}
+
+// The value word of canonical `key` in the table behind accessor `rows`
+// at geometry (k, rb, bits).
+template <class Acc>
+__device__ __forceinline__ uint32_t probe(const Acc& rows, uint64_t key,
+                                          int k, int rb, int bits) {
+  const KeyParts p = key_parts(key, k, rb, bits);
+  return probe_row(rows.row(p.addr), p, bits);
 }
 
 // Claim-or-match the key's slot in the build table and add (ah, al) to

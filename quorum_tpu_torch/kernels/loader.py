@@ -35,9 +35,12 @@ KERNELS = ("tile_insert", "tile_seal", "tile_lookup", "extend_reads",
            "stage2_head", "tile_export", "tile_load", "tile_grow",
            "batch_aggregate", "sketch_update", "gated_insert", "tile_floor",
            "tile_departition", "pack_finish", "shard_route")
-# entries of a kernel counted apart from it (HK1's and HK8's shard
-# entries, on the --devices N path)
-ENTRIES = ("tile_insert_shard", "tile_grow_shard")
+# entries of a kernel counted apart from it, on the --devices N path:
+# HK1's and HK8's shard entries, HK3's shard entry and HK4's and HK5's
+# sharded-table entries (the routed stage-2 layout), HK15's partition
+# entry (--partitions P with --devices N); each is also its C launcher
+ENTRIES = ("tile_insert_shard", "tile_grow_shard", "tile_lookup_shard",
+           "extend_reads_shard", "stage2_head_shard", "shard_route_part")
 COUNTERS = KERNELS + ENTRIES
 
 NVCC_FLAGS = ["-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
@@ -54,16 +57,28 @@ SIGNATURES = {
         "tile_insert_shard": [_P, _LL, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     },
     "tile_seal": {"tile_seal": [_P, _P, _P, _LL, _I, _P, _P, _P]},
-    "tile_lookup": {"tile_lookup": [_P, _P, _LL, _I, _I, _I, _P, _P]},
+    "tile_lookup": {
+        "tile_lookup": [_P, _P, _LL, _I, _I, _I, _P, _P],
+        "tile_lookup_shard": [_P, _I, _I, _P, _LL, _I, _I, _I, _P, _P],
+        # no stream: called directly (kernels.enable_peer_access)
+        "enable_peer_access": [_I, _I],
+    },
     "extend_reads": {
         "extend_reads": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P,
                          _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                          _P, _P, _P, _P, _P, _P, _P, _P],
+        "extend_reads_shard": [_P, _I, _I, _I, _I, _I, _P, _I, _I, _I, _P,
+                               _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                               _P, _P, _P],
     },
     "stage2_head": {
         "stage2_head": [_P, _I, _I, _LL, _LL, _LL, _P, _I, _I, _I, _P, _I,
                         _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                         _P, _P],
+        "stage2_head_shard": [_P, _I, _I, _LL, _LL, _LL, _P, _I, _I, _I, _I,
+                              _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                              _P, _P, _P, _P, _P, _P],
     },
     "tile_export": {
         "tile_export_counts": [_P, _LL, _I, _P, _P, _P, _P],
@@ -100,6 +115,8 @@ SIGNATURES = {
     "shard_route": {
         "shard_route_wire": [_P, _I, _I, _LL, _LL, _LL, _I, _I, _I, _I, _I,
                              _I, _P, _P, _P],
+        "shard_route_part": [_P, _I, _I, _LL, _LL, _LL, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _P, _P, _P],
         "shard_route_lanes": [_P, _LL, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     },
 }

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the fifteen hand-written kernels.
+"""Plain PyTorch versions of the fifteen hand-written kernels and their
+entries.
 
 Each function computes what its CUDA kernel computes (csrc/*.cu) with
 ordinary tensor operations. The wrappers in kernels/__init__.py call
@@ -256,21 +257,52 @@ def tile_seal(bstate, meta):
 # --------------------------------------------------------------- HK3
 
 
+def _probe(rows, meta, addr, rlo, rhi):
+    """The value word of each key given by its (row of `rows`, rlo, rhi)
+    at `meta`'s geometry, 0 when absent (all on the rows' device)."""
+    out = torch.zeros(addr.shape[0], dtype=torch.int64, device=rows.device)
+    r3 = rows.view(-1, TSLOTS, 2)
+    for s in range(0, addr.shape[0], _LOOKUP_CHUNK):
+        e = s + _LOOKUP_CHUNK
+        g = r3[addr[s:e]]
+        lo, hi = u32(g[..., 0]), u32(g[..., 1])
+        count = lo & meta.max_val
+        match = ((count != 0) & ((lo >> (meta.bits + 1)) == rlo[s:e, None])
+                 & (hi == rhi[s:e, None]))
+        val = (count << 1) | ((lo >> meta.bits) & 1)
+        out[s:e] = torch.where(match, val, 0).sum(dim=1)
+    return out
+
+
 def tile_lookup(rows, meta, keys):
     """K10: the value word ``(count << 1) | qual`` of each canonical
     mer, 0 when absent."""
+    return _probe(rows, meta, *tile_key_parts(keys, meta))
+
+
+def routed_lookup(shards, meta, keys):
+    """K10 routed (tile_sharded.routed_lookup_local, HK3's shard entry):
+    the value word of each canonical mer in a table sharded by leading
+    row bits -- `shards`, shard s's plane of 2^local_rb rows on its own
+    device, under `meta` (TileShardedMeta) -- read in its owner's row;
+    0 when absent. Returns int64 on the keys' device."""
+    owner, row, rlo, rhi = shard_key_parts(keys, meta)
     out = torch.zeros(keys.shape[0], dtype=torch.int64, device=keys.device)
-    r3 = rows.view(-1, TSLOTS, 2)
-    for s in range(0, keys.shape[0], _LOOKUP_CHUNK):
-        addr, rlo, rhi = tile_key_parts(keys[s:s + _LOOKUP_CHUNK], meta)
-        g = r3[addr]
-        lo, hi = u32(g[..., 0]), u32(g[..., 1])
-        count = lo & meta.max_val
-        match = ((count != 0) & ((lo >> (meta.bits + 1)) == rlo[:, None])
-                 & (hi == rhi[:, None]))
-        val = (count << 1) | ((lo >> meta.bits) & 1)
-        out[s:s + _LOOKUP_CHUNK] = torch.where(match, val, 0).sum(dim=1)
+    for s, rows in enumerate(shards):
+        idx = torch.nonzero(owner == s).squeeze(1)
+        if idx.numel():
+            dev = rows.device
+            out[idx] = _probe(rows, meta, row[idx].to(dev), rlo[idx].to(dev),
+                              rhi[idx].to(dev)).to(keys.device)
     return out
+
+
+def lookup(table, meta, keys):
+    """The stage-2 probe on either table form: one plane (tile_lookup)
+    or a sequence of shard planes (routed_lookup)."""
+    if isinstance(table, torch.Tensor):
+        return tile_lookup(table, meta, keys)
+    return routed_lookup(table, meta, keys)
 
 
 # --------------------------------------------------------------- HK4
@@ -331,7 +363,8 @@ class _Logs:
 
 def _gba(rows, meta, f, r, d, active):
     """get_best_alternatives (mer_database.hpp:302-329): the 4 variant
-    counts of base 0 kept at the best quality level present. Returns
+    counts of base 0 kept at the best quality level present, in the
+    table `rows` (a plane, or shard planes: `lookup`). Returns
     (counts [N, 4], ucode, level, count)."""
     k = meta.k
     idx = torch.nonzero(active).squeeze(1)
@@ -342,7 +375,7 @@ def _gba(rows, meta, f, r, d, active):
             fv, rv = mer.dir_replace0(f[idx], r[idx], torch.full_like(
                 idx, v), d[idx], k)
             keys.append(mer.canonical(fv, rv))
-        vals[idx] = tile_lookup(rows, meta, torch.cat(keys)).view(4, -1).T
+        vals[idx] = lookup(rows, meta, torch.cat(keys)).view(4, -1).T
     cnt, q = vals >> 1, vals & 1
     level = torch.where(cnt > 0, q, 0).amax(dim=1)
     counts = torch.where((cnt > 0) & (q == level[:, None]), cnt, 0)
@@ -387,7 +420,9 @@ def extend_reads(rows, meta, codes, hqb, lengths, status0, start_off, anc_f,
     [B, L], start, end, lane status [2B] (status0 of both lanes, where
     the lane met no contaminant), (fwd n, lwin, pos, meta), (bwd n,
     lwin, pos, meta), overflow [1] = 1 where a log outgrew maxe
-    entries), all int32."""
+    entries), all int32. `rows` is one plane, or the shard planes of a
+    table sharded by leading row bits under its TileShardedMeta (HK4's
+    sharded-table entry; `lookup`)."""
     b, l = codes.shape
     dev = codes.device
     k = meta.k
@@ -589,13 +624,14 @@ def stage2_head(rows, meta, wire, b: int, length: int, thresholds,
     start_off int32, f, r, prev int32, status int32)); start_off is one
     past the first window whose run reaches `good` (1 where there is
     none), and a read that is not anchored gets position 0's mers and
-    value."""
+    value. `rows` is one plane, or shard planes under a TileShardedMeta
+    (HK5's sharded-table entry; `lookup`)."""
     k = meta.k
     _pc, _nm, _hq, lengths = mer.wire_parts(wire, b, length, thresholds)
     codes, hqb = widen_wire(wire, b, length, thresholds, qual_cutoff)
     f, r, validk = mer.rolling_kmers(codes, k)
     canon = mer.canonical(f, r)
-    vals = tile_lookup(rows, meta, canon.reshape(-1)).view(b, length)
+    vals = lookup(rows, meta, canon.reshape(-1)).view(b, length)
     p = torch.arange(length, device=codes.device)[None, :]
     vw = validk & (p >= skip + k - 1)
     val_hq = torch.where(vw & ((vals & 1) == 1), vals >> 1, 0)
@@ -679,12 +715,13 @@ def tile_compact(rows, meta, cap: int):
 # --------------------------------------------------------------- HK7
 
 
-def tile_load(payload, meta, n: int):
+def tile_load(payload, meta, n: int, nrows: int | None = None):
     """K9 + the statistics of K7: decode the payload's lo words and hi
     byte planes, scatter entry i of row a into slot rank-within-row of
-    a fresh row plane, and count (occupied, distinct_hq, total_hq) over
-    the entries. Returns (rows int32 [rows, 128], stats int64 [3])."""
-    nrows = meta.rows
+    a fresh row plane (meta's rows, or `nrows` for a row range of the
+    table), and count (occupied, distinct_hq, total_hq) over the
+    entries. Returns (rows int32 [nrows, 128], stats int64 [3])."""
+    nrows = meta.rows if nrows is None else nrows
     cnt = payload[:nrows].to(torch.int64)
     lo = payload[nrows:nrows + 4 * n].view(n, 4).to(torch.int64)
     lo = lo[:, 0] | (lo[:, 1] << 8) | (lo[:, 2] << 16) | (lo[:, 3] << 24)
@@ -973,16 +1010,17 @@ def bucket(owner, lanes, n_shards: int):
 
 
 def shard_route(wire, b: int, length: int, thresholds, qual_thresh: int,
-                meta):
+                meta, part: int = 0, n_parts: int = 1):
     """HK15: the batch's observations (widen, extract) as lanes
     (key << 1) | qual int64, bucketed by the shard that owns the mer's
     row under `meta` (observation order inside a bucket), and the
-    bucket sizes int64 [S]."""
-    codes, hqb = widen_wire(wire, b, length, thresholds, qual_thresh)
-    keys, qual, valid = extract_observations(codes, hqb, meta.k)
-    keys, qual = keys[valid], qual[valid].to(torch.int64)
+    bucket sizes int64 [S]. With n_parts > 1 (the partition entry) only
+    the observations whose mer pass `part` owns (partition_mask at
+    `meta`'s global geometry)."""
+    keys, qual = _owned_observations(wire, b, length, thresholds,
+                                     qual_thresh, meta, part, n_parts)
     owner = shard_key_parts(keys, meta)[0]
-    return bucket(owner, (keys << 1) | qual, meta.n_shards)
+    return bucket(owner, (keys << 1) | qual.to(torch.int64), meta.n_shards)
 
 
 def shard_route_lanes(lanes, meta):

@@ -131,25 +131,29 @@ def correct_batch_packed(state: TileState, meta: TileMeta, packed,
     return pack_batch(extend_batch(state, meta, packed, cfg, keep, contam))
 
 
-def extend_batch(state: TileState, meta: TileMeta, packed, cfg: ECConfig,
-                 keep: torch.Tensor, contam=None) -> Lanes:
-    """HK5 and HK4 on one packed batch, on the table's device."""
+def extend_batch(state, meta, packed, cfg: ECConfig, keep: torch.Tensor,
+                 contam=None) -> Lanes:
+    """HK5 and HK4 on one packed batch, on the keep table's device,
+    against `state`: one card's TileState (under a TileMeta), or a
+    ShardedTileState read in place (the routed layout, under its
+    RoutedTileMeta: HK5's and HK4's sharded-table entries)."""
     packed.require_plane(cfg.qual_cutoff)
     if contam is not None and contam[1].k != cfg.k:
         raise ValueError(
             f"Contaminant mer length ({contam[1].k}) different than "
             f"correction mer length ({cfg.k})")
+    rows = state.rows if isinstance(state, TileState) else state.shards
     ctab = None if contam is None else (contam[0].rows, contam[1])
     ckw = dict(contam=ctab, trim_contaminant=cfg.trim_contaminant)
-    wire = torch.from_numpy(packed.to_wire()).to(state.rows.device)
+    wire = torch.from_numpy(packed.to_wire()).to(keep.device)
     b, length = packed.n_reads, packed.length
     codes, hqb, lengths, anc = kernels.stage2_head(
-        state.rows, meta, wire, b, length, packed.thresholds,
+        rows, meta, wire, b, length, packed.thresholds,
         cfg.qual_cutoff, skip=cfg.skip, good=cfg.good,
         anchor_count=cfg.anchor_count, **ckw)
     anc = Anchors(*anc)
     out, start, end, lstatus, fwd, bwd, overflow = kernels.extend_reads(
-        state.rows, meta, codes, hqb, lengths, anc.status, anc.start_off,
+        rows, meta, codes, hqb, lengths, anc.status, anc.start_off,
         anc.f, anc.r, anc.prev, keep, window=cfg.effective_window,
         error=cfg.effective_error, min_count=cfg.min_count,
         cutoff=cfg.cutoff, maxe=log_capacity(length, cfg), **ckw)

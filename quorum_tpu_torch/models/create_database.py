@@ -32,7 +32,11 @@ _build_database_sharded without its checkpoints): each shard routes
 its row range of every batch to the owners of its mers (HK15), each
 owner counts what it receives (HK1's shard entry), a full row doubles
 every shard (HK8's shard entry), and HK2 seals each shard. The shards
-concatenate to the one-card table, so the payload is the same.
+concatenate to the one-card table, so the payload is the same. With
+--partitions P as well, every pass is such a sharded build of 1/P the
+rows through HK15's partition entry (quorum_tpu's
+_run_partition_pass_sharded); its sealed plane is gathered on the lead
+device, rebased (HK13) and exported as the pass's shard, as on one card.
 """
 
 from __future__ import annotations
@@ -197,9 +201,6 @@ def _check_config(cfg: BuildConfig) -> None:
         raise ValueError(
             "--prefilter composes with --devices 1 today; use "
             "--partitions for multi-pass capacity over a mesh")
-    if D > 1 and P > 1:
-        raise ValueError("--partitions with --devices N is not ported to "
-                         "quorum_tpu_torch yet")
 
 
 def _sketch_pass(factory, cfg: BuildConfig, device, stats: BuildStats):
@@ -325,13 +326,12 @@ def _build_sharded(cfg: BuildConfig, device: torch.device,
     return state, meta, stats
 
 
-def _partition_pass(factory, cfg: BuildConfig, device, stats: BuildStats,
-                    rb_local: int, p: int, sk, smeta) -> tuple:
-    """Pass `p` of a partitioned build at the local geometry rb_local:
-    insert the mers it owns (HK1, or HK11 behind the finished sketch),
-    seal (HK2) and rebase onto the global geometry (HK13). Counts reads,
-    bases and batches when stats.batches is still 0. Returns (the global
-    rows of this pass, occupied, distinct_hq, total_hq, singletons).
+def _pass_table(factory, cfg: BuildConfig, device, stats: BuildStats,
+                rb_local: int, p: int, sk, smeta):
+    """Pass `p` of a partitioned build on one device: insert the mers it
+    owns (HK1, or HK11 behind the finished sketch) into a table of
+    2^rb_local rows and seal it (HK2). Returns (the sealed TileState,
+    its TileMeta, (occupied, distinct_hq, total_hq, singletons)).
     Raises _PartitionGrew on a full row."""
     P = cfg.partitions
     lmeta = ctable.TileMeta(k=cfg.k, bits=cfg.bits, rb_log2=rb_local)
@@ -356,35 +356,76 @@ def _partition_pass(factory, cfg: BuildConfig, device, stats: BuildStats,
     del bstate
     if dup:
         raise RuntimeError("internal error: duplicate tag pair in a bucket")
-    state, bad = ctable.tile_departition_rows(state, lmeta, P.bit_length() - 1,
-                                              p)
-    if bad:
-        raise RuntimeError("internal error: partition pass counted a mer "
-                           "outside its bin")
-    return state.rows, occ, distinct, total, singles
+    return state, lmeta, (occ, distinct, total, singles)
+
+
+def _pass_table_sharded(factory, cfg: BuildConfig, mesh, stats: BuildStats,
+                        rb_local: int, p: int):
+    """Pass `p` of a partitioned build over the mesh (quorum_tpu's
+    _run_partition_pass_sharded): the sharded build of 2^rb_local global
+    rows with HK15's partition entry routing only the pass's mers, each
+    shard sealed (HK2), then gathered on the lead device (no copy where
+    the mesh names one device). Returns as _pass_table; a full row
+    raises _PartitionGrew."""
+    from ..parallel import tile_sharded as ts
+
+    S, P = cfg.devices, cfg.partitions
+    lmeta = ts.TileShardedMeta(k=cfg.k, bits=cfg.bits, rb_log2=rb_local,
+                               n_shards=S)
+    bstate = ts.make_build_state(lmeta, mesh)
+    count = stats.batches == 0
+    for batch, pk in factory():
+        if count:
+            stats.batches += 1
+            stats.reads += batch.n
+            stats.bases += int(batch.lengths.sum())
+        try:
+            bstate, lmeta, _g = ts.build_step_wire(
+                bstate, lmeta, mesh, pk, cfg.qual_thresh, p, P)
+        except ts.PassFull:
+            if rb_local >= 24 + lmeta.owner_bits:
+                raise RuntimeError("Hash is full") from None
+            raise _PartitionGrew(rb_local + 1) from None
+    state, seal = ts.finalize(bstate, lmeta, mesh)
+    del bstate
+    if int(seal[:, 0].sum()):
+        raise RuntimeError("internal error: duplicate tag pair in a bucket")
+    gstate, gmeta = ts.gather_table(state, lmeta)
+    del state
+    return gstate, gmeta, tuple(int(x) for x in seal[:, 1:].sum(0))
 
 
 def _build_partitioned(paths: Sequence[str], cfg: BuildConfig, output: str,
                        device: torch.device,
                        batches_factory: Callable[[], Iterable] | None,
-                       cmdline: list[str] | None) -> BuildStats:
+                       cmdline: list[str] | None,
+                       mesh: list | None = None) -> BuildStats:
     """The partitioned multi-pass build (quorum_tpu's
-    _build_database_partitioned at one device, without its checkpoint
-    cursor): P passes, each exported as shard p of the global geometry
-    as it finishes, then the sealed manifest at `output`. With two-pass
-    the sketch pass runs once and survives geometry restarts. Returns
-    the BuildStats; no table stays on the card."""
+    _build_database_partitioned, without its checkpoint cursor): P
+    passes, each rebased onto the global geometry (HK13) and exported
+    as shard p of it as it finishes, then the sealed manifest at
+    `output`. Each pass runs on one device or, with cfg.devices > 1,
+    over the mesh (`mesh`, by default the first cfg.devices devices of
+    `device`'s type). With two-pass the sketch pass runs once and
+    survives geometry restarts. Returns the BuildStats; no table stays
+    on the card."""
     _check_config(cfg)
     t0 = time.perf_counter()
-    P = cfg.partitions
+    P, S = cfg.partitions, cfg.devices
     g = P.bit_length() - 1
+    owner_bits = S.bit_length() - 1
     rb_req = ctable.tile_rb_for(cfg.initial_size, cfg.k, cfg.bits)
-    rb_local = min(24, max(rb_req - g, ctable.min_tile_rb_log2(cfg.k, cfg.bits),
-                           4))
+    rb_local = min(24 + owner_bits,
+                   max(rb_req - g, ctable.min_tile_rb_log2(cfg.k, cfg.bits),
+                       4 + owner_bits))
     stats = BuildStats(prefilter_mode=cfg.prefilter)
     if batches_factory is None:
         def batches_factory():
             return default_batches(paths, cfg)
+    if S > 1 and mesh is None:
+        from ..parallel import tile_sharded as ts
+
+        mesh = ts.make_mesh(S, device=device)
     sk = smeta = None
     if cfg.prefilter == "two-pass":
         sk, smeta = _sketch_pass(batches_factory, cfg, device, stats)
@@ -393,12 +434,24 @@ def _build_partitioned(paths: Sequence[str], cfg: BuildConfig, output: str,
         recs = []
         try:
             for p in range(P):
-                rows, occ, distinct, total, singles = _partition_pass(
-                    batches_factory, cfg, device, stats, rb_local, p, sk,
-                    smeta)
-                recs.append(db_format.write_db_shard_file(
-                    output, rows, gmeta, p, P, cmdline, cfg.db_version))
-                del rows
+                if S > 1:
+                    state, lmeta, (occ, distinct, total, singles) = \
+                        _pass_table_sharded(batches_factory, cfg, mesh,
+                                            stats, rb_local, p)
+                else:
+                    state, lmeta, (occ, distinct, total, singles) = \
+                        _pass_table(batches_factory, cfg, device, stats,
+                                    rb_local, p, sk, smeta)
+                with kernels.device_scope(state.rows.device):
+                    state, bad = ctable.tile_departition_rows(state, lmeta,
+                                                              g, p)
+                    if bad:
+                        raise RuntimeError("internal error: partition pass "
+                                           "counted a mer outside its bin")
+                    recs.append(db_format.write_db_shard_file(
+                        output, state.rows, gmeta, p, P, cmdline,
+                        cfg.db_version))
+                del state
                 stats.distinct += occ
                 stats.poisson_distinct_hq += distinct
                 stats.poisson_total_hq += total
@@ -450,7 +503,7 @@ def create_database_main(paths: Sequence[str], output: str, cfg: BuildConfig,
     device = resolve_device(cfg.device)
     if cfg.partitions > 1:
         stats = _build_partitioned(paths, cfg, output, device,
-                                   batches_factory, cmdline)
+                                   batches_factory, cmdline, mesh)
     else:
         state, meta, stats = build_database(paths, cfg, device,
                                             batches_factory, mesh)

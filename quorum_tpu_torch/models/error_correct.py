@@ -60,11 +60,9 @@ class ECOptions:
     # --contaminant: sequences or a mer database (io/contaminant)
     contaminant: str | None = None
     # --devices N: correct each batch's reads in N row ranges, one a
-    # device, against the table replicated on each (parallel/tile_sharded)
+    # device, against the table replicated on each or, past the
+    # replicated layout, row-sharded over them (parallel/tile_sharded)
     devices: int = 1
-    # the count came from --devices auto/all: a table the replicated
-    # layout cannot hold is corrected on one device instead (with a note)
-    devices_auto: bool = False
 
 
 def resolve_cutoff(opts: ECOptions, stats: tuple[int, int],
@@ -99,33 +97,36 @@ def run_error_correct(db_path: str, sequences: Sequence[str],
     in place. With opts.devices > 1 the batches are corrected over a
     mesh of that many devices (a --devices N build hands off its
     row-sharded table): `mesh`, or by default the first opts.devices
-    devices of opts.device's type. A row-sharded table corrected on one
-    device is gathered onto the lead shard's device first."""
+    devices of opts.device's type, in the layout
+    tile_sharded.ShardedCorrector picks; a file whose table takes the
+    routed layout loads row-sharded onto the mesh (one HK7 launch a
+    shard), any other onto the lead device. A row-sharded table
+    corrected on one device is gathered onto the lead shard's device
+    first."""
     from .. import resolve_device
     from ..parallel import tile_sharded as ts
 
     device = resolve_device(opts.device)
     devices = opts.devices
-    if devices > 1 and opts.batch_size % devices:
-        raise RuntimeError(
-            f"--batch-size {opts.batch_size} is not divisible by "
-            f"--devices {devices}; round it up")
+    if devices > 1:
+        if opts.batch_size % devices:
+            raise RuntimeError(
+                f"--batch-size {opts.batch_size} is not divisible by "
+                f"--devices {devices}; round it up")
+        if mesh is None:
+            mesh = ts.make_mesh(devices, device=device)
     if db is not None:
         # the header fields the build wrote into the file
         state, meta, bstats = db
         table_stats = (bstats.distinct_hq, bstats.total_hq)
         header = bstats.db_extra_header() or {}
     else:
+        rb = db_format.header_rb_log2(db_path)
+        on_mesh = devices > 1 and rb is not None and ts.routed_layout(rb)
         state, meta, header, (_occ, distinct, total) = db_format.load_db(
-            db_path, device=device, verify=opts.verify_db)
+            db_path, device=device, verify=opts.verify_db,
+            mesh=mesh if on_mesh else None)
         table_stats = (distinct, total)
-    if devices > 1 and opts.devices_auto:
-        why = ts.routed_reason(meta.rb_log2)
-        if why is not None:
-            print(f"quorum_error_correct_reads: {why}; --devices auto goes "
-                  f"on with one device instead of {devices}",
-                  file=sys.stderr)
-            devices = 1
     if devices == 1 and isinstance(state, ctable.ShardedTileState):
         state, meta = ts.gather_table(state, meta)
     cutoff = resolve_cutoff(opts, table_stats, header)
@@ -155,8 +156,6 @@ def run_error_correct(db_path: str, sequences: Sequence[str],
         contam = contaminant_mod.load_contaminant(opts.contaminant, cfg.k,
                                                   device)
     if devices > 1:
-        if mesh is None:
-            mesh = ts.make_mesh(devices, device=device)
         correct = ts.ShardedCorrector(mesh, state, meta, cfg, contam)
     else:
         mesh = [device]

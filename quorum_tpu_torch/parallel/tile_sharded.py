@@ -1,6 +1,6 @@
 """Stage 1 and stage 2 over several devices (`--devices N`) on the tile
 table sharded by leading row bits (counterpart of
-quorum_tpu/parallel/tile_sharded.py, in its replicated stage-2 layout).
+quorum_tpu/parallel/tile_sharded.py, both stage-2 layouts).
 
 Layout: the GLOBAL table has 2^rb_log2 rows addressed by the Feistel-
 mixed key; shard s of the mesh owns rows [s * 2^local_rb, (s + 1) *
@@ -23,14 +23,25 @@ mesh does; the shards then share that device's memory and its stream.
   every shard then doubles (grow: HK8's shard entry buckets each live
   slot by its new shard, the buckets cross, its place pass claims
   them) and the pending lanes route again under the doubled geometry,
-  so every observation counts exactly once. HK2 seals each shard.
-* Stage 2 (ShardedCorrector): the table replicated once on each
-  distinct device of the mesh; each batch's reads split into N equal
-  row ranges, HK5 and HK4 correct each range on its shard's device,
-  and one HK14 packs the global result on the lead device, so the
-  host's finish and render are those of one card. A table past
-  replicate_cap_bytes() or past rb_log2 24 needs JAX's routed layout,
-  which is not ported yet: it raises.
+  so every observation counts exactly once. HK2 seals each shard. A
+  pass of the partitioned build (--partitions P) routes through HK15's
+  partition entry (only the pass's mers) and cannot grow: a full row
+  raises PassFull, and the build restarts at the next geometry.
+* Stage 2 (ShardedCorrector), in the layout JAX's picks: each batch's
+  reads split into N equal row ranges, HK5 and HK4 correct each range
+  on its shard's device, and one HK14 packs the global result on the
+  lead device, so the host's finish and render are those of one card.
+  - replicated (a table of at most replicate_cap_bytes() and 2^24
+    rows): the table once on each distinct device of the mesh;
+  - routed (past either): the table stays row-sharded, shard s on
+    mesh[s], and HK5's and HK4's sharded-table entries read every
+    probe's row in its owner's plane, over NVLink where it lies on
+    another card (peer access). JAX routes each lookup through two
+    all_to_all exchanges inside a lockstep loop; a card's lanes here
+    walk their extensions alone, so the table is read in place and
+    the answers are routed_lookup_local's. The contaminant set is
+    replicated, as JAX's is. A mesh of cards without peer access
+    between them cannot take this layout (peer_reason).
 
 torch.distributed is not used: NCCL takes one process per card and
 refuses two ranks on one card, and the exchange here is between
@@ -236,23 +247,32 @@ def _insert(bstate: ShardedBuildState, meta: TileShardedMeta, mesh,
     return pending
 
 
+class PassFull(Exception):
+    """A pass of a partitioned build met a full row: growing inside the
+    pass would move the partition bits, so the build restarts every
+    pass at the next geometry (JAX's _PartitionGrew)."""
+
+
 def build_step_wire(bstate: ShardedBuildState, meta: TileShardedMeta, mesh,
-                    pk: packing.PackedReads, qual_thresh: int):
+                    pk: packing.PackedReads, qual_thresh: int,
+                    part: int = 0, n_parts: int = 1):
     """Count one packed batch into the sharded build table (JAX's
     build_step_wire and its caller's grow loop): each shard routes its
     row range of the batch (HK15), the buckets cross to their owners,
     each owner counts them (HK1's shard entry); lanes that found no room
     re-route after a doubling of every shard (grow), as often as needed.
-    Each step is launched on every shard before the host waits on any:
-    the waits are HK15's bucket counts and the unplaced lanes' sizes.
-    Returns (bstate, meta, grows)."""
+    With n_parts > 1 (pass `part` of a partitioned build) HK15's
+    partition entry routes only the pass's mers, and a full row raises
+    PassFull instead of growing. Each step is launched on every shard
+    before the host waits on any: the waits are HK15's bucket counts and
+    the unplaced lanes' sizes. Returns (bstate, meta, grows)."""
     pk.require_plane(qual_thresh)
     subs = packing.split_rows(pk, meta.n_shards)
     wires = [torch.from_numpy(sub.to_wire()).to(mesh[s])
              for s, sub in enumerate(subs)]
     sent = kernels.shard_route(
         [(w, sub.n_reads, sub.length, sub.thresholds)
-         for w, sub in zip(wires, subs)], qual_thresh, meta)
+         for w, sub in zip(wires, subs)], qual_thresh, meta, part, n_parts)
     del wires
     grows = 0
     while True:
@@ -262,6 +282,8 @@ def build_step_wire(bstate: ShardedBuildState, meta: TileShardedMeta, mesh,
         del recv
         if not any(p.numel() for p in pending):
             return bstate, meta, grows
+        if n_parts > 1:
+            raise PassFull
         if grows >= MAX_GROWS:
             raise RuntimeError("Hash is full")
         print(f"Hash table full at {meta.rows} buckets; doubling",
@@ -371,9 +393,29 @@ def replicate_table(state, mesh) -> list:
     return [copies[d] for d in mesh]
 
 
+def row_shards(state, meta: TileShardedMeta, mesh) -> ShardedTileState:
+    """The sealed table row-sharded over the mesh: shard s, the global
+    rows [s * 2^local_rb, (s + 1) * 2^local_rb), on mesh[s]. A sharded
+    build's or a mesh load's own shards are used as they are; one
+    plane (a stand-alone stage 2 from one file, or shards that are row
+    ranges of one plane) splits into views where the mesh names its
+    device and copies elsewhere."""
+    if isinstance(state, ShardedTileState) and len(state.shards) == len(mesh) \
+            and all(r.device == d for r, d in zip(state.shards, mesh)):
+        return state
+    plane = state.rows if isinstance(state, TileState) else state.whole
+    if plane is None:
+        raise ValueError("a table sharded over another mesh")
+    per = 1 << meta.local_rb
+    shards = tuple(plane[s * per:(s + 1) * per].to(d)
+                   for s, d in enumerate(mesh))
+    same = all(r.device == plane.device for r in shards)
+    return ShardedTileState(shards, plane if same else None)
+
+
 def replicate_cap_bytes() -> int:
     """Stage-2 layout threshold: tables at or under this many bytes are
-    replicated per device; bigger ones need the routed layout.
+    replicated per device; bigger ones take the routed layout.
     QUORUM_REPLICATE_TABLE_BYTES (k/M/G/T suffixes, decimal), as the
     JAX package reads it; default 4 GiB."""
     raw = os.environ.get("QUORUM_REPLICATE_TABLE_BYTES")
@@ -390,66 +432,125 @@ def table_bytes(rb_log2: int) -> int:
     return (1 << rb_log2) * ctable.TILE * 4
 
 
-def routed_reason(rb_log2: int, cap: int | None = None) -> str | None:
-    """Why a table of 2^rb_log2 rows cannot take the replicated stage-2
-    layout (past rb_log2 24, or over `cap`, by default
-    replicate_cap_bytes()); None where it can."""
+def routed_layout(rb_log2: int, cap: int | None = None) -> bool:
+    """Whether stage 2 over a mesh keeps a table of 2^rb_log2 rows
+    row-sharded (JAX's ShardedCorrector rule: past the one-card geometry
+    of 2^24 rows, or over `cap` bytes, by default
+    replicate_cap_bytes())."""
     cap = replicate_cap_bytes() if cap is None else cap
-    nbytes = table_bytes(rb_log2)
-    if rb_log2 <= 24 and nbytes <= cap:
-        return None
-    return (f"the table ({nbytes} bytes, rb_log2 {rb_log2}) exceeds the "
-            f"replicated stage-2 layout (at most {cap} bytes, "
-            "QUORUM_REPLICATE_TABLE_BYTES, and rb_log2 24): it needs the "
-            "routed stage-2 layout, which is not ported to "
-            "quorum_tpu_torch yet")
+    return rb_log2 > 24 or table_bytes(rb_log2) > cap
 
 
-def correct_step_wire(mesh, rows: list, tmeta: TileMeta,
-                      pk: packing.PackedReads, cfg, keeps: list,
-                      contams: list):
-    """One stage-2 batch over the mesh (JAX's correct_step_wire with
-    tmeta=): shard s corrects its row range of the batch (HK5, HK4) on
-    mesh[s] against rows[s]; the lanes gather on the lead device and
-    one HK14 packs the global result, so the finish buffer, and the
-    bytes rendered from it, are one card's."""
+def peer_reason(mesh) -> str | None:
+    """Why the routed layout cannot run on this mesh (a pair of its
+    distinct CUDA devices without peer access: every probe reads its
+    row in place), or None. Asks torch.cuda.can_device_access_peer
+    only; nothing is allocated."""
+    cards = [d for d in distinct(mesh) if d.type == "cuda"]
+    for a in cards:
+        for b in cards:
+            if a != b and not torch.cuda.can_device_access_peer(a, b):
+                return (f"the routed stage-2 layout reads every shard of "
+                        f"the table in place and needs peer access between "
+                        f"the mesh's cards, which {a} -> {b} lacks")
+    return None
+
+
+@dataclasses.dataclass(frozen=True)
+class RoutedTileMeta(TileShardedMeta):
+    """The geometry of a table corrected in the routed layout (JAX's
+    marker subclass of the same name): corrector probes read each row
+    in its owner's plane (the sharded-table entries of HK3, HK4, HK5)."""
+
+
+def routed_lookup(state: ShardedTileState, meta: TileShardedMeta,
+                  keys: torch.Tensor) -> torch.Tensor:
+    """K10 routed (JAX's routed_lookup_local): the value word of each
+    canonical int64 mer, the (count << 1) | qual of its owner shard's
+    row, 0 when absent; HK3's shard entry on the keys' device."""
+    return kernels.tile_lookup(state.shards, meta, keys)
+
+
+def query_step(mesh, meta: TileShardedMeta):
+    """f(state, keys) -> values (JAX's query_step): the queries split in
+    equal row ranges over the mesh, each range answered on its shard's
+    device through routed_lookup against the row-sharded table, the
+    answers gathered in order on the keys' device."""
+
+    def step(state: ShardedTileState, keys: torch.Tensor) -> torch.Tensor:
+        n = keys.shape[0]
+        if n % len(mesh):
+            raise ValueError(f"{n} queries do not split over {len(mesh)} "
+                             "shards")
+        per = n // len(mesh)
+        out = []
+        for s, dev in enumerate(mesh):
+            with device_scope(dev):
+                out.append(routed_lookup(state, meta,
+                                         keys[s * per:(s + 1) * per].to(dev)))
+        return torch.cat([o.to(keys.device) for o in out])
+
+    return step
+
+
+def correct_step_wire(mesh, rows, meta, pk: packing.PackedReads, cfg,
+                      keeps: list, contams: list):
+    """One stage-2 batch over the mesh (JAX's correct_step_wire): shard
+    s corrects its row range of the batch (HK5, HK4) on mesh[s] against
+    the table, which is `rows[s]`, the replicated plane on mesh[s] under
+    a TileMeta, or, under a RoutedTileMeta, `rows` itself, the
+    ShardedTileState every shard reads in place; the lanes gather on the
+    lead device and one HK14 packs the global result, so the finish
+    buffer, and the bytes rendered from it, are one card's."""
     from ..models import corrector
 
+    routed = isinstance(meta, RoutedTileMeta)
     parts = []
     for s, sub in enumerate(packing.split_rows(pk, len(mesh))):
+        table = rows if routed else TileState(rows[s])
         with device_scope(mesh[s]):
             parts.append(corrector.extend_batch(
-                TileState(rows[s]), tmeta, sub, cfg, keeps[s], contams[s]))
+                table, meta, sub, cfg, keeps[s], contams[s]))
     with device_scope(mesh[0]):
         return corrector.pack_batch(corrector.merge_lanes(parts, mesh[0]))
 
 
 class ShardedCorrector:
-    """Stage 2 over a local mesh in the replicated layout: the table
-    (a ShardedTileState or one card's TileState) once on each distinct
-    device, then `(pk) -> BatchResult` per batch, a drop-in for
-    corrector.correct_batch_packed. Where JAX would pick its routed
-    layout (rb_log2 > 24, or a table over replicate_cap_bytes()), this
-    raises: that layout is not ported yet."""
+    """Stage 2 over a local mesh (JAX's ShardedCorrector): the layout as
+    JAX picks it (routed_layout), the table (a ShardedTileState or one
+    card's TileState) placed once, then `(pk) -> BatchResult` per batch,
+    a drop-in for corrector.correct_batch_packed. The routed layout
+    raises where the mesh's cards lack peer access (peer_reason)."""
 
     def __init__(self, mesh, state, meta, cfg, contam=None,
                  replicate_max_bytes: int | None = None):
         from ..models.corrector import make_keep_table
 
         self.mesh, self.cfg = list(mesh), cfg
-        why = routed_reason(meta.rb_log2, replicate_max_bytes)
-        if why is not None:
-            raise RuntimeError(why)
-        self.tmeta = TileMeta(k=meta.k, bits=meta.bits, rb_log2=meta.rb_log2)
-        self.rows = replicate_table(state, self.mesh)
+        k, bits, rb = meta.k, meta.bits, meta.rb_log2
+        self.routed = routed_layout(rb, replicate_max_bytes)
+        if self.routed:
+            why = peer_reason(self.mesh)
+            if why is not None:
+                raise RuntimeError(why)
+            self.meta = RoutedTileMeta(k=k, bits=bits, rb_log2=rb,
+                                       n_shards=len(self.mesh))
+            self.rows = row_shards(state, self.meta, self.mesh)
+        else:
+            self.meta = TileMeta(k=k, bits=bits, rb_log2=rb)
+            self.rows = replicate_table(state, self.mesh)
         keep, ctab = {}, {}
         for dev in distinct(self.mesh):
-            keep[dev] = make_keep_table(self.tmeta, cfg, dev)
+            keep[dev] = make_keep_table(self.meta, cfg, dev)
             ctab[dev] = (None if contam is None else
                          (TileState(contam[0].rows.to(dev)), contam[1]))
         self.keeps = [keep[d] for d in self.mesh]
         self.contams = [ctab[d] for d in self.mesh]
 
+    @property
+    def layout(self) -> str:
+        return "routed" if self.routed else "replicated"
+
     def __call__(self, pk: packing.PackedReads):
-        return correct_step_wire(self.mesh, self.rows, self.tmeta, pk,
+        return correct_step_wire(self.mesh, self.rows, self.meta, pk,
                                  self.cfg, self.keeps, self.contams)

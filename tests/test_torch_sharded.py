@@ -40,6 +40,20 @@ QT = 53
 CPU = torch.device("cpu")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions run many small torch ops; under the suite's
+    parallel workers, torch's intra-op threads only contend for the
+    cores (a golden driver run: about 3 s in a process of its own,
+    100-150 s beside five other loaded xdist workers on 8 cores with
+    the default thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+
 def _reads(rng, n_reads, genome_size=600, err=0.03):
     """tests/test_tile_sharded.py's generator."""
     genome = rng.integers(0, 4, size=genome_size, dtype=np.int8)
@@ -322,9 +336,19 @@ def test_replicated_table_is_one_copy_per_device():
 
 
 def test_routed_layout_is_refused():
+    """No longer refused: over replicate_max_bytes ShardedCorrector takes
+    the routed layout (the table row-sharded, read in place by HK5's and
+    HK4's sharded-table entries) and gives the one-card result."""
     codes, quals = _reads(np.random.default_rng(4), 16)
     state, meta, _seal, _g, _b = _port_sharded_build(codes, quals, 2, 8)
-    with pytest.raises(RuntimeError, match="routed stage-2 layout"):
-        tts.ShardedCorrector(tts.make_mesh(2, device="cpu"), state, meta,
-                             TECConfig(k=K, cutoff=2),
-                             replicate_max_bytes=1000)
+    cfg = TECConfig(k=K, cutoff=2)
+    corr = tts.ShardedCorrector(tts.make_mesh(2, device="cpu"), state, meta,
+                                cfg, replicate_max_bytes=1000)
+    assert corr.layout == "routed" and corr.rows is state
+    pk = tpacking.pack_reads(codes, quals,
+                             np.full(codes.shape[0], RLEN, np.int32),
+                             thresholds=(cfg.qual_cutoff,))
+    (rows,), tmeta = tts.gather_table(state, meta)
+    one = tcorr.correct_batch_packed(tct.TileState(rows), tmeta, pk, cfg,
+                                     tcorr.make_keep_table(tmeta, cfg, CPU))
+    assert torch.equal(corr(pk).packed, one.packed)

@@ -2,9 +2,11 @@
 mesh that names the CPU N times, the kernels' plain versions): the
 quorum driver at --devices 4 reproduces the golden fixtures and the JAX
 driver's --devices 4 run (bytes and database payload), each package
-loads the other's 4-shard manifest, and the refusals carry the JAX
-package's messages and exit codes. Inputs: the golden reads (k = 13).
-Exact comparisons throughout."""
+loads the other's 4-shard manifest, --partitions and the routed
+stage-2 layout run over the mesh, and the refusals carry the JAX
+package's messages and exit codes (the routed layout's on cards without
+peer access: tests/test_torch_routed_cli.py). Inputs: the golden reads
+(k = 13). Exact comparisons throughout."""
 
 import conftest  # noqa: F401  (pins JAX to CPU devices)
 
@@ -29,6 +31,20 @@ GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 READS = os.path.join(GOLDEN, "reads.fastq")
 CDB = ["-s", "64k", "-m", "13", "-b", "7", "-q", "38"]
 CPU = ["--device", "cpu"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions run many small torch ops; under the suite's
+    parallel workers, torch's intra-op threads only contend for the
+    cores (a golden driver run: about 3 s in a process of its own,
+    100-150 s beside five other loaded xdist workers on 8 cores with
+    the default thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 
 def golden_output(prefix):
@@ -115,85 +131,87 @@ ASK = max(2, CARDS + 1)  # more CUDA devices than the host has
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["--devices", "2", "--partitions", "4"] + CPU,
-     "--partitions with --devices N is not ported to quorum_tpu_torch yet"),
+    # --partitions over the mesh runs (msg None: the golden bytes)
+    (["--devices", "2", "--partitions", "4"] + CPU, None),
     (["--devices", str(ASK), "--device", "cuda"],
      f"--devices {ASK} but only {CARDS} local device(s) present"),
 ])
 def test_driver_refuses(tmp_path, capsys, argv, msg):
     out = str(tmp_path / "out")
-    assert tquorum.main(["-s", "64k", "-k", "13", "-p", out] + argv
-                        + [READS]) == 1
+    rc = tquorum.main(["-s", "64k", "-k", "13", "-p", out] + argv + [READS])
+    if msg is None:
+        assert rc == 0 and golden_output(out)
+        return
+    assert rc == 1
     assert msg in capsys.readouterr().err
     assert not os.path.exists(out + ".fa")
 
 
 def test_routed_layout_is_refused(drivers, tmp_path, capsys, monkeypatch):
+    """No longer refused: a table over the replicate cap takes the
+    routed layout (row-sharded, loaded onto the mesh) and corrects to
+    the golden bytes."""
     monkeypatch.setenv("QUORUM_REPLICATE_TABLE_BYTES", "1k")
     out = str(tmp_path / "ec")
     assert tec_cli.main(CPU + ["--devices", "2", "-o", out,
                                str(drivers / "port_mer_database.jf"),
-                               READS]) == 1
-    assert ("needs the routed stage-2 layout, which is not ported to "
-            "quorum_tpu_torch yet") in capsys.readouterr().err
-    assert not os.path.exists(out + ".fa")
+                               READS]) == 0
+    assert "goes on with one device" not in capsys.readouterr().err
+    assert golden_output(out)
 
 
 # ------------------------------------------------ --devices auto
 
 
-def two_cards(monkeypatch):
-    """A host that reports two CUDA devices, where "cuda" resolves to the
-    CPU: the CLIs' --devices policy sees two cards while the work runs
-    through the kernels' plain versions."""
+def two_cards(monkeypatch, peers=True):
+    """A host that reports two CUDA devices, with or without peer access
+    between them, where "cuda" resolves to the CPU: the CLIs' --devices
+    policy sees two cards while the work runs through the kernels' plain
+    versions."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "can_device_access_peer",
+                        lambda a, b: peers)
     for mod in (quorum_tpu_torch, tquorum, tcdb_cli, tec_cli):
         monkeypatch.setattr(mod, "resolve_device",
                             lambda name="cuda": torch.device("cpu"))
 
 
-@pytest.mark.parametrize("argv,cap,why", [
-    (["-s", "64k", "--partitions", "4"], None,
-     tcdb_cli.PARTITIONS_ON_ONE),
+ONE = "--devices auto goes on with one device instead of 2"
+
+
+@pytest.mark.parametrize("argv,cap", [
+    (["-s", "64k", "--partitions", "4"], None),
     # the table at -s 64k is over the cap before stage 1
-    (["-s", "64k"], "1k", "needs the routed stage-2 layout"),
+    (["-s", "64k"], "1k"),
     # 2^5 global rows at -s 100 fit the cap; the build grows past it
-    (["-s", "100"], str(tts.table_bytes(5)),
-     "needs the routed stage-2 layout"),
+    (["-s", "100"], str(tts.table_bytes(5))),
 ])
 def test_driver_auto_devices_fall_back_to_one(tmp_path, capsys, monkeypatch,
-                                              argv, cap, why):
-    """With the default --devices (auto) on a two-card host, a run the
-    sharded path does not take yet goes on with one device, with a
-    note, and gives the golden bytes; an explicit --devices 2 is
-    refused with the same reason, before stage 1 where it can be."""
+                                              argv, cap):
+    """With the default --devices (auto) on a two-card host with peer
+    access, --partitions and a table past the replicated layout's cap
+    (from the start, or grown past it) run over both devices and give
+    the golden bytes; nothing falls back to one device any more (no
+    note). An explicit --devices 2 takes the same path
+    (test_driver_refuses, test_routed_layout_is_refused)."""
     two_cards(monkeypatch)
     if cap is not None:
         monkeypatch.setenv("QUORUM_REPLICATE_TABLE_BYTES", cap)
     out = str(tmp_path / "auto")
     assert tquorum.main(argv + ["-k", "13", "-p", out, READS]) == 0
-    err = capsys.readouterr().err
-    assert why in err
-    assert "--devices auto goes on with one device instead of 2" in err
+    assert ONE not in capsys.readouterr().err
     assert golden_output(out)
-    out = str(tmp_path / "explicit")
-    assert tquorum.main(argv + ["-k", "13", "--devices", "2", "-p", out,
-                                READS]) == 1
-    assert why in capsys.readouterr().err
-    assert not os.path.exists(out + ".fa")
 
 
 def test_stage2_auto_devices_fall_back_to_one(drivers, tmp_path, capsys,
                                               monkeypatch):
     """quorum_error_correct_reads with the default --devices on a
-    two-card host corrects a table over the replicated layout's cap on
-    one device, with a note."""
+    two-card host with peer access corrects a table over the replicated
+    layout's cap over both devices, in the routed layout (no note)."""
     two_cards(monkeypatch)
     monkeypatch.setenv("QUORUM_REPLICATE_TABLE_BYTES", "1k")
     out = str(tmp_path / "ec")
     assert tec_cli.main(["-o", out, str(drivers / "port_mer_database.jf"),
                          READS]) == 0
-    assert ("needs the routed stage-2 layout, which is not ported to "
-            "quorum_tpu_torch yet; --devices auto goes on with one device "
-            "instead of 2") in capsys.readouterr().err
+    assert ONE not in capsys.readouterr().err
     assert golden_output(out)
