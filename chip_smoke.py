@@ -3,15 +3,17 @@
 
     python3 chip_smoke.py          # from the root of a checkout
 
-Phases, each printing one JSON line:
-  build    compile the fifteen CUDA kernels (and their entries) from csrc/
-           with nvcc (sm_90a)
+Every stage 2 below runs the corrector's default, event mode (HK5,
+HK16, HK17, HK4's event entry, HK14), but the event phase's plain-mode
+run. Phases, each printing one JSON line:
+  build    compile the seventeen CUDA kernels (and their entries) from
+           csrc/ with nvcc (sm_90a)
   kernels  hold each kernel against its plain PyTorch version on the
            card, at the main path's shapes (8192 x 160 batches, a
-           2^22-row table), plus a small table that grows; HK5's and
-           HK4's contaminant entries (kill and trim) and HK14 on their
-           output with a contaminant set of the adapters and a 2 kbp
-           segment of that batch's genome
+           2^22-row table), plus a small table that grows; HK5's, HK16's
+           and HK4's (plain and event) contaminant entries (kill and
+           trim) and HK14 on their output with a contaminant set of the
+           adapters and a 2 kbp segment of that batch's genome
   golden   the stage CLIs reproduce tests/golden/expected*.fa/.log with
            --device cuda; the quorum driver's --device cuda output, and
            its --partitions 4 --device cuda output, are byte-equal to
@@ -87,6 +89,20 @@ Phases, each printing one JSON line:
            same three modes on that table taken as four shards (also
            held against the plane entries), and HK12 flooring the table
            at 2, each held against its plain version and timed there
+  event    HK16 (both passes), HK17 and HK4's event entry, and HK16's
+           and HK4's event sharded-table entries (the table as four
+           shards, devices_routed_cap's layout), in the three
+           contaminant modes on the table phase's batch and table, held
+           against their plain versions and timed, and held on the
+           golden reads with Ns (where event mode departs from the plain
+           walk on some read); then the full cell's stage 2 from its
+           database in event mode and in plain mode (event_driven=False)
+           in the order event, plain, plain, event: device step, host
+           time, kernel time and launches of each; event mode's
+           .fa/.log equal the full run's, each mode's second run its
+           first run's, and each mode's first 2,048 reads equal a
+           --device cpu run of that mode on them; launch counts reset
+           before and read after each run
   devices  --devices 4 on a mesh of four entries over the host's cards
            (all naming the card on a one-card host), fed the full run's
            packed batches: quorum_create_database's sharded build at the
@@ -125,10 +141,12 @@ Phases, each printing one JSON line:
            values for them
 Then one {"kernels": [...]} line (launches from the full, two_binary,
 the four prefilter, the three partitioned, the two contaminant, the
-devices runs and the routed and partitioned mesh runs, times and bounds
-from the kernels, loaded, table and devices phases; HK5's and HK4's
-sharded-table entries from the table phase, on its table as four
-shards), the card's name and power limit from nvidia-smi, and {"ok":
+devices runs, the routed and partitioned mesh runs and the event
+phase's two runs, times and bounds from the kernels, loaded, table,
+event and devices phases; HK5's and HK4's sharded-table entries from
+the table phase, on its table as four shards; HK4's plain sharded-table
+entry has no default-path caller since event mode is the default), the
+card's name and power limit from nvidia-smi, and {"ok":
 true, "device": {...}} as the last line.
 Exits non-zero, with no result line, when CUDA is unavailable, outside
 a checkout, or when any phase fails. Imports nothing of JAX.
@@ -206,11 +224,26 @@ SOURCES = {  # kernel -> (source in the repo, TPU program it replaces)
                            "quorum_tpu/parallel/tile_sharded.py:909"),
     "shard_route_part": ("quorum_tpu_torch/kernels/csrc/shard_route.cu",
                          "quorum_tpu/parallel/tile_sharded.py:421"),
+    # the event-mode stage 2 (the default): HK16, HK17, HK4's event entry,
+    # and HK16's and HK4's event sharded-table entries (the routed layout)
+    "event_planes": ("quorum_tpu_torch/kernels/csrc/event_planes.cu",
+                     "quorum_tpu/models/corrector.py:1324"),
+    "event_scan": ("quorum_tpu_torch/kernels/csrc/event_scan.cu",
+                   "quorum_tpu/models/corrector.py:1670"),
+    "extend_reads_event": ("quorum_tpu_torch/kernels/csrc/extend_reads.cu",
+                           "quorum_tpu/models/corrector.py:549"),
+    "event_planes_shard": ("quorum_tpu_torch/kernels/csrc/event_planes.cu",
+                           "quorum_tpu/parallel/tile_sharded.py:951"),
+    "extend_reads_event_shard": (
+        "quorum_tpu_torch/kernels/csrc/extend_reads.cu",
+        "quorum_tpu/parallel/tile_sharded.py:951"),
 }
 # the kernels each main-path run must launch (HK3's probe runs inside
-# HK5 and HK4; the query CLI is its caller); every stage 2 ends a batch
-# with HK14
-S2 = ("stage2_head", "extend_reads", "pack_finish")
+# HK5, HK16 and HK4; the query CLI is its caller); every stage 2 runs
+# event mode (HK5, HK16, HK17, HK4's event entry) and ends a batch with
+# HK14
+S2 = ("stage2_head", "event_planes", "event_scan", "extend_reads_event",
+      "pack_finish")
 PATH_KERNELS = {
     "full": ("tile_insert", "tile_seal", "tile_export", *S2),
     "two_binary": ("tile_insert", "tile_grow", "tile_seal", "tile_export",
@@ -253,7 +286,8 @@ PATH_KERNELS.update({
 # handoff and the routed query; its stage 2 from the manifest (HK7 a
 # shard); the devices table's stage 2 under a forced replicate cap; and
 # --partitions 4 over the mesh (stage 1)
-S2_SHARD = ("stage2_head_shard", "extend_reads_shard", "pack_finish")
+S2_SHARD = ("stage2_head_shard", "event_planes_shard", "event_scan",
+            "extend_reads_event_shard", "pack_finish")
 PATH_KERNELS.update({
     "devices_routed": ("shard_route", "tile_insert_shard", "tile_seal",
                        "tile_export", "tile_lookup_shard", *S2_SHARD),
@@ -261,6 +295,13 @@ PATH_KERNELS.update({
     "devices_routed_cap": S2_SHARD,
     "devices_partitions": ("shard_route_part", "tile_insert_shard",
                            "tile_seal", "tile_departition", "tile_export"),
+})
+# the event phase: the full cell's stage 2 from its database in event
+# mode and in plain mode (event_driven=False: HK4's plain entry)
+PATH_KERNELS.update({
+    "event": ("tile_load", *S2),
+    "event_plain": ("tile_load", "stage2_head", "extend_reads",
+                    "pack_finish"),
 })
 # the sharded build's device time by step (CUDA events, STATS.timing):
 # the step's name -> the counter or span its events are kept under
@@ -270,6 +311,8 @@ SPLIT = {"route": "shard_route", "exchange": "exchange",
 PARTS = 4  # --partitions in the partitioned runs
 # the contaminant phase's genome segment: a 5,000 bp spike-in
 SEGMENT = (1_000_000, 1_005_000)
+# the event phase's --device cpu check: the first reads of the full run
+CPU_READS = 2048
 
 
 class SmokeFailure(Exception):
@@ -677,6 +720,8 @@ def phase_kernels(card: str) -> dict:
     contam = load_contaminant(fa)
     out.update(stage2_kernels(ctable.TileState(rows_k), meta, c4, q, l4,
                               reps=0, contam=contam))
+    out.update(event_kernels(ctable.TileState(rows_k), meta, c4, q, l4,
+                             reps=0, contam=contam, shards=False)[0])
     emit({"kernels": [{"name": nm, "equal": bool(v["equal"]), "n": v["n"]}
                       for nm, v in out.items()], "card": card})
     return out
@@ -1791,6 +1836,10 @@ def phase_table(card: str, full: dict, contam: dict) -> dict:
           "plain version")
     row_bytes = meta.rows * 512
     export_parts: dict = {}
+    # K22 as one PyTorch call: boolean-mask indexing of the slot pairs
+    # (the occupancy mask made beforehand, outside the timing)
+    slots = rows.view(-1, 2)
+    occupied = (slots[:, 0] & meta.max_val) != 0
     out = {
         "tile_load": dict(
             equal=load_equal, n=n,
@@ -1811,8 +1860,10 @@ def phase_table(card: str, full: dict, contam: dict) -> dict:
                              "tile_export", 5),
                 plain_ms=event_ms(lambda: ref.tile_compact(rows, meta, n),
                                   2),
+                library_ms=event_ms(lambda: slots[occupied], 5),
                 bound_bytes=row_bytes + 12 * n)),
     }
+    del slots, occupied
     codes, quals = full["codes"], full["quals"]
     touched = contam["touched"]
     nb = -(-codes.shape[0] // BATCH)
@@ -2152,11 +2203,19 @@ def prefilter_kernels(card: str, full: dict, loaded, meta, timed: int) -> dict:
     check(agg_equal, "batch_aggregate differs from its plain version")
     n_obs, n_lanes, slots = (int((phq + plq).sum()), int(live.sum()),
                              keys.numel())
+    # K3 as one PyTorch call: torch.unique with counts over the batch's
+    # observation words (key << 1) | qual, extracted beforehand
+    okeys, oq, ovalid = ref.extract_observations(
+        *ref.widen_wire(*wargs), K)
+    words = (okeys[ovalid] << 1) | oq[ovalid].to(torch.int64)
     agg = dict(equal=agg_equal, n=n_obs,
                ms=kernel_ms(lambda: kernels.batch_aggregate(*wargs, K),
                             "batch_aggregate", 5),
                plain_ms=event_ms(lambda: ref.batch_aggregate(*wargs, K), 2),
+               library_ms=event_ms(lambda: torch.unique(
+                   words, return_counts=True), 5),
                bound_bytes=wire.numel() + 16 * n_lanes)
+    del okeys, oq, ovalid, words
     # the distinct 32-byte cell sectors the batch's mers reach (HK10, HK11)
     cell_sectors = torch.unique(torch.cat(ref.sketch_addrs(pkeys, cl))
                                 >> 5).numel()
@@ -3046,7 +3105,7 @@ def routed_cap_run(card: str, full: dict, db, mesh, rep, rep_kms: dict,
     res = dict(same_fa_log=same_fa_log(prefix, full["prefix"]),
                same_as_replicated=same_fa_log(
                    prefix, os.path.join(WORK, "devices")),
-               no_replicated_probe=launches["extend_reads"] == 0,
+               no_replicated_probe=launches["extend_reads_event"] == 0,
                no_table_copy=(torch.cuda.max_memory_allocated() - resident
                               < (1 << 30)))
     emit({"phase": "devices_routed_cap", "card": card, "shards": DEVICES,
@@ -3056,12 +3115,14 @@ def routed_cap_run(card: str, full: dict, db, mesh, rep, rep_kms: dict,
           "stage2_device_s_replicated": round(rep.device_s, 3),
           "device_step_ratio": round(ecs.device_s / rep.device_s, 4),
           "stage2_host_s": round(ecs.host_s, 3),
-          "hk4_s": round(kms["extend_reads_shard"] / 1e3, 4),
-          "hk4_s_replicated": round(rep_kms["extend_reads"] / 1e3, 4),
+          "hk4_s": round(kms["extend_reads_event_shard"] / 1e3, 4),
+          "hk4_s_replicated": round(rep_kms["extend_reads_event"] / 1e3, 4),
           "hk5_s": round(kms["stage2_head_shard"] / 1e3, 4),
           "hk5_s_replicated": round(rep_kms["stage2_head"] / 1e3, 4),
-          "hk4_launches": launches["extend_reads_shard"],
-          "hk4_launches_replicated": rep_launches["extend_reads"],
+          "hk16_s": round(kms["event_planes_shard"] / 1e3, 4),
+          "hk16_s_replicated": round(rep_kms["event_planes"] / 1e3, 4),
+          "hk4_launches": launches["extend_reads_event_shard"],
+          "hk4_launches_replicated": rep_launches["extend_reads_event"],
           "stage2_peak_memory_above_table": (torch.cuda.max_memory_allocated()
                                              - resident),
           "launches": launches, **res})
@@ -3273,8 +3334,10 @@ def phase_devices_routed(card: str, full: dict) -> dict:
         return {"stage2_s": round(x["seconds"], 3),
                 "stage2_device_s": round(x["ecs"].device_s, 3),
                 "stage2_host_s": round(x["ecs"].host_s, 3),
-                "hk4_s": round(x["kms"]["extend_reads_shard"] / 1e3, 4),
-                "hk4_launches": x["launches"]["extend_reads_shard"],
+                "hk4_s": round(x["kms"]["extend_reads_event_shard"] / 1e3,
+                               4),
+                "hk4_launches": x["launches"]["extend_reads_event_shard"],
+                "hk16_s": round(x["kms"]["event_planes_shard"] / 1e3, 4),
                 "hk5_s": round(x["kms"]["stage2_head_shard"] / 1e3, 4),
                 "hk5_launches": x["launches"]["stage2_head_shard"],
                 "hk14_s": round(x["kms"]["pack_finish"] / 1e3, 4)}
@@ -3297,6 +3360,400 @@ def phase_devices_routed(card: str, full: dict) -> dict:
           "launches": launches, **res})
     check(all(res.values()), f"devices_routed: {res}")
     return dict(launches=launches, manifest_launches=s2m["launches"])
+
+
+# ------------------------------------------------------------- event mode
+
+
+def _probed_rows(fn, rows):
+    """fn() (a plain version) with its reads recorded: (its result, the
+    distinct rows its plane-table probes reach, a row of another table,
+    the contaminant set's, counted apart; the bytes of the distinct
+    frame-plane elements the event walk reads, `reference.plane_read`)."""
+    import torch
+
+    from quorum_tpu_torch.kernels import reference as ref
+
+    probed = []
+    read: dict = {}
+    orig, orig_read = ref.tile_lookup, ref.plane_read
+
+    def spy(r, m, ks):
+        probed.append(ref.tile_key_parts(ks, m)[0]
+                      + (0 if r is rows else 1 << 40))
+        return orig(r, m, ks)
+
+    def read_spy(plane, lane, fp, mask):
+        w = plane.shape[1]
+        read.setdefault(plane.data_ptr(), (plane.element_size(), []))[1] \
+            .append(lane[mask] * w + fp[mask].clamp(0, w - 1))
+        return orig_read(plane, lane, fp, mask)
+
+    ref.tile_lookup, ref.plane_read = spy, read_spy
+    try:
+        res = fn()
+    finally:
+        ref.tile_lookup, ref.plane_read = orig, orig_read
+    plane_bytes = sum(size * torch.unique(torch.cat(ix)).numel()
+                      for size, ix in read.values())
+    return (res, torch.unique(torch.cat(probed)).numel() if probed else 0,
+            plane_bytes)
+
+
+def event_kernels(state, meta, c, q, lengths, reps: int, contam=None,
+                  shards: bool = True) -> dict:
+    """HK16 (both passes), HK17 and HK4's event entry against their plain
+    versions on one batch (as stage2_kernels: codes int8 [B, L], quals,
+    lengths) and the table `state`, in the three contaminant modes where
+    `contam` is given; with `shards`, HK16's and HK4's event
+    sharded-table entries on the table taken as DEVICES row ranges of its
+    plane (a RoutedTileMeta, devices_routed_cap's layout), each also
+    held against the plane entry. With reps > 0 each is timed (HK16's
+    two C launches apart). Byte bounds, from this batch: HK16 its
+    inputs, 29 B a window out and one read of every distinct row its
+    probes reach; HK17 its inputs and 37 B a frame position out; HK4's
+    event entry HK4's inputs and outputs, the distinct plane elements its
+    walk reads (a teleport's start and end, a synced step's cnt and aux)
+    and the distinct rows of its live probes. The sharded-table entries read the
+    same rows, so share the plane entries' bounds. Also returns, per
+    mode, the reads whose event-mode result differs from the plain
+    walk's (`departing`)."""
+    import torch
+
+    from quorum_tpu_torch import kernels
+    from quorum_tpu_torch.io import packing
+    from quorum_tpu_torch.kernels import reference as ref
+    from quorum_tpu_torch.models import corrector
+    from quorum_tpu_torch.parallel import tile_sharded as ts
+
+    dev = state.rows.device
+    b, L = c.shape
+    k = meta.k
+    cfg = corrector.ECConfig(k=k, cutoff=4, qual_cutoff=33 + 40)
+    pk = packing.pack_reads(c, q, lengths, thresholds=(cfg.qual_cutoff,))
+    wire = torch.from_numpy(pk.to_wire()).to(dev)
+    keep = corrector.make_keep_table(meta, cfg, dev)
+    maxe = corrector.log_capacity(L, cfg)
+    if shards:
+        smeta = ts.RoutedTileMeta(k=k, bits=meta.bits, rb_log2=meta.rb_log2,
+                                  n_shards=DEVICES)
+        srows = list(ts.row_shards(state, smeta, [dev] * DEVICES).shards)
+    modes = [(None, False, None)]
+    if contam is not None:
+        ctab = (contam[0].rows, contam[1])
+        modes += [(ctab, False, "contaminant"),
+                  (ctab, True, "contaminant_trim")]
+    out = {n: {} for n in ("event_planes", "event_scan",
+                           "extend_reads_event")}
+    if shards:
+        out.update(event_planes_shard={}, extend_reads_event_shard={})
+    departing = {}
+    for mtab, trim, entry in modes:
+        tag = entry or "plain entry"
+        codes, hqb, lens, anc = kernels.stage2_head(
+            state.rows, meta, wire, b, L, pk.thresholds, cfg.qual_cutoff,
+            skip=cfg.skip, good=cfg.good, anchor_count=cfg.anchor_count,
+            contam=mtab, trim_contaminant=trim)
+        pargs = (codes, hqb, lens, anc[1], keep)
+        pkw = dict(min_count=cfg.min_count, cutoff=cfg.cutoff, contam=mtab)
+        ck = kernels.event_planes(state.rows, meta, *pargs, **pkw)
+        cp, prow, _pb = _probed_rows(
+            lambda: ref.event_planes(state.rows, meta, *pargs, **pkw),
+            state.rows)
+        p_equal = all(torch.equal(x, y) for x, y in zip(ck, cp))
+        check(p_equal, f"event_planes ({tag}) differs from its plain version")
+        n_amb = int(((ck[2] >> ref.AX_PRE) & 1).sum())
+        sk = kernels.event_scan(*ck, lens, k)
+        s_equal = all(torch.equal(x, y) for x, y in
+                      zip(sk, ref.event_scan(*ck, lens, k)))
+        check(s_equal, f"event_scan ({tag}) differs from its plain version")
+        args = (state.rows, meta, codes, hqb, lens, anc[5], anc[1], anc[2],
+                anc[3], anc[4], keep)
+        kw = dict(window=cfg.effective_window, error=cfg.effective_error,
+                  min_count=cfg.min_count, cutoff=cfg.cutoff, maxe=maxe,
+                  contam=mtab, trim_contaminant=trim)
+        rk = kernels.extend_reads(*args, **kw, planes=sk)
+        rp, wrow, wplanes = _probed_rows(
+            lambda: ref.extend_reads(*args, **kw, planes=sk), state.rows)
+        w_equal = _batch_equal(rk, rp, anc[0])
+        check(w_equal, f"extend_reads' event entry ({tag}) differs from its "
+              "plain version")
+        plain = kernels.extend_reads(*args, **kw)
+        departing[tag] = int((~_lanes_equal(rk, plain, anc[0])).sum())
+        windows = b * L
+        d16 = dict(equal=p_equal, n=windows, ambiguous=n_amb,
+                   bound_bytes=2 * windows + 8 * b + keep.numel()
+                   + 29 * windows + 512 * prow)
+        d17 = dict(equal=s_equal, n=2 * windows,
+                   bound_bytes=29 * windows + 4 * b + 37 * 2 * windows)
+        io_bytes = (2 * b * L + b * 32 + keep.numel()            # inputs
+                    + b * L + 8 * b + 2 * b * (12 + 8 * maxe))   # outputs
+        d4 = dict(equal=w_equal, n=b, plane_bytes=wplanes,
+                  bound_bytes=io_bytes + wplanes + 512 * wrow)
+        if reps:
+            parts: dict = {}
+            d16.update(
+                ms=kernel_ms(lambda: kernels.event_planes(
+                    state.rows, meta, *pargs, **pkw), "event_planes", reps,
+                    detail=parts),
+                plain_ms=event_ms(lambda: ref.event_planes(
+                    state.rows, meta, *pargs, **pkw), 1),
+                parts_ms={f: round(t, 5) for f, t in parts.items()})
+            d17.update(
+                ms=kernel_ms(lambda: kernels.event_scan(*ck, lens, k),
+                             "event_scan", reps),
+                plain_ms=event_ms(lambda: ref.event_scan(*ck, lens, k), 2))
+            d4.update(
+                ms=kernel_ms(lambda: kernels.extend_reads(
+                    *args, **kw, planes=sk), "extend_reads_event", reps),
+                plain_ms=event_ms(lambda: ref.extend_reads(
+                    *args, **kw, planes=sk), 1))
+        got = {"event_planes": d16, "extend_reads_event": d4}
+        if entry is None:
+            out["event_scan"].update(d17)
+        if shards:
+            # the plain versions run once, timed, for both checks
+            cs = kernels.event_planes(srows, smeta, *pargs, **pkw)
+            csp, cs_ms = _timed(lambda: ref.event_planes(srows, smeta,
+                                                         *pargs, **pkw))
+            cs_equal = all(torch.equal(x, y) and torch.equal(x, z)
+                           for x, y, z in zip(cs, csp, ck))
+            check(cs_equal, f"event_planes' sharded-table entry ({tag}) "
+                  "differs from its plain version or the plane entry")
+            sargs = (srows, smeta) + args[2:]
+            ws = kernels.extend_reads(*sargs, **kw, planes=sk)
+            wsp, ws_ms = _timed(lambda: ref.extend_reads(*sargs, **kw,
+                                                         planes=sk))
+            ws_equal = (_batch_equal(ws, wsp, anc[0])
+                        and _batch_equal(ws, rk, anc[0]))
+            check(ws_equal, f"extend_reads' event sharded-table entry "
+                  f"({tag}) differs from its plain version or the plane "
+                  "entry")
+            e16 = dict(equal=cs_equal, n=windows,
+                       bound_bytes=d16["bound_bytes"])
+            e4 = dict(equal=ws_equal, n=b, bound_bytes=d4["bound_bytes"])
+            if reps:
+                e16.update(
+                    ms=kernel_ms(lambda: kernels.event_planes(
+                        srows, smeta, *pargs, **pkw), "event_planes_shard",
+                        reps),
+                    plain_ms=cs_ms)
+                e4.update(
+                    ms=kernel_ms(lambda: kernels.extend_reads(
+                        *sargs, **kw, planes=sk),
+                        "extend_reads_event_shard", reps),
+                    plain_ms=ws_ms)
+            got.update(event_planes_shard=e16, extend_reads_event_shard=e4)
+        for name, d in got.items():
+            if entry is None:
+                out[name].update(d)
+            else:
+                out[name][entry] = d
+    return out, departing
+
+
+def _timed(fn):
+    """fn()'s result and its CUDA-event time in ms (one run)."""
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    res = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return res, a.elapsed_time(b)
+
+
+def _lanes_equal(a, b, found):
+    """Per read: extend_reads outputs `a` and `b` equal under
+    _batch_equal's rule."""
+    import torch
+
+    out_a, s_a, e_a, st_a, f_a, b_a, _o = a
+    out_b, s_b, e_b, st_b, f_b, b_b, _o = b
+    n = s_a.numel()
+    eq = (s_a == s_b) & (e_a == e_b) & (st_a[:n] == st_b[:n]) \
+        & (st_a[n:] == st_b[n:])
+    pos = torch.arange(out_a.shape[1], device=out_a.device)[None, :]
+    live = found[:, None] & (pos >= s_a[:, None]) & (pos < e_a[:, None])
+    eq &= (torch.where(live, out_a, 0) == torch.where(live, out_b, 0)).all(1)
+    for la, lb in ((f_a, f_b), (b_a, b_b)):
+        j = torch.arange(la[2].shape[1], device=la[2].device)[None, :]
+        m = j < la[0][:, None]
+        eq &= la[0] == lb[0]
+        for x, y in ((la[2], lb[2]), (la[3], lb[3])):
+            eq &= (torch.where(m, x, 0) == torch.where(m, y, 0)).all(1)
+    return eq
+
+
+def golden_with_ns():
+    """The golden reads' table (k = 13, built on the card) and its first
+    256 reads with ~2% of their bases set to N (seeded), so that some N
+    lies in reach of a backward extension: (state, meta, codes, quals,
+    lengths) for event_kernels."""
+    import numpy as np
+    import torch
+
+    from quorum_tpu_torch.io import fastq, packing
+    from quorum_tpu_torch.models import create_database
+
+    reads = os.path.join(GOLDEN, "reads.fastq")
+    batches = [(bt, packing.pack_reads(bt.codes, bt.quals, bt.lengths,
+                                       thresholds=(38,)))
+               for bt in fastq.read_batches([reads], 256)]
+    cfg = create_database.BuildConfig(k=13, bits=7, qual_thresh=38,
+                                      initial_size=64000, batch_size=256)
+    state, meta, _st = create_database.build_database(
+        [], cfg, torch.device("cuda"), lambda: batches)
+    g = batches[0][0]
+    gen = torch.Generator().manual_seed(SEED + 5)
+    codes = g.codes.copy()
+    inread = np.arange(codes.shape[1])[None, :] < g.lengths[:, None]
+    codes[(torch.rand(codes.shape, generator=gen).numpy() < 0.02)
+          & inread] = -1
+    return state, meta, codes, g.quals, g.lengths
+
+
+def phase_event(card: str, full: dict, contam: dict) -> dict:
+    """The event-mode stage 2. HK16 (both passes, plane and sharded-table
+    entries, three contaminant modes), HK17 and HK4's event entry held
+    against their plain versions and timed on the table phase's batch
+    and table (the full run's database, the contaminant phase's set),
+    and held on the golden reads with Ns; then the full cell's stage 2
+    from its database in event mode (the default) and in plain mode
+    (event_driven=False), in the order event, plain, plain, event in
+    this call: event's .fa/.log equal the full run's, each mode's second
+    run its first run's, and each mode's records of the first CPU_READS
+    reads equal a --device cpu run of the same mode on them. Launch
+    counts reset before and read after each run; a path's launches are
+    its first run's."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from quorum_tpu_torch import kernels
+    from quorum_tpu_torch.io import db_format
+    from quorum_tpu_torch.kernels.loader import STATS
+    from quorum_tpu_torch.models import error_correct as ec
+    from quorum_tpu_torch.ops import ctable
+
+    dev = torch.device("cuda")
+    h = db_format.read_header(full["db"])
+    meta = ctable.TileMeta(h["key_len"] // 2, h["bits"], h["rb_log2"])
+    raw = db_format.db_payload_bytes(full["db"])
+    payload = torch.from_numpy(np.frombuffer(raw, np.uint8).copy()).to(dev)
+    rows, _stats = kernels.tile_load(payload, meta, h["n_entries"])
+    del payload
+    codes, quals = full["codes"], full["quals"]
+    touched = contam["touched"]
+    nb = -(-codes.shape[0] // BATCH)
+    i = int(np.argmax([touched[j * BATCH:(j + 1) * BATCH].sum()
+                       for j in range(nb)]))
+    c, q, lengths, _pk = pack_batch(codes[i * BATCH:(i + 1) * BATCH],
+                                    quals[i * BATCH:(i + 1) * BATCH], QT)
+    stats, departing = event_kernels(ctable.TileState(rows), meta, c, q,
+                                     lengths, 5,
+                                     load_contaminant(contam["fa"]))
+    gs, gm, gc, gq, gl = golden_with_ns()
+    _g, gdep = event_kernels(gs, gm, gc, gq, gl, 0)
+    check(gdep["plain entry"] > 0, "the golden reads with Ns hold no read "
+          "where event mode departs from the plain walk")
+    del gs
+    # the full cell's stage 2 in both modes, then each mode's first
+    # CPU_READS reads on the CPU against the table copied to the host once
+    sub = os.path.join(WORK, "event_head.fastq")
+    write_fastq(sub, codes[:CPU_READS], quals[:CPU_READS])
+    host_db = (ctable.TileState(rows.cpu()), meta, types.SimpleNamespace(
+        distinct_hq=0, total_hq=0, db_extra_header=lambda: {}))
+    del rows
+    runs = {}
+    # event, plain, plain, event: each mode once after the other, so an
+    # order effect (page cache, warm-up) shows as a difference between a
+    # mode's two runs
+    order = (("event", True), ("event_plain", False),
+             ("event_plain_2", False), ("event_2", True))
+    for mode, event in order:
+        prefix = os.path.join(WORK, mode)
+        STATS.reset()
+        STATS.timing = True
+        t0 = time.perf_counter()
+        ecs = ec.run_error_correct(full["db"], [full["fastq"]],
+                                   ec.ECOptions(output=prefix, device="cuda",
+                                                batch_size=BATCH),
+                                   event_driven=event)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        STATS.timing = False
+        launches = dict(STATS.launches)
+        kms = STATS.kernel_ms()
+        path = "event" if event else "event_plain"
+        for name in PATH_KERNELS[path]:
+            check(launches[name] > 0, f"{name} was not launched on the "
+                  f"{mode} path")
+        runs[mode] = dict(
+            stage2_s=round(wall, 3), stage2_device_s=round(ecs.device_s, 3),
+            stage2_host_s=round(ecs.host_s, 3), cutoff=ecs.cutoff,
+            corrected=ecs.corrected, skipped=ecs.skipped,
+            kernel_s={k: round(v / 1e3, 4) for k, v in kms.items()
+                      if launches[k]},
+            kernel_ms_per_launch={k: round(v / launches[k], 5)
+                                  for k, v in kms.items() if launches[k]},
+            launches=launches)
+        if mode != path:  # the mode's second run: its first run's bytes
+            runs[mode]["eq_first_run"] = same_fa_log(
+                prefix, os.path.join(WORK, path))
+            continue
+        cpu = os.path.join(WORK, mode + "_cpu")
+        t1 = time.perf_counter()
+        ec.run_error_correct(full["db"], [sub], ec.ECOptions(
+            output=cpu, device="cpu", cutoff=ecs.cutoff,
+            batch_size=CPU_READS), db=host_db, event_driven=event)
+        fa, log, _s = read_outputs(prefix)
+        cfa, clog, _s = read_outputs(cpu)
+        runs[mode].update(
+            cpu_reads=CPU_READS, cpu_s=round(time.perf_counter() - t1, 3),
+            head_eq_cpu=(cfa == {j: r for j, r in fa.items()
+                                 if j < CPU_READS}
+                         and clog == {j: r for j, r in log.items()
+                                      if j < CPU_READS}))
+    ev, pl = runs["event"], runs["event_plain"]
+    ev2, pl2 = runs["event_2"], runs["event_plain_2"]
+    fa_e, log_e, _s = read_outputs(os.path.join(WORK, "event"))
+    fa_p, log_p, _s = read_outputs(os.path.join(WORK, "event_plain"))
+    res = dict(event_eq_full=same_fa_log(os.path.join(WORK, "event"),
+                                         full["prefix"]),
+               event_head_eq_cpu=ev["head_eq_cpu"],
+               plain_head_eq_cpu=pl["head_eq_cpu"],
+               event_2_eq_event=ev2["eq_first_run"],
+               plain_2_eq_plain=pl2["eq_first_run"])
+
+    def ratio(a, b, key):
+        return round(a[key] / b[key], 4)
+
+    emit({"phase": "event", "card": card, "batch": i,
+          "departing_reads_table_batch": departing,
+          "departing_reads_golden_ns": gdep["plain entry"],
+          "records_differing_event_plain": sum(
+              fa_e.get(j) != fa_p.get(j) or log_e.get(j) != log_p.get(j)
+              for j in range(codes.shape[0])),
+          "order": [m for m, _e in order],
+          # event over plain: event first (runs 1, 2), plain first (3, 4)
+          "device_step_ratio_event_plain": ratio(ev, pl, "stage2_device_s"),
+          "device_step_ratio_event_plain_2": ratio(ev2, pl2,
+                                                   "stage2_device_s"),
+          "host_ratio_event_plain": ratio(ev, pl, "stage2_host_s"),
+          "host_ratio_event_plain_2": ratio(ev2, pl2, "stage2_host_s"),
+          "event": ev, "plain": pl, "plain_2": pl2, "event_2": ev2,
+          **{nm: {kk: (round(v, 5) if isinstance(v, float) else v)
+                  for kk, v in d.items()} for nm, d in stats.items()},
+          **res})
+    check(all(res.values()), f"event phase: {res}")
+    return dict(kernels=stats,
+                launches={m: runs[m]["launches"]
+                          for m in ("event", "event_plain")})
 
 
 def run() -> int:
@@ -3329,6 +3786,9 @@ def run() -> int:
         contam = phase_contaminant(card, full)
         for name, v in phase_table(card, full, contam).items():
             stats.setdefault(name, {}).update(v)
+        event = phase_event(card, full, contam)
+        for name, v in event["kernels"].items():
+            stats.setdefault(name, {}).update(v)
         devices = phase_devices(card, full, two)
         for name, v in devices["kernels"].items():
             stats.setdefault(name, {}).update(v)
@@ -3347,7 +3807,8 @@ def run() -> int:
                "devices_routed_cap": devices["cap_launches"],
                "devices_partitions": dev_parts,
                "devices_routed": routed["launches"],
-               "devices_routed_manifest": routed["manifest_launches"]}
+               "devices_routed_manifest": routed["manifest_launches"],
+               **event["launches"]}
     def bound_ms(nbytes):
         return round(nbytes / H100_BYTES_PER_S * 1e3, 5)
 
@@ -3357,7 +3818,9 @@ def run() -> int:
         # a second entry of the same kernel, timed apart
         entries = {e: {"ms": round(v[e]["ms"], 5),
                        "plain_ms": round(v[e]["plain_ms"], 5),
-                       "bound_ms": bound_ms(v[e]["bound_bytes"])}
+                       "bound_ms": bound_ms(v[e]["bound_bytes"]),
+                       **({"library_ms": round(v[e]["library_ms"], 5)}
+                          if "library_ms" in v[e] else {})}
                    for e in ("query", "inline", "compact", "partition",
                              "contaminant", "contaminant_trim", "overflow")
                    if e in v}

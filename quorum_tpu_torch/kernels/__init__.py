@@ -1,4 +1,4 @@
-"""Wrappers of the fifteen hand-written Hopper kernels (csrc/*.cu) and
+"""Wrappers of the seventeen hand-written Hopper kernels (csrc/*.cu) and
 their entries.
 
 Every wrapper checks device, dtype, shape and contiguity, then either
@@ -18,7 +18,9 @@ or launch raises.
                     in a table sharded by leading row bits, read in
                     place (the routed stage-2 layout)
   HK4 extend_reads  per-(read, direction) extension with edit logs
-                    (and the contaminant checks); sharded-table entry
+                    (and the contaminant checks); sharded-table entry;
+                    event entry: the walk that reads HK17's planes
+                    (teleports, synced steps without probes)
   HK5 stage2_head   stage-2 wire widening, window lookups, anchor scan
                     (and the contaminant probe and kill); sharded-table
                     entry
@@ -40,13 +42,21 @@ or launch raises.
   HK15 shard_route     a batch's observations (or left-over lanes) in
                        exact buckets by the shard that owns their row;
                        partition entry: only a partition pass's mers
+  HK16 event_planes    every window's get_best_alternatives facts in
+                       the frame that consumes it, classified (clean,
+                       counts, level, count, ucode), and the 16-probe
+                       continuation bits of every ambiguous position;
+                       sharded-table entry
+  HK17 event_scan      HK16's planes -> the [2B, L] frame planes of the
+                       event walk (rc remap, next event, last
+                       prev-defining keep and its count)
 
 The sharded wrappers (HK15, the shard entries) launch on their tensors'
 device; the others on the current device, which the sharded paths set
-with `device_scope`. HK3, HK4 and HK5 take the sealed table as one plane
-(int32 [rows, 128] under a TileMeta) or as the planes of a table sharded
-by leading row bits (a list of int32 [2^local_rb, 128], shard s on
-mesh[s], under a TileShardedMeta): the second form launches the
+with `device_scope`. HK3, HK4, HK5 and HK16 take the sealed table as one
+plane (int32 [rows, 128] under a TileMeta) or as the planes of a table
+sharded by leading row bits (a list of int32 [2^local_rb, 128], shard s
+on mesh[s], under a TileShardedMeta): the second form launches the
 sharded-table entry, counted apart, whose probes read each row in its
 owner's plane, on another card through peer access (enabled here, once
 per ordered pair of devices).
@@ -367,12 +377,14 @@ def _contam_args(contam, meta):
 def extend_reads(rows, meta, codes, hqb, lengths, status0, start_off, anc_f,
                  anc_r, prev0, keep, *, window: int, error: int,
                  min_count: int, cutoff: int, maxe: int, contam=None,
-                 trim_contaminant: bool = False):
+                 trim_contaminant: bool = False, planes=None):
     """Extend every read whose anchor status is OK both ways, checking
     the optional contaminant table (rows, meta) (see
     reference.extend_reads for the outputs). The table is one plane on
     the reads' device or shard planes (the sharded-table entry); every
-    other tensor on the reads' device."""
+    other tensor on the reads' device. With `planes` (event_scan's
+    output) the event entry walks the JAX package's event mode, counted
+    apart as extend_reads_event (and _shard)."""
     parts, sharded = _table(rows, meta)
     b, l = codes.shape
     _check(codes, torch.int8, "codes")
@@ -387,13 +399,17 @@ def extend_reads(rows, meta, codes, hqb, lengths, status0, start_off, anc_f,
     if tuple(keep.shape) != (4 * meta.max_val + 1, meta.max_val + 1):
         raise ValueError("keep table does not match max_val")
     cptr, crb, cbits = _contam_args(contam, meta)
+    if planes is not None:
+        _check_planes(planes, b, l)
     kw = dict(window=window, error=error, min_count=min_count,
               cutoff=cutoff, maxe=maxe)
-    if not _on_cuda(*parts, codes, keep, *(contam[:1] if contam else ())):
+    if not _on_cuda(*parts, codes, keep, *(contam[:1] if contam else ()),
+                    *(planes or ())):
         return ref.extend_reads(rows, meta, codes, hqb, lengths, status0,
                                 start_off, anc_f, anc_r, prev0, keep,
                                 contam=contam,
-                                trim_contaminant=trim_contaminant, **kw)
+                                trim_contaminant=trim_contaminant,
+                                planes=planes, **kw)
     dev = codes.device
     out = codes.clone()
     start = torch.empty(b, dtype=torch.int32, device=dev)
@@ -404,13 +420,16 @@ def extend_reads(rows, meta, codes, hqb, lengths, status0, start_off, anc_f,
     log_pos = torch.zeros((2 * b, maxe), dtype=torch.int32, device=dev)
     log_meta = torch.zeros((2 * b, maxe), dtype=torch.int32, device=dev)
     overflow = torch.zeros(1, dtype=torch.int32, device=dev)
-    table, fn = _table_ptrs(rows, parts, sharded, dev, "extend_reads")
+    table, fn = _table_ptrs(rows, parts, sharded, dev,
+                            "extend_reads" if planes is None
+                            else "extend_reads_event")
+    pargs = [] if planes is None else [t.data_ptr() for t in planes]
     with launching(fn):
         call("extend_reads", fn, *table, meta.k, meta.rb_log2, meta.bits,
              cptr, crb, cbits, int(trim_contaminant), codes.data_ptr(),
              hqb.data_ptr(), lengths.data_ptr(), status0.data_ptr(),
              start_off.data_ptr(), anc_f.data_ptr(), anc_r.data_ptr(),
-             prev0.data_ptr(), keep.data_ptr(), b, l, window, error,
+             prev0.data_ptr(), keep.data_ptr(), *pargs, b, l, window, error,
              min_count, cutoff, maxe, out.data_ptr(), start.data_ptr(),
              end.data_ptr(), lstatus.data_ptr(), log_n.data_ptr(),
              log_lwin.data_ptr(), log_pos.data_ptr(), log_meta.data_ptr(),
@@ -899,3 +918,100 @@ def shard_route_lanes(lanes: list, meta) -> list:
                     [([x.data_ptr(), x.numel(), meta.k, meta.rb_log2,
                        meta.bits, meta.local_rb, meta.n_shards], x.device)
                      for x in lanes], meta.n_shards, (), torch.int64)
+
+
+# --------------------------------------------------------------- HK16
+
+
+# HK17's frame planes: clean, nd, cnt, aux, lastc1, prevval, mf, mr
+_PLANE_DTYPES = (torch.bool, torch.int32, torch.int32, torch.int32,
+                 torch.int32, torch.int32, torch.int64, torch.int64)
+
+
+def _check_planes(planes, b: int, l: int):
+    """HK17's output, as the event walk takes it."""
+    if len(planes) != len(_PLANE_DTYPES):
+        raise ValueError(f"expected {len(_PLANE_DTYPES)} event planes")
+    for i, (t, dt) in enumerate(zip(planes, _PLANE_DTYPES)):
+        _check(t, dt, f"plane {i}")
+        if tuple(t.shape) != (2 * b, l):
+            raise ValueError(f"plane {i}: expected shape ({2 * b}, {l})")
+
+
+def event_planes(rows, meta, codes, hqb, lengths, start_off, keep, *,
+                 min_count: int, cutoff: int, contam=None):
+    """HK16: every window's exact get_best_alternatives facts in the
+    frame that consumes it, classified, and the continuation bits of
+    every ambiguous position (see reference.event_planes): (clean bool,
+    cnt int32, aux int32, val int32, f int64, r int64), all [B, L] in
+    read coordinates. Pass 1 (classify) runs a thread per window and
+    lists the ambiguous positions; pass 2 (prepass) a thread per listed
+    position. The table is one plane or shard planes (the sharded-table
+    entry, counted apart as event_planes_shard); the optional
+    contaminant table (rows, meta) marks member windows unclean."""
+    parts, sharded = _table(rows, meta)
+    b, l = codes.shape
+    _check(codes, torch.int8, "codes")
+    _check(hqb, torch.bool, "hqb")
+    _check(lengths, torch.int32, "lengths")
+    _check(start_off, torch.int32, "start_off")
+    _check(keep, torch.uint8, "keep")
+    if tuple(keep.shape) != (4 * meta.max_val + 1, meta.max_val + 1):
+        raise ValueError("keep table does not match max_val")
+    cptr, crb, cbits = _contam_args(contam, meta)
+    if not _on_cuda(*parts, codes, keep, *(contam[:1] if contam else ())):
+        return ref.event_planes(rows, meta, codes, hqb, lengths, start_off,
+                                keep, min_count=min_count, cutoff=cutoff,
+                                contam=contam)
+    dev = codes.device
+    clean = torch.empty((b, l), dtype=torch.bool, device=dev)
+    cnt = torch.empty((b, l), dtype=torch.int32, device=dev)
+    aux = torch.empty((b, l), dtype=torch.int32, device=dev)
+    val = torch.empty((b, l), dtype=torch.int32, device=dev)
+    f = torch.empty((b, l), dtype=torch.int64, device=dev)
+    r = torch.empty((b, l), dtype=torch.int64, device=dev)
+    amb = torch.empty(b * l, dtype=torch.int32, device=dev)
+    n_amb = torch.zeros(1, dtype=torch.int32, device=dev)
+    table, name = _table_ptrs(rows, parts, sharded, dev, "event_planes")
+    suffix = name[len("event_planes"):]
+    geom = [meta.k, meta.rb_log2, meta.bits]
+    with launching(name):
+        call("event_planes", "event_classify" + suffix, *table, *geom, cptr,
+             crb, cbits, codes.data_ptr(), hqb.data_ptr(),
+             lengths.data_ptr(), start_off.data_ptr(), keep.data_ptr(), b, l,
+             min_count, cutoff, clean.data_ptr(), cnt.data_ptr(),
+             aux.data_ptr(), val.data_ptr(), f.data_ptr(), r.data_ptr(),
+             amb.data_ptr(), n_amb.data_ptr())
+        call("event_planes", "event_prepass" + suffix, *table, *geom,
+             codes.data_ptr(), lengths.data_ptr(), start_off.data_ptr(), b,
+             l, min_count, cnt.data_ptr(), aux.data_ptr(), f.data_ptr(),
+             r.data_ptr(), amb.data_ptr(), n_amb.data_ptr())
+    return clean, cnt, aux, val, f, r
+
+
+# --------------------------------------------------------------- HK17
+
+
+def event_scan(clean, cnt, aux, val, f, r, lengths, k: int):
+    """HK17: HK16's [B, L] planes -> the [2B, L] frame planes of the
+    event walk, forward rows then reverse-complement rows (see
+    reference.event_scan): (clean bool, nd, cnt, aux, lastc1, prevval
+    int32, mf, mr int64)."""
+    b, l = clean.shape
+    for name, t, dt in (("clean", clean, torch.bool), ("cnt", cnt,
+                                                       torch.int32),
+                        ("aux", aux, torch.int32), ("val", val, torch.int32),
+                        ("f", f, torch.int64), ("r", r, torch.int64)):
+        _check(t, dt, name)
+        if tuple(t.shape) != (b, l):
+            raise ValueError(f"{name}: expected shape ({b}, {l})")
+    _check(lengths, torch.int32, "lengths")
+    if not _on_cuda(clean, cnt, aux, val, f, r, lengths):
+        return ref.event_scan(clean, cnt, aux, val, f, r, lengths, k)
+    dev = clean.device
+    out = [torch.empty((2 * b, l), dtype=dt, device=dev)
+           for dt in _PLANE_DTYPES]
+    launch("event_scan", "event_scan", clean.data_ptr(), cnt.data_ptr(),
+           aux.data_ptr(), val.data_ptr(), f.data_ptr(), r.data_ptr(),
+           lengths.data_ptr(), b, l, k, *(t.data_ptr() for t in out))
+    return tuple(out)

@@ -42,15 +42,49 @@
 // directly, on this card or over NVLink. The contaminant set stays one
 // plane on this card. Both contaminant variants, as for the plane entry.
 //
+// The event entry (extend_reads_event, and extend_reads_event_shard on
+// the sharded table) is the JAX package's default event mode
+// (_extend_loop with planes, corrector.py:549: the teleport :769-790, the
+// mixed gba :815-845, the pre-passed tie-break :903-930), reading HK17's
+// [2B, L] frame planes. A lane is synced while its frame position is at
+// or past `resync`, k past its last substitution. A synced lane at a
+// clean position teleports to the next event (nd): its mer, and prev
+// where a prev-defining keep lies in the run (lastc1 >= the start), come
+// from the planes at the run's end, and the skipped bases keep the codes
+// already in `out`. A synced step takes counts, level, count and ucode
+// from cnt/aux and an ambiguous step its continuation bits from the
+// pre-pass; a desynced step probes live, as the plain entry does (JAX's
+// tail probe batches exactly those live steps; its stalls and lane
+// draining only delay a lane). A backward lane at read position pos reads
+// frame position len - 1 - pos of its reverse-complement row, whose
+// variant v is read code 3 - v; the planes' windows hold a non-ACGT base
+// as A in read orientation, so where a backward lane kept an N the synced
+// step takes the planes' facts for a mer that is not its own, as JAX
+// does (the departure from the reference, ROADMAP Queue 3).
+//
 // Bound: bytes. Each step of a lane makes 4 probes (16 more on an
 // ambiguous base); the least traffic is one read of every row the run
 // probes, plus the codes/quals in and the corrected bases and logs out;
 // the same for the sharded-table entry (its pointer table is one kernel
-// parameter).
+// parameter). The event entry's least traffic is the plane bytes its
+// lanes read (one position a teleport or synced step) and the rows of
+// its desynced steps' probes.
 #include "table.cuh"
 
 #define ST_OK 0
 #define ST_CONTAMINANT 1
+#define AX_COUNT 1
+#define AX_UCODE 4
+#define AX_PRE 6
+#define AX_SUCC 8
+#define AX_CWN 12
+
+// HK17's frame planes, [2B, L] each.
+struct Planes {
+  const uint8_t* clean;
+  const int *nd, *cnt, *aux, *lastc1, *prevval;
+  const long long *mf, *mr;
+};
 
 struct Cfg {
   int k, rb, bits, crb, cbits, trim, L, window, error, min_count, cutoff,
@@ -131,16 +165,16 @@ __device__ __forceinline__ int sub_meta(int frm, int to) {
   return ((frm >= 0 ? frm : 4) << 1) | ((to >= 0 ? to : 4) << 4);
 }
 
-template <class Acc, bool CONTAM>
+template <class Acc, bool CONTAM, bool EVENT>
 __global__ void extend_kernel(
     const __grid_constant__ Acc rows, const uint32_t* __restrict__ crows,
     Cfg c, const int8_t* __restrict__ codes,
     const uint8_t* __restrict__ hqb, const int* __restrict__ lengths,
     const int* __restrict__ status0, const int* __restrict__ start_off,
     const long long* __restrict__ anc_f, const long long* __restrict__ anc_r,
-    const int* __restrict__ prev0, const uint8_t* __restrict__ keep, int B,
-    int8_t* out, int* start, int* end, int* lstatus, int* log_n,
-    int* log_lwin, int* log_pos, int* log_meta, int* overflow) {
+    const int* __restrict__ prev0, const uint8_t* __restrict__ keep,
+    Planes pl, int B, int8_t* out, int* start, int* end, int* lstatus,
+    int* log_n, int* log_lwin, int* log_pos, int* log_meta, int* overflow) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= 2 * B) return;
   const int i = lane < B ? lane : lane - B;
@@ -167,7 +201,24 @@ __global__ void extend_kernel(
   int prev = prev0[i];
   int pos = d > 0 ? so : so - k - 1;
   int opos = pos;
+  // event mode: this lane's plane row, and resync in frame positions
+  const size_t prow = (size_t)lane * c.L;
+  int resync = -(1 << 30);
   while (d > 0 ? pos < endp : pos > endp) {
+    if (EVENT) {  // teleport over a clean run
+      const int fp = d > 0 ? pos : len - 1 - pos;
+      if (fp >= resync && pl.clean[prow + fp]) {
+        const int tgt = min(pl.nd[prow + fp], len);
+        const size_t at = prow + (tgt - 1);
+        const uint64_t mf = (uint64_t)pl.mf[at], mr = (uint64_t)pl.mr[at];
+        f = d > 0 ? mf : mr;
+        r = d > 0 ? mr : mf;
+        if (pl.lastc1[at] >= fp) prev = pl.prevval[at];
+        opos += d * (tgt - fp);
+        pos = d > 0 ? tgt : len - 1 - tgt;
+        if (!(d > 0 ? pos < endp : pos > endp)) break;
+      }
+    }
     const int ori = rc[pos];
     const bool qb = rq[pos] != 0;
     const int cpos = pos;
@@ -178,7 +229,21 @@ __global__ void extend_kernel(
       break;
     }
     int counts[4], ucode, level, count;
-    gba(rows, c, f, r, d, counts, ucode, level, count);
+    const int cfp = d > 0 ? cpos : len - 1 - cpos;
+    const bool synced = EVENT && cfp >= resync;
+    int pa = 0;  // the synced step's aux word
+    if (synced) {  // the planes' facts; variant v is read code 3 - v backward
+      const int pc = pl.cnt[prow + cfp];
+      pa = pl.aux[prow + cfp];
+      for (int v = 0; v < 4; ++v)
+        counts[v] = (pc >> (7 * (d > 0 ? v : 3 - v))) & 127;
+      level = pa & 1;
+      count = (pa >> AX_COUNT) & 7;
+      ucode = (pa >> AX_UCODE) & 3;
+      if (d < 0) ucode = 3 - ucode;
+    } else {
+      gba(rows, c, f, r, d, counts, ucode, level, count);
+    }
     if (count == 0) {
       lg.truncation(cpos);
       break;
@@ -187,6 +252,7 @@ __global__ void extend_kernel(
       prev = counts[ucode];
       if (ori != ucode) {
         dir_replace0(f, r, ucode, d, k);
+        if (EVENT) resync = cfp + k;
         if (CONTAM && contam_hit(crows, c, f, r)) {  // con2
           if (c.trim) lg.truncation(cpos); else st = ST_CONTAMINANT;
           break;
@@ -229,9 +295,19 @@ __global__ void extend_kernel(
     int cont[4] = {0, 0, 0, 0};
     bool cwn[4] = {false, false, false, false};
     const int nb = (d > 0 ? pos < endp : pos > endp) ? rc[pos] : -1;
+    const bool pre = synced && ((pa >> AX_PRE) & 1);
     for (int v = 0; v < 4; ++v) {
       if (counts[v] <= c.min_count) continue;
       check = v;
+      if (pre) {  // the pre-pass bits of the frame's variant
+        const int fv = d > 0 ? v : 3 - v;
+        if ((pa >> (AX_SUCC + fv)) & 1) {
+          cwn[v] = nb >= 0 && ((pa >> (AX_CWN + fv)) & 1);
+          success = true;
+          cont[v] = counts[v];
+        }
+        continue;
+      }
       uint64_t nf = f, nr = r;
       dir_replace0(nf, nr, v, d, k);
       dir_shift(nf, nr, 0, d, k);
@@ -273,6 +349,7 @@ __global__ void extend_kernel(
       }
       if (check >= 0 && check != ori) {
         dir_replace0(f, r, check, d, k);
+        if (EVENT) resync = cfp + k;
         if (CONTAM && contam_hit(crows, c, f, r)) {  // con3
           if (c.trim) lg.truncation(cpos); else st = ST_CONTAMINANT;
           break;
@@ -298,25 +375,27 @@ __global__ void extend_kernel(
   log_lwin[lane] = lg.lwin;
 }
 
-template <class Acc>
+template <class Acc, bool EVENT>
 static int launch_extend(
     const Acc& rows, const uint32_t* crows, const Cfg& c,
     const int8_t* codes, const uint8_t* hqb, const int* lengths,
     const int* status0, const int* start_off, const long long* anc_f,
-    const long long* anc_r, const int* prev0, const uint8_t* keep, int B,
-    int8_t* out, int* start, int* end, int* lstatus, int* log_n,
-    int* log_lwin, int* log_pos, int* log_meta, int* overflow, void* stream) {
+    const long long* anc_r, const int* prev0, const uint8_t* keep,
+    const Planes& pl, int B, int8_t* out, int* start, int* end,
+    int* lstatus, int* log_n, int* log_lwin, int* log_pos, int* log_meta,
+    int* overflow, void* stream) {
   const unsigned grid = (unsigned)((2 * B + 127) / 128);
   if (B > 0 && crows)
-    extend_kernel<Acc, true><<<grid, 128, 0, (cudaStream_t)stream>>>(
+    extend_kernel<Acc, true, EVENT><<<grid, 128, 0, (cudaStream_t)stream>>>(
         rows, crows, c, codes, hqb, lengths, status0, start_off, anc_f,
-        anc_r, prev0, keep, B, out, start, end, lstatus, log_n, log_lwin,
-        log_pos, log_meta, overflow);
+        anc_r, prev0, keep, pl, B, out, start, end, lstatus, log_n,
+        log_lwin, log_pos, log_meta, overflow);
   else if (B > 0)
-    extend_kernel<Acc, false><<<grid, 128, 0, (cudaStream_t)stream>>>(
+    extend_kernel<Acc, false, EVENT><<<grid, 128, 0,
+                                       (cudaStream_t)stream>>>(
         rows, crows, c, codes, hqb, lengths, status0, start_off, anc_f,
-        anc_r, prev0, keep, B, out, start, end, lstatus, log_n, log_lwin,
-        log_pos, log_meta, overflow);
+        anc_r, prev0, keep, pl, B, out, start, end, lstatus, log_n,
+        log_lwin, log_pos, log_meta, overflow);
   return (int)cudaGetLastError();
 }
 
@@ -332,10 +411,10 @@ extern "C" int extend_reads(
     void* stream) {
   Cfg c{k, rb, bits, crb, cbits, trim, L, window, error, min_count, cutoff,
         maxe};
-  return launch_extend(PlaneRows{rows}, crows, c, codes, hqb, lengths,
-                       status0, start_off, anc_f, anc_r, prev0, keep, B, out,
-                       start, end, lstatus, log_n, log_lwin, log_pos,
-                       log_meta, overflow, stream);
+  return launch_extend<PlaneRows, false>(
+      PlaneRows{rows}, crows, c, codes, hqb, lengths, status0, start_off,
+      anc_f, anc_r, prev0, keep, Planes{}, B, out, start, end, lstatus,
+      log_n, log_lwin, log_pos, log_meta, overflow, stream);
 }
 
 // The sharded-table entry: `shards` a host array of n_shards plane
@@ -355,8 +434,54 @@ extern "C" int extend_reads_shard(
     return (int)cudaErrorInvalidValue;
   Cfg c{k, rb, bits, crb, cbits, trim, L, window, error, min_count, cutoff,
         maxe};
-  return launch_extend(acc, crows, c, codes, hqb, lengths, status0,
-                       start_off, anc_f, anc_r, prev0, keep, B, out, start,
-                       end, lstatus, log_n, log_lwin, log_pos, log_meta,
-                       overflow, stream);
+  return launch_extend<ShardRows, false>(
+      acc, crows, c, codes, hqb, lengths, status0, start_off, anc_f, anc_r,
+      prev0, keep, Planes{}, B, out, start, end, lstatus, log_n, log_lwin,
+      log_pos, log_meta, overflow, stream);
+}
+
+// The event entries: the plain entries' arguments with HK17's eight frame
+// planes after `keep` (clean2, nd, cnt2, aux2, lastc1, prevval, mf2, mr2).
+extern "C" int extend_reads_event(
+    const uint32_t* rows, int k, int rb, int bits, const uint32_t* crows,
+    int crb, int cbits, int trim, const int8_t* codes, const uint8_t* hqb,
+    const int* lengths, const int* status0, const int* start_off,
+    const long long* anc_f, const long long* anc_r, const int* prev0,
+    const uint8_t* keep, const uint8_t* clean2, const int* nd,
+    const int* cnt2, const int* aux2, const int* lastc1, const int* prevval,
+    const long long* mf2, const long long* mr2, int B, int L, int window,
+    int error, int min_count, int cutoff, int maxe, int8_t* out, int* start,
+    int* end, int* lstatus, int* log_n, int* log_lwin, int* log_pos,
+    int* log_meta, int* overflow, void* stream) {
+  Cfg c{k, rb, bits, crb, cbits, trim, L, window, error, min_count, cutoff,
+        maxe};
+  Planes pl{clean2, nd, cnt2, aux2, lastc1, prevval, mf2, mr2};
+  return launch_extend<PlaneRows, true>(
+      PlaneRows{rows}, crows, c, codes, hqb, lengths, status0, start_off,
+      anc_f, anc_r, prev0, keep, pl, B, out, start, end, lstatus, log_n,
+      log_lwin, log_pos, log_meta, overflow, stream);
+}
+
+extern "C" int extend_reads_event_shard(
+    const uint32_t* const* shards, int n_shards, int local_rb, int k, int rb,
+    int bits, const uint32_t* crows, int crb, int cbits, int trim,
+    const int8_t* codes, const uint8_t* hqb, const int* lengths,
+    const int* status0, const int* start_off, const long long* anc_f,
+    const long long* anc_r, const int* prev0, const uint8_t* keep,
+    const uint8_t* clean2, const int* nd, const int* cnt2, const int* aux2,
+    const int* lastc1, const int* prevval, const long long* mf2,
+    const long long* mr2, int B, int L, int window, int error, int min_count,
+    int cutoff, int maxe, int8_t* out, int* start, int* end, int* lstatus,
+    int* log_n, int* log_lwin, int* log_pos, int* log_meta, int* overflow,
+    void* stream) {
+  ShardRows acc;
+  if (!shard_rows(shards, n_shards, local_rb, &acc))
+    return (int)cudaErrorInvalidValue;
+  Cfg c{k, rb, bits, crb, cbits, trim, L, window, error, min_count, cutoff,
+        maxe};
+  Planes pl{clean2, nd, cnt2, aux2, lastc1, prevval, mf2, mr2};
+  return launch_extend<ShardRows, true>(
+      acc, crows, c, codes, hqb, lengths, status0, start_off, anc_f, anc_r,
+      prev0, keep, pl, B, out, start, end, lstatus, log_n, log_lwin,
+      log_pos, log_meta, overflow, stream);
 }

@@ -34,13 +34,19 @@ BUILD_ROOT = os.path.join(os.path.dirname(HERE), "_build")
 KERNELS = ("tile_insert", "tile_seal", "tile_lookup", "extend_reads",
            "stage2_head", "tile_export", "tile_load", "tile_grow",
            "batch_aggregate", "sketch_update", "gated_insert", "tile_floor",
-           "tile_departition", "pack_finish", "shard_route")
-# entries of a kernel counted apart from it, on the --devices N path:
-# HK1's and HK8's shard entries, HK3's shard entry and HK4's and HK5's
-# sharded-table entries (the routed stage-2 layout), HK15's partition
-# entry (--partitions P with --devices N); each is also its C launcher
+           "tile_departition", "pack_finish", "shard_route", "event_planes",
+           "event_scan")
+# entries of a kernel counted apart from it: on the --devices N path
+# HK1's and HK8's shard entries, HK3's shard entry and HK4's, HK5's and
+# HK16's sharded-table entries (the routed stage-2 layout), HK15's
+# partition entry (--partitions P with --devices N); on the event-mode
+# stage 2 HK4's event entry (and its sharded-table entry). Each but
+# HK16's is also its C launcher; HK16's sharded-table entry is the two
+# launchers event_classify_shard and event_prepass_shard.
 ENTRIES = ("tile_insert_shard", "tile_grow_shard", "tile_lookup_shard",
-           "extend_reads_shard", "stage2_head_shard", "shard_route_part")
+           "extend_reads_shard", "stage2_head_shard", "shard_route_part",
+           "event_planes_shard", "extend_reads_event",
+           "extend_reads_event_shard")
 COUNTERS = KERNELS + ENTRIES
 
 NVCC_FLAGS = ["-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
@@ -71,6 +77,15 @@ SIGNATURES = {
                                _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                                _P, _P, _P],
+        "extend_reads_event": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P,
+                               _P, _P, _P, _P, _P, _P, *[_P] * 8, _I, _I,
+                               _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                               _P, _P, _P, _P],
+        "extend_reads_event_shard": [_P, _I, _I, _I, _I, _I, _P, _I, _I, _I,
+                                     _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     *[_P] * 8, _I, _I, _I, _I, _I, _I, _I,
+                                     _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     _P],
     },
     "stage2_head": {
         "stage2_head": [_P, _I, _I, _LL, _LL, _LL, _P, _I, _I, _I, _P, _I,
@@ -118,6 +133,22 @@ SIGNATURES = {
         "shard_route_part": [_P, _I, _I, _LL, _LL, _LL, _I, _I, _I, _I, _I,
                              _I, _I, _I, _P, _P, _P],
         "shard_route_lanes": [_P, _LL, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    },
+    "event_planes": {
+        "event_classify": [_P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _P],
+        "event_classify_shard": [_P, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P,
+                                 _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
+                                 _P, _P, _P, _P, _P],
+        "event_prepass": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P,
+                          _P, _P, _P, _P],
+        "event_prepass_shard": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I,
+                                _I, _P, _P, _P, _P, _P, _P, _P],
+    },
+    "event_scan": {
+        "event_scan": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
+                       _P, _P, _P, _P, _P],
     },
 }
 

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the fifteen hand-written kernels and their
+"""Plain PyTorch versions of the seventeen hand-written kernels and their
 entries.
 
 Each function computes what its CUDA kernel computes (csrc/*.cu) with
@@ -31,6 +31,11 @@ _LOOKUP_CHUNK = 1 << 18
 OK, ST_CONTAMINANT, ST_NO_ANCHOR = 0, 1, 2
 # HK14: log positions cross biased in u16 lanes (corrector._POS_BIAS)
 POS_BIAS = 4
+# HK16's aux plane (corrector._AX_*): bit 0 level, bits 1-3 count, bits
+# 4-5 ucode, bit 6 pre-pass data valid, bit 7 prev-defining keep, bits
+# 8-11 continuation success and 12-15 continues-with-next-base, a bit a
+# variant
+AX_COUNT, AX_UCODE, AX_PRE, AX_C1K, AX_SUCC, AX_CWN = 1, 4, 6, 7, 8, 12
 
 
 def u32(x: torch.Tensor) -> torch.Tensor:
@@ -361,6 +366,21 @@ class _Logs:
         return diff
 
 
+def _gba_reduce(vals):
+    """get_best_alternatives' reduction (mer_database.hpp:302-329) of
+    value words [..., 4] (variant order): counts kept only at the best
+    quality level present; ucode the largest variant with a kept count.
+    Returns (counts [..., 4], ucode, level, count)."""
+    cnt, q = vals >> 1, vals & 1
+    level = torch.where(cnt > 0, q, 0).amax(dim=-1)
+    counts = torch.where((cnt > 0) & (q == level[..., None]), cnt, 0)
+    count = (counts > 0).sum(dim=-1)
+    ucode = torch.zeros_like(count)
+    for v in range(4):
+        ucode = torch.where(counts[..., v] > 0, v, ucode)
+    return counts, ucode, level, count
+
+
 def _gba(rows, meta, f, r, d, active):
     """get_best_alternatives (mer_database.hpp:302-329): the 4 variant
     counts of base 0 kept at the best quality level present, in the
@@ -376,14 +396,7 @@ def _gba(rows, meta, f, r, d, active):
                 idx, v), d[idx], k)
             keys.append(mer.canonical(fv, rv))
         vals[idx] = lookup(rows, meta, torch.cat(keys)).view(4, -1).T
-    cnt, q = vals >> 1, vals & 1
-    level = torch.where(cnt > 0, q, 0).amax(dim=1)
-    counts = torch.where((cnt > 0) & (q == level[:, None]), cnt, 0)
-    count = (counts > 0).sum(dim=1)
-    ucode = torch.zeros_like(count)
-    for v in range(4):
-        ucode = torch.where(counts[:, v] > 0, v, ucode)
-    return counts, ucode, level, count
+    return _gba_reduce(vals)
 
 
 def _sub_meta(frm, to):
@@ -406,7 +419,7 @@ def _contam_hit(contam, f, r, mask):
 def extend_reads(rows, meta, codes, hqb, lengths, status0, start_off, anc_f,
                  anc_r, prev0, keep, *, window: int, error: int,
                  min_count: int, cutoff: int, maxe: int, contam=None,
-                 trim_contaminant: bool = False):
+                 trim_contaminant: bool = False, planes=None):
     """HK4 (K13 + K15): the reference's extension (oracle._extend,
     error_correct_reads.cc:384-565) for every (read, direction) lane in
     lockstep, both directions stepped directly in the read's own frame
@@ -422,7 +435,26 @@ def extend_reads(rows, meta, codes, hqb, lengths, status0, start_off, anc_f,
     lwin, pos, meta), overflow [1] = 1 where a log outgrew maxe
     entries), all int32. `rows` is one plane, or the shard planes of a
     table sharded by leading row bits under its TileShardedMeta (HK4's
-    sharded-table entry; `lookup`)."""
+    sharded-table entry; `lookup`).
+
+    With `planes` (event_scan's [2B, L] frame planes) the walk is the
+    JAX package's event mode (corrector._extend_loop, planes != None),
+    HK4's event entry: a lane is synced while its position is at or past
+    `resync` (k past its last substitution, in frame coordinates), and a
+    synced lane teleports over a run of clean positions to the next
+    event (its mer, and prev where a prev-defining keep lies in the run,
+    read from the planes at the run's end), takes a synced step's
+    get_best_alternatives from cnt/aux instead of probing, and its
+    ambiguous continuation bits from the pre-pass. A desynced lane
+    steps live, as in the plain walk; JAX's tail probe is that live walk
+    batched (its exact-keep prefix is what the live steps keep, one at a
+    time), and its stalls and lane draining only delay a lane, so
+    neither has a counterpart here. A backward lane at read position
+    `pos` reads frame position len - 1 - pos of its reverse-complement
+    row, whose variant v is read code 3 - v. Where the planes' N-as-A
+    windows differ from the live mer (an N behind a backward lane that
+    kept it), the synced step still takes the planes' facts, as JAX
+    does."""
     b, l = codes.shape
     dev = codes.device
     k = meta.k
@@ -453,8 +485,36 @@ def extend_reads(rows, meta, codes, hqb, lengths, status0, start_off, anc_f,
     def trunc_raw(p):
         return p + (d < 0)  # backward_log::truncation records pos + 1
 
+    if planes is not None:
+        clean2, nd2, cnt2, aux2, lastc1, prevval, mf2, mr2 = planes
+        ln2 = torch.cat([ln, ln])
+        resync = torch.full_like(lane, -(1 << 30))
+        # frame variant of read code v: v forward, 3 - v backward
+        vmap = torch.where(d[:, None] > 0, torch.arange(4, device=dev),
+                           3 - torch.arange(4, device=dev))
+
+        def frame(p):  # read position <-> frame position (an involution)
+            return torch.where(d > 0, p, ln2 - 1 - p)
+
+        def at(plane, fp, mask):
+            return plane_read(plane, lane, fp, mask).to(torch.int64)
+
     while True:
         act = alive & in_range(pos)
+        if planes is not None:
+            fp = frame(pos)
+            syn0 = act & (fp >= resync)
+            tel = syn0 & plane_read(clean2, lane, fp, syn0)
+            if bool(tel.any()):
+                tgt = torch.minimum(at(nd2, fp, tel), ln2)
+                mf, mr = at(mf2, tgt - 1, tel), at(mr2, tgt - 1, tel)
+                f = torch.where(tel, torch.where(d > 0, mf, mr), f)
+                r = torch.where(tel, torch.where(d > 0, mr, mf), r)
+                upd = tel & (at(lastc1, tgt - 1, tel) >= fp)
+                prev = torch.where(upd, at(prevval, tgt - 1, upd), prev)
+                opos = torch.where(tel, opos + d * (tgt - fp), opos)
+                pos = torch.where(tel, frame(tgt), pos)
+                act = alive & in_range(pos)
         if not bool(act.any()):
             break
         cpos = pos
@@ -468,7 +528,25 @@ def extend_reads(rows, meta, codes, hqb, lengths, status0, start_off, anc_f,
         # contaminant on the shifted mer (error_correct_reads.cc:401-407)
         con1 = _contam_hit(contam, f, r, act & (ori >= 0))
         act = act & ~con1
-        counts, ucode, level, count = _gba(rows, meta, f, r, d, act)
+        if planes is None:
+            counts, ucode, level, count = _gba(rows, meta, f, r, d, act)
+            pre = None
+        else:
+            cfp = frame(cpos)
+            syn = act & (cfp >= resync)
+            counts, ucode, level, count = _gba(rows, meta, f, r, d,
+                                               act & ~syn)
+            pc, pa = at(cnt2, cfp, syn), at(aux2, cfp, syn)
+            counts = torch.where(syn[:, None], (pc[:, None] >> (7 * vmap))
+                                 & 127, counts)
+            level = torch.where(syn, pa & 1, level)
+            count = torch.where(syn, (pa >> AX_COUNT) & 7, count)
+            pu = (pa >> AX_UCODE) & 3
+            ucode = torch.where(syn, torch.where(d > 0, pu, 3 - pu), ucode)
+            # the pre-pass bits, in read variant order
+            pre = (syn & (((pa >> AX_PRE) & 1) == 1),
+                   ((pa[:, None] >> (AX_SUCC + vmap)) & 1) == 1,
+                   ((pa[:, None] >> (AX_CWN + vmap)) & 1) == 1)
 
         t0 = act & (count == 0)
         c1 = act & (count == 1)
@@ -504,11 +582,15 @@ def extend_reads(rows, meta, codes, hqb, lengths, status0, start_off, anc_f,
         t_c = torch.zeros_like(act)
         amb_w = torch.zeros_like(act)
         con3 = torch.zeros_like(act)
+        rep2 = torch.zeros_like(act)
         ia = torch.nonzero(ambig).squeeze(1)
         if ia.numel():
-            (trip2, t_c, amb_w, con3, f, r, opos) = _ambiguous(
+            (trip2, t_c, amb_w, con3, rep2, f, r, opos) = _ambiguous(
                 rows, meta, logs, ia, f, r, d, pos, end, read, codes64,
-                counts, level, prev, ori, cpos, opos, min_count, nl, contam)
+                counts, level, prev, ori, cpos, opos, min_count, nl, contam,
+                pre)
+        if planes is not None:  # the mer left the original windows
+            resync = torch.where(sub1 | rep2, cfp + k, resync)
         con = con1 | con2 | con3
         trunc = t0 | t_a | t_b | t_c
         if trim_contaminant:
@@ -536,13 +618,24 @@ def extend_reads(rows, meta, codes, hqb, lengths, status0, start_off, anc_f,
             overflow)
 
 
+def plane_read(plane, lane, fp, mask):
+    """plane[lane, fp] where `mask`, 0 elsewhere (fp clamped into the
+    row): every read the event walk makes of an HK17 frame plane, one
+    element a masked lane, as HK4's event entry reads them."""
+    v = plane[lane, fp.clamp(0, plane.shape[1] - 1)]
+    return torch.where(mask, v, torch.zeros_like(v))
+
+
 def _ambiguous(rows, meta, logs, ia, f, r, d, pos, end, read, codes64,
-               counts, level, prev, ori, cpos, opos, min_count, nl, contam):
+               counts, level, prev, ori, cpos, opos, min_count, nl, contam,
+               pre=None):
     """The multiple-alternatives path (error_correct_reads.cc:473-545)
     for the lanes `ia`: continuation probe, then the tie-break chain
     including the int-overflow dead code (prev_count <= min_count never
     substitutes; oracle module docstring), then the substitution's
-    contaminant check."""
+    contaminant check. `pre` = (has, succ [N, 4], cwn [N, 4]) full-width:
+    lanes with `has` take the event planes' pre-pass bits instead of
+    probing. Also returns the lanes whose mer took another base."""
     k = meta.k
     da = d[ia]
     pa = pos[ia]
@@ -556,14 +649,19 @@ def _ambiguous(rows, meta, logs, ia, f, r, d, pos, end, read, codes64,
         check = torch.where(elig[:, i], i, check)
     succ = torch.zeros_like(elig)
     cwn = torch.zeros_like(elig)
+    has = torch.zeros_like(inr) if pre is None else pre[0][ia]
     for i in range(4):
         fi, ri = mer.dir_replace0(f[ia], r[ia], torch.full_like(ia, i), da, k)
         fi, ri = mer.dir_shift(fi, ri, torch.zeros_like(ia), da, k)
-        nc, _u, nlev, ncnt = _gba(rows, meta, fi, ri, da, elig[:, i])
+        nc, _u, nlev, ncnt = _gba(rows, meta, fi, ri, da,
+                                  elig[:, i] & ~has)
         s_i = elig[:, i] & (ncnt > 0) & (nlev >= level[ia])
         succ[:, i] = s_i
         cwn[:, i] = s_i & (rnb >= 0) & (nc.gather(1, rnb.clamp(0)[:, None])
                                          [:, 0] > 0)
+    if pre is not None:
+        succ = torch.where(has[:, None], pre[1][ia], succ)
+        cwn = torch.where(has[:, None], pre[2][ia], cwn)
     success = succ.any(dim=1)
     cont = torch.where(succ, ca, 0)
     pr = prev[ia]
@@ -592,9 +690,9 @@ def _ambiguous(rows, meta, logs, ia, f, r, d, pos, end, read, codes64,
         o[ia] = x
         return o
 
-    sub2 = full(do_rep & (check != ori[ia]))
-    con3 = _contam_hit(contam, f, r, sub2)
-    sub2 = sub2 & ~con3
+    rep2 = full(do_rep & (check != ori[ia]))
+    con3 = _contam_hit(contam, f, r, rep2)
+    sub2 = rep2 & ~con3
     check_f = full(check, -1)
     trip2 = logs.append(sub2, cpos, _sub_meta(ori, check_f))
     diff2 = logs.remove_last_window(trip2)
@@ -602,7 +700,7 @@ def _ambiguous(rows, meta, logs, ia, f, r, d, pos, end, read, codes64,
     opos = torch.where(trip2, opos - d * diff2, opos)
     amb = full(torch.ones_like(do_rep)) & ~con3
     t_c = amb & ~trip2 & (ori < 0) & (check_f < 0)
-    return trip2, t_c, amb & ~trip2 & ~t_c, con3, f, r, opos
+    return trip2, t_c, amb & ~trip2 & ~t_c, con3, rep2, f, r, opos
 
 
 # --------------------------------------------------------------- HK5
@@ -1028,3 +1126,188 @@ def shard_route_lanes(lanes, meta):
     their owner under `meta` (after a grow)."""
     return bucket(shard_key_parts(lanes >> 1, meta)[0], lanes,
                   meta.n_shards)
+
+
+# --------------------------------------------------------------- HK16
+
+
+def _shr(x, n: int, fill):
+    """out[:, j] = x[:, j - n], `fill` where j < n."""
+    out = torch.full_like(x, fill)
+    if n < x.shape[1]:
+        out[:, n:] = x[:, :x.shape[1] - n]
+    return out
+
+
+def _comp(c):
+    return torch.where(c >= 0, 3 - c, c)
+
+
+def _frame_facts(codes, hqb, lengths, start_off, k: int):
+    """corrector._frame_facts: per window end e, the step facts of the
+    frame that consumes it, forward for e >= start_off and
+    reverse-complement for e <= start_off - 2 (the two extensions read
+    disjoint ranges). Returns (ori, qual, nbase, wf, wr, f, r, valid):
+    the base the step adds (rc frame: the complement of the window's
+    first base), its qual >= cutoff bit, the next base in frame
+    direction (-1 past the read or at a non-ACGT base), the consuming
+    frame's mer (rc frame: the original words swapped), and the window's
+    own mer and validity (rolling_kmers: a non-ACGT base enters as A)."""
+    l = codes.shape[1]
+    c = codes.to(torch.int64)
+    e = torch.arange(l, device=codes.device)[None, :]
+    fwd = e >= start_off.to(torch.int64)[:, None]
+    ln = lengths.to(torch.int64)[:, None]
+    ori = torch.where(fwd, c, _comp(_shr(c, k - 1, -2)))
+    qual = torch.where(fwd, hqb, _shr(hqb, k - 1, False))
+    nb_f = torch.where(e + 1 < ln, torch.roll(c, -1, 1), -1)
+    nb_r = torch.where(e - k >= 0, _comp(_shr(c, k, -2)), -1)
+    nbase = torch.where(fwd, nb_f, nb_r)
+    nbase = torch.where(nbase >= 0, nbase, -1)
+    f, r, valid = mer.rolling_kmers(codes, k)
+    return (ori, qual, nbase, torch.where(fwd, f, r), torch.where(fwd, r, f),
+            f, r, valid)
+
+
+def _replace0_fwd(f, r, code, k: int):
+    return mer.dir_replace0(f, r, code, torch.ones_like(f), k)
+
+
+def event_planes(rows, meta, codes, hqb, lengths, start_off, keep, *,
+                 min_count: int, cutoff: int, contam=None):
+    """HK16 (K16's sibling sweep and ambiguous pre-pass,
+    corrector._class_planes + _classify + _pack_counts + _ambig_prepass
+    with no cap): for every window end e of every read, in the frame
+    that consumes it (_frame_facts), the own window's value word and the
+    3 sibling probes (the other base-0 variants; a non-ACGT base is
+    variant 0, as in the JAX sweep) give the exact get_best_alternatives
+    facts, classified as the live step would take them:
+
+      clean  bool  the step keeps the base and logs nothing (count-1
+                   keep, cutoff/qual keep or Poisson keep) and the
+                   window (valid only) is no contaminant member
+      cnt    int32 the 4 kept counts, 7 bits each (variant order of the
+                   frame)
+      aux    int32 AX_* fields; for every ambiguous-class position the
+                   16-probe continuation bits (pass 2)
+      val    int32 the own window's value word (its count is prevval)
+      f, r   int64 the window's own mers
+
+    all [B, L] in read coordinates. `keep` is the Poisson keep table
+    (corrector.make_keep_table). `rows` is one plane or shard planes
+    (`lookup`)."""
+    k = meta.k
+    maxv = meta.max_val
+    ori, qual, nbase, wf, wr, f, r, valid = _frame_facts(
+        codes, hqb, lengths, start_off, k)
+    shape = ori.shape
+    own = lookup(rows, meta, mer.canonical(f, r).reshape(-1)).view(shape)
+    orie = ori.clamp(0, 3)
+    sib = []
+    for j in range(3):
+        v = j + (orie <= j).to(torch.int64)
+        sf, sr = _replace0_fwd(wf, wr, v, k)
+        sib.append(lookup(rows, meta, mer.canonical(sf, sr).reshape(-1))
+                   .view(shape))
+    sib = torch.stack(sib, -1)  # slot j holds variant j + (orie <= j)
+    vals = torch.stack(
+        [torch.where(orie == i, own, sib.gather(-1, torch.where(
+            i > orie, i - 1, i).clamp(0, 2)[..., None])[..., 0])
+         for i in range(4)], dim=-1)
+    con = _contam_hit(contam, f.reshape(-1), r.reshape(-1),
+                      valid.reshape(-1)).view(shape)
+    counts, ucode, level, count = _gba_reduce(vals)
+    c_ori = torch.where(ori >= 0, counts.gather(-1, orie[..., None])[..., 0],
+                        0)
+    c1keep = (count == 1) & (ucode == ori)
+    ori_hi = (ori >= 0) & (c_ori > min_count)
+    keep_cut = (count > 1) & ori_hi & ((c_ori >= cutoff) | qual)
+    total = counts.sum(-1).clamp(max=4 * maxv)
+    keep_poi = ((count > 1) & ori_hi & ~keep_cut
+                & keep[total, c_ori.clamp(0, maxv)].bool())
+    clean = (c1keep | keep_cut | keep_poi) & ~con
+    t_a = (count > 1) & (ori >= 0) & ~ori_hi & (level == 0) & (c_ori == 0)
+    t_b = (count > 1) & (ori < 0) & (level == 0)
+    ambig = (count > 1) & ~(keep_cut | keep_poi) & ~t_a & ~t_b
+    cnt = (counts[..., 0] | (counts[..., 1] << 7) | (counts[..., 2] << 14)
+           | (counts[..., 3] << 21))
+    aux = (level | (count << AX_COUNT) | (ucode << AX_UCODE)
+           | ((clean & c1keep).to(torch.int64) << AX_C1K))
+    # pass 2: the continuation probe of every ambiguous-class position
+    ia = torch.nonzero(ambig.reshape(-1)).squeeze(1)
+    if ia.numel():
+        cf, cr = wf.reshape(-1)[ia], wr.reshape(-1)[ia]
+        ca = counts.reshape(-1, 4)[ia]
+        la = level.reshape(-1)[ia]
+        nb = nbase.reshape(-1)[ia]
+        bits = torch.full_like(ia, 1 << AX_PRE)
+        for i in range(4):
+            elig = ca[:, i] > min_count
+            fi, ri = _replace0_fwd(cf, cr, torch.full_like(ia, i), k)
+            fi, ri = mer.dir_shift(fi, ri, torch.zeros_like(ia),
+                                   torch.ones_like(ia), k)
+            nv = torch.zeros((ia.numel(), 4), dtype=torch.int64,
+                             device=ia.device)
+            ie = torch.nonzero(elig).squeeze(1)
+            if ie.numel():
+                keys = [mer.canonical(*_replace0_fwd(
+                    fi[ie], ri[ie], torch.full_like(ie, j), k))
+                    for j in range(4)]
+                nv[ie] = lookup(rows, meta, torch.cat(keys)).view(4, -1).T
+            ncounts, _u, nlevel, ncount = _gba_reduce(nv)
+            s_i = elig & (ncount > 0) & (nlevel >= la)
+            c_i = s_i & (nb >= 0) & (ncounts.gather(
+                1, nb.clamp(0)[:, None])[:, 0] > 0)
+            bits |= (s_i.to(torch.int64) << (AX_SUCC + i)) \
+                | (c_i.to(torch.int64) << (AX_CWN + i))
+        aux = aux.reshape(-1).clone()
+        aux[ia] |= bits
+        aux = aux.view(shape)
+    return (clean, cnt.to(torch.int32), aux.to(torch.int32),
+            i32(own), f, r)
+
+
+# --------------------------------------------------------------- HK17
+
+
+def rc_map(x, lengths, k: int, fill):
+    """corrector._event_planes' rc_map: the reverse-complement frame's
+    row of a per-window-end plane, x[len + k - 2 - p'] at frame position
+    p' (the window ending there), `fill` where that lies outside the
+    read."""
+    l = x.shape[1]
+    p = torch.arange(l, device=x.device)[None, :]
+    src = lengths.to(torch.int64)[:, None] + (k - 2) - p
+    inside = (src >= 0) & (src < lengths.to(torch.int64)[:, None])
+    g = torch.gather(x, 1, src.clamp(0, l - 1))
+    return torch.where(inside, g, torch.full_like(g, fill))
+
+
+def event_scan(clean, cnt, aux, val, f, r, lengths, k: int):
+    """HK17 (K16's remap and scans, corrector._event_planes :1670-1705):
+    HK16's per-window planes [B, L] -> the [2B, L] frame planes the
+    event walk reads, forward rows then reverse-complement rows (rc_map),
+    as (clean bool, nd int32: the first non-clean frame position >= p,
+    L if none, cnt int32, aux int32, lastc1 int32: the last
+    prev-defining keep <= p, -1 if none, prevval int32: the own count at
+    lastc1 (at 0 where none), mf int64, mr int64: the frame's forward
+    and reverse mer of the window ending at p)."""
+    l = clean.shape[1]
+
+    def both(x, fill):
+        return torch.cat([x, rc_map(x, lengths, k, fill)])
+
+    clean2 = both(clean, False)
+    cnt2 = both(cnt, 0)
+    aux2 = both(aux, 0)
+    mf2 = torch.cat([f, rc_map(r, lengths, k, 0)])
+    mr2 = torch.cat([r, rc_map(f, lengths, k, 0)])
+    co2 = both(val >> 1, 0)
+    p = torch.arange(l, device=clean.device)[None, :].expand_as(clean2)
+    nd = torch.flip(torch.cummin(torch.flip(
+        torch.where(clean2, l, p), [1]), dim=1).values, [1])
+    c1k = ((aux2 >> AX_C1K) & 1) == 1
+    lastc1 = torch.cummax(torch.where(c1k, p, -1), dim=1).values
+    prevval = torch.gather(co2, 1, lastc1.clamp(min=0))
+    return (clean2, nd.to(torch.int32), cnt2, aux2, lastc1.to(torch.int32),
+            prevval.to(torch.int32), mf2, mr2)

@@ -1,4 +1,4 @@
-"""Stage-2 corrector on the device (counterpart of the plain path of
+"""Stage-2 corrector on the device (counterpart of
 quorum_tpu/models/corrector.py).
 
 Per batch: HK5 widens the wire to codes and the qual>=cutoff plane,
@@ -8,6 +8,15 @@ the reference's anchor scan (find_starting_mer,
 error_correct_reads.cc:609-643); HK4 extends every anchored read in
 both directions; HK14 packs the result into one buffer, which crosses
 to the host once. The host then homo-trims and renders.
+
+`event_driven` (default True, the JAX package's name and default) runs
+the JAX event mode: between HK5 and HK4, HK16 classifies every window
+in the frame that consumes it and HK17 scans the classes into the
+frame planes, and HK4's event entry teleports over clean runs and takes
+synced steps from the planes. Its output is the JAX package's event
+mode, which departs from the reference at some Ns behind a backward
+extension (ROADMAP Queue 3); event_driven=False is the plain walk,
+the reference's.
 
 Result fields match corrector.BatchResult: `out` corrected codes, `start`
 first kept index, `end` one past the last, `status`, and the forward and
@@ -94,7 +103,8 @@ def make_keep_table(meta: TileMeta, cfg: ECConfig, device) -> torch.Tensor:
 
 
 def correct_batch(state: TileState, meta: TileMeta, codes, quals, lengths,
-                  cfg: ECConfig, contam=None) -> BatchResult:
+                  cfg: ECConfig, contam=None,
+                  event_driven: bool = True) -> BatchResult:
     """Library entry: codes int8 [B, L] (-1 non-ACGT, -2 past the
     read), quals uint8 [B, L], lengths [B]; packed like a parsed batch
     and corrected on the table's device. `contam` is an optional
@@ -105,7 +115,7 @@ def correct_batch(state: TileState, meta: TileMeta, codes, quals, lengths,
                                 thresholds=(cfg.qual_cutoff,))
     return correct_batch_packed(state, meta, packed, cfg,
                                 make_keep_table(meta, cfg, state.rows.device),
-                                contam)
+                                contam, event_driven)
 
 
 class Lanes(NamedTuple):
@@ -124,19 +134,23 @@ class Lanes(NamedTuple):
 
 def correct_batch_packed(state: TileState, meta: TileMeta, packed,
                          cfg: ECConfig, keep: torch.Tensor,
-                         contam=None) -> BatchResult:
+                         contam=None, event_driven: bool = True
+                         ) -> BatchResult:
     """correct_batch over the packed wire (io/packing): one H2D buffer,
-    then HK5 (widening, sweep, anchors), HK4 (extension) and HK14 (the
-    packed result) on the table's device."""
-    return pack_batch(extend_batch(state, meta, packed, cfg, keep, contam))
+    then HK5 (widening, sweep, anchors), in event mode HK16 and HK17
+    (the planes), HK4 (extension) and HK14 (the packed result) on the
+    table's device."""
+    return pack_batch(extend_batch(state, meta, packed, cfg, keep, contam,
+                                   event_driven))
 
 
 def extend_batch(state, meta, packed, cfg: ECConfig, keep: torch.Tensor,
-                 contam=None) -> Lanes:
-    """HK5 and HK4 on one packed batch, on the keep table's device,
-    against `state`: one card's TileState (under a TileMeta), or a
-    ShardedTileState read in place (the routed layout, under its
-    RoutedTileMeta: HK5's and HK4's sharded-table entries)."""
+                 contam=None, event_driven: bool = True) -> Lanes:
+    """HK5, HK16 and HK17 (event mode) and HK4 on one packed batch, on
+    the keep table's device, against `state`: one card's TileState
+    (under a TileMeta), or a ShardedTileState read in place (the routed
+    layout, under its RoutedTileMeta: HK5's, HK16's and HK4's
+    sharded-table entries)."""
     packed.require_plane(cfg.qual_cutoff)
     if contam is not None and contam[1].k != cfg.k:
         raise ValueError(
@@ -152,11 +166,18 @@ def extend_batch(state, meta, packed, cfg: ECConfig, keep: torch.Tensor,
         cfg.qual_cutoff, skip=cfg.skip, good=cfg.good,
         anchor_count=cfg.anchor_count, **ckw)
     anc = Anchors(*anc)
+    planes = None
+    if event_driven:
+        classes = kernels.event_planes(
+            rows, meta, codes, hqb, lengths, anc.start_off, keep,
+            min_count=cfg.min_count, cutoff=cfg.cutoff, contam=ctab)
+        planes = kernels.event_scan(*classes, lengths, meta.k)
     out, start, end, lstatus, fwd, bwd, overflow = kernels.extend_reads(
         rows, meta, codes, hqb, lengths, anc.status, anc.start_off,
         anc.f, anc.r, anc.prev, keep, window=cfg.effective_window,
         error=cfg.effective_error, min_count=cfg.min_count,
-        cutoff=cfg.cutoff, maxe=log_capacity(length, cfg), **ckw)
+        cutoff=cfg.cutoff, maxe=log_capacity(length, cfg), planes=planes,
+        **ckw)
     return Lanes(out, start, end, lstatus[:b], lstatus[b:], LogState(*fwd),
                  LogState(*bwd), overflow)
 

@@ -89,7 +89,8 @@ def run_error_correct(db_path: str, sequences: Sequence[str],
                       no_discard: bool = False, homo_trim: int | None = None,
                       trim_contaminant: bool = False, db=None,
                       prepacked: Iterable | None = None,
-                      mesh: list | None = None) -> ECStats:
+                      mesh: list | None = None,
+                      event_driven: bool = True) -> ECStats:
     """Run stage 2. `db` is an in-process handoff (state, meta, build
     stats) that skips reading the database file; `prepacked` replays
     (ReadBatch, PackedReads) pairs packed with the qual_cutoff plane
@@ -102,7 +103,11 @@ def run_error_correct(db_path: str, sequences: Sequence[str],
     routed layout loads row-sharded onto the mesh (one HK7 launch a
     shard), any other onto the lead device. A row-sharded table
     corrected on one device is gathered onto the lead shard's device
-    first."""
+    first. `event_driven=False` is a measurement hook that the JAX
+    package's run_error_correct lacks: the plain walk
+    (corrector.correct_batch), for chip_smoke.py's plain-mode stage 2
+    beside the event mode on the same entry point. The CLIs never pass
+    it and run event mode, as the JAX package's do."""
     from .. import resolve_device
     from ..parallel import tile_sharded as ts
 
@@ -156,13 +161,15 @@ def run_error_correct(db_path: str, sequences: Sequence[str],
         contam = contaminant_mod.load_contaminant(opts.contaminant, cfg.k,
                                                   device)
     if devices > 1:
-        correct = ts.ShardedCorrector(mesh, state, meta, cfg, contam)
+        correct = ts.ShardedCorrector(mesh, state, meta, cfg, contam,
+                                      event_driven=event_driven)
     else:
         mesh = [device]
         keep = make_keep_table(meta, cfg, device)
 
         def correct(pk):
-            return correct_batch_packed(state, meta, pk, cfg, keep, contam)
+            return correct_batch_packed(state, meta, pk, cfg, keep, contam,
+                                        event_driven)
     stats = ECStats(cutoff=cutoff, presence_floor=floor)
     if prepacked is None:
         prepacked = ((b, packing.pack_reads(b.codes, b.quals, b.lengths,

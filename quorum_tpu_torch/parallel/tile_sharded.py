@@ -494,14 +494,17 @@ def query_step(mesh, meta: TileShardedMeta):
 
 
 def correct_step_wire(mesh, rows, meta, pk: packing.PackedReads, cfg,
-                      keeps: list, contams: list):
+                      keeps: list, contams: list, event_driven: bool = True):
     """One stage-2 batch over the mesh (JAX's correct_step_wire): shard
     s corrects its row range of the batch (HK5, HK4) on mesh[s] against
     the table, which is `rows[s]`, the replicated plane on mesh[s] under
     a TileMeta, or, under a RoutedTileMeta, `rows` itself, the
     ShardedTileState every shard reads in place; the lanes gather on the
     lead device and one HK14 packs the global result, so the finish
-    buffer, and the bytes rendered from it, are one card's."""
+    buffer, and the bytes rendered from it, are one card's. Event mode
+    (the default, as JAX's sharded stage 2 runs it, tile_sharded.py:951)
+    adds HK16 and HK17 on each shard's rows (HK16's sharded-table entry
+    on the routed layout) and HK4's event entry."""
     from ..models import corrector
 
     routed = isinstance(meta, RoutedTileMeta)
@@ -510,7 +513,7 @@ def correct_step_wire(mesh, rows, meta, pk: packing.PackedReads, cfg,
         table = rows if routed else TileState(rows[s])
         with device_scope(mesh[s]):
             parts.append(corrector.extend_batch(
-                table, meta, sub, cfg, keeps[s], contams[s]))
+                table, meta, sub, cfg, keeps[s], contams[s], event_driven))
     with device_scope(mesh[0]):
         return corrector.pack_batch(corrector.merge_lanes(parts, mesh[0]))
 
@@ -519,14 +522,18 @@ class ShardedCorrector:
     """Stage 2 over a local mesh (JAX's ShardedCorrector): the layout as
     JAX picks it (routed_layout), the table (a ShardedTileState or one
     card's TileState) placed once, then `(pk) -> BatchResult` per batch,
-    a drop-in for corrector.correct_batch_packed. The routed layout
-    raises where the mesh's cards lack peer access (peer_reason)."""
+    a drop-in for corrector.correct_batch_packed, in event mode as JAX's
+    always runs (`event_driven=False`, the plain walk, is a test hook
+    that JAX's lacks). The routed layout raises where the mesh's cards
+    lack peer access (peer_reason)."""
 
     def __init__(self, mesh, state, meta, cfg, contam=None,
-                 replicate_max_bytes: int | None = None):
+                 replicate_max_bytes: int | None = None,
+                 event_driven: bool = True):
         from ..models.corrector import make_keep_table
 
         self.mesh, self.cfg = list(mesh), cfg
+        self.event_driven = event_driven
         k, bits, rb = meta.k, meta.bits, meta.rb_log2
         self.routed = routed_layout(rb, replicate_max_bytes)
         if self.routed:
@@ -553,4 +560,5 @@ class ShardedCorrector:
 
     def __call__(self, pk: packing.PackedReads):
         return correct_step_wire(self.mesh, self.rows, self.meta, pk,
-                                 self.cfg, self.keeps, self.contams)
+                                 self.cfg, self.keeps, self.contams,
+                                 self.event_driven)

@@ -249,9 +249,8 @@ def _seeded_batch(seed):
     return [g], [adapter], reads, quals
 
 
-@pytest.mark.parametrize("trim", [False, True])
-@pytest.mark.parametrize("seed", [7, 8])
-def test_seeded_batch_matches_jax(trim, seed):
+def _seeded_pair(seed, trim, event_driven):
+    """The seeded batch through both packages' corrector in one mode."""
     genome, adapter, reads, quals = _seeded_batch(seed)
     (js, jm), (ts, tm) = _dict_table(genome, 9, 5)
     (jcs, jcm), (tcs, tcm) = _dict_table(adapter, 9, 1)
@@ -259,10 +258,19 @@ def test_seeded_batch_matches_jax(trim, seed):
     jres = jcorr.correct_batch(
         js, jm, codes, q, lengths,
         JECConfig(k=9, cutoff=8, trim_contaminant=trim),
-        contam=(jcs, jcm), event_driven=False)
+        contam=(jcs, jcm), event_driven=event_driven)
     tres = tcorr.correct_batch(ts, tm, codes, q, lengths,
                                TECConfig(k=9, cutoff=8, trim_contaminant=trim),
-                               contam=(tcs, tcm))
+                               contam=(tcs, tcm), event_driven=event_driven)
+    return jres, tres, reads
+
+
+@pytest.mark.parametrize("trim", [False, True])
+@pytest.mark.parametrize("seed", [7, 8])
+def test_seeded_batch_matches_jax(trim, seed):
+    """The port's plain walk (event_driven=False) against JAX's plain
+    loop."""
+    jres, tres, reads = _seeded_pair(seed, trim, False)
     _compare(jres, tres, len(reads))
     status = tres.status.numpy()
     if trim:
@@ -275,26 +283,46 @@ def test_seeded_batch_matches_jax(trim, seed):
 
 
 @pytest.mark.parametrize("trim", [False, True])
-def test_golden_batch_with_read_windows_matches_jax(golden, trim):
+@pytest.mark.parametrize("seed", [7, 8])
+def test_seeded_batch_event_mode_matches_jax(trim, seed):
+    """The port's default, event mode (HK16's and HK4's contaminant
+    entries as plain versions), against JAX's event mode."""
+    jres, tres, reads = _seeded_pair(seed, trim, True)
+    _compare(jres, tres, len(reads))
+
+
+def _golden_pair(golden, trim, event_driven):
     g = golden["g"]
     jcs, jcm = jcontam.load_contaminant(golden["files"]["fasta"], K)
     tcs, tcm = tcontam.load_contaminant(golden["files"]["fasta"], K, "cpu")
     jres = jcorr.correct_batch(
         golden["jstate"], golden["jmeta"], g.codes, g.quals, g.lengths,
         JECConfig(k=K, cutoff=4, trim_contaminant=trim), contam=(jcs, jcm),
-        event_driven=False)
+        event_driven=event_driven)
     tres = tcorr.correct_batch(
         golden["tstate"], golden["tmeta"], g.codes, g.quals, g.lengths,
-        TECConfig(k=K, cutoff=4, trim_contaminant=trim), contam=(tcs, tcm))
+        TECConfig(k=K, cutoff=4, trim_contaminant=trim), contam=(tcs, tcm),
+        event_driven=event_driven)
+    return jres, tres, g
+
+
+@pytest.mark.parametrize("trim", [False, True])
+def test_golden_batch_with_read_windows_matches_jax(golden, trim):
+    jres, tres, g = _golden_pair(golden, trim, False)
     _compare(jres, tres, g.n)
     hit = (tres.status.numpy()[:g.n] == tcorr.ST_CONTAMINANT).sum()
     assert (hit == 0) if trim else (hit >= 2)
 
 
-def test_finish_with_homo_trim_matches_jax():
-    """A genome with a 30-base poly-A run (test_corrector.test_homo_trim):
-    JAX finish_batch's lean path against the port's on the same reads,
-    homo-trim (threshold 3) and its force-truncate included."""
+@pytest.mark.parametrize("trim", [False, True])
+def test_golden_batch_with_read_windows_event_mode_matches_jax(golden, trim):
+    jres, tres, g = _golden_pair(golden, trim, True)
+    _compare(jres, tres, g.n)
+    hit = (tres.status.numpy()[:g.n] == tcorr.ST_CONTAMINANT).sum()
+    assert (hit == 0) if trim else (hit >= 2)
+
+
+def _homo_case():
     rng = np.random.default_rng(11)
     g = _rand_seq(rng, 150) + "A" * 30 + _rand_seq(rng, 40)
     reads, quals = [], []
@@ -305,13 +333,27 @@ def test_finish_with_homo_trim_matches_jax():
             r[int(rng.integers(0, len(r)))] = "ACGT"[int(rng.integers(0, 4))]
         reads.append("".join(r))
         quals.append(_rand_quals(rng, len(r)))
-    (js, jm), (ts, tm) = _dict_table([g], 9, 8)
+    return _dict_table([g], 9, 8), reads, quals
+
+
+def _homo_pair(event_driven):
+    ((js, jm), (ts, tm)), reads, quals = _homo_case()
     codes, q, lengths = _codes(reads, quals)
     jcfg = JECConfig(k=9, cutoff=30, homo_trim=3)
     tcfg = TECConfig(k=9, cutoff=30, homo_trim=3)
     jres = jcorr.correct_batch(js, jm, codes, q, lengths, jcfg,
-                               event_driven=False)
-    tres = tcorr.correct_batch(ts, tm, codes, q, lengths, tcfg)
+                               event_driven=event_driven)
+    tres = tcorr.correct_batch(ts, tm, codes, q, lengths, tcfg,
+                               event_driven=event_driven)
+    return jres, tres, reads, codes, jcfg, tcfg
+
+
+def test_finish_with_homo_trim_matches_jax():
+    """A genome with a 30-base poly-A run (test_corrector.test_homo_trim):
+    JAX finish_batch's lean path against the port's on the same reads,
+    homo-trim (threshold 3) and its force-truncate included (plain
+    walks)."""
+    jres, tres, reads, codes, jcfg, tcfg = _homo_pair(False)
     want = jcorr.finish_batch(jres, len(reads), jcfg, codes=codes)
     got = tcorr.finish_batch(tres, len(reads), codes, tcfg)
     for w, t in zip(want, got):
@@ -319,3 +361,13 @@ def test_finish_with_homo_trim_matches_jax():
             (w.ok, w.error, w.seq, w.fwd_log, w.bwd_log)
     untrimmed = tcorr.finish_batch(tres, len(reads), codes)
     assert any(a.seq != b.seq for a, b in zip(got, untrimmed))
+
+
+def test_finish_with_homo_trim_event_mode_matches_jax():
+    """The same reads in event mode, the default of both packages."""
+    jres, tres, reads, codes, jcfg, tcfg = _homo_pair(True)
+    want = jcorr.finish_batch(jres, len(reads), jcfg, codes=codes)
+    got = tcorr.finish_batch(tres, len(reads), codes, tcfg)
+    for w, t in zip(want, got):
+        assert (t.ok, t.error, t.seq, t.fwd_log, t.bwd_log) == \
+            (w.ok, w.error, w.seq, w.fwd_log, w.bwd_log)

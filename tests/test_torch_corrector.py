@@ -112,13 +112,9 @@ def test_golden_batch_matches_jax(table, cutoff):
     assert int((tres.fwd_log.n + tres.bwd_log.n).sum()) > 0
 
 
-def test_seeded_batch_with_ns_and_short_reads(table):
+def _seeded_ns(g):
     """Golden reads with Ns sprinkled in, cut short, or replaced by
-    random sequence (no anchor), and a qual cutoff that protects some
-    bases. Held to the JAX plain loop (event_driven=False), which agrees
-    with the oracle here; the event-driven default truncates at some
-    backward-direction Ns where both substitute (ROADMAP, Queue 3)."""
-    jstate, jmeta, tstate, tmeta, g = table
+    random sequence (no anchor)."""
     rng = np.random.default_rng(5)
     n = g.n
     codes = g.codes[:n].copy()
@@ -133,12 +129,36 @@ def test_seeded_batch_with_ns_and_short_reads(table):
     pad = np.arange(codes.shape[1])[None, :] >= lengths[:, None]
     codes[pad] = -2
     quals[pad] = 0
+    return codes, quals, lengths
+
+
+def test_seeded_batch_with_ns_and_short_reads(table):
+    """Golden reads with Ns sprinkled in, cut short, or replaced by
+    random sequence (no anchor), and a qual cutoff that protects some
+    bases. The port's plain walk (event_driven=False) held to the JAX
+    plain loop, which agrees with the oracle here; the event mode of
+    both departs from it at some backward-direction Ns where both
+    substitute (ROADMAP, Queue 3)."""
+    jstate, jmeta, tstate, tmeta, g = table
+    n = g.n
+    codes, quals, lengths = _seeded_ns(g)
     jcfg, tcfg = _cfgs(jmeta, 3, qual_cutoff=70)
     jres = jcorr.correct_batch(jstate, jmeta, codes, quals, lengths, jcfg,
                                event_driven=False)
-    tres = tcorr.correct_batch(tstate, tmeta, codes, quals, lengths, tcfg)
+    tres = tcorr.correct_batch(tstate, tmeta, codes, quals, lengths, tcfg,
+                               event_driven=False)
     _compare(jres, tres, n)
     assert int((codes[tres.status.numpy() == 0] == -1).sum()) > 0
     status = tres.status.numpy()
     assert (status == 0).any() and (status != 0).any()
 
+
+def test_seeded_batch_with_ns_and_short_reads_event_mode(table):
+    """The same reads in event mode, the default of both packages."""
+    jstate, jmeta, tstate, tmeta, g = table
+    codes, quals, lengths = _seeded_ns(g)
+    jcfg, tcfg = _cfgs(jmeta, 3, qual_cutoff=70)
+    jres = jcorr.correct_batch(jstate, jmeta, codes, quals, lengths, jcfg,
+                               event_driven=True)
+    tres = tcorr.correct_batch(tstate, tmeta, codes, quals, lengths, tcfg)
+    _compare(jres, tres, g.n)

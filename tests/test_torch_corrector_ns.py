@@ -1,12 +1,14 @@
-"""The JAX package's event-driven corrector departs from the reference
-on some reads with an N in reach of the backward extension (ROADMAP
-Queue 3); the port follows the reference. This pins one such read where
-both substitute the N but with different bases: on a seeded set of
-1,500 reads (40-300 bp from a 20 kbp genome, 1% substitutions, 0.3% N,
-~10% low-quality bases, k = 17, cutoff 3, qual cutoff 70), read 191's
-backward log is `32:sub:N-T` in the port, in JAX's plain loop
-(event_driven=False) and in the oracle, where JAX's default event mode
-writes `32:sub:N-G`. Exact comparison of every rendered field."""
+"""The JAX package's event-driven corrector, its default, departs from
+the reference on some reads with an N in reach of the backward
+extension (ROADMAP Queue 3); the port's default, event mode, departs
+with it, and its plain walk (event_driven=False) follows the reference.
+This pins one such read where both substitute the N but with different
+bases: on a seeded set of 1,500 reads (40-300 bp from a 20 kbp genome,
+1% substitutions, 0.3% N, ~10% low-quality bases, k = 17, cutoff 3,
+qual cutoff 70), read 191's backward log is `32:sub:N-T` in the port's
+plain walk, in JAX's plain loop and in the oracle, and `32:sub:N-G` in
+the event mode of both packages. Exact comparison of every rendered
+field."""
 
 import conftest  # noqa: F401  (pins JAX to CPU devices)
 
@@ -83,7 +85,8 @@ def _fields(r):
 def test_backward_n_substitution_follows_the_reference(case):
     state, meta, jstate, jmeta, codes, quals, lengths = case
     cfg = TECConfig(k=K, cutoff=3, qual_cutoff=70)
-    res = tcorr.correct_batch(state, meta, codes, quals, lengths, cfg)
+    res = tcorr.correct_batch(state, meta, codes, quals, lengths, cfg,
+                              event_driven=False)
     port = tcorr.finish_batch(res, 1, codes, cfg)[0]
     plain = _jax(case, event_driven=False)
     ln = int(lengths[0])
@@ -96,3 +99,13 @@ def test_backward_n_substitution_follows_the_reference(case):
     # the recorded departure of JAX's default (event-driven) mode
     event = _jax(case, event_driven=True)
     assert "32:sub:N-G" in event.bwd_log.split()
+
+
+def test_backward_n_substitution_in_event_mode_follows_jax(case):
+    """The port's default, event mode, writes JAX's event-mode record."""
+    state, meta, _js, _jm, codes, quals, lengths = case
+    cfg = TECConfig(k=K, cutoff=3, qual_cutoff=70)
+    res = tcorr.correct_batch(state, meta, codes, quals, lengths, cfg)
+    port = tcorr.finish_batch(res, 1, codes, cfg)[0]
+    assert _fields(port) == _fields(_jax(case, event_driven=True))
+    assert port.ok and "32:sub:N-G" in port.bwd_log.split()

@@ -1,9 +1,11 @@
 """The port's stage-2 corrector on the adversarial k=9 scenarios of
 tests/test_corrector.py: exact (count, quality) tables that force the
 Poisson keep, the Poisson reject and next-base tie-break with Ns, and
-the err_log window-trip rewind. The plain version of HK4 is held to the
-JAX plain loop field by field and, through the rendered .fa text, to
-the oracle (models/oracle.py, pinned to the reference binary)."""
+the err_log window-trip rewind. The plain version of HK4's plain walk
+(event_driven=False) is held to the JAX plain loop field by field and,
+through the rendered .fa text, to the oracle (models/oracle.py, pinned
+to the reference binary); the port's default, event mode (HK16, HK17
+and HK4's event entry as their plain versions), to JAX's event mode."""
 
 import conftest  # noqa: F401  (pins JAX to CPU devices)
 
@@ -62,8 +64,10 @@ def _scenario(name):
     return state, meta, dictdb, reads, quals, cfg
 
 
-@pytest.mark.parametrize("name", ["branching", "tiebreak", "window"])
-def test_adversarial_scenarios_match_jax_and_oracle(name):
+def _batch(name):
+    """A scenario as a batch: (JAX table, its port copy, the oracle's
+    table, reads, quals, codes, qual array, lengths, JAX and port
+    configs)."""
     state, meta, dictdb, reads, quals, kw = _scenario(name)
     b, l = len(reads), max(len(r) for r in reads)
     codes = np.full((b, l), -2, np.int8)
@@ -77,9 +81,19 @@ def test_adversarial_scenarios_match_jax_and_oracle(name):
     tcfg = TECConfig(k=meta.k, **kw)
     tstate, tmeta = tdb.tile_state_from_numpy(
         np.asarray(state.rows), meta.k, meta.bits, meta.rb_log2, "cpu")
+    return (state, meta, tstate, tmeta, dictdb, reads, quals, codes, qarr,
+            lengths, jcfg, tcfg)
+
+
+@pytest.mark.parametrize("name", ["branching", "tiebreak", "window"])
+def test_adversarial_scenarios_match_jax_and_oracle(name):
+    (state, meta, tstate, tmeta, dictdb, reads, quals, codes, qarr, lengths,
+     jcfg, tcfg) = _batch(name)
+    b = len(reads)
     jres = jcorr.correct_batch(state, meta, codes, qarr, lengths, jcfg,
                                event_driven=False)
-    tres = tcorr.correct_batch(tstate, tmeta, codes, qarr, lengths, tcfg)
+    tres = tcorr.correct_batch(tstate, tmeta, codes, qarr, lengths, tcfg,
+                               event_driven=False)
     _compare(jres, tres, b)
     oc = OracleCorrector(dictdb, jcfg)
     got = tcorr.finish_batch(tres, b, codes)
@@ -87,3 +101,13 @@ def test_adversarial_scenarios_match_jax_and_oracle(name):
         o = oc.correct(reads[i], quals[i])
         assert render_result("r", got[i], tcfg) == \
             render_result("r", o, tcfg), (i, reads[i])
+
+
+@pytest.mark.parametrize("name", ["branching", "tiebreak", "window"])
+def test_adversarial_scenarios_event_mode_match_jax(name):
+    (state, meta, tstate, tmeta, _db, reads, _q, codes, qarr, lengths,
+     jcfg, tcfg) = _batch(name)
+    jres = jcorr.correct_batch(state, meta, codes, qarr, lengths, jcfg,
+                               event_driven=True)
+    tres = tcorr.correct_batch(tstate, tmeta, codes, qarr, lengths, tcfg)
+    _compare(jres, tres, len(reads))

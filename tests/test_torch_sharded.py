@@ -279,11 +279,11 @@ def test_sharded_grow_matches_jax_and_one_card(tmp_path):
 # ------------------------------------------------ replicated stage 2
 
 
-@pytest.mark.parametrize("S", [2, 4])
-def test_sharded_corrector_matches_one_card_and_jax_plain(S):
-    """ShardedCorrector on a sharded build's table: every BatchResult
-    field and HK14's buffer equal the port's one-card result, and the
-    reads' fields JAX's one-card plain loop, on reads with Ns."""
+def _sharded_against_one_card(S, event_driven):
+    """ShardedCorrector in one mode on a sharded build's table, held to
+    the port's one-card result in that mode field by field and buffer
+    word by word; returns (its result, JAX's one-card result in that
+    mode, the reads' codes)."""
     rng = np.random.default_rng(S + 10)
     codes, quals = _reads(rng, 16 * S)
     state, meta, _seal, _g, _b = _port_sharded_build(codes, quals, S, 8)
@@ -294,10 +294,11 @@ def test_sharded_corrector_matches_one_card_and_jax_plain(S):
                              thresholds=(70,))
     cfg = TECConfig(k=K, cutoff=2, qual_cutoff=70)
     mesh = tts.make_mesh(S, device="cpu")
-    res = tts.ShardedCorrector(mesh, state, meta, cfg)(pk)
+    res = tts.ShardedCorrector(mesh, state, meta, cfg,
+                               event_driven=event_driven)(pk)
     one = tcorr.correct_batch_packed(
         tct.TileState(rows), tmeta, pk, cfg,
-        tcorr.make_keep_table(tmeta, cfg, CPU))
+        tcorr.make_keep_table(tmeta, cfg, CPU), event_driven=event_driven)
     for name in ("out", "start", "end", "status", "packed"):
         assert torch.equal(getattr(res, name), getattr(one, name)), name
     for a, b in ((res.fwd_log, one.fwd_log), (res.bwd_log, one.bwd_log)):
@@ -306,7 +307,14 @@ def test_sharded_corrector_matches_one_card_and_jax_plain(S):
         jct.TileState(jnp.asarray(_u32(rows))),
         jct.TileMeta(k=K, bits=7, rb_log2=tmeta.rb_log2), codes, quals,
         np.full(codes.shape[0], RLEN, np.int32),
-        JECConfig(k=K, cutoff=2, qual_cutoff=70), event_driven=False)
+        JECConfig(k=K, cutoff=2, qual_cutoff=70), event_driven=event_driven)
+    return res, jres, codes
+
+
+def _matches_jax(res, jres, codes):
+    """The reads' fields (status, start, end, each log's n and live
+    entries) equal JAX's, on reads with Ns that some anchored read
+    keeps."""
     for name in ("status", "start", "end"):
         assert np.array_equal(getattr(res, name).numpy(),
                               np.asarray(getattr(jres, name))), name
@@ -321,6 +329,22 @@ def test_sharded_corrector_matches_one_card_and_jax_plain(S):
                          0))
     assert (res.status.numpy() == 0).any()
     assert int((codes[res.status.numpy() == 0] == -1).sum()) > 0
+
+
+@pytest.mark.parametrize("S", [2, 4])
+def test_sharded_corrector_matches_one_card_and_jax_plain(S):
+    """ShardedCorrector on a sharded build's table, plain walks
+    (event_driven=False): every BatchResult field and HK14's buffer
+    equal the port's one-card result, and the reads' fields JAX's
+    one-card plain loop, on reads with Ns."""
+    _matches_jax(*_sharded_against_one_card(S, False))
+
+
+@pytest.mark.parametrize("S", [2, 4])
+def test_sharded_corrector_event_mode_matches_one_card_and_jax(S):
+    """The same in event mode, the default of both packages (HK16 and
+    HK17 on each shard's rows, HK4's event entry)."""
+    _matches_jax(*_sharded_against_one_card(S, True))
 
 
 def test_replicated_table_is_one_copy_per_device():
