@@ -6,7 +6,7 @@
 Every stage 2 below runs the corrector's default, event mode (HK5,
 HK16, HK17, HK4's event entry, HK14), but the event phase's plain-mode
 run. Phases, each printing one JSON line:
-  build    compile the seventeen CUDA kernels (and their entries) from
+  build    compile the twenty-one CUDA kernels (and their entries) from
            csrc/ with nvcc (sm_90a)
   kernels  hold each kernel against its plain PyTorch version on the
            card, at the main path's shapes (8192 x 160 batches, a
@@ -139,11 +139,29 @@ run. Phases, each printing one JSON line:
            above the shards under 1 GiB); query_step (HK3's shard entry)
            on 1,048,576 of the table's mers against the full run's
            values for them
+  flat     the flat bucket-4 table (K25): HK18, its grow entry, HK19 and
+           HK20 against their plain versions on the full run's first 16
+           batches from 2^24 buckets (k = 24, -b 7: the smallest table
+           the layout allows), each build with the grow-retry protocol;
+           then every batch's observations through insert_observations
+           and grow_build from 2^24 buckets (it must grow), the seal,
+           table_stats and 1,048,576 lookups: the table's map equal to
+           the full run's database, grows, final nb_log2 and peak memory
+  minimizer  HK21 against its plain version at 8192 x 150 (k = 24,
+           m = 7), then every read through minimizer_kmers with
+           bench.py's bin skew at P = 4 (address bins against minimizer
+           bins) printed on its own line
+  devices_unpacked  the unpacked --devices entries on the devices mesh:
+           build_database_tile_sharded from the full cell's unpacked
+           batches (payload equal to the devices build's),
+           correct_step and correct_step_routed on 2,048-read slices
+           (equal to correct_step_wire's results), and dryrun(mesh, 4)
 Then one {"kernels": [...]} line (launches from the full, two_binary,
 the four prefilter, the three partitioned, the two contaminant, the
 devices runs, the routed and partitioned mesh runs and the event
-phase's two runs, times and bounds from the kernels, loaded, table,
-event and devices phases; HK5's and HK4's sharded-table entries from
+phase's two runs and the flat, minimizer and devices_unpacked runs,
+times and bounds from the kernels, loaded, table, event, devices, flat
+and minimizer phases; HK5's and HK4's sharded-table entries from
 the table phase, on its table as four shards; HK4's plain sharded-table
 entry has no default-path caller since event mode is the default), the
 card's name and power limit from nvidia-smi, and {"ok":
@@ -237,6 +255,18 @@ SOURCES = {  # kernel -> (source in the repo, TPU program it replaces)
     "extend_reads_event_shard": (
         "quorum_tpu_torch/kernels/csrc/extend_reads.cu",
         "quorum_tpu/parallel/tile_sharded.py:951"),
+    # the flat bucket-4 table (HK18-HK20, HK18's grow entry counted apart)
+    # and the minimizer (HK21)
+    "flat_insert": ("quorum_tpu_torch/kernels/csrc/flat_insert.cu",
+                    "quorum_tpu/ops/ctable.py:380"),
+    "flat_grow": ("quorum_tpu_torch/kernels/csrc/flat_insert.cu",
+                  "quorum_tpu/ops/ctable.py:434"),
+    "flat_lookup": ("quorum_tpu_torch/kernels/csrc/flat_lookup.cu",
+                    "quorum_tpu/ops/ctable.py:306"),
+    "flat_finalize": ("quorum_tpu_torch/kernels/csrc/flat_finalize.cu",
+                      "quorum_tpu/ops/ctable.py:404"),
+    "minimizer": ("quorum_tpu_torch/kernels/csrc/minimizer.cu",
+                  "quorum_tpu/ops/mer.py:266"),
 }
 # the kernels each main-path run must launch (HK3's probe runs inside
 # HK5, HK16 and HK4; the query CLI is its caller); every stage 2 runs
@@ -302,6 +332,16 @@ PATH_KERNELS.update({
     "event": ("tile_load", *S2),
     "event_plain": ("tile_load", "stage2_head", "extend_reads",
                     "pack_finish"),
+})
+# the flat table over the whole cell (insert, grows, seal, lookups of
+# the full run's mers), the minimizer over every read, and the
+# unpacked --devices entries (sharded build, both stage-2 layouts, the
+# dryrun, whose one-card reference is the plane corrector)
+PATH_KERNELS.update({
+    "flat": ("flat_insert", "flat_grow", "flat_finalize", "flat_lookup"),
+    "minimizer": ("minimizer",),
+    "devices_unpacked": ("shard_route", "tile_insert_shard", "tile_seal",
+                         *S2, *S2_SHARD, "tile_lookup_shard"),
 })
 # the sharded build's device time by step (CUDA events, STATS.timing):
 # the step's name -> the counter or span its events are kept under
@@ -1176,7 +1216,7 @@ def phase_full(card: str) -> dict:
           "sample_errors_in_out": [errs_in, errs_out, checked],
           "launches": launches})
     return dict(launches=launches, codes=codes, quals=quals, size=size,
-                genome=genome, true=true, origin=origin,
+                genome=genome, true=true, origin=origin, cutoff=ec.cutoff,
                 max_memory=max(peaks.stage1, peaks.stage2),
                 peaks=peaks.as_dict(),
                 grows=build.grows, fastq=fq, prefix=prefix,
@@ -3756,6 +3796,544 @@ def phase_event(card: str, full: dict, contam: dict) -> dict:
                           for m in ("event", "event_plain")})
 
 
+# ------------------------------------------------------------- flat table
+
+FLAT_NB = 24  # the smallest nb_log2 the flat layout allows at k = 24, -b 7
+FLAT_CHECK = 16  # batches of the kernel-against-plain build
+# The flat phase's peak: the whole cell's mers need 2^30 buckets (2 of
+# them overflow at 2^29), so the last grow holds the 2^29-bucket build
+# planes and the doubled ones, 12 B a slot (keytag, hq, lq); flat_kernels'
+# grow check holds as much at 2^29 -> 2^30. One batch's observations
+# and the torch allocator's rounding come on top.
+FLAT_PLAN_BYTES = 12 * 4 * ((1 << 29) + (1 << 30)) + (1 << 28)
+
+
+def flat_observations(full: dict, i: int):
+    """Batch i of the full run as flat observations on the card (keys
+    int64, qual bool, valid bool [8192 * 160]): the wire widened and the
+    windows extracted by their plain versions (input preparation, not
+    the flat table's work)."""
+    from quorum_tpu_torch.kernels import reference as ref
+
+    pk, wire = full["wires"][i]
+    codes, hqb = ref.widen_wire(wire, BATCH, pk.length, pk.thresholds, QT)
+    return ref.extract_observations(codes, hqb, K)
+
+
+def flat_build(full: dict, n_batches: int, plain: bool = False):
+    """The first n_batches of the full run through insert_observations'
+    grow-retry protocol from 2^FLAT_NB buckets: on full, double and
+    insert again the valid lanes not placed. `plain` runs the plain
+    versions (HK18's and its grow entry's) with CUDA events around each
+    insert. Returns (bstate, meta, grows, observations, plain insert
+    times in ms)."""
+    import torch
+
+    from quorum_tpu_torch.kernels import reference as ref
+    from quorum_tpu_torch.ops import ctable
+
+    meta = ctable.CTableMeta(K, 7, FLAT_NB)
+    bstate = ctable.make_build_table(meta, "cuda")
+    grows, n_obs, times = 0, 0, []
+    for i in range(n_batches):
+        keys, qual, valid = flat_observations(full, i)
+        n_obs += int(valid.sum())
+        pend = valid
+        while True:
+            if plain:
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                placed, is_full = ref.flat_insert(bstate, meta, keys, qual,
+                                                  pend)
+                b.record()
+                times.append((a, b))
+            else:
+                bstate, is_full, placed = ctable.insert_observations(
+                    bstate, meta, keys, qual, pend)
+            if not is_full:
+                break
+            pend = pend & ~placed
+            if plain:
+                nmeta = ctable.CTableMeta(K, 7, meta.nb_log2 + 1)
+                new = ctable.make_build_table(nmeta, "cuda")
+                ref.flat_grow(bstate, meta, new, nmeta)
+                bstate, meta = new, nmeta
+                del new
+            else:
+                bstate, meta = ctable.grow_build(bstate, meta)
+            grows += 1
+    torch.cuda.synchronize()
+    return bstate, meta, grows, n_obs, [a.elapsed_time(b) for a, b in times]
+
+
+def flat_map(state, meta):
+    """A sealed flat table's content on the card: (full hashes sorted,
+    their value words count << 1 | qual), from iterate_entries."""
+    import torch
+
+    from quorum_tpu_torch.kernels import reference as ref
+    from quorum_tpu_torch.ops import ctable
+
+    khi, klo, vals = ctable.iterate_entries(state, meta)
+    keys = (torch.from_numpy(khi.astype("int64")) << 32
+            | torch.from_numpy(klo.astype("int64"))).to("cuda")
+    h = ref.feistel(keys, meta.k)
+    order = torch.argsort(h)
+    return h[order], torch.from_numpy(vals.astype("int64")).to("cuda")[order]
+
+
+def build_map(bstate, meta):
+    """A flat BUILD table's content on the card, read in chunks of its
+    planes (nothing table-sized allocated): (full hashes sorted, value
+    words count << 1 | qual as finalize_build would seal them)."""
+    import torch
+
+    from quorum_tpu_torch.kernels import reference as ref
+    from quorum_tpu_torch.ops import ctable
+
+    hs, vs = [], []
+    chunk = 1 << 26
+    for s in range(0, meta.size, chunk):
+        tag = bstate.keytag[s:s + chunk]
+        at = torch.nonzero(tag != -1).squeeze(1)
+        rem = ref.u32(tag[at])
+        hq = bstate.hq[s:s + chunk][at].long()
+        lq = bstate.lq[s:s + chunk][at].long()
+        q = (hq > 0).long()
+        cnt = torch.where(q == 1, hq, lq).clamp(1, meta.max_val)
+        hs.append(ref.feistel(ctable.keys_from_table((at + s) // 4, rem,
+                                                     meta), meta.k))
+        vs.append((cnt << 1) | q)
+    h, v = torch.cat(hs), torch.cat(vs)
+    order = torch.argsort(h)
+    return h[order], v[order]
+
+
+def count_sectors(bstate, meta) -> tuple[int, int]:
+    """The 32-byte sectors (8 slots) of a flat build plane that hold an
+    occupied slot, and those that hold an occupied slot without hq (the
+    lq sectors the seal must read), counted in chunks of the planes."""
+    import torch
+
+    occ, lq = 0, 0
+    chunk = 1 << 26  # a multiple of 8: no sector spans two chunks
+    for s in range(0, meta.size, chunk):
+        at = torch.nonzero(bstate.keytag[s:s + chunk] != -1).squeeze(1)
+        occ += torch.unique_consecutive(at // 8).numel()
+        at = at[bstate.hq[s:s + chunk][at] == 0]
+        lq += torch.unique_consecutive(at // 8).numel()
+    return occ, lq
+
+
+def flat_kernels(card: str, full: dict) -> dict:
+    """HK18 (and its grow entry), HK19 and HK20 against their plain
+    versions on the card, on the first FLAT_CHECK batches of the full
+    run from 2^FLAT_NB buckets: the kernels' build and the plain build
+    (each with the grow-retry protocol) grow alike and hold one map;
+    HK20 seals the kernels' build word for word as its plain version,
+    with the same statistics; HK19 answers the table's mers and 1,048,576 random keys as
+    its plain version, the mers with the map's values; the grow entry
+    and its plain version each double the kernels' build to its own
+    map. Maps are read off the build planes in chunks (build_map), so
+    the two builds and one doubled table are all the phase holds at
+    once. Times: HK18 a launch over the build's inserts (the plain
+    version's the same), the others with kernel_ms/event_ms."""
+    import torch
+
+    from quorum_tpu_torch import kernels
+    from quorum_tpu_torch.kernels import reference as ref
+    from quorum_tpu_torch.kernels.loader import STATS
+    from quorum_tpu_torch.ops import ctable
+
+    STATS.reset()
+    STATS.timing = True
+    kb, km, kg, n_obs, _t = flat_build(full, FLAT_CHECK)
+    STATS.timing = False
+    launches = dict(STATS.launches)
+    kms = STATS.kernel_ms()
+    ins_ms = kms["flat_insert"] / launches["flat_insert"]
+    kh, kv = build_map(kb, km)
+    n_entries = kh.numel()
+    size = km.size
+    occ_sectors, lq_sectors = count_sectors(kb, km)
+    res = {}
+
+    # HK20
+    kstate = ctable.finalize_build(kb, km)
+    e_p, s_p = ref.flat_finalize(kb, km)
+    res["finalize_equal"] = (torch.equal(kstate.entries, e_p)
+                             and torch.equal(kstate.stats, s_p))
+    del e_p
+    fh, fv = flat_map(kstate, km)
+    res["sealed_map"] = torch.equal(fh, kh) and torch.equal(fv, kv)
+    del fh, fv
+    fin_ms = kernel_ms(lambda: kernels.flat_finalize(kb, km),
+                       "flat_finalize", 5)
+    fin_plain = event_ms(lambda: ref.flat_finalize(kb, km), 2)
+
+    # HK19: the table's mers and 1,048,576 random keys
+    keys = torch.cat([ref.feistel_inverse(kh, K),
+                      torch.randint(0, 1 << (2 * K), (1 << 20,),
+                                    device="cuda",
+                                    generator=torch.Generator("cuda")
+                                    .manual_seed(SEED))])
+    got = kernels.flat_lookup(kstate.entries, km, keys)
+    res["lookup_equal"] = torch.equal(got, ref.flat_lookup(kstate.entries,
+                                                           km, keys))
+    res["lookup_values"] = torch.equal(got[:n_entries].long(), kv)
+    n_buckets = torch.unique(ctable.bucket_rem(keys, km)[0]).numel()
+    look_ms = kernel_ms(lambda: kernels.flat_lookup(kstate.entries, km, keys),
+                        "flat_lookup", 5)
+    look_plain = event_ms(lambda: ref.flat_lookup(kstate.entries, km, keys),
+                          2)
+    n_keys = keys.numel()
+    del keys, got, kstate
+    torch.cuda.empty_cache()
+
+    # HK18's grow entry against its plain version, on the kernels' build
+    nmeta = ctable.CTableMeta(K, 7, km.nb_log2 + 1)
+    new = ctable.make_build_table(nmeta, "cuda")
+
+    def clear():
+        new.keytag.fill_(-1)
+        new.hq.zero_()
+        new.lq.zero_()
+
+    grow_ms = kernel_ms(lambda: kernels.flat_grow(kb, km, new, nmeta),
+                        "flat_grow", 3, clear)
+    gh, gv = build_map(new, nmeta)
+    res["grow_map"] = torch.equal(gh, kh) and torch.equal(gv, kv)
+    grow_plain = event_ms(lambda: ref.flat_grow(kb, km, new, nmeta), 2,
+                          clear)
+    gh, gv = build_map(new, nmeta)
+    res["plain_grow_map"] = torch.equal(gh, kh) and torch.equal(gv, kv)
+    del new, gh, gv
+    torch.cuda.empty_cache()
+
+    # HK18 against its plain version: the plain build of the same batches
+    pb, pm, pg, _n, ptimes = flat_build(full, FLAT_CHECK, plain=True)
+    res["same_grows"] = kg == pg and km.nb_log2 == pm.nb_log2
+    ph, pv = build_map(pb, pm)
+    res["same_map"] = torch.equal(kh, ph) and torch.equal(kv, pv)
+    del pb, ph, pv, kh, kv
+    # bytes each function must move, from this run's data: an insert
+    # (the build's last batch) reads each lane (8 B mer, 1 B qual, 1 B
+    # valid) and writes its placed byte, and per distinct key reads its
+    # 16-byte bucket row and reads and writes its count word; a grow
+    # reads keytag (4 B a slot), the 32-byte sectors of hq and lq that
+    # hold an occupied slot, and writes three words an entry (the
+    # doubled table's fill, torch.full and torch.zeros, is neither the
+    # kernel's nor its bound's); the seal
+    # reads keytag and writes the entries (8 B a slot), and reads the hq
+    # sectors that hold an occupied slot and the lq sectors that hold an
+    # occupied slot without hq; a lookup reads its key and bucket row
+    # and writes its value
+    keys, _q, valid = flat_observations(full, FLAT_CHECK - 1)
+    ins_bytes = 11 * keys.numel() + 24 * torch.unique(keys[valid]).numel()
+    del keys, valid
+    torch.cuda.empty_cache()
+    bounds = {"insert": ins_bytes,
+              "grow": 4 * size + 64 * occ_sectors + 12 * n_entries,
+              "finalize": 8 * size + 32 * (occ_sectors + lq_sectors),
+              "lookup": 12 * n_keys + 16 * n_buckets}
+    emit({"phase": "flat_kernels", "card": card, "batches": FLAT_CHECK,
+          "bound_bytes": bounds, "slots": size,
+          "occupied_sectors": occ_sectors, "lq_seal_sectors": lq_sectors,
+          "observations": n_obs, "entries": n_entries,
+          "nb_log2": km.nb_log2, "grows": kg, "plain_grows": pg,
+          "insert_launches": launches["flat_insert"],
+          "insert_ms": round(ins_ms, 5),
+          "insert_plain_ms": round(sum(ptimes) / len(ptimes), 5),
+          "grow_ms": round(grow_ms, 5), "grow_plain_ms": round(grow_plain, 5),
+          "finalize_ms": round(fin_ms, 5),
+          "finalize_plain_ms": round(fin_plain, 5),
+          "lookup_keys": n_keys, "lookup_ms": round(look_ms, 5),
+          "lookup_plain_ms": round(look_plain, 5), **res})
+    check(all(res.values()), f"flat kernels against plain: {res}")
+    equal = all(res.values())
+    times = {"insert": (ins_ms, sum(ptimes) / len(ptimes)),
+             "grow": (grow_ms, grow_plain), "finalize": (fin_ms, fin_plain),
+             "lookup": (look_ms, look_plain)}
+    return {f"flat_{part}": dict(equal=equal, ms=times[part][0],
+                                 plain_ms=times[part][1],
+                                 bound_bytes=bounds[part])
+            for part in bounds}
+
+
+def phase_flat(card: str, full: dict) -> dict:
+    """K25, the flat bucket-4 table: flat_kernels, then the whole cell's
+    observations (every batch of the full run) through
+    insert_observations and grow_build from 2^FLAT_NB buckets (it must
+    grow), finalize_build and table_stats, and lookup of 1,048,576 of
+    the full run's mers; launch counts reset just before and read just
+    after. The sealed table's iterate_entries map must equal the full
+    run's database content, and its statistics that build's."""
+    import torch
+
+    from quorum_tpu_torch.kernels import reference as ref
+    from quorum_tpu_torch.kernels.loader import STATS
+    from quorum_tpu_torch.ops import ctable
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    check(free >= FLAT_PLAN_BYTES,
+          f"flat: {free} B free on the card before the phase, and its "
+          f"builds and grows need {FLAT_PLAN_BYTES} B: free memory that "
+          f"earlier phases leave resident")
+    kern = flat_kernels(card, full)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    STATS.reset()
+    STATS.timing = True
+    t0 = time.perf_counter()
+    bstate, meta, grows, n_obs, _t = flat_build(full, len(full["wires"]))
+    t_build = time.perf_counter() - t0
+    state = ctable.finalize_build(bstate, meta)
+    occ, distinct, total_hq = ctable.table_stats(state, meta)
+    del bstate
+    content_hash, content_val = table_content(full["db"])
+    pick = torch.linspace(0, content_hash.numel() - 1, 1 << 20,
+                          device="cuda").long()
+    qkeys = ref.feistel_inverse(content_hash[pick], K)
+    v = content_val[pick]
+    got = ctable.lookup(state, meta, qkeys)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    STATS.timing = False
+    launches = dict(STATS.launches)
+    kms = STATS.kernel_ms()
+    peak = torch.cuda.max_memory_allocated() - resident
+    for name in PATH_KERNELS["flat"]:
+        check(launches[name] > 0, f"{name} was not launched on the flat path")
+    h, fv = flat_map(state, meta)
+    want = ((content_val & 127) << 1) | (content_val >> 7)
+    res = dict(grew=grows >= 1,
+               same_map=torch.equal(h, content_hash) and torch.equal(fv, want),
+               same_entries=occ == full["build"].distinct == h.numel(),
+               lookup_values=torch.equal(got.long(),
+                                         ((v & 127) << 1) | (v >> 7)))
+    del state, h, fv, content_hash, content_val, want, got, qkeys
+    torch.cuda.empty_cache()
+    emit({"phase": "flat", "card": card, "k": K, "bits": 7,
+          "nb_log2_start": FLAT_NB, "nb_log2_end": meta.nb_log2,
+          "grows": grows, "slots": meta.size, "observations": n_obs,
+          "entries": occ, "distinct_hq": distinct, "total_hq": total_hq,
+          "build_s": round(t_build, 3), "path_s": round(seconds, 3),
+          "free_before": free, "card_memory": total,
+          "planned_peak": FLAT_PLAN_BYTES,
+          "peak_memory": peak, "launches": launches,
+          "kernel_s": {k: round(x / 1e3, 4) for k, x in kms.items() if x},
+          "kernel_ms_per_launch": {k: round(x / launches[k], 5)
+                                   for k, x in kms.items() if launches[k]},
+          "phase_s": round(time.perf_counter() - t_phase, 3), **res})
+    check(all(res.values()), f"flat against the full run: {res}")
+    for name in ("flat_insert", "flat_grow", "flat_finalize", "flat_lookup"):
+        kern[name]["run_ms"] = kms[name] / launches[name]
+    return dict(launches=launches, kernels=kern)
+
+
+# ------------------------------------------------------------- minimizer
+
+MIN_M = 7  # bench.py's min(7, k - 1)
+BIN_P = 4  # bench.py's partitions of the bin-skew figure
+
+
+def phase_minimizer(card: str, full: dict) -> dict:
+    """K23: HK21 against its plain version at 8192 x 150 (the full run's
+    first reads, k = 24, m = 7), timed; then every read of the full
+    cell through minimizer_kmers (launch counts reset just before and
+    read just after), with the bin skew bench.py's ab_partitions
+    prints, over the cell's valid windows at P = 4: the address bins
+    (the remainder's low bits at the full run's table geometry, what
+    --partitions splits by) against the minimizer bins (value mod P),
+    each as max / mean."""
+    import torch
+
+    from quorum_tpu_torch import kernels
+    from quorum_tpu_torch.kernels import reference as ref
+    from quorum_tpu_torch.kernels.loader import STATS
+    from quorum_tpu_torch.ops import ctable, mer
+
+    codes = full["codes"]
+    c0 = codes[:BATCH].to("cuda")
+    a, b = kernels.minimizer(c0, K, MIN_M), ref.minimizer(c0, K, MIN_M)
+    equal = torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    check(equal, "minimizer differs from its plain version")
+    ms = kernel_ms(lambda: kernels.minimizer(c0, K, MIN_M), "minimizer", 5)
+    plain = event_ms(lambda: ref.minimizer(c0, K, MIN_M), 3)
+    del a, b
+    meta = ctable.TileMeta(K, 7, ctable.tile_rb_for(full["size"], K, 7)
+                           + full["grows"])
+    a_counts = torch.zeros(BIN_P, dtype=torch.int64, device="cuda")
+    m_counts = torch.zeros_like(a_counts)
+    STATS.reset()
+    STATS.timing = True
+    t0 = time.perf_counter()
+    for i in range(0, codes.shape[0], BATCH):
+        c = codes[i:i + BATCH].to("cuda")
+        mval, kvalid = mer.minimizer_kmers(c, K, MIN_M)
+        f, r, valid = mer.rolling_kmers(c, K)
+        check(torch.equal(kvalid, valid), "kvalid is not the k-window's "
+              "validity")
+        keys = mer.canonical(f, r)[valid]
+        _addr, rlo, rhi = ref.tile_key_parts(keys, meta)
+        abin = (rlo | (rhi << meta.rlo_bits)) & (BIN_P - 1)
+        mbin = ref.u32(mval[valid]) % BIN_P
+        a_counts += torch.bincount(abin, minlength=BIN_P)
+        m_counts += torch.bincount(mbin, minlength=BIN_P)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    STATS.timing = False
+    launches = dict(STATS.launches)
+    kms = STATS.kernel_ms()
+    for name in PATH_KERNELS["minimizer"]:
+        check(launches[name] > 0,
+              f"{name} was not launched on the minimizer path")
+    ac, mc = a_counts.cpu().tolist(), m_counts.cpu().tolist()
+    skew = {"addr_bin_skew": max(ac) / (sum(ac) / BIN_P),
+            "minimizer_bin_skew": max(mc) / (sum(mc) / BIN_P)}
+    emit({"phase": "minimizer_bins", "card": card, "k": K, "m": MIN_M,
+          "partitions": BIN_P, "rb_log2": meta.rb_log2,
+          "windows": sum(ac), "addr_bin_counts": ac,
+          "minimizer_bin_counts": mc, **skew})
+    emit({"phase": "minimizer", "card": card, "reads": codes.shape[0],
+          "batch": [BATCH, READ_LEN], "ms": round(ms, 5),
+          "plain_ms": round(plain, 5), "equal": equal,
+          "path_s": round(seconds, 3),
+          "run_ms": round(kms["minimizer"] / launches["minimizer"], 5),
+          "launches": launches})
+    return dict(launches=launches, kernels={"minimizer": dict(
+        equal=equal, ms=ms, plain_ms=plain,
+        run_ms=kms["minimizer"] / launches["minimizer"],
+        bound_bytes=BATCH * READ_LEN * (1 + 4 + 1))})
+
+
+# ------------------------------------------------------------- unpacked
+
+
+UNPACKED_SLICE = 2048  # reads of each stage-2 comparison
+
+
+def unpacked_batches(full: dict):
+    """The full run's stage-1 batches unpacked, as the parser shapes
+    them (8192 x 160 rows, -2 / 0 padding): (codes int8, quals uint8)."""
+    codes, quals = full["codes"], full["quals"]
+    for i in range(0, codes.shape[0], BATCH):
+        c, q, _l, _pk = pack_batch(codes[i:i + BATCH], quals[i:i + BATCH], QT)
+        yield c, q
+
+
+def phase_devices_unpacked(card: str, full: dict) -> dict:
+    """K24's unpacked entries on the devices mesh (four entries naming
+    the host's cards): build_database_tile_sharded from the full cell's
+    unpacked batches at the full run's -s, its payload byte-equal to the
+    devices phase's build; correct_step (replicated) and
+    correct_step_routed on 2,048-read slices of the first batches, each
+    equal to correct_step_wire's result on the same reads packed; then
+    dryrun(mesh, 4). Launch counts reset before the build and read
+    after the dryrun. The batches are made before the build's clock
+    starts; the host pack inside the build (tile_sharded._pack_unpacked)
+    is timed again alone on the same batches (pack_s, its share of
+    build_s), and on the first 16 batches handed over as CUDA tensors,
+    whose pack copies them to the host first."""
+    import numpy as np
+    import torch
+
+    from quorum_tpu_torch.io import db_format, packing
+    from quorum_tpu_torch.kernels.loader import STATS
+    from quorum_tpu_torch.models.ec_config import ECConfig
+    from quorum_tpu_torch.ops import ctable
+    from quorum_tpu_torch.parallel import tile_sharded as ts
+
+    t_phase = time.perf_counter()
+    mesh = devices_mesh()
+    meta = ts.TileShardedMeta(k=K, bits=7,
+                              rb_log2=ts.initial_rb(full["size"], K, 7,
+                                                    DEVICES),
+                              n_shards=DEVICES)
+    batches = list(unpacked_batches(full))
+    STATS.reset()
+    t0 = time.perf_counter()
+    state, meta = ts.build_database_tile_sharded(batches, mesh, meta, QT)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    for c, q in batches:
+        ts._pack_unpacked(c, q, None, QT)
+    pack_s = time.perf_counter() - t1
+    on_card = [(torch.from_numpy(c).cuda(), torch.from_numpy(q).cuda())
+               for c, q in batches[:16]]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for c, q in on_card:
+        ts._pack_unpacked(c, q, None, QT)
+    pack_cuda_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    for c, q in batches[:16]:
+        ts._pack_unpacked(c, q, None, QT)
+    pack_host16_s = time.perf_counter() - t1
+    del batches, on_card
+    gstate, gmeta = ts.gather_table(state, meta)
+    payload = ctable.tile_export_v4(gstate, gmeta).tobytes()
+    res = dict(same_payload=payload == db_format.db_payload_bytes(
+        os.path.join(WORK, "devices.jf")))
+    del payload
+    cfg = ECConfig(k=K, cutoff=full["cutoff"])
+    rep = ts.replicate_table(gstate, mesh)
+    rmeta = ts.RoutedTileMeta(k=K, bits=7, rb_log2=meta.rb_log2,
+                              n_shards=DEVICES)
+    keeps = ts._keeps(mesh, gmeta, cfg)
+    steps = {"replicated": (ts.correct_step(mesh, gmeta, cfg), rep,
+                            (rep, gmeta)),
+             "routed": (ts.correct_step_routed(mesh, meta, cfg), state,
+                        (ts.row_shards(state, rmeta, mesh), rmeta))}
+    L = full["wires"][0][0].length
+    slices = 0
+    n_reads = full["codes"].shape[0]
+    for i in range(0, min(2 * BATCH, n_reads - UNPACKED_SLICE + 1),
+                   UNPACKED_SLICE):
+        n = UNPACKED_SLICE
+        c = np.full((n, L), -2, np.int8)
+        q = np.zeros((n, L), np.uint8)
+        c[:, :READ_LEN] = full["codes"][i:i + n].numpy()
+        q[:, :READ_LEN] = full["quals"][i:i + n].numpy()
+        lengths = np.full(n, READ_LEN, np.int32)
+        pk = packing.pack_reads(c, q, lengths, thresholds=(cfg.qual_cutoff,))
+        for tag, (step, st, (rows, m)) in steps.items():
+            got = step(st, c, q, lengths)
+            want = ts.correct_step_wire(mesh, rows, m, pk, cfg, keeps,
+                                        [None] * DEVICES)
+            same = all(torch.equal(getattr(got, f), getattr(want, f))
+                       for f in ("out", "start", "end", "status", "packed"))
+            res[f"{tag}_slice_{i // n}"] = same
+        slices += 1
+    del rep, steps, state, gstate
+    t1 = time.perf_counter()
+    ts.dryrun(mesh, DEVICES)
+    torch.cuda.synchronize()
+    dry_s = time.perf_counter() - t1
+    launches = dict(STATS.launches)
+    for name in PATH_KERNELS["devices_unpacked"]:
+        check(launches[name] > 0,
+              f"{name} was not launched on the devices_unpacked path")
+    emit({"phase": "devices_unpacked", "card": card, "shards": DEVICES,
+          "mesh": [str(d) for d in mesh], "rb_log2": meta.rb_log2,
+          "build_s": round(build_s, 3), "pack_s": round(pack_s, 3),
+          "pack_share_of_build": round(pack_s / build_s, 4),
+          "pack_16_batches_host_inputs_s": round(pack_host16_s, 4),
+          "pack_16_batches_cuda_inputs_s": round(pack_cuda_s, 4),
+          "slices": slices,
+          "slice_reads": UNPACKED_SLICE, "dryrun_s": round(dry_s, 3),
+          "launches": launches,
+          "phase_s": round(time.perf_counter() - t_phase, 3), **res})
+    check(all(res.values()), f"devices_unpacked: {res}")
+    return dict(launches=launches)
+
+
 def run() -> int:
     import torch
 
@@ -3794,6 +4372,12 @@ def run() -> int:
             stats.setdefault(name, {}).update(v)
         dev_parts = phase_devices_partitions(card, full)
         routed = phase_devices_routed(card, full)
+        flat = phase_flat(card, full)
+        minim = phase_minimizer(card, full)
+        unpacked = phase_devices_unpacked(card, full)
+        for part in (flat, minim):
+            for name, v in part["kernels"].items():
+                stats.setdefault(name, {}).update(v)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3808,7 +4392,9 @@ def run() -> int:
                "devices_partitions": dev_parts,
                "devices_routed": routed["launches"],
                "devices_routed_manifest": routed["manifest_launches"],
-               **event["launches"]}
+               **event["launches"], "flat": flat["launches"],
+               "minimizer": minim["launches"],
+               "devices_unpacked": unpacked["launches"]}
     def bound_ms(nbytes):
         return round(nbytes / H100_BYTES_PER_S * 1e3, 5)
 

@@ -1,4 +1,4 @@
-"""Wrappers of the seventeen hand-written Hopper kernels (csrc/*.cu) and
+"""Wrappers of the twenty-one hand-written Hopper kernels (csrc/*.cu) and
 their entries.
 
 Every wrapper checks device, dtype, shape and contiguity, then either
@@ -50,6 +50,12 @@ or launch raises.
   HK17 event_scan      HK16's planes -> the [2B, L] frame planes of the
                        event walk (rc remap, next event, last
                        prev-defining keep and its count)
+  HK18 flat_insert     counting into the flat bucket-4 table (K25): one
+                       atomicCAS claim a lane; grow entry: the doubled
+                       table in one launch
+  HK19 flat_lookup     the flat table's lookup (one 16-byte bucket row)
+  HK20 flat_finalize   the flat table's seal with its statistics
+  HK21 minimizer       every k-window's mixed canonical m-mer minimizer
 
 The sharded wrappers (HK15, the shard entries) launch on their tensors'
 device; the others on the current device, which the sharded paths set
@@ -1015,3 +1021,126 @@ def event_scan(clean, cnt, aux, val, f, r, lengths, k: int):
            aux.data_ptr(), val.data_ptr(), f.data_ptr(), r.data_ptr(),
            lengths.data_ptr(), b, l, k, *(t.data_ptr() for t in out))
     return tuple(out)
+
+
+# --------------------------------------------------------------- HK18
+
+
+def _check_flat(bstate, meta):
+    for name in ("keytag", "hq", "lq"):
+        t = getattr(bstate, name)
+        _check(t, torch.int32, name)
+        if t.numel() != meta.size:
+            raise ValueError("build state does not match the table geometry")
+    if bstate.keytag.data_ptr() % 16:
+        raise ValueError("keytag: must be 16-byte aligned")
+
+
+def _check_obs(keys, *masks):
+    _check(keys, torch.int64, "keys")
+    for i, t in enumerate(masks):
+        _check(t, torch.bool, f"mask {i}")
+        if t.shape != keys.shape:
+            raise ValueError("observation planes differ in shape")
+
+
+def flat_insert(bstate, meta, keys: torch.Tensor, qual: torch.Tensor,
+                valid: torch.Tensor):
+    """Count each `valid` observation (canonical int64 mer, qual bit) in
+    the flat build table, in place. Returns (placed bool per lane, full:
+    a valid lane met a bucket holding four other keys; an int32 [1]
+    tensor on the card)."""
+    _check_flat(bstate, meta)
+    _check_obs(keys, qual, valid)
+    if not _on_cuda(keys, qual, valid, bstate.keytag):
+        return ref.flat_insert(bstate, meta, keys, qual, valid)
+    placed = torch.empty(keys.shape, dtype=torch.bool, device=keys.device)
+    full = torch.zeros(1, dtype=torch.int32, device=keys.device)
+    launch("flat_insert", "flat_insert", keys.data_ptr(), qual.data_ptr(),
+           valid.data_ptr(), keys.numel(), meta.k, meta.nb_log2,
+           meta.rem_bits, bstate.keytag.data_ptr(), bstate.hq.data_ptr(),
+           bstate.lq.data_ptr(), placed.data_ptr(), full.data_ptr())
+    return placed, full
+
+
+def flat_grow(bstate, meta, new, new_meta) -> None:
+    """HK18's grow entry: move every occupied slot of the build table
+    into the empty doubled table `new` (rehash_grow's bit move, hq and lq
+    verbatim); a doubled bucket takes the keys of one old bucket, so
+    every key finds room."""
+    _check_flat(bstate, meta)
+    _check_flat(new, new_meta)
+    if new_meta.nb_log2 != meta.nb_log2 + 1:
+        raise ValueError("the new table must have twice the buckets")
+    if not _on_cuda(bstate.keytag, new.keytag):
+        return ref.flat_grow(bstate, meta, new, new_meta)
+    with launching("flat_grow"):
+        call("flat_insert", "flat_grow", bstate.keytag.data_ptr(),
+             bstate.hq.data_ptr(), bstate.lq.data_ptr(), meta.size,
+             new.keytag.data_ptr(), new.hq.data_ptr(), new.lq.data_ptr())
+
+
+# --------------------------------------------------------------- HK19
+
+
+def _check_entries(entries, meta):
+    _check(entries, torch.int32, "entries")
+    if entries.numel() != meta.size:
+        raise ValueError("entry plane does not match the table geometry")
+    if entries.data_ptr() % 16:
+        raise ValueError("entries: must be 16-byte aligned")
+
+
+def flat_lookup(entries: torch.Tensor, meta, keys: torch.Tensor):
+    """The value word (int32) of each canonical int64 mer in the sealed
+    flat table, 0 if absent."""
+    _check_entries(entries, meta)
+    _check(keys, torch.int64, "keys")
+    if not _on_cuda(entries, keys):
+        return ref.flat_lookup(entries, meta, keys)
+    out = torch.empty(keys.shape, dtype=torch.int32, device=keys.device)
+    launch("flat_lookup", "flat_lookup", entries.data_ptr(), keys.data_ptr(),
+           keys.numel(), meta.k, meta.nb_log2, meta.rem_bits, meta.bits,
+           out.data_ptr())
+    return out
+
+
+# --------------------------------------------------------------- HK20
+
+
+def flat_finalize(bstate, meta):
+    """Seal the flat build table: returns (entries int32 [size], stats
+    int64 [3] = occupied, distinct_hq, total_hq)."""
+    _check_flat(bstate, meta)
+    if not _on_cuda(bstate.keytag):
+        return ref.flat_finalize(bstate, meta)
+    entries = torch.empty_like(bstate.keytag)
+    if entries.data_ptr() % 16:
+        raise ValueError("entries: must be 16-byte aligned")
+    stats = torch.zeros(3, dtype=torch.int64, device=entries.device)
+    launch("flat_finalize", "flat_finalize", bstate.keytag.data_ptr(),
+           bstate.hq.data_ptr(), bstate.lq.data_ptr(), meta.size, meta.bits,
+           meta.rem_bits, entries.data_ptr(), stats.data_ptr())
+    return entries, stats
+
+
+# --------------------------------------------------------------- HK21
+
+
+def minimizer(codes: torch.Tensor, k: int, m: int):
+    """Every k-window's mixed canonical m-mer minimizer of an int8 code
+    batch [B, L]: (int32 [B, L] holding the u32 values, kvalid bool
+    [B, L]); 1 <= m <= min(k, 15), k <= 31."""
+    _check(codes, torch.int8, "codes")
+    if codes.dim() != 2:
+        raise ValueError("codes: expected [B, L]")
+    if not 1 <= m <= min(k, 15) or k > 31:
+        raise ValueError(f"minimizer k={k} m={m} out of range")
+    if not _on_cuda(codes):
+        return ref.minimizer(codes, k, m)
+    b, l = codes.shape
+    out = torch.empty((b, l), dtype=torch.int32, device=codes.device)
+    kvalid = torch.empty((b, l), dtype=torch.bool, device=codes.device)
+    launch("minimizer", "minimizer", codes.data_ptr(), b, l, k, m,
+           out.data_ptr(), kvalid.data_ptr())
+    return out, kvalid

@@ -35,18 +35,20 @@ KERNELS = ("tile_insert", "tile_seal", "tile_lookup", "extend_reads",
            "stage2_head", "tile_export", "tile_load", "tile_grow",
            "batch_aggregate", "sketch_update", "gated_insert", "tile_floor",
            "tile_departition", "pack_finish", "shard_route", "event_planes",
-           "event_scan")
+           "event_scan", "flat_insert", "flat_lookup", "flat_finalize",
+           "minimizer")
 # entries of a kernel counted apart from it: on the --devices N path
 # HK1's and HK8's shard entries, HK3's shard entry and HK4's, HK5's and
 # HK16's sharded-table entries (the routed stage-2 layout), HK15's
 # partition entry (--partitions P with --devices N); on the event-mode
 # stage 2 HK4's event entry (and its sharded-table entry). Each but
 # HK16's is also its C launcher; HK16's sharded-table entry is the two
-# launchers event_classify_shard and event_prepass_shard.
+# launchers event_classify_shard and event_prepass_shard. The flat
+# table's grow is HK18's grow entry (flat_grow, in flat_insert.cu).
 ENTRIES = ("tile_insert_shard", "tile_grow_shard", "tile_lookup_shard",
            "extend_reads_shard", "stage2_head_shard", "shard_route_part",
            "event_planes_shard", "extend_reads_event",
-           "extend_reads_event_shard")
+           "extend_reads_event_shard", "flat_grow")
 COUNTERS = KERNELS + ENTRIES
 
 NVCC_FLAGS = ["-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
@@ -150,6 +152,17 @@ SIGNATURES = {
         "event_scan": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
                        _P, _P, _P, _P, _P],
     },
+    "flat_insert": {
+        "flat_insert": [_P, _P, _P, _LL, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+        "flat_grow": [_P, _P, _P, _LL, _P, _P, _P, _P],
+    },
+    "flat_lookup": {
+        "flat_lookup": [_P, _P, _LL, _I, _I, _I, _I, _P, _P],
+    },
+    "flat_finalize": {
+        "flat_finalize": [_P, _P, _P, _LL, _I, _I, _P, _P, _P],
+    },
+    "minimizer": {"minimizer": [_P, _I, _I, _I, _I, _P, _P, _P]},
 }
 
 

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the seventeen hand-written kernels and their
+"""Plain PyTorch versions of the twenty-one hand-written kernels and their
 entries.
 
 Each function computes what its CUDA kernel computes (csrc/*.cu) with
@@ -1311,3 +1311,166 @@ def event_scan(clean, cnt, aux, val, f, r, lengths, k: int):
     prevval = torch.gather(co2, 1, lastc1.clamp(min=0))
     return (clean2, nd.to(torch.int32), cnt2, aux2, lastc1.to(torch.int32),
             prevval.to(torch.int32), mf2, mr2)
+
+
+# --------------------------------------------------------------- HK18-HK20
+# K25, the flat bucket-4 table (quorum_tpu/ops/ctable.py:51-560): flat
+# u32 planes keytag / hq / lq of 4 * 2^nb_log2 slots (keytag EMPTY =
+# empty slot) and, sealed, one entry word a slot.
+
+BUCKET = 4
+_FLAT_CHUNK = 1 << 26  # slots a step of a pass over the planes (bounds
+#                        the int64 temporaries on a 2^32-slot table)
+
+
+def feistel_inverse(full: torch.Tensor, k: int) -> torch.Tensor:
+    """The canonical mers whose Feistel-mixed keys are `full` (int64):
+    the four rounds of `feistel` undone (ctable.feistel_unmix)."""
+    kmask = (1 << k) - 1
+    l, r = (full >> k) & kmask, full & kmask
+    for c in reversed(_ROUND_C):
+        l, r = r ^ (mix32((l + c) & M32) & kmask), l
+    return (l << k) | r
+
+
+def flat_bucket_rem(keys, meta):
+    """Canonical int64 mers -> (bucket, rem) int64: the low nb_log2 bits
+    of the mixed key and the next rem_bits (ctable.bucket_rem)."""
+    full = feistel(keys, meta.k)
+    return (full & ((1 << meta.nb_log2) - 1),
+            (full >> meta.nb_log2) & ((1 << meta.rem_bits) - 1))
+
+
+def flat_claim(keytag, hq, lq, bucket, rem, hq_add, lq_add):
+    """ctable._build_round, repeated until no lane can move: every
+    pending lane targets its bucket's slot holding its rem, else the
+    bucket's first empty slot; the claimers of one empty slot all write
+    their rem there and the one whose rem landed wins (with the lanes of
+    its key, which match it next round); every lane placed adds its
+    (hq_add, lq_add). Lanes whose bucket holds four other keys stay
+    pending. IN PLACE. Returns `placed` (bool per lane)."""
+    n = bucket.shape[0]
+    dev = bucket.device
+    placed = torch.zeros(n, dtype=torch.bool, device=dev)
+    pend = torch.arange(n, device=dev)
+    j = torch.arange(BUCKET, device=dev)
+    while pend.numel():
+        base = bucket[pend] * BUCKET
+        t = u32(keytag[base[:, None] + j[None, :]])
+        r = rem[pend]
+        m = t == r[:, None]
+        e = t == EMPTY
+        has_m, has_e = m.any(1), e.any(1)
+        slot = torch.where(has_m, m.to(torch.int8).argmax(1),
+                           e.to(torch.int8).argmax(1))
+        flat = base + slot
+        attempt = has_m | has_e
+        if not attempt.any():
+            break
+        a = torch.nonzero(attempt).squeeze(1)
+        keytag[flat[a]] = i32(r[a])
+        won = attempt.clone()
+        won[a] = u32(keytag[flat[a]]) == r[a]
+        w = torch.nonzero(won).squeeze(1)
+        hq.index_add_(0, flat[w], hq_add[pend[w]].to(torch.int32))
+        lq.index_add_(0, flat[w], lq_add[pend[w]].to(torch.int32))
+        placed[pend[w]] = True
+        pend = pend[attempt & ~won]
+    return placed
+
+
+def flat_insert(bstate, meta, keys, qual, valid):
+    """HK18 (ctable.insert_observations): count each valid observation
+    (canonical int64 mer, qual bit) in the build table. Returns
+    (placed bool, full: some valid lane found its bucket full)."""
+    bucket, rem = flat_bucket_rem(keys, meta)
+    q = qual.to(torch.int64)
+    idx = torch.nonzero(valid).squeeze(1)
+    placed = torch.zeros(keys.shape[0], dtype=torch.bool, device=keys.device)
+    placed[idx] = flat_claim(bstate.keytag, bstate.hq, bstate.lq,
+                             bucket[idx], rem[idx], q[idx], 1 - q[idx])
+    return placed, bool((valid & ~placed).any())
+
+
+def flat_grow(bstate, meta, new, new_meta) -> None:
+    """HK18's grow entry (ctable.grow_build): every occupied slot of the
+    build table re-inserted into the empty doubled one `new` by
+    ctable.rehash_grow's bit move, its hq and lq carried verbatim (a
+    doubled bucket takes the keys of one old bucket: all find room)."""
+    occ = torch.cat([torch.nonzero(bstate.keytag[s:s + _FLAT_CHUNK] != -1)
+                     .squeeze(1) + s
+                     for s in range(0, max(meta.size, 1), _FLAT_CHUNK)])
+    rem = u32(bstate.keytag[occ])
+    bucket = (occ // BUCKET) | ((rem & 1) << meta.nb_log2)
+    flat_claim(new.keytag, new.hq, new.lq, bucket, rem >> 1,
+               bstate.hq[occ].to(torch.int64), bstate.lq[occ].to(torch.int64))
+
+
+def flat_entry_val(entries, meta):
+    """Entry words (int32 storage) -> value words count << 1 | qual
+    (int64; 0 for an empty slot), ctable.entry_val."""
+    e = u32(entries)
+    return ((e & meta.max_val) << 1) | ((e >> meta.bits) & 1)
+
+
+def flat_finalize(bstate, meta):
+    """HK20 (ctable.finalize_build + table_stats): the entry plane,
+    rem << (bits + 1) | q << bits | count with q = any hq observation
+    and count = the hq count if q else the lq count, in [1, max_val];
+    0 for an empty slot. Returns (entries int32, stats int64 [3] =
+    occupied, distinct_hq (hq entries), total_hq (their counts), exact
+    integers)."""
+    entries = torch.empty_like(bstate.keytag)
+    stats = torch.zeros(3, dtype=torch.int64, device=entries.device)
+    for s in range(0, entries.numel(), _FLAT_CHUNK):
+        e = slice(s, s + _FLAT_CHUNK)
+        tag = u32(bstate.keytag[e])
+        occ = tag != EMPTY
+        hq, lq = u32(bstate.hq[e]), u32(bstate.lq[e])
+        q = (hq > 0) & occ
+        cnt = torch.where(q, hq, lq).clamp(1, meta.max_val)
+        rem = tag & ((1 << meta.rem_bits) - 1)
+        ent = (rem << (meta.bits + 1)) | (q.to(torch.int64) << meta.bits) \
+            | cnt
+        entries[e] = i32(torch.where(occ, ent, 0))
+        stats += torch.stack([occ.sum(), q.sum(),
+                              torch.where(q, cnt, 0).sum()])
+    return entries, stats
+
+
+def flat_lookup(entries, meta, keys):
+    """HK19 (ctable.lookup): the value word (int32) of each canonical
+    int64 mer in the entry plane, 0 if absent."""
+    bucket, rem = flat_bucket_rem(keys, meta)
+    base = bucket * BUCKET
+    out = torch.zeros(keys.shape[0], dtype=torch.int64, device=keys.device)
+    vmask = (1 << (meta.bits + 1)) - 1
+    for j in range(BUCKET):
+        e = u32(entries[base + j])
+        match = ((e & vmask) != 0) & ((e >> (meta.bits + 1)) == rem)
+        out = torch.where(match, flat_entry_val(entries[base + j], meta), out)
+    return out.to(torch.int32)
+
+
+# --------------------------------------------------------------- HK21
+
+
+def minimizer(codes, k: int, m: int):
+    """HK21 (mer.minimizer_kmers): for every k-window end p of an int8
+    code batch [B, L], the minimum over the window's k - m + 1 m-mers of
+    mix32(canonical m-mer), a mixed value equal to the sentinel
+    0xFFFFFFFF pinned to 0xFFFFFFFE; the sentinel where the window is
+    unfilled or holds a non-ACGT base. Returns (int32 [B, L] holding the
+    u32 values, kvalid bool [B, L])."""
+    sent = M32
+    f, r, mvalid = mer.rolling_kmers(codes, m)
+    mval = mer._mix32_mer(torch.minimum(f, r))
+    mval = torch.where(mval == sent, sent - 1, mval)
+    mval = torch.where(mvalid, mval, sent)
+    out = mval.clone()
+    for j in range(1, k - m + 1):
+        shifted = torch.full_like(mval, sent)
+        shifted[:, j:] = mval[:, :-j]
+        out = torch.minimum(out, shifted)
+    kvalid = mer.run_at_least(codes < 0, k)
+    return i32(torch.where(kvalid, out, sent)), kvalid

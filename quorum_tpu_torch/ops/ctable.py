@@ -1,5 +1,6 @@
 """Tile-bucket k-mer table (counterpart of the tile half of
-quorum_tpu/ops/ctable.py).
+quorum_tpu/ops/ctable.py) and, at the end, the flat bucket-4 table (its
+first half, "v0").
 
 A row (bucket) is 128 u32 words = 64 slots of (lo, hi) pairs. The
 Feistel-mixed key's low rb_log2 bits address the row; the remainder
@@ -10,6 +11,23 @@ sealed side: ``lo = rlo << (bits+1) | q << bits | count``, ``hi = rhi``.
 All u32 planes are int32 tensors holding the same bits. Inserts update
 the build state IN PLACE (JAX returns new arrays; the port saves the
 copy of a multi-GiB plane per batch).
+
+The flat table (K25: HK18 inserts and grows, HK19 looks up, HK20 seals
+and counts) keeps four slots a bucket in flat u32 planes, keytag / hq /
+lq while it is built and one entry word ``rem << (bits+1) | q << bits |
+count`` a slot once sealed. A key's bucket is the low nb_log2 bits of
+its Feistel-mixed value and it lives only there: a bucket that would
+take a fifth key makes the insert report `full`, the caller doubles
+the table (grow_build) and inserts again the observations not placed.
+JAX claims a slot with a scatter-set whose winner among lanes of one
+slot is XLA's pick; HK18 claims with atomicCAS, whose winner is the
+first lane to get there. So the SLOT a key takes inside its bucket, the
+order iterate_entries yields the entries in, the ranks tile_from_build
+gives them, and which lanes of an overflowing bucket stay pending may
+differ from JAX's. What the port is held to is the table as a key ->
+value map (iterate_entries sorted by key, lookup of present and absent
+keys), `full`, the placed mask when not full, table_stats, and
+tile_from_build as a tile entry map; never slot positions.
 """
 
 from __future__ import annotations
@@ -238,13 +256,15 @@ def tile_load(payload: np.ndarray, meta: TileMeta, n: int, device
     return TileState(rows), (occ, distinct, total)
 
 
-def tile_from_entries(khi, klo, vals, k: int, bits: int, device
+def tile_from_entries(khi, klo, vals, k: int, bits: int, device,
+                      rb_log2: int | None = None
                       ) -> tuple[TileState, TileMeta, tuple[int, int, int]]:
     """K9 from raw entries (quorum_tpu's ctable.tile_from_entries):
     canonical mers as (khi, klo) u32 halves with their value words
     ``count << 1 | qual`` become a sealed table on `device`. The host
     hashes and ranks them (one stable sort by row; the rows double while
     one would take more than 64) into a v4 payload, which HK7 places.
+    `rb_log2` is the first row count tried (by default tile_rb_for's).
     Returns (TileState, TileMeta, (n_occupied, distinct_hq, total_hq))."""
     khi = np.asarray(khi, np.uint32)
     klo = np.asarray(klo, np.uint32)
@@ -252,7 +272,7 @@ def tile_from_entries(khi, klo, vals, k: int, bits: int, device
     n = len(vals)
     keys = torch.from_numpy((khi.astype(np.int64) << 32)
                             | klo.astype(np.int64))
-    rb = tile_rb_for(n, k, bits)
+    rb = tile_rb_for(n, k, bits) if rb_log2 is None else rb_log2
     while True:
         meta = TileMeta(k=k, bits=bits, rb_log2=rb)
         addr, rlo, rhi = (x.numpy() for x in
@@ -271,3 +291,233 @@ def tile_from_entries(khi, klo, vals, k: int, bits: int, device
            for j in range(meta.hi_bytes)])
     state, stats = tile_load(payload, meta, n, device)
     return state, meta, stats
+
+
+# ------------------------------------------------------------ flat table
+# K25 (quorum_tpu/ops/ctable.py:51-560): the bucket-4 table in the
+# reference's hash_with_quality layout, entry = [rem | qual | count].
+
+BUCKET = kernels.ref.BUCKET  # slots a bucket: one aligned 16-byte row
+_EMPTY_TAG = kernels.ref.EMPTY
+_ROUND_C = kernels.ref._ROUND_C  # the Feistel round constants
+
+
+@dataclasses.dataclass(frozen=True)
+class CTableMeta:
+    """Static geometry. `nb_log2` = log2(number of buckets)."""
+
+    k: int
+    bits: int  # count field width (reference -b flag, default 7)
+    nb_log2: int
+
+    def __post_init__(self):
+        if self.rem_bits + 1 + self.bits > 32:
+            raise ValueError(
+                f"compact layout infeasible: k={self.k} nb_log2="
+                f"{self.nb_log2} bits={self.bits} needs "
+                f"{self.rem_bits + 1 + self.bits} > 32 entry bits; "
+                f"grow nb_log2 to >= {2 * self.k - (31 - self.bits)} "
+                "or use the wide table")
+        if self.nb_log2 < 0 or self.nb_log2 > 30:
+            raise ValueError(f"nb_log2 out of range: {self.nb_log2}")
+
+    @property
+    def n_buckets(self) -> int:
+        return 1 << self.nb_log2
+
+    @property
+    def size(self) -> int:
+        return self.n_buckets * BUCKET
+
+    @property
+    def rem_bits(self) -> int:
+        return max(0, 2 * self.k - self.nb_log2)
+
+    @property
+    def max_val(self) -> int:
+        return (1 << self.bits) - 1
+
+
+def min_nb_log2(k: int, bits: int = 7) -> int:
+    """Smallest nb_log2 whose compact layout fits k and bits."""
+    return max(0, 2 * k - (31 - bits))
+
+
+def layout_fits(k: int, bits: int, nb_log2: int) -> bool:
+    return max(0, 2 * k - nb_log2) + 1 + bits <= 32
+
+
+def required_nb_log2(requested_entries: int, k: int, bits: int = 7) -> int:
+    """nb_log2 for a user-requested entry count: buckets >= entries
+    (bucket load at most 1) and the layout constraint."""
+    cap = max(4, int(requested_entries - 1).bit_length())
+    return max(cap, min_nb_log2(k, bits))
+
+
+class CTableState(NamedTuple):
+    """Sealed table (finalize_build): entries int32 [size] (slot j of
+    bucket b at 4b + j) and HK20's statistics int64 [3] (occupied,
+    distinct_hq, total_hq) on the same device."""
+
+    entries: torch.Tensor
+    stats: torch.Tensor
+
+
+class CBuildState(NamedTuple):
+    """Build-side table: keytag (-1 = 0xFFFFFFFF, empty) and the split
+    quality counts hq / lq, each int32 [size]."""
+
+    keytag: torch.Tensor
+    hq: torch.Tensor
+    lq: torch.Tensor
+
+
+def make_build_table(meta: CTableMeta, device) -> CBuildState:
+    size = meta.size
+    return CBuildState(
+        torch.full((size,), -1, dtype=torch.int32, device=device),
+        torch.zeros(size, dtype=torch.int32, device=device),
+        torch.zeros(size, dtype=torch.int32, device=device))
+
+
+def bucket_rem(keys: torch.Tensor, meta: CTableMeta):
+    """Canonical int64 mers -> (bucket, remainder) int64 (plain torch on
+    the keys' device; HK18 and HK19 compute it inline)."""
+    return kernels.ref.flat_bucket_rem(keys, meta)
+
+
+def _mix32_int(x: int) -> int:
+    x ^= x >> 16
+    x = (x * 0x7FEB352D) & 0xFFFFFFFF
+    x ^= x >> 15
+    x = (x * 0x846CA68B) & 0xFFFFFFFF
+    return x ^ (x >> 16)
+
+
+def bucket_rem_np(khi, klo, meta: CTableMeta):
+    """Host twin of bucket_rem for one key given as its u32 halves:
+    (bucket int, rem np.uint32), bit for bit."""
+    k = meta.k
+    kmask = (1 << k) - 1
+    key = (int(khi) << 32) | int(klo)
+    l, r = (key >> k) & kmask, key & kmask
+    for c in _ROUND_C:
+        l, r = r, l ^ (_mix32_int((r + c) & 0xFFFFFFFF) & kmask)
+    full = (l << k) | r
+    rem = (full >> meta.nb_log2) & ((1 << meta.rem_bits) - 1)
+    return full & ((1 << meta.nb_log2) - 1), np.uint32(rem)
+
+
+def rehash_grow(bucket, rem, nb_log2: int):
+    """(bucket, rem) under nb_log2 -> the same under nb_log2 + 1: the
+    full hash is (rem << nb) | bucket, so doubling moves rem's low bit
+    into the bucket's top bit."""
+    return bucket | ((rem & 1) << nb_log2), rem >> 1
+
+
+def keys_from_table(bucket, rem, meta: CTableMeta) -> torch.Tensor:
+    """Canonical int64 mers from their (bucket, rem): the Feistel
+    inverse of (rem << nb_log2) | bucket (the iterator's primitive)."""
+    return kernels.ref.feistel_inverse((rem << meta.nb_log2) | bucket,
+                                       meta.k)
+
+
+def pack_entry(rem, qual, count, meta: CTableMeta):
+    """Entry words (int64 holding u32) from rem, qual bit and count."""
+    return (rem << (meta.bits + 1)) | (qual.to(torch.int64) << meta.bits) \
+        | count
+
+
+def entry_val(entry, meta: CTableMeta):
+    """Entry -> reference value word (count << 1 | qual); 0 if empty."""
+    return kernels.ref.flat_entry_val(entry, meta)
+
+
+def entry_rem(entry, meta: CTableMeta):
+    return kernels.ref.u32(entry) >> (meta.bits + 1)
+
+
+def lookup(state: CTableState, meta: CTableMeta, keys: torch.Tensor
+           ) -> torch.Tensor:
+    """The value word (int32) of each canonical int64 mer, 0 if absent:
+    one 16-byte bucket row and four compares a key (HK19)."""
+    return kernels.flat_lookup(state.entries, meta, keys)
+
+
+def lookup_np(entries, meta: CTableMeta, khi, klo) -> int:
+    """Scalar host lookup over a flat entry array (int32 or uint32)."""
+    bucket, rem = bucket_rem_np(khi, klo, meta)
+    row = np.asarray(entries).reshape(-1)[bucket * BUCKET:
+                                          bucket * BUCKET + BUCKET]
+    for e in row.astype(np.int64) & 0xFFFFFFFF:
+        e = int(e)
+        if e & ((1 << (meta.bits + 1)) - 1) and e >> (meta.bits + 1) == rem:
+            return ((e & meta.max_val) << 1) | ((e >> meta.bits) & 1)
+    return 0
+
+
+def insert_observations(bstate: CBuildState, meta: CTableMeta,
+                        keys: torch.Tensor, qual: torch.Tensor,
+                        valid: torch.Tensor):
+    """Count a flat batch of raw observations (canonical int64 mers,
+    their qual bits, `valid` lanes only), IN PLACE (HK18: one launch;
+    JAX's bounded claim rounds become one atomicCAS loop a lane, so no
+    `max_rounds`). Returns (bstate, full: bool, placed mask). On full
+    the caller grows and retries with `valid & ~placed`: every
+    observation counts exactly once."""
+    placed, full = kernels.flat_insert(bstate, meta, keys, qual, valid)
+    return bstate, bool(full), placed
+
+
+def finalize_build(bstate: CBuildState, meta: CTableMeta) -> CTableState:
+    """Pack the split counts into entries: count-at-best-quality (the hq
+    count if any hq observation, else the lq count), saturated at
+    max_val; and count the statistics in the same pass (HK20)."""
+    return CTableState(*kernels.flat_finalize(bstate, meta))
+
+
+def grow_build(bstate: CBuildState, meta: CTableMeta
+               ) -> tuple[CBuildState, CTableMeta]:
+    """Double the bucket count and move every entry by rehash_grow's bit
+    move, hq and lq verbatim (HK18's grow entry, one launch; JAX's
+    chunks only bound its temporaries). Raises ValueError past nb_log2
+    30, as JAX's does."""
+    new_meta = dataclasses.replace(meta, nb_log2=meta.nb_log2 + 1)
+    new = make_build_table(new_meta, bstate.keytag.device)
+    kernels.flat_grow(bstate, meta, new, new_meta)
+    return new, new_meta
+
+
+def table_stats(state: CTableState, meta: CTableMeta
+                ) -> tuple[int, int, int]:
+    """(n_occupied, distinct_hq, total_hq): the statistics HK20 counted
+    as it sealed the table. Exact integers (JAX sums total_hq in
+    float32, the same value below 2^24)."""
+    occ, distinct, total = (int(x) for x in state.stats.cpu())
+    return occ, distinct, total
+
+
+def iterate_entries(state: CTableState, meta: CTableMeta):
+    """(khi, klo, val) numpy u32 arrays of every occupied entry, in slot
+    order, computed on the entries' device (reference
+    database_query::const_iterator)."""
+    ent = state.entries
+    chunk = 1 << 26  # bounds the mask's and nonzero's temporaries
+    occ = torch.cat([torch.nonzero(ent[s:s + chunk] != 0).squeeze(1) + s
+                     for s in range(0, max(ent.numel(), 1), chunk)])
+    e = ent[occ]
+    keys = keys_from_table(occ // BUCKET, entry_rem(e, meta), meta)
+    val = entry_val(e, meta)
+    return ((keys >> 32).cpu().numpy().astype(np.uint32),
+            (keys & 0xFFFFFFFF).cpu().numpy().astype(np.uint32),
+            val.cpu().numpy().astype(np.uint32))
+
+
+def tile_from_build(bstate: CBuildState, meta: CTableMeta,
+                    rb_log2: int | None = None):
+    """Seal a flat build straight into the tile query layout on its
+    device (HK20, then tile_from_entries: the host ranks, HK7 places).
+    Returns (TileState, TileMeta, (n_occupied, distinct_hq, total_hq))."""
+    khi, klo, vals = iterate_entries(finalize_build(bstate, meta), meta)
+    return tile_from_entries(khi, klo, vals, meta.k, meta.bits,
+                             bstate.keytag.device, rb_log2)

@@ -149,3 +149,61 @@ def unpack_codes(pcodes, nmask, lengths, length: int) -> torch.Tensor:
     codes = torch.where(unpack_bits(nmask, length), -1, codes)
     pos = torch.arange(length, device=pcodes.device)[None, :]
     return torch.where(pos >= lengths[:, None], -2, codes).to(torch.int8)
+
+
+# ------------------------------------------------- minimizers (K23)
+# KMC 2's bin key (arxiv 1407.1507), quorum_tpu/ops/mer.py:246-328.
+
+MAX_MINIMIZER_M = 15  # 2m <= 30 bits: one u32 value per m-mer
+
+
+def _mix32_mer(x: torch.Tensor) -> torch.Tensor:
+    """The invertible 32-bit mix that orders m-mers (int64 holding u32
+    values; every product taken mod 2^32 without leaving int64): the raw
+    lexicographic order is skewed (poly-A wins most windows), the mix
+    gives a pseudo-random total order with the same semantics."""
+
+    def mul32(v, c: int):
+        return ((v * (c & 0xFFFF)) + (((v * (c >> 16)) & 0xFFFF) << 16)) \
+            & 0xFFFFFFFF
+
+    x = x ^ (x >> 16)
+    x = mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def minimizer_kmers(codes: torch.Tensor, k: int, m: int):
+    """Canonical m-mer minimizer of every k-window of an int8 code batch
+    [B, L] (HK21 on the card, its plain version on the CPU): at position
+    p (the window of bases [p-k+1, p]) the minimum over the window's
+    k - m + 1 m-mers of mix32(min(fwd m-mer, revcomp m-mer)), a mixed
+    value equal to 0xFFFFFFFF pinned to 0xFFFFFFFE. Returns (minval
+    int32 [B, L] holding the u32 values, kvalid bool [B, L]: the window
+    holds k consecutive ACGT bases); 0xFFFFFFFF where not kvalid."""
+    from .. import kernels
+
+    if not 1 <= m <= min(k, MAX_MINIMIZER_M):
+        raise ValueError(f"minimizer m={m} must be in [1, "
+                         f"min(k, {MAX_MINIMIZER_M})]")
+    return kernels.minimizer(codes, k, m)
+
+
+def minimizer_py(seq: str, m: int) -> int:
+    """Host twin for one k-mer string: the mixed canonical m-mer
+    minimizer (minimizer_kmers' value at the window's last position)."""
+    k = len(seq)
+    assert 1 <= m <= min(k, MAX_MINIMIZER_M)
+    codes = seq_to_codes(seq)
+    assert (codes >= 0).all(), f"non-ACGT base in {seq!r}"
+    best = 0xFFFFFFFF
+    for i in range(k - m + 1):
+        f = r = 0
+        for c in codes[i:i + m].tolist():
+            f = (f << 2) | c
+        for c in codes[i:i + m][::-1].tolist():
+            r = (r << 2) | (3 - c)
+        v = int(_mix32_mer(torch.tensor(min(f, r), dtype=torch.int64)))
+        best = min(best, 0xFFFFFFFE if v == 0xFFFFFFFF else v)
+    return best

@@ -43,6 +43,14 @@ mesh does; the shards then share that device's memory and its stream.
     replicated, as JAX's is. A mesh of cards without peer access
     between them cannot take this layout (peer_reason).
 
+* Unpacked entries (build_database_tile_sharded, correct_step,
+  correct_step_routed, and dryrun, which drives them): JAX's callers
+  hand (codes, quals) batches; each is packed on the host and takes the
+  wire path above. Batches given as CUDA tensors are copied to the
+  host for the pack and the wire goes back to the card: a round trip
+  that JAX's build_step, which extracts observations on the device,
+  does not make.
+
 torch.distributed is not used: NCCL takes one process per card and
 refuses two ranks on one card, and the exchange here is between
 tensors of one process.
@@ -54,6 +62,7 @@ import dataclasses
 import os
 import sys
 
+import numpy as np
 import torch
 
 from .. import kernels
@@ -255,7 +264,8 @@ class PassFull(Exception):
 
 def build_step_wire(bstate: ShardedBuildState, meta: TileShardedMeta, mesh,
                     pk: packing.PackedReads, qual_thresh: int,
-                    part: int = 0, n_parts: int = 1):
+                    part: int = 0, n_parts: int = 1,
+                    max_grows: int = MAX_GROWS):
     """Count one packed batch into the sharded build table (JAX's
     build_step_wire and its caller's grow loop): each shard routes its
     row range of the batch (HK15), the buckets cross to their owners,
@@ -263,7 +273,8 @@ def build_step_wire(bstate: ShardedBuildState, meta: TileShardedMeta, mesh,
     re-route after a doubling of every shard (grow), as often as needed.
     With n_parts > 1 (pass `part` of a partitioned build) HK15's
     partition entry routes only the pass's mers, and a full row raises
-    PassFull instead of growing. Each step is launched on every shard
+    PassFull instead of growing; past `max_grows` doublings in one batch
+    it raises "Hash is full". Each step is launched on every shard
     before the host waits on any: the waits are HK15's bucket counts and
     the unplaced lanes' sizes. Returns (bstate, meta, grows)."""
     pk.require_plane(qual_thresh)
@@ -284,7 +295,7 @@ def build_step_wire(bstate: ShardedBuildState, meta: TileShardedMeta, mesh,
             return bstate, meta, grows
         if n_parts > 1:
             raise PassFull
-        if grows >= MAX_GROWS:
+        if grows >= max_grows:
             raise RuntimeError("Hash is full")
         print(f"Hash table full at {meta.rows} buckets; doubling",
               file=sys.stderr)
@@ -530,8 +541,6 @@ class ShardedCorrector:
     def __init__(self, mesh, state, meta, cfg, contam=None,
                  replicate_max_bytes: int | None = None,
                  event_driven: bool = True):
-        from ..models.corrector import make_keep_table
-
         self.mesh, self.cfg = list(mesh), cfg
         self.event_driven = event_driven
         k, bits, rb = meta.k, meta.bits, meta.rb_log2
@@ -546,12 +555,10 @@ class ShardedCorrector:
         else:
             self.meta = TileMeta(k=k, bits=bits, rb_log2=rb)
             self.rows = replicate_table(state, self.mesh)
-        keep, ctab = {}, {}
-        for dev in distinct(self.mesh):
-            keep[dev] = make_keep_table(self.meta, cfg, dev)
-            ctab[dev] = (None if contam is None else
-                         (TileState(contam[0].rows.to(dev)), contam[1]))
-        self.keeps = [keep[d] for d in self.mesh]
+        ctab = {dev: None if contam is None else
+                (TileState(contam[0].rows.to(dev)), contam[1])
+                for dev in distinct(self.mesh)}
+        self.keeps = _keeps(self.mesh, self.meta, cfg)
         self.contams = [ctab[d] for d in self.mesh]
 
     @property
@@ -562,3 +569,175 @@ class ShardedCorrector:
         return correct_step_wire(self.mesh, self.rows, self.meta, pk,
                                  self.cfg, self.keeps, self.contams,
                                  self.event_driven)
+
+
+# ------------------------------------------------- unpacked entries (K24)
+# JAX's build_step (:332) and its caller build_database_tile_sharded
+# (:600), correct_step (:800) and correct_step_routed (:878) take
+# unpacked (codes int8 [B, L], quals uint8 [B, L]); the port packs each
+# batch on the host into the wire its CLIs send, then runs the wire path
+# above. Packing is exact: JAX's observation extraction resets a window
+# on codes < 0, the wire's N mask, and on quals < qual_thresh, the
+# wire's qual >= qual_thresh plane.
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _pack_unpacked(codes, quals, lengths, qual_thresh: int
+                   ) -> packing.PackedReads:
+    """One unpacked batch packed on the host (a tensor on a card is
+    copied to the host first)."""
+    codes = _host(codes).astype(np.int8)
+    if lengths is None:
+        lengths = np.full(codes.shape[0], codes.shape[1], np.int32)
+    return packing.pack_reads(codes, _host(quals).astype(np.uint8),
+                              _host(lengths).astype(np.int32),
+                              thresholds=(qual_thresh,))
+
+
+def build_database_tile_sharded(batches, mesh, meta: TileShardedMeta,
+                                qual_thresh: int, max_grows: int = 8):
+    """Stage 1 over the mesh from unpacked batches: every (codes, quals)
+    batch (rows a multiple of the shard count) packed on the host with
+    every row's length L and the qual >= qual_thresh plane, counted by
+    build_step_wire (HK15, the exchange, HK1's shard entry; HK8's shard
+    entry where a batch needs a doubling, at most `max_grows` a batch)
+    and sealed by HK2. CUDA-tensor batches take a round trip through
+    the host for the pack. Returns (ShardedTileState, meta). JAX's
+    `bucket_slack` overflow retries have no counterpart (HK15 buckets
+    exactly: the same table). JAX's `metrics` and `tracer` parameters
+    and record_shard_metrics wait for the port's telemetry."""
+    mesh = list(mesh)
+    bstate = make_build_state(meta, mesh)
+    for codes, quals in batches:
+        pk = _pack_unpacked(codes, quals, None, qual_thresh)
+        bstate, meta, _grows = build_step_wire(bstate, meta, mesh, pk,
+                                               qual_thresh,
+                                               max_grows=max_grows)
+    state, _seal = finalize(bstate, meta, mesh)
+    return state, meta
+
+
+def _keeps(mesh, meta, cfg) -> list:
+    """The corrector's keep table of each mesh entry, made once on each
+    distinct device."""
+    from ..models.corrector import make_keep_table
+
+    keep = {dev: make_keep_table(meta, cfg, dev) for dev in distinct(mesh)}
+    return [keep[d] for d in mesh]
+
+
+def correct_step(mesh, tmeta: TileMeta, cfg):
+    """Stage 2 over the mesh with the table replicated (JAX's
+    correct_step): f(state, codes, quals, lengths) -> BatchResult. The
+    batch is packed on the host (corrector.correct_batch's packing; a
+    batch on a card is copied there first) and runs correct_step_wire, each shard's row range on its device against
+    its copy of the table. `state` is one card's TileState, a
+    ShardedTileState (replicated here) or replicate_table's planes."""
+    mesh = list(mesh)
+    keeps = _keeps(mesh, tmeta, cfg)
+
+    def step(state, codes, quals, lengths):
+        rows = state if isinstance(state, list) else replicate_table(state,
+                                                                     mesh)
+        pk = _pack_unpacked(codes, quals, lengths, cfg.qual_cutoff)
+        return correct_step_wire(mesh, rows, tmeta, pk, cfg, keeps,
+                                 [None] * len(mesh))
+
+    return step
+
+
+def correct_step_routed(mesh, meta: TileShardedMeta, cfg):
+    """Stage 2 over the mesh with the table row-sharded (JAX's
+    correct_step_routed): f(state, codes, quals, lengths) ->
+    BatchResult, every probe read in its owner shard's plane (HK5's,
+    HK16's and HK4's sharded-table entries). `state` is a
+    ShardedTileState, or one plane (split here over the mesh)."""
+    mesh = list(mesh)
+    rmeta = RoutedTileMeta(k=meta.k, bits=meta.bits, rb_log2=meta.rb_log2,
+                           n_shards=meta.n_shards)
+    why = peer_reason(mesh)
+    if why is not None:
+        raise RuntimeError(why)
+    keeps = _keeps(mesh, rmeta, cfg)
+
+    def step(state, codes, quals, lengths):
+        pk = _pack_unpacked(codes, quals, lengths, cfg.qual_cutoff)
+        return correct_step_wire(mesh, row_shards(state, rmeta, mesh), rmeta,
+                                 pk, cfg, keeps, [None] * len(mesh))
+
+    return step
+
+
+def table_entries(state: TileState, meta: TileMeta):
+    """The sealed table's entries as (canonical int64 mers, value words
+    int64), in row-major slot order, on the table's device (HK6's
+    compact entry, then the Feistel inverse)."""
+    rows = state.rows
+    cap = int((rows[:, 0::2] != 0).sum())
+    addr, lo, hi, n = ctable.tile_compact_device(state, meta, cap)
+    lo, hi = lo.to(torch.int64) & 0xFFFFFFFF, hi.to(torch.int64) & 0xFFFFFFFF
+    full = (((hi << meta.rlo_bits) | (lo >> (meta.bits + 1)))
+            << meta.rb_log2) | addr.to(torch.int64)
+    vals = ((lo & meta.max_val) << 1) | ((lo >> meta.bits) & 1)
+    return kernels.ref.feistel_inverse(full, meta.k)[:int(n)], vals[:int(n)]
+
+
+def dryrun(mesh, n_devices: int) -> None:
+    """The multi-device dryrun (JAX's dryrun, on its inputs: seed 11,
+    k = 15, a 512 bp genome, 8 * n_devices reads of 48 bp, 3% errors):
+    the sharded build from unpacked batches, a routed query spot-check
+    against the gathered table's own entries, then both stage-2 layouts
+    (replicated, routed) held equal to the one-card corrector on out,
+    start, end and status. Raises AssertionError on a mismatch."""
+    from ..models import corrector
+    from ..models.ec_config import ECConfig
+
+    mesh = list(mesh)
+    k = 15
+    rng = np.random.default_rng(11)
+    genome = rng.integers(0, 4, size=512, dtype=np.int8)
+    n_reads = 8 * n_devices
+    starts = rng.integers(0, len(genome) - 48, size=n_reads)
+    codes = genome[starts[:, None] + np.arange(48)[None, :]].astype(np.int8)
+    err = rng.random(codes.shape) < 0.03
+    codes = np.where(err, (codes + rng.integers(1, 4, size=codes.shape)) % 4,
+                     codes).astype(np.int8)
+    quals = np.full(codes.shape, 70, np.uint8)
+    quals[err] = 34
+    lengths = np.full((n_reads,), 48, np.int32)
+
+    meta = TileShardedMeta(k=k, bits=7,
+                           rb_log2=max(8, (n_devices - 1).bit_length() + 3),
+                           n_shards=n_devices)
+    state, meta = build_database_tile_sharded([(codes, quals)], mesh, meta,
+                                              53)
+
+    gstate, gmeta = gather_table(state, meta)
+    keys, vals = table_entries(gstate, gmeta)
+    nq = max(n_devices, (min(len(keys), 8 * n_devices) // n_devices)
+             * n_devices)
+    pad = nq - min(len(keys), nq)
+    q = torch.cat([keys[:nq - pad], keys.new_zeros(pad)])
+    got = query_step(mesh, meta)(state, q)
+    assert torch.equal(got[:nq - pad].cpu(), vals[:nq - pad].cpu()), \
+        "routed tile query mismatch"
+
+    cfg = ECConfig(k=k, cutoff=2)
+    single = corrector.correct_batch(gstate, gmeta, codes, quals, lengths,
+                                     cfg)
+    for tag, step, st in (
+            ("replicated", correct_step(mesh, gmeta, cfg),
+             replicate_table(gstate, mesh)),
+            ("routed", correct_step_routed(mesh, meta, cfg), state)):
+        res = step(st, codes, quals, lengths)
+        for name in ("out", "start", "end", "status"):
+            assert torch.equal(getattr(res, name).cpu(),
+                               getattr(single, name).cpu()), \
+                f"tile {tag} corrector mismatch on {name}"
+    n_ok = int((single.status == corrector.OK).sum())
+    assert n_ok > 0, "tile dryrun corrected nothing"
+    print(f"dryrun tile: {n_ok}/{n_reads} reads corrected on the tile "
+          f"path (replicated + routed), parity vs single-chip OK")
