@@ -47,9 +47,11 @@ run. Phases, each printing one JSON line:
            the full run's -s (four passes into 2^20-row tables, HK13,
            one shard each, stage 2 from the manifest): payload and
            .fa/.log equal to the full run's, each stage's peak device
-           memory beside the full run's; then with --prefilter two-pass
-           too: payload, header and .fa/.log equal to the two-pass
-           run's; then quorum_create_database --partitions 4 at a -s
+           memory beside the full run's; then quorum_create_database
+           --partitions 4 --prefilter two-pass fed the full run's packed
+           batches and quorum_error_correct_reads from its manifest:
+           payload, header and .fa/.log equal to the two-pass run's;
+           then quorum_create_database --partitions 4 at a -s
            one doubling short of what the passes need, fed the full
            run's packed batches: exactly one geometry restart, and the
            two_binary run's payload (same final geometry); launch
@@ -81,7 +83,9 @@ run. Phases, each printing one JSON line:
            trimmed read keeps a contaminant mer; launch counts reset
            before and read after each run
   table    HK7 loading and HK6 exporting the full run's database (and
-           HK6's compact entry compacting it), and HK5, HK3, HK4 and
+           HK6's compact entry compacting it at caps 0, n - 7, n and
+           n + 9, and one of its DEVICES row ranges; timed beside
+           boolean-mask indexing), and HK5, HK3, HK4 and
            HK14 on the batch of it with the most contaminated reads
            against that table, HK5's and HK4's contaminant entries
            (kill and trim) with the contaminant phase's set and HK14 on
@@ -93,16 +97,18 @@ run. Phases, each printing one JSON line:
            and HK4's event sharded-table entries (the table as four
            shards, devices_routed_cap's layout), in the three
            contaminant modes on the table phase's batch and table, held
-           against their plain versions and timed, and held on the
-           golden reads with Ns (where event mode departs from the plain
-           walk on some read); then the full cell's stage 2 from its
-           database in event mode and in plain mode (event_driven=False)
-           in the order event, plain, plain, event: device step, host
-           time, kernel time and launches of each; event mode's
-           .fa/.log equal the full run's, each mode's second run its
-           first run's, and each mode's first 2,048 reads equal a
-           --device cpu run of that mode on them; launch counts reset
-           before and read after each run
+           against their plain versions and timed, HK4's event entries
+           held again on that batch less its last read (lanes that fill
+           no whole block) and the plane entry timed on its first
+           quarter, and held on the golden reads with Ns (where event
+           mode departs from the plain walk on some read); then the full
+           cell's stage 2 from its database in event mode and in plain
+           mode (event_driven=False) in the order event, plain, plain,
+           event: device step, host time, kernel time and launches of
+           each; event mode's .fa/.log equal the full run's, each
+           mode's second run its first run's, and each mode's first
+           2,048 reads equal a --device cpu run of that mode on them;
+           launch counts reset before and read after each run
   devices  --devices 4 on a mesh of four entries over the host's cards
            (all naming the card on a one-card host), fed the full run's
            packed batches: quorum_create_database's sharded build at the
@@ -208,6 +214,9 @@ SOURCES = {  # kernel -> (source in the repo, TPU program it replaces)
                     "quorum_tpu/models/corrector.py:348"),
     "tile_export": ("quorum_tpu_torch/kernels/csrc/tile_export.cu",
                     "quorum_tpu/ops/ctable.py:1643"),
+    # K22, HK6's compact entry, counted apart from the export
+    "tile_export_compact": ("quorum_tpu_torch/kernels/csrc/tile_export.cu",
+                            "quorum_tpu/ops/ctable.py:764"),
     "tile_load": ("quorum_tpu_torch/kernels/csrc/tile_load.cu",
                   "quorum_tpu/ops/ctable.py:787"),
     "tile_grow": ("quorum_tpu_torch/kernels/csrc/tile_grow.cu",
@@ -341,7 +350,8 @@ PATH_KERNELS.update({
     "flat": ("flat_insert", "flat_grow", "flat_finalize", "flat_lookup"),
     "minimizer": ("minimizer",),
     "devices_unpacked": ("shard_route", "tile_insert_shard", "tile_seal",
-                         *S2, *S2_SHARD, "tile_lookup_shard"),
+                         *S2, *S2_SHARD, "tile_lookup_shard",
+                         "tile_export_compact"),
 })
 # the sharded build's device time by step (CUDA events, STATS.timing):
 # the step's name -> the counter or span its events are kept under
@@ -1641,6 +1651,63 @@ def partition_run(card: str, full: dict, path: str, extra: list) -> dict:
                 build=build, ec=ec, peaks=peaks.as_dict())
 
 
+def packed_partition_run(card: str, full: dict, path: str,
+                         extra: list) -> dict:
+    """quorum_create_database --partitions 4 and `extra` at the full run's
+    -s, fed the full run's batches already packed (the driver's route
+    into stage 1; it spares a parse a pass), then
+    quorum_error_correct_reads on its own from the manifest; launch
+    counts reset just before the build and read just after stage 2.
+    Prints the stage seconds, launches and kernel seconds."""
+    from quorum_tpu_torch.cli import create_database as cdb
+    from quorum_tpu_torch.cli import error_correct_reads as ec_cli
+    from quorum_tpu_torch.io import db_format
+    from quorum_tpu_torch.io.fastq import ReadBatch
+    from quorum_tpu_torch.kernels.loader import STATS
+
+    prefix = os.path.join(WORK, path)
+    db = prefix + "_mer_database.jf"
+
+    def packed():
+        for pk, _wire in full["wires"]:
+            yield ReadBatch(None, None, pk.lengths, [], pk.n_reads), pk
+
+    handoff: dict = {}
+    report: dict = {}
+    STATS.reset()
+    STATS.timing = True
+    t0 = time.perf_counter()
+    rc = cdb.main(["-s", str(full["size"]), "-m", str(K), "-q", str(QT),
+                   "-b", "7", "-o", db, "--partitions", str(PARTS),
+                   "--device", "cuda", *extra, full["fastq"]],
+                  handoff=handoff, batches_factory=packed)
+    s1 = time.perf_counter() - t0
+    check(rc == 0, f"{path} build rc {rc}")
+    t1 = time.perf_counter()
+    rc = ec_cli.main(["--device", "cuda", "-o", prefix, db, full["fastq"]],
+                     report=report)
+    s2 = time.perf_counter() - t1
+    STATS.timing = False
+    launches = dict(STATS.launches)
+    kms = STATS.kernel_ms()
+    check(rc == 0, f"{path} stage 2 rc {rc}")
+    for name in PATH_KERNELS[path]:
+        check(launches[name] > 0, f"{name} was not launched on the {path} path")
+    h = db_format.read_header(db)
+    ec = report["stats"]
+    emit({"phase": path, "card": card, "size": full["size"],
+          "input": "packed batches", "partitions": h["n_shards"],
+          "rb_log2": h["rb_log2"], "grows": handoff["stats"].grows,
+          "entries": h["n_entries"], "stage1_s": round(s1, 3),
+          "stage2_s": round(s2, 3), "stage2_device_s": round(ec.device_s, 3),
+          "stage2_host_s": round(ec.host_s, 3), "cutoff": ec.cutoff,
+          "presence_floor": ec.presence_floor, "launches": launches,
+          "kernel_s": {k: round(v / 1e3, 4) for k, v in kms.items()},
+          "kernel_ms_per_launch": {k: round(v / launches[k], 5)
+                                   for k, v in kms.items() if launches[k]}})
+    return dict(launches=launches, prefix=prefix, db=db, header=h)
+
+
 def phase_partitions(card: str, full: dict, two_pass: dict,
                      two_binary: dict) -> dict:
     """The partitioned multi-pass stage 1 at full width. --partitions 4
@@ -1648,8 +1715,10 @@ def phase_partitions(card: str, full: dict, two_pass: dict,
     2^20-row passes: the manifest's payload is the full run's single
     file's and the .fa/.log are the full run's, with stage 1's peak
     device memory about a quarter of the full run's. With --prefilter
-    two-pass too: the payload, the header's prefilter, poisson_stats and
-    n_entries, and the .fa/.log are the two-pass run's. Then
+    two-pass too (quorum_create_database fed the packed batches, then
+    quorum_error_correct_reads from the manifest): the payload, the
+    header's prefilter, poisson_stats and n_entries, and the .fa/.log
+    are the two-pass run's. Then
     quorum_create_database --partitions 4 at a -s one doubling short of
     the geometry the two_binary build grew to, fed the full run's
     batches already packed (the driver's route into stage 1; it spares
@@ -1670,8 +1739,8 @@ def phase_partitions(card: str, full: dict, two_pass: dict,
     emit({"phase": "partitions_check", "card": card, **res})
     check(all(res.values()), f"partitions against the full run: {res}")
 
-    pt = partition_run(card, full, "partitions_two_pass",
-                       ["--prefilter", "two-pass"])
+    pt = packed_partition_run(card, full, "partitions_two_pass",
+                              ["--prefilter", "two-pass"])
     h, h2 = pt["header"], two_pass["header"]
     res = dict(
         same_payload_as_two_pass=(db_format.db_payload_bytes(pt["db"])
@@ -1865,13 +1934,20 @@ def phase_table(card: str, full: dict, contam: dict) -> dict:
                     and ek.cpu().numpy().tobytes() == raw)
     check(export_equal, "tile_export differs from its plain version")
     del ek
-    # HK6's compact entry (K22), cap = the entries: the occupied slots in
-    # slot order, against its plain version
-    ck = kernels.tile_compact(rows, meta, n)
-    cp = ref.tile_compact(rows, meta, n)
-    compact_equal = (all(torch.equal(x, y) for x, y in zip(ck, cp))
-                     and int(ck[3]) == n)
-    del ck, cp
+    # HK6's compact entry (K22): the occupied slots in slot order, against
+    # its plain version at caps that drop entries, fit them exactly, leave
+    # lanes to zero and take none, and on the second of DEVICES row ranges
+    # (a shard, whose last tile is ragged: 24 rows a tile) at its own n
+    sub = rows[meta.rows // DEVICES:2 * meta.rows // DEVICES]
+    n_sub = int(ref.tile_compact(sub, meta, 0)[3])
+    compact_equal = True
+    for part, cap in ((rows, 0), (rows, n - 7), (rows, n), (rows, n + 9),
+                      (sub, n_sub)):
+        ck = kernels.tile_compact(part, meta, cap)
+        cp = ref.tile_compact(part, meta, cap)
+        compact_equal &= all(torch.equal(x, y) for x, y in zip(ck, cp))
+    compact_equal &= int(kernels.tile_compact(rows, meta, n)[3]) == n
+    del ck, cp, sub
     check(compact_equal, "tile_export's compact entry differs from its "
           "plain version")
     row_bytes = meta.rows * 512
@@ -1888,20 +1964,19 @@ def phase_table(card: str, full: dict, contam: dict) -> dict:
             plain_ms=event_ms(lambda: ref.tile_load(payload, meta, n), 2),
             bound_bytes=len(raw) + row_bytes),
         "tile_export": dict(
-            equal=export_equal and compact_equal, n=n,
+            equal=export_equal, n=n,
             ms=kernel_ms(lambda: kernels.tile_export(rows, meta),
                          "tile_export", 5, detail=export_parts),
             plain_ms=event_ms(lambda: ref.tile_export(rows, meta), 2),
-            bound_bytes=row_bytes + len(raw),
-            # the rows read once, three 4-byte words written per entry
-            compact=dict(
-                equal=compact_equal,
-                ms=kernel_ms(lambda: kernels.tile_compact(rows, meta, n),
-                             "tile_export", 5),
-                plain_ms=event_ms(lambda: ref.tile_compact(rows, meta, n),
-                                  2),
-                library_ms=event_ms(lambda: slots[occupied], 5),
-                bound_bytes=row_bytes + 12 * n)),
+            bound_bytes=row_bytes + len(raw)),
+        # the rows read once, three 4-byte words written per entry
+        "tile_export_compact": dict(
+            equal=compact_equal, n=n,
+            ms=kernel_ms(lambda: kernels.tile_compact(rows, meta, n),
+                         "tile_export_compact", 5),
+            plain_ms=event_ms(lambda: ref.tile_compact(rows, meta, n), 2),
+            library_ms=event_ms(lambda: slots[occupied], 5),
+            bound_bytes=row_bytes + 12 * n),
     }
     del slots, occupied
     codes, quals = full["codes"], full["quals"]
@@ -3440,6 +3515,47 @@ def _probed_rows(fn, rows):
             plane_bytes)
 
 
+def walk_inputs(state, meta, c, q, lengths, contam=None, trim=False):
+    """HK4's event-entry inputs for one batch (codes int8 [B, L], quals,
+    lengths) against the table `state`, made by the port's own kernels
+    (HK5, HK16, HK17) as stage 2 makes them, with the optional
+    contaminant table (rows, meta): a namespace of HK5's lengths and
+    anchors (lens, anc), the keep table and log capacity (keep, maxe),
+    HK16's arguments and output (pargs, pkw, planes16), HK17's output
+    (sk) and HK4's arguments (args, kw)."""
+    import types
+
+    import torch
+
+    from quorum_tpu_torch import kernels
+    from quorum_tpu_torch.io import packing
+    from quorum_tpu_torch.models import corrector
+
+    dev = state.rows.device
+    b, L = c.shape
+    cfg = corrector.ECConfig(k=meta.k, cutoff=4, qual_cutoff=33 + 40)
+    pk = packing.pack_reads(c, q, lengths, thresholds=(cfg.qual_cutoff,))
+    wire = torch.from_numpy(pk.to_wire()).to(dev)
+    keep = corrector.make_keep_table(meta, cfg, dev)
+    maxe = corrector.log_capacity(L, cfg)
+    codes, hqb, lens, anc = kernels.stage2_head(
+        state.rows, meta, wire, b, L, pk.thresholds, cfg.qual_cutoff,
+        skip=cfg.skip, good=cfg.good, anchor_count=cfg.anchor_count,
+        contam=contam, trim_contaminant=trim)
+    pargs = (codes, hqb, lens, anc[1], keep)
+    pkw = dict(min_count=cfg.min_count, cutoff=cfg.cutoff, contam=contam)
+    planes16 = kernels.event_planes(state.rows, meta, *pargs, **pkw)
+    sk = kernels.event_scan(*planes16, lens, meta.k)
+    args = (state.rows, meta, codes, hqb, lens, anc[5], anc[1], anc[2],
+            anc[3], anc[4], keep)
+    kw = dict(window=cfg.effective_window, error=cfg.effective_error,
+              min_count=cfg.min_count, cutoff=cfg.cutoff, maxe=maxe,
+              contam=contam, trim_contaminant=trim)
+    return types.SimpleNamespace(lens=lens, anc=anc, keep=keep, maxe=maxe,
+                                 pargs=pargs, pkw=pkw, planes16=planes16,
+                                 sk=sk, args=args, kw=kw)
+
+
 def event_kernels(state, meta, c, q, lengths, reps: int, contam=None,
                   shards: bool = True) -> dict:
     """HK16 (both passes), HK17 and HK4's event entry against their plain
@@ -3461,19 +3577,12 @@ def event_kernels(state, meta, c, q, lengths, reps: int, contam=None,
     import torch
 
     from quorum_tpu_torch import kernels
-    from quorum_tpu_torch.io import packing
     from quorum_tpu_torch.kernels import reference as ref
-    from quorum_tpu_torch.models import corrector
     from quorum_tpu_torch.parallel import tile_sharded as ts
 
     dev = state.rows.device
     b, L = c.shape
     k = meta.k
-    cfg = corrector.ECConfig(k=k, cutoff=4, qual_cutoff=33 + 40)
-    pk = packing.pack_reads(c, q, lengths, thresholds=(cfg.qual_cutoff,))
-    wire = torch.from_numpy(pk.to_wire()).to(dev)
-    keep = corrector.make_keep_table(meta, cfg, dev)
-    maxe = corrector.log_capacity(L, cfg)
     if shards:
         smeta = ts.RoutedTileMeta(k=k, bits=meta.bits, rb_log2=meta.rb_log2,
                                   n_shards=DEVICES)
@@ -3490,28 +3599,20 @@ def event_kernels(state, meta, c, q, lengths, reps: int, contam=None,
     departing = {}
     for mtab, trim, entry in modes:
         tag = entry or "plain entry"
-        codes, hqb, lens, anc = kernels.stage2_head(
-            state.rows, meta, wire, b, L, pk.thresholds, cfg.qual_cutoff,
-            skip=cfg.skip, good=cfg.good, anchor_count=cfg.anchor_count,
-            contam=mtab, trim_contaminant=trim)
-        pargs = (codes, hqb, lens, anc[1], keep)
-        pkw = dict(min_count=cfg.min_count, cutoff=cfg.cutoff, contam=mtab)
-        ck = kernels.event_planes(state.rows, meta, *pargs, **pkw)
+        w = walk_inputs(state, meta, c, q, lengths, mtab, trim)
+        anc, keep, maxe, lens = w.anc, w.keep, w.maxe, w.lens
+        pargs, pkw, ck = w.pargs, w.pkw, w.planes16
         cp, prow, _pb = _probed_rows(
             lambda: ref.event_planes(state.rows, meta, *pargs, **pkw),
             state.rows)
         p_equal = all(torch.equal(x, y) for x, y in zip(ck, cp))
         check(p_equal, f"event_planes ({tag}) differs from its plain version")
         n_amb = int(((ck[2] >> ref.AX_PRE) & 1).sum())
-        sk = kernels.event_scan(*ck, lens, k)
+        sk = w.sk
         s_equal = all(torch.equal(x, y) for x, y in
                       zip(sk, ref.event_scan(*ck, lens, k)))
         check(s_equal, f"event_scan ({tag}) differs from its plain version")
-        args = (state.rows, meta, codes, hqb, lens, anc[5], anc[1], anc[2],
-                anc[3], anc[4], keep)
-        kw = dict(window=cfg.effective_window, error=cfg.effective_error,
-                  min_count=cfg.min_count, cutoff=cfg.cutoff, maxe=maxe,
-                  contam=mtab, trim_contaminant=trim)
+        args, kw = w.args, w.kw
         rk = kernels.extend_reads(*args, **kw, planes=sk)
         rp, wrow, wplanes = _probed_rows(
             lambda: ref.extend_reads(*args, **kw, planes=sk), state.rows)
@@ -3590,6 +3691,50 @@ def event_kernels(state, meta, c, q, lengths, reps: int, contam=None,
             else:
                 out[name][entry] = d
     return out, departing
+
+
+def event_cuts(state, meta, c, q, lengths, reps: int, contam) -> dict:
+    """HK4's event entries (plane and sharded-table, DEVICES row ranges of
+    the plane; the three contaminant modes with `contam`) held against
+    their plain versions on the batch less its last read, whose lanes
+    fill no whole block, and the plane entry timed on the batch's first
+    quarter: beside its time on the whole batch, a time that barely
+    moves with B is set by the slowest lane, one that scales with B by
+    throughput."""
+    from quorum_tpu_torch import kernels
+    from quorum_tpu_torch.kernels import reference as ref
+    from quorum_tpu_torch.parallel import tile_sharded as ts
+
+    smeta = ts.RoutedTileMeta(k=meta.k, bits=meta.bits, rb_log2=meta.rb_log2,
+                              n_shards=DEVICES)
+    srows = list(ts.row_shards(state, smeta,
+                               [state.rows.device] * DEVICES).shards)
+    ctab = (contam[0].rows, contam[1])
+    b = c.shape[0] - 1
+    plane = shard = True
+    for mtab, trim, tag in ((None, False, "plain entry"),
+                            (ctab, False, "contaminant"),
+                            (ctab, True, "contaminant_trim")):
+        w = walk_inputs(state, meta, c[:b], q[:b], lengths[:b], mtab, trim)
+        found = w.anc[0]
+        sargs = (srows, smeta) + w.args[2:]
+        rk = kernels.extend_reads(*w.args, **w.kw, planes=w.sk)
+        rs = kernels.extend_reads(*sargs, **w.kw, planes=w.sk)
+        p_eq = _batch_equal(rk, ref.extend_reads(*w.args, **w.kw,
+                                                 planes=w.sk), found)
+        s_eq = (_batch_equal(rs, ref.extend_reads(*sargs, **w.kw,
+                                                  planes=w.sk), found)
+                and _batch_equal(rs, rk, found))
+        check(p_eq and s_eq, f"extend_reads' event entries ({tag}) differ "
+              f"from their plain versions at B = {b}")
+        plane, shard = plane and p_eq, shard and s_eq
+    quarter = c.shape[0] // 4
+    w = walk_inputs(state, meta, c[:quarter], q[:quarter], lengths[:quarter])
+    return dict(plane_equal=plane, shard_equal=shard, cut_b=b,
+                quarter_b=quarter,
+                ms_quarter=kernel_ms(lambda: kernels.extend_reads(
+                    *w.args, **w.kw, planes=w.sk), "extend_reads_event",
+                    reps))
 
 
 def _timed(fn):
@@ -3694,9 +3839,16 @@ def phase_event(card: str, full: dict, contam: dict) -> dict:
                        for j in range(nb)]))
     c, q, lengths, _pk = pack_batch(codes[i * BATCH:(i + 1) * BATCH],
                                     quals[i * BATCH:(i + 1) * BATCH], QT)
+    cset = load_contaminant(contam["fa"])
     stats, departing = event_kernels(ctable.TileState(rows), meta, c, q,
-                                     lengths, 5,
-                                     load_contaminant(contam["fa"]))
+                                     lengths, 5, cset)
+    cuts = event_cuts(ctable.TileState(rows), meta, c, q, lengths, 5, cset)
+    del cset
+    ev4 = stats["extend_reads_event"]
+    ev4.update(equal=ev4["equal"] and cuts["plane_equal"],
+               cut_b=cuts["cut_b"], quarter_b=cuts["quarter_b"],
+               ms_quarter=cuts["ms_quarter"])
+    stats["extend_reads_event_shard"]["equal"] &= cuts["shard_equal"]
     gs, gm, gc, gq, gl = golden_with_ns()
     _g, gdep = event_kernels(gs, gm, gc, gq, gl, 0)
     check(gdep["plain entry"] > 0, "the golden reads with Ns hold no read "
@@ -4407,9 +4559,12 @@ def run() -> int:
                        "bound_ms": bound_ms(v[e]["bound_bytes"]),
                        **({"library_ms": round(v[e]["library_ms"], 5)}
                           if "library_ms" in v[e] else {})}
-                   for e in ("query", "inline", "compact", "partition",
+                   for e in ("query", "inline", "partition",
                              "contaminant", "contaminant_trim", "overflow")
                    if e in v}
+        # HK4's event entry on the first quarter of its batch
+        quarter = {e: (round(v[e], 5) if isinstance(v[e], float) else v[e])
+                   for e in ("quarter_b", "ms_quarter", "cut_b") if e in v}
         equal = v["equal"] and all(v[e].get("equal", True) for e in entries)
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces,
@@ -4423,7 +4578,7 @@ def run() -> int:
                      "bound_by": "bytes",
                      "library_ms": (round(v["library_ms"], 5)
                                     if "library_ms" in v else None),
-                     **entries})
+                     **entries, **quarter})
     emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

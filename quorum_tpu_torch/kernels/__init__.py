@@ -25,8 +25,9 @@ or launch raises.
                     (and the contaminant probe and kill); sharded-table
                     entry
   HK6 tile_export   sealed rows (a table or a row range of one) -> the
-                    v4/v5 payload (sorted, compacted); compact entry:
-                    the occupied slots in slot order
+                    v4/v5 payload (sorted, compacted); compact entry
+                    (counted apart): the occupied slots in slot order,
+                    one pass
   HK7 tile_load     the v4/v5 payload -> sealed rows + statistics
   HK8 tile_grow     double the build table and re-insert every slot;
                     shard entry: the same for a table sharded by
@@ -82,6 +83,7 @@ MAX_SHARDS = 1024  # the bucket passes keep 12 bytes a shard in shared memory
 # shards of a table the probes read in place (table.cuh MAX_ROUTED_SHARDS:
 # the pointer table is one kernel parameter)
 MAX_ROUTED_SHARDS = 64
+COMPACT_TILE = 24  # rows a block of HK6's compact entry takes (CT_TILE)
 _PEERS: set = set()  # (device, peer) pairs with peer access enabled
 
 
@@ -542,25 +544,28 @@ def tile_export(rows: torch.Tensor, meta) -> torch.Tensor:
 
 
 def tile_compact(rows: torch.Tensor, meta, cap: int):
-    """HK6's compact entry (K22): the occupied slots of `rows` (meta's
-    table or a row range of it) as (row address int32, lo int32, hi
-    int32) in row-major slot order, in `cap` lanes (zeros past the n-th;
-    entries past cap are dropped), and n int64 (0-dim), the occupied
-    slots in all."""
+    """HK6's compact entry (K22), counted apart as tile_export_compact:
+    the occupied slots of `rows` (meta's table or a row range of it) as
+    (row address int32, lo int32, hi int32) in row-major slot order, in
+    `cap` lanes (zeros past the n-th; entries past cap are dropped), and
+    n int64 (0-dim), the occupied slots in all. One pass over the rows;
+    the kernel writes every lane and n."""
     nrows = _check_range(rows, meta)
     if cap < 0:
         raise ValueError(f"cap must be >= 0, got {cap}")
     if not _on_cuda(rows):
         return ref.tile_compact(rows, meta, cap)
     dev = rows.device
-    addr, lo, hi = (torch.zeros(cap, dtype=torch.int32, device=dev)
+    addr, lo, hi = (torch.empty(cap, dtype=torch.int32, device=dev)
                     for _ in range(3))
-    with launching("tile_export"):
-        _counts, first = _export_counts(rows, nrows, meta)
+    # a status word per tile of COMPACT_TILE rows, the tile ticket, n
+    status = torch.zeros(-(-nrows // COMPACT_TILE) + 2, dtype=torch.int64,
+                         device=dev)
+    with launching("tile_export_compact"):
         call("tile_export", "tile_export_compact", rows.data_ptr(), nrows,
-             meta.bits, first.data_ptr(), cap, addr.data_ptr(),
-             lo.data_ptr(), hi.data_ptr())
-    return addr, lo, hi, first[nrows]
+             meta.bits, cap, addr.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+             status.data_ptr(), status.numel())
+    return addr, lo, hi, status[-1]
 
 
 # --------------------------------------------------------------- HK7

@@ -10,17 +10,30 @@
 // extension (_contam_hit :286; con1 :806-812, con2 :864-871, con3
 // :962-968).
 //
-// Design: one thread per (read, direction) lane runs the reference's
+// Design: one warp per (read, direction) lane runs the reference's
 // sequential extension (models/oracle.py:350-505, error_correct_reads.cc
 // :384-565) directly: a GPU has per-lane control flow, so the TPU's
-// lockstep masks, compaction caps and stall-and-retry are gone. The
-// backward lane steps d = -1 in the read's own frame instead of running
-// in a reverse-complement frame (K12 is computed by stepping, not by
-// mirroring); like that frame, it shifts a non-ACGT base in as T. Each
-// table probe is one 512-byte row scan (table.cuh probe_row, shared with
-// HK3). The Poisson keep test reads a host-built table of the float32
+// lockstep masks, compaction caps and stall-and-retry are gone. The 32
+// threads of the warp walk the lane in lockstep: every branch depends on
+// values that all 32 load from one address (one broadcast transaction),
+// so the warp never diverges, and only thread 0 writes (the bases, the
+// logs, the lane's words). What the warp buys is the probe: each table
+// probe reads its 512-byte row as one coalesced request, a thread 16
+// bytes (table.cuh warp_probe: a ballot picks the matching slot pair and
+// a shuffle hands its value word to the warp), and the probes of one step
+// go out together before any compare -- get_best_alternatives' 4 variant
+// rows in one round trip, the ambiguous step's up to 16 continuation rows
+// in two rounds of 8 -- where a thread's own row scan took 8 dependent
+// round trips a miss, about 30 a get_best_alternatives. A block holds two
+// lanes, so a slow lane keeps one other lane's slot waiting, and 2B lanes
+// fill the card with 16,384 warps at B = 8192 (one thread a lane filled
+// 6% of it). The backward lane steps d = -1 in the read's own frame
+// instead of running in a reverse-complement frame (K12 is computed by
+// stepping, not by mirroring); like that frame, it shifts a non-ACGT base
+// in as T. The Poisson keep test reads a host-built table of the float32
 // outcome over (sum of kept counts, c_ori), so no float math runs here.
-// The edit logs (err_log.hpp) live in global memory, maxe entries a lane.
+// The edit logs (err_log.hpp) live in global memory, maxe entries a lane;
+// the window advance reads them back after a __syncwarp.
 //
 // The contaminant entry (CONTAM) probes a second table, with its own
 // geometry (rb, bits), for the shifted mer when the read's base is ACGT
@@ -62,6 +75,14 @@
 // step takes the planes' facts for a mer that is not its own, as JAX
 // does (the departure from the reference, ROADMAP Queue 3).
 //
+// Frame planes: read in place with broadcast loads. A teleport takes two
+// dependent trips (clean beside nd, then the four run-end elements
+// together), a synced step one (cnt and aux beside the codes). Staging
+// the lane's plane row in shared memory instead would copy 37 B x L a
+// lane (5.9 KB a warp at L = 160; ~97 MB a launch at B = 8192, ~29 us at
+// 3.35 TB/s, H100 data sheet) and hold that much shared memory for each
+// resident warp (38 warps an SM at most at L = 160).
+//
 // Bound: bytes. Each step of a lane makes 4 probes (16 more on an
 // ambiguous base); the least traffic is one read of every row the run
 // probes, plus the codes/quals in and the corrected bases and logs out;
@@ -91,36 +112,62 @@ struct Cfg {
       maxe;
 };
 
+#define EXT_WARPS 2  // lanes (warps) a block
+
 __device__ __forceinline__ bool contam_hit(const uint32_t* crows,
                                            const Cfg& c, uint64_t f,
                                            uint64_t r) {
-  return probe(PlaneRows{crows}, canonical(f, r), c.k, c.crb, c.cbits) != 0;
+  const uint64_t key[1] = {canonical(f, r)};
+  uint32_t val[1];
+  warp_probe<1>(PlaneRows{crows}, key, 1u, c.k, c.crb, c.cbits, val);
+  return val[0] != 0;
 }
 
-// get_best_alternatives (mer_database.hpp:302-329).
-template <class Acc>
-__device__ void gba(const Acc& rows, const Cfg& c, uint64_t f, uint64_t r,
-                    int d, int counts[4], int& ucode, int& level,
-                    int& count) {
-  int cnt[4], q[4];
+// get_best_alternatives (mer_database.hpp:302-329) of the 4 variants'
+// value words.
+__device__ __forceinline__ void gba_reduce(const uint32_t* val,
+                                           int counts[4], int& ucode,
+                                           int& level, int& count) {
   level = 0;
-  for (int v = 0; v < 4; ++v) {
-    uint64_t fv = f, rv = r;
-    dir_replace0(fv, rv, v, d, c.k);
-    uint32_t val = probe(rows, canonical(fv, rv), c.k, c.rb, c.bits);
-    cnt[v] = (int)(val >> 1);
-    q[v] = (int)(val & 1u);
-    if (cnt[v] > 0 && q[v] > level) level = q[v];
-  }
+#pragma unroll
+  for (int v = 0; v < 4; ++v)
+    if ((val[v] >> 1) > 0 && (int)(val[v] & 1u) > level) level = 1;
   count = 0;
   ucode = 0;
+#pragma unroll
   for (int v = 0; v < 4; ++v) {
-    counts[v] = (cnt[v] > 0 && q[v] == level) ? cnt[v] : 0;
+    counts[v] = ((val[v] >> 1) > 0 && (int)(val[v] & 1u) == level)
+                    ? (int)(val[v] >> 1) : 0;
     if (counts[v] > 0) {
       ++count;
       ucode = v;
     }
   }
+}
+
+// The canonical keys of the mer with its first base (in the direction of
+// travel) set to each of the 4 codes.
+__device__ __forceinline__ void variant_keys(uint64_t f, uint64_t r, int d,
+                                             int k, uint64_t* keys) {
+#pragma unroll
+  for (int v = 0; v < 4; ++v) {
+    uint64_t fv = f, rv = r;
+    dir_replace0(fv, rv, v, d, k);
+    keys[v] = canonical(fv, rv);
+  }
+}
+
+// The warp's get_best_alternatives: the 4 variant rows in one round.
+template <class Acc>
+__device__ __forceinline__ void gba(const Acc& rows, const Cfg& c,
+                                    uint64_t f, uint64_t r, int d,
+                                    int counts[4], int& ucode, int& level,
+                                    int& count) {
+  uint64_t keys[4];
+  uint32_t val[4];
+  variant_keys(f, r, d, c.k, keys);
+  warp_probe<4>(rows, keys, 0xFu, c.k, c.rb, c.bits, val);
+  gba_reduce(val, counts, ucode, level, count);
 }
 
 // One lane's err_log (err_log.hpp:22-135), raw read positions.
@@ -129,6 +176,7 @@ struct Log {
   int* meta;
   int n, lwin, d, window, error, maxe;
   int* overflow;
+  bool lead;  // the warp's thread 0, the one that writes
 
   __device__ void check() {  // check_nb_error's window advance
     if (n == 0) return;
@@ -139,11 +187,14 @@ struct Log {
   }
   __device__ bool append(int raw, int m) {
     if (n >= maxe) {
-      *overflow = 1;
+      if (lead) *overflow = 1;
       return false;
     }
-    pos[n] = raw;
-    meta[n] = m;
+    if (lead) {
+      pos[n] = raw;
+      meta[n] = m;
+    }
+    __syncwarp();  // check() reads pos[] on every thread of the warp
     ++n;
     check();
     return n - lwin - 1 >= error;
@@ -166,7 +217,7 @@ __device__ __forceinline__ int sub_meta(int frm, int to) {
 }
 
 template <class Acc, bool CONTAM, bool EVENT>
-__global__ void extend_kernel(
+__global__ void __launch_bounds__(32 * EXT_WARPS) extend_kernel(
     const __grid_constant__ Acc rows, const uint32_t* __restrict__ crows,
     Cfg c, const int8_t* __restrict__ codes,
     const uint8_t* __restrict__ hqb, const int* __restrict__ lengths,
@@ -175,20 +226,23 @@ __global__ void extend_kernel(
     const int* __restrict__ prev0, const uint8_t* __restrict__ keep,
     Planes pl, int B, int8_t* out, int* start, int* end, int* lstatus,
     int* log_n, int* log_lwin, int* log_pos, int* log_meta, int* overflow) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= 2 * B) return;
+  const int lane = blockIdx.x * EXT_WARPS + (threadIdx.x >> 5);
+  if (lane >= 2 * B) return;  // whole warps
+  const bool lead = (threadIdx.x & 31) == 0;
   const int i = lane < B ? lane : lane - B;
   const int d = lane < B ? 1 : -1;
   const int k = c.k;
   const int so = start_off[i];
   Log lg{log_pos + (size_t)lane * c.maxe, log_meta + (size_t)lane * c.maxe,
-         0, 0, d, c.window, c.error, c.maxe, overflow};
+         0, 0, d, c.window, c.error, c.maxe, overflow, lead};
   int st = status0[i];
   if (st != ST_OK) {  // not anchored
-    if (d > 0) end[i] = so; else start[i] = so - k;
-    lstatus[lane] = st;
-    log_n[lane] = 0;
-    log_lwin[lane] = 0;
+    if (lead) {
+      if (d > 0) end[i] = so; else start[i] = so - k;
+      lstatus[lane] = st;
+      log_n[lane] = 0;
+      log_lwin[lane] = 0;
+    }
     return;
   }
   const int8_t* rc = codes + (size_t)i * c.L;
@@ -207,21 +261,32 @@ __global__ void extend_kernel(
   while (d > 0 ? pos < endp : pos > endp) {
     if (EVENT) {  // teleport over a clean run
       const int fp = d > 0 ? pos : len - 1 - pos;
-      if (fp >= resync && pl.clean[prow + fp]) {
-        const int tgt = min(pl.nd[prow + fp], len);
-        const size_t at = prow + (tgt - 1);
-        const uint64_t mf = (uint64_t)pl.mf[at], mr = (uint64_t)pl.mr[at];
-        f = d > 0 ? mf : mr;
-        r = d > 0 ? mr : mf;
-        if (pl.lastc1[at] >= fp) prev = pl.prevval[at];
-        opos += d * (tgt - fp);
-        pos = d > 0 ? tgt : len - 1 - tgt;
-        if (!(d > 0 ? pos < endp : pos > endp)) break;
+      if (fp >= resync) {
+        const int nd = pl.nd[prow + fp];  // loaded beside clean
+        if (pl.clean[prow + fp]) {
+          const int tgt = min(nd, len);
+          const size_t at = prow + (tgt - 1);
+          const uint64_t mf = (uint64_t)pl.mf[at], mr = (uint64_t)pl.mr[at];
+          const int lc = pl.lastc1[at], pv = pl.prevval[at];
+          f = d > 0 ? mf : mr;
+          r = d > 0 ? mr : mf;
+          if (lc >= fp) prev = pv;
+          opos += d * (tgt - fp);
+          pos = d > 0 ? tgt : len - 1 - tgt;
+          if (!(d > 0 ? pos < endp : pos > endp)) break;
+        }
       }
     }
-    const int ori = rc[pos];
-    const bool qb = rq[pos] != 0;
     const int cpos = pos;
+    const int cfp = d > 0 ? cpos : len - 1 - cpos;
+    const bool synced = EVENT && cfp >= resync;
+    const int ori = rc[cpos];
+    const bool qb = rq[cpos] != 0;
+    int pc = 0, pa = 0;  // the synced step's cnt and aux words
+    if (synced) {
+      pc = pl.cnt[prow + cfp];
+      pa = pl.aux[prow + cfp];
+    }
     pos += d;
     dir_shift(f, r, ori >= 0 ? ori : (d > 0 ? 0 : 3), d, k);
     if (CONTAM && ori >= 0 && contam_hit(crows, c, f, r)) {  // con1
@@ -229,12 +294,7 @@ __global__ void extend_kernel(
       break;
     }
     int counts[4], ucode, level, count;
-    const int cfp = d > 0 ? cpos : len - 1 - cpos;
-    const bool synced = EVENT && cfp >= resync;
-    int pa = 0;  // the synced step's aux word
     if (synced) {  // the planes' facts; variant v is read code 3 - v backward
-      const int pc = pl.cnt[prow + cfp];
-      pa = pl.aux[prow + cfp];
       for (int v = 0; v < 4; ++v)
         counts[v] = (pc >> (7 * (d > 0 ? v : 3 - v))) & 127;
       level = pa & 1;
@@ -264,7 +324,7 @@ __global__ void extend_kernel(
           break;
         }
       }
-      ro[opos] = (int8_t)dir_base0(f, d, k);
+      if (lead) ro[opos] = (int8_t)dir_base0(f, d, k);
       opos += d;
       continue;
     }
@@ -277,7 +337,7 @@ __global__ void extend_kernel(
           kp = keep[(size_t)s * (maxv + 1) + c_ori] != 0;
         }
         if (kp) {
-          ro[opos] = (int8_t)dir_base0(f, d, k);
+          if (lead) ro[opos] = (int8_t)dir_base0(f, d, k);
           opos += d;
           continue;
         }
@@ -295,28 +355,51 @@ __global__ void extend_kernel(
     int cont[4] = {0, 0, 0, 0};
     bool cwn[4] = {false, false, false, false};
     const int nb = (d > 0 ? pos < endp : pos > endp) ? rc[pos] : -1;
-    const bool pre = synced && ((pa >> AX_PRE) & 1);
-    for (int v = 0; v < 4; ++v) {
-      if (counts[v] <= c.min_count) continue;
-      check = v;
-      if (pre) {  // the pre-pass bits of the frame's variant
+    unsigned cand = 0;  // the variants past min_count
+    for (int v = 0; v < 4; ++v)
+      if (counts[v] > c.min_count) {
+        cand |= 1u << v;
+        check = v;
+      }
+    if (synced && ((pa >> AX_PRE) & 1)) {  // the frame variants' pre-pass bits
+      for (int v = 0; v < 4; ++v) {
         const int fv = d > 0 ? v : 3 - v;
-        if ((pa >> (AX_SUCC + fv)) & 1) {
+        if (((cand >> v) & 1u) && ((pa >> (AX_SUCC + fv)) & 1)) {
           cwn[v] = nb >= 0 && ((pa >> (AX_CWN + fv)) & 1);
           success = true;
           cont[v] = counts[v];
         }
-        continue;
       }
-      uint64_t nf = f, nr = r;
-      dir_replace0(nf, nr, v, d, k);
-      dir_shift(nf, nr, 0, d, k);
-      int ncounts[4], nu, nlevel, ncount;
-      gba(rows, c, nf, nr, d, ncounts, nu, nlevel, ncount);
-      if (ncount > 0 && nlevel >= level) {
-        cwn[v] = nb >= 0 && ncounts[nb] > 0;
-        success = true;
-        cont[v] = counts[v];
+    } else {
+      // each candidate's next mer (the variant in, a base shifted on)
+      // and its get_best_alternatives: two candidates' 8 rows a round
+#pragma unroll
+      for (int h = 0; h < 4; h += 2) {
+        const unsigned want = ((cand >> h) & 1u ? 0x0Fu : 0u) |
+                              ((cand >> (h + 1)) & 1u ? 0xF0u : 0u);
+        if (!want) continue;
+        uint64_t keys[8];
+        uint32_t val[8];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          uint64_t nf = f, nr = r;
+          dir_replace0(nf, nr, h + j, d, k);
+          dir_shift(nf, nr, 0, d, k);
+          variant_keys(nf, nr, d, k, keys + 4 * j);
+        }
+        warp_probe<8>(rows, keys, want, c.k, c.rb, c.bits, val);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int v = h + j;
+          if (!((cand >> v) & 1u)) continue;
+          int ncounts[4], nu, nlevel, ncount;
+          gba_reduce(val + 4 * j, ncounts, nu, nlevel, ncount);
+          if (ncount > 0 && nlevel >= level) {
+            cwn[v] = nb >= 0 && ncounts[nb] > 0;
+            success = true;
+            cont[v] = counts[v];
+          }
+        }
       }
     }
     if (success) {
@@ -330,17 +413,17 @@ __global__ void extend_kernel(
           if (cont[v] > 0 && df < min_diff) min_diff = df;
         }
         int ncand = 0;
-        bool cand[4];
+        bool pick[4];
         for (int v = 0; v < 4; ++v) {
-          cand[v] = abs(cont[v] - prev) == min_diff;
-          if (cand[v]) {
+          pick[v] = abs(cont[v] - prev) == min_diff;
+          if (pick[v]) {
             ++ncand;
             check = v;
           }
         }
         if (ncand > 1 && nb >= 0) {
           for (int v = 0; v < 4; ++v) {
-            if (!cand[v]) continue;
+            if (!pick[v]) continue;
             if (!cwn[v]) --ncand;
             else check = v;
           }
@@ -366,13 +449,15 @@ __global__ void extend_kernel(
       lg.truncation(cpos);
       break;
     }
-    ro[opos] = (int8_t)dir_base0(f, d, k);
+    if (lead) ro[opos] = (int8_t)dir_base0(f, d, k);
     opos += d;
   }
-  if (d > 0) end[i] = opos; else start[i] = opos + 1;
-  lstatus[lane] = st;
-  log_n[lane] = lg.n;
-  log_lwin[lane] = lg.lwin;
+  if (lead) {
+    if (d > 0) end[i] = opos; else start[i] = opos + 1;
+    lstatus[lane] = st;
+    log_n[lane] = lg.n;
+    log_lwin[lane] = lg.lwin;
+  }
 }
 
 template <class Acc, bool EVENT>
@@ -384,14 +469,15 @@ static int launch_extend(
     const Planes& pl, int B, int8_t* out, int* start, int* end,
     int* lstatus, int* log_n, int* log_lwin, int* log_pos, int* log_meta,
     int* overflow, void* stream) {
-  const unsigned grid = (unsigned)((2 * B + 127) / 128);
+  const unsigned grid = (unsigned)((2 * B + EXT_WARPS - 1) / EXT_WARPS);
   if (B > 0 && crows)
-    extend_kernel<Acc, true, EVENT><<<grid, 128, 0, (cudaStream_t)stream>>>(
+    extend_kernel<Acc, true, EVENT><<<grid, 32 * EXT_WARPS, 0,
+                                      (cudaStream_t)stream>>>(
         rows, crows, c, codes, hqb, lengths, status0, start_off, anc_f,
         anc_r, prev0, keep, pl, B, out, start, end, lstatus, log_n,
         log_lwin, log_pos, log_meta, overflow);
   else if (B > 0)
-    extend_kernel<Acc, false, EVENT><<<grid, 128, 0,
+    extend_kernel<Acc, false, EVENT><<<grid, 32 * EXT_WARPS, 0,
                                        (cudaStream_t)stream>>>(
         rows, crows, c, codes, hqb, lengths, status0, start_off, anc_f,
         anc_r, prev0, keep, pl, B, out, start, end, lstatus, log_n,

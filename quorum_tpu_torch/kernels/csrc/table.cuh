@@ -3,12 +3,11 @@
 // (ctable.py:938), the direction-generic mer arithmetic
 // (quorum_tpu/ops/mer.py:104-190), the window extraction from the packed
 // wire that HK1, HK9 and HK11 share (ctable.extract_observations_impl,
-// ctable.py:1174), the one-row probe that HK3, HK4 and HK5 share
-// (ctable.tile_lookup_impl, ctable.py:677-696) with its two row
-// accessors (one plane, or a table sharded by leading row bits:
-// quorum_tpu/parallel/tile_sharded.py:706 routed_lookup_local), the slot
-// claim that HK1,
-// HK8 and HK11 share, the count-min sketch hash of HK10 and HK11
+// ctable.py:1174), the one-row probe that HK3, HK5 and HK16 share and
+// the warp-cooperative one of HK4 (ctable.tile_lookup_impl,
+// ctable.py:677-696) with their two row accessors (one plane, or a table
+// sharded by leading row bits: quorum_tpu/parallel/tile_sharded.py:706
+// routed_lookup_local), the slot claim that HK1, HK8 and HK11 share, the count-min sketch hash of HK10 and HK11
 // (quorum_tpu/ops/sketch.py:111-132), a one-atomic-per-block sum, and the
 // exclusive scan of per-row entry counts that HK6 and HK7 share.
 //
@@ -22,6 +21,7 @@
 #define TILE_WORDS 128
 #define EMPTY_TAG 0xFFFFFFFFu
 #define EMPTY_PAIR 0xFFFFFFFFFFFFFFFFull
+#define FULL_MASK 0xFFFFFFFFu
 
 struct KeyParts {
   uint32_t addr;
@@ -200,9 +200,9 @@ __device__ __forceinline__ void block_add(unsigned long long (&v)[NV],
   }
 }
 
-// Row accessors of the sealed table, for the probes of HK3, HK4 and HK5:
-// a probe computes the key parts at the table's GLOBAL geometry and asks
-// the accessor for the 512-byte row of its address. PlaneRows is one
+// Row accessors of the sealed table, for the probes of HK3, HK4, HK5 and
+// HK16: a probe computes the key parts at the table's GLOBAL geometry and
+// asks the accessor for the 512-byte row of its address. PlaneRows is one
 // card's plane. ShardRows is a table sharded by leading row bits over up
 // to MAX_ROUTED_SHARDS planes (the routed stage-2 layout): shard s holds
 // the global rows [s << local_rb, (s + 1) << local_rb), and a shard on
@@ -260,6 +260,49 @@ __device__ __forceinline__ uint32_t probe_row(const uint32_t* __restrict__ row,
   return 0;
 }
 
+// The warp-cooperative probe (HK4): the 32 threads of a warp probe the
+// same keys together, every thread calling with the same arguments.
+// Thread t loads the 16 bytes at row + 16 t, so the row comes in one
+// coalesced 512-byte request; a ballot finds the lane whose slot pair
+// holds the key (at most one slot of the row does) and a shuffle hands
+// its value word (count << 1) | qual, or 0, to the whole warp.
+__device__ __forceinline__ uint4 warp_row_load(const uint32_t* row) {
+  return __ldg(reinterpret_cast<const uint4*>(row) + (threadIdx.x & 31));
+}
+
+__device__ __forceinline__ uint32_t warp_row_match(uint4 w, KeyParts p,
+                                                   int bits) {
+  const uint32_t maxv = (1u << bits) - 1u;
+  const bool h0 = (w.x & maxv) && (w.x >> (bits + 1)) == p.rlo &&
+                  w.y == p.rhi;
+  const bool h1 = (w.z & maxv) && (w.z >> (bits + 1)) == p.rlo &&
+                  w.w == p.rhi;
+  const unsigned m = __ballot_sync(FULL_MASK, h0 || h1);
+  const uint32_t lo = __shfl_sync(FULL_MASK, h0 ? w.x : w.z,
+                                  m ? __ffs(m) - 1 : 0);
+  return m ? ((lo & maxv) << 1) | ((lo >> bits) & 1u) : 0u;
+}
+
+// The value words of N canonical keys, the rows of the keys whose bit is
+// set in `want` all loaded before any compare (N requests in flight a
+// thread); a key left out reads 0.
+template <int N, class Acc>
+__device__ __forceinline__ void warp_probe(const Acc& rows,
+                                           const uint64_t (&keys)[N],
+                                           unsigned want, int k, int rb,
+                                           int bits, uint32_t (&val)[N]) {
+  KeyParts p[N];
+  uint4 w[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    p[j] = key_parts(keys[j], k, rb, bits);
+    w[j] = (want >> j) & 1u ? warp_row_load(rows.row(p[j].addr))
+                            : make_uint4(0u, 0u, 0u, 0u);
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) val[j] = warp_row_match(w[j], p[j], bits);
+}
+
 // The value word of canonical `key` in the table behind accessor `rows`
 // at geometry (k, rb, bits).
 template <class Acc>
@@ -307,7 +350,6 @@ __device__ __forceinline__ bool claim_add(uint32_t* tag, uint32_t* hq,
 
 #define SCAN_CHUNK 1024
 #define SCAN_THREADS 256
-#define FULL_MASK 0xFFFFFFFFu
 
 __device__ __forceinline__ long long warp_incl_scan(long long v) {
   const int lane = threadIdx.x & 31;

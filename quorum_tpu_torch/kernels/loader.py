@@ -44,11 +44,12 @@ KERNELS = ("tile_insert", "tile_seal", "tile_lookup", "extend_reads",
 # stage 2 HK4's event entry (and its sharded-table entry). Each but
 # HK16's is also its C launcher; HK16's sharded-table entry is the two
 # launchers event_classify_shard and event_prepass_shard. The flat
-# table's grow is HK18's grow entry (flat_grow, in flat_insert.cu).
+# table's grow is HK18's grow entry (flat_grow, in flat_insert.cu), and
+# K22 HK6's compact entry (tile_export_compact, in tile_export.cu).
 ENTRIES = ("tile_insert_shard", "tile_grow_shard", "tile_lookup_shard",
            "extend_reads_shard", "stage2_head_shard", "shard_route_part",
            "event_planes_shard", "extend_reads_event",
-           "extend_reads_event_shard", "flat_grow")
+           "extend_reads_event_shard", "flat_grow", "tile_export_compact")
 COUNTERS = KERNELS + ENTRIES
 
 NVCC_FLAGS = ["-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
@@ -100,7 +101,7 @@ SIGNATURES = {
     "tile_export": {
         "tile_export_counts": [_P, _LL, _I, _P, _P, _P, _P],
         "tile_export_rows": [_P, _LL, _I, _P, _P, _LL, _I, _P, _P],
-        "tile_export_compact": [_P, _LL, _I, _P, _LL, _P, _P, _P, _P],
+        "tile_export_compact": [_P, _LL, _I, _LL, _P, _P, _P, _P, _LL, _P],
     },
     "tile_load": {"tile_load": [_P, _LL, _LL, _I, _I, _P, _P, _P, _P, _P]},
     "tile_grow": {

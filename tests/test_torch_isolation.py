@@ -1,5 +1,5 @@
 """The port stands alone: no file of quorum_tpu_torch/ (nor
-chip_smoke.py) imports jax or quorum_tpu, the entry points default to
+chip_smoke.py or kernel_ab.py) imports jax or quorum_tpu, the entry points default to
 the card, and without a card they raise instead of running on the
 CPU. The ctypes signatures of the kernels' launchers match their C
 declarations."""
@@ -26,7 +26,8 @@ READS = os.path.join(ROOT, "tests", "golden", "reads.fastq")
 
 
 def _port_files():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"),
+           os.path.join(ROOT, "kernel_ab.py")]
     for d, _dirs, files in os.walk(PKG):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return out

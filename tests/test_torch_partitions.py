@@ -44,6 +44,17 @@ QT = 38
 P, G = 4, 2
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions run many small torch ops; under the suite's
+    parallel workers, torch's intra-op threads only contend for the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def same_output(a, b):
     return all(filecmp.cmp(a + ext, b + ext, shallow=False)
                for ext in (".fa", ".log"))
@@ -199,12 +210,19 @@ def test_passes_reassemble_the_single_pass_payload(local_planes):
     assert np.array_equal(np.concatenate(parts), want)
 
 
-@pytest.mark.parametrize("cap", ["below", "above"])
+@pytest.mark.parametrize("cap", ["below", "above", "zero", "exact",
+                                 "empty"])
 def test_compact_matches_jax(local_planes, cap):
+    """K22 (HK6's compact entry's plain version) against JAX's
+    tile_compact_device: caps that drop entries (below, zero), fit them
+    exactly or leave zero lanes (above), and an all-empty row range."""
     lp = local_planes
     rows = lp["jrows"][2]
+    if cap == "empty":
+        rows = np.zeros_like(rows[:1024])
     n = int((rows[:, 0::2] & 127 != 0).sum())
-    c = n - 7 if cap == "below" else n + 9
+    c = {"below": n - 7, "above": n + 9, "zero": 0, "exact": n,
+         "empty": 5}[cap]
     ja, jlo, jhi, jn = jct.tile_compact_device(
         jct.TileState(jnp.asarray(rows)), lp["jmeta"], c)
     ta, tlo, thi, tn = tct.tile_compact_device(tct.TileState(_port(rows)),
