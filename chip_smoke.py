@@ -10,7 +10,9 @@ run. Phases, each printing one JSON line:
            csrc/ with nvcc (sm_90a)
   kernels  hold each kernel against its plain PyTorch version on the
            card, at the main path's shapes (8192 x 160 batches, a
-           2^22-row table), plus a small table that grows; HK5's, HK16's
+           2^22-row table), plus a small table that grows; HK1 also at
+           k = 13, 24 and 31 on reads of 5-157 bases in 157-wide rows
+           (one batch, and a build from 100 slots that grows); HK5's, HK16's
            and HK4's (plain and event) contaminant entries (kill and
            trim) and HK14 on their output with a contaminant set of the
            adapters and a 2 kbp segment of that batch's genome
@@ -60,7 +62,9 @@ run. Phases, each printing one JSON line:
            the full run's batches into a table of the two_binary
            phase's first size; at each overflow the doubled table (HK8)
            takes the batch's leftover observations through the keys
-           entry and, on a copy, through its plain version
+           entry and, on a copy, through its plain version; at the first
+           overflow HK16 against its plain version on that table sealed
+           (rows up to full, keys far from their preferred slots)
   loaded   HK1 timed on one of the full run's batches, inserted into a
            table that already holds all its other batches (the load a
            late batch of the main path meets); HK2 sealing and HK8
@@ -100,7 +104,9 @@ run. Phases, each printing one JSON line:
            against their plain versions and timed, HK4's event entries
            held again on that batch less its last read (lanes that fill
            no whole block) and the plane entry timed on its first
-           quarter, and held on the golden reads with Ns (where event
+           quarter, HK16 held on that batch against the two_binary
+           database loaded by HK7 (rows packed from slot 0), and all
+           held on the golden reads with Ns (where event
            mode departs from the plain walk on some read); then the full
            cell's stage 2 from its database in event mode and in plain
            mode (event_driven=False) in the order event, plain, plain,
@@ -739,13 +745,14 @@ def phase_kernels(card: str) -> dict:
     check(ins_equal, "tile_insert differs from its plain version")
     check(grow_equal, "tile_insert/tile_seal differ through grows")
     check(seal_equal, "tile_seal differs from its plain version")
+    shapes = insert_shapes()
 
     # HK1's and HK2's times come from the loaded phase, at the load the
     # main path meets (HK2's same-address counter atomics grow with it)
     cw, hqb = ref.widen_wire(wire, b, L, pk.thresholds, QT)
     _keys, _q, valid = ref.extract_observations(cw, hqb, K)
     out["tile_insert"] = dict(equal=ins_equal and grow_equal,
-                              n=int(valid.sum()))
+                              n=int(valid.sum()), shapes=shapes)
     out["tile_seal"] = dict(equal=seal_equal, n=meta.rows * 64,
                             bound_bytes=meta.rows * (512 + 512 + 512) + 32)
     del bk
@@ -773,8 +780,117 @@ def phase_kernels(card: str) -> dict:
     out.update(event_kernels(ctable.TileState(rows_k), meta, c4, q, l4,
                              reps=0, contam=contam, shards=False)[0])
     emit({"kernels": [{"name": nm, "equal": bool(v["equal"]), "n": v["n"]}
-                      for nm, v in out.items()], "card": card})
+                      for nm, v in out.items()],
+          "tile_insert_shapes": {f"k{k}": v for k, v in shapes.items()},
+          "card": card})
     return out
+
+
+# HK1's reads entry at the shapes other than the main path's: k = 13, 24
+# and 31 (62-bit windows), reads of 5 to 157 bases (shorter than k too)
+# in rows 157 bases wide (code, N and qual rows of 40 and 20 bytes, no
+# multiple of 8)
+SHAPE_KS = (13, 24, 31)
+SHAPE_WIDTH = 157
+
+
+def insert_shapes() -> dict:
+    """HK1 against its plain version at SHAPE_KS on 3,072 seeded reads of
+    mixed lengths with ~1% Ns: one batch into a roomy table (the sealed
+    exports and statistics equal), and the whole build from 100 slots,
+    which fails most windows of its first batches past the failure list
+    (the wrapper's second, listing launch) and grows through HK8 and the
+    keys entry (kernels on the card against the plain versions on the
+    CPU: equal exports, statistics and grows)."""
+    import numpy as np
+    import torch
+
+    from quorum_tpu_torch import kernels
+    from quorum_tpu_torch.io import packing
+    from quorum_tpu_torch.io.fastq import ReadBatch
+    from quorum_tpu_torch.kernels import reference as ref
+    from quorum_tpu_torch.models import create_database
+    from quorum_tpu_torch.ops import ctable
+
+    rng = np.random.default_rng(SEED + 7)
+    b, w = 3072, SHAPE_WIDTH
+    genome = rng.integers(0, 4, 20_000).astype(np.int8)
+    lengths = rng.integers(5, w + 1, b).astype(np.int32)
+    start = rng.integers(0, genome.size - w, b)
+    codes = genome[start[:, None] + np.arange(w)[None, :]]
+    codes = np.where(rng.random((b, w)) < 0.01, -1, codes).astype(np.int8)
+    quals = rng.integers(33, 75, (b, w)).astype(np.uint8)
+    outside = np.arange(w)[None, :] >= lengths[:, None]
+    codes[outside], quals[outside] = -2, 0
+    batches = [(ReadBatch(None, None, lengths[a:a + 1024], [], 1024),
+                packing.pack_reads(codes[a:a + 1024], quals[a:a + 1024],
+                                   lengths[a:a + 1024], thresholds=(QT,)))
+               for a in range(0, b, 1024)]
+    out = {}
+    for k in SHAPE_KS:
+        meta = ctable.TileMeta(k, 7, 12)
+        pk = batches[0][1]
+        wire = torch.from_numpy(pk.to_wire()).to("cuda")
+        args = (wire, pk.n_reads, pk.length, pk.thresholds, QT)
+        bk = ctable.make_tile_build(meta, "cuda")
+        bp = ctable.make_tile_build(meta, "cuda")
+        full, _left = kernels.tile_insert_reads(bk, meta, *args)
+        left_p, _q = ref.tile_insert_reads(bp, meta, *args)
+        sk, st_k = kernels.tile_seal(bk, meta)
+        sp, st_p = kernels.tile_seal(bp, meta)
+        one = (not full and left_p.numel() == 0 and torch.equal(st_k, st_p)
+               and torch.equal(kernels.tile_export(sk, meta),
+                               kernels.tile_export(sp, meta)))
+        cfg = create_database.BuildConfig(k=k, bits=7, qual_thresh=QT,
+                                          initial_size=100, batch_size=1024)
+        gk, mk, stk = create_database.build_database(
+            [], cfg, torch.device("cuda"), lambda: batches)
+        gp, mp, stp = create_database.build_database(
+            [], cfg, torch.device("cpu"), lambda: batches)
+        grown = (stk.grows >= 2 and mk == mp and stk.grows == stp.grows
+                 and np.array_equal(_export(gk, mk), _export(gp, mp))
+                 and (stk.distinct, stk.distinct_hq, stk.total_hq)
+                 == (stp.distinct, stp.distinct_hq, stp.total_hq))
+        out[k] = dict(one_batch_equal=one, build_equal=grown,
+                      grows=stk.grows, distinct=stk.distinct)
+        check(one and grown, f"tile_insert differs from its plain version "
+              f"at k = {k}, width {w}")
+    return out
+
+
+def planes_layout(state, meta, c, q, lengths, label: str, reps: int) -> dict:
+    """HK16 (both passes) against its plain version on one batch (codes
+    int8 [B, L], quals, lengths; HK5 makes the inputs) and a sealed table
+    whose rows are laid out otherwise than a handoff table's: packed from
+    slot 0 by HK7, or near full, so that keys sit far from their
+    preferred slot. Also the layout's most keys in a row and the mean
+    slot distance of a key from its preferred slot, and HK16's time."""
+    import torch
+
+    from quorum_tpu_torch import kernels
+    from quorum_tpu_torch.kernels import reference as ref
+
+    w = walk_inputs(state, meta, c, q, lengths)
+    got = kernels.event_planes(state.rows, meta, *w.pargs, **w.pkw)
+    want = ref.event_planes(state.rows, meta, *w.pargs, **w.pkw)
+    equal = all(torch.equal(x, y) for x, y in zip(got, want))
+    check(equal, f"event_planes differs from its plain version ({label})")
+    slots = state.rows.view(meta.rows, ref.TSLOTS, 2).to(torch.int64)
+    lo, hi = slots[..., 0] & 0xFFFFFFFF, slots[..., 1] & 0xFFFFFFFF
+    live = (lo & meta.max_val) != 0
+    pref = ref.preferred_slot(lo >> (meta.bits + 1), hi)
+    dist = (torch.arange(ref.TSLOTS, device=lo.device)[None, :] - pref) \
+        % ref.TSLOTS
+    parts: dict = {}
+    ms = kernel_ms(lambda: kernels.event_planes(state.rows, meta, *w.pargs,
+                                                **w.pkw),
+                   "event_planes", reps, detail=parts)
+    return dict(label=label, equal=equal, rows=meta.rows,
+                max_keys_in_a_row=int(live.sum(1).max()),
+                mean_keys_in_a_row=round(float(live.sum()) / meta.rows, 3),
+                mean_slot_distance=round(float(dist[live].float().mean()), 3),
+                ms=round(ms, 5), parts_ms={f: round(t, 5)
+                                           for f, t in parts.items()})
 
 
 def stage2_kernels(state, meta, c, q, lengths, reps: int,
@@ -2107,8 +2223,11 @@ def phase_pending(card: str, full: dict, rb_start: int) -> dict:
     copies of the doubled table, one through the keys entry and one
     through its plain version: equal when the placed flags, the sealed
     exports (HK2, HK6) and the statistics agree. The build goes on from
-    the keys entry's copy, as the path does. The keys entry is timed on
-    the last overflow (the largest table); its byte bound reads each
+    the keys entry's copy, as the path does. At the first overflow HK16
+    is held against its plain version on the full run's first batch and
+    this table sealed (planes_layout: rows up to full). The keys entry
+    is timed on the last overflow (the largest table); its byte bound
+    reads each
     observation (8 + 1 B) and writes its flag, and touches the tag and
     counter sectors as HK1's reads entry does (phase_loaded)."""
     import torch
@@ -2128,9 +2247,19 @@ def phase_pending(card: str, full: dict, rb_start: int) -> dict:
         return int((st.tag[:, 0::2] != -1).sum())
 
     overflows = []
+    near_full = None
     for pk, wire in full["wires"]:
         full_, (keys, qual) = kernels.tile_insert_reads(
             bstate, meta, wire, BATCH, pk.length, pk.thresholds, QT)
+        if full_ and near_full is None:
+            # HK16 on this table sealed: rows up to full, keys far from
+            # their preferred slots
+            rows, _st = kernels.tile_seal(bstate, meta)
+            c, q, lengths, _pk = pack_batch(full["codes"][:BATCH],
+                                            full["quals"][:BATCH], QT)
+            near_full = planes_layout(ctable.TileState(rows), meta, c, q,
+                                      lengths, "near_full", 3)
+            del rows
         while full_:
             bstate, meta = ctable.tile_grow_build(bstate, meta)
             base = copy(bstate)
@@ -2176,11 +2305,13 @@ def phase_pending(card: str, full: dict, rb_start: int) -> dict:
                    + 64 * last["distinct_key_classes"])
     del work, before, bstate
     emit({"phase": "pending", "card": card, "rb_log2_start": rb_start,
-          "overflows": overflows, "keys_entry_ms": round(ms, 5),
+          "overflows": overflows, "event_planes_near_full": near_full,
+          "keys_entry_ms": round(ms, 5),
           "keys_entry_plain_ms": round(plain_ms, 5),
           "keys_entry_bound_ms": round(bound_bytes / H100_BYTES_PER_S * 1e3,
                                        5)})
-    return dict(overflows=overflows, ms=ms, plain_ms=plain_ms)
+    return dict(overflows=overflows, ms=ms, plain_ms=plain_ms,
+                near_full=near_full)
 
 
 def phase_loaded(card: str, full: dict) -> dict:
@@ -3801,12 +3932,14 @@ def golden_with_ns():
     return state, meta, codes, g.quals, g.lengths
 
 
-def phase_event(card: str, full: dict, contam: dict) -> dict:
+def phase_event(card: str, full: dict, contam: dict, two_db: str) -> dict:
     """The event-mode stage 2. HK16 (both passes, plane and sharded-table
     entries, three contaminant modes), HK17 and HK4's event entry held
     against their plain versions and timed on the table phase's batch
     and table (the full run's database, the contaminant phase's set),
-    and held on the golden reads with Ns; then the full cell's stage 2
+    HK16 held again on that batch against the two_binary run's database
+    loaded by HK7 (`two_db`: rows packed from slot 0), and all held on
+    the golden reads with Ns; then the full cell's stage 2
     from its database in event mode (the default) and in plain mode
     (event_driven=False), in the order event, plain, plain, event in
     this call: event's .fa/.log equal the full run's, each mode's second
@@ -3849,6 +3982,17 @@ def phase_event(card: str, full: dict, contam: dict) -> dict:
                cut_b=cuts["cut_b"], quarter_b=cuts["quarter_b"],
                ms_quarter=cuts["ms_quarter"])
     stats["extend_reads_event_shard"]["equal"] &= cuts["shard_equal"]
+    # HK16 on a table HK7 loaded (rows packed from slot 0): the two_binary
+    # run's grown database
+    h2 = db_format.read_header(two_db)
+    meta2 = ctable.TileMeta(h2["key_len"] // 2, h2["bits"], h2["rb_log2"])
+    payload = torch.from_numpy(np.frombuffer(
+        db_format.db_payload_bytes(two_db), np.uint8).copy()).to(dev)
+    rows2, _s = kernels.tile_load(payload, meta2, h2["n_entries"])
+    del payload
+    hk7 = planes_layout(ctable.TileState(rows2), meta2, c, q, lengths,
+                        "hk7_two_binary", 3)
+    del rows2
     gs, gm, gc, gq, gl = golden_with_ns()
     _g, gdep = event_kernels(gs, gm, gc, gq, gl, 0)
     check(gdep["plain entry"] > 0, "the golden reads with Ns hold no read "
@@ -3926,6 +4070,7 @@ def phase_event(card: str, full: dict, contam: dict) -> dict:
         return round(a[key] / b[key], 4)
 
     emit({"phase": "event", "card": card, "batch": i,
+          "event_planes_hk7_two_binary": hk7,
           "departing_reads_table_batch": departing,
           "departing_reads_golden_ns": gdep["plain entry"],
           "records_differing_event_plain": sum(
@@ -4516,7 +4661,7 @@ def run() -> int:
         contam = phase_contaminant(card, full)
         for name, v in phase_table(card, full, contam).items():
             stats.setdefault(name, {}).update(v)
-        event = phase_event(card, full, contam)
+        event = phase_event(card, full, contam, two["db"])
         for name, v in event["kernels"].items():
             stats.setdefault(name, {}).update(v)
         devices = phase_devices(card, full, two)

@@ -84,6 +84,9 @@ MAX_SHARDS = 1024  # the bucket passes keep 12 bytes a shard in shared memory
 # the pointer table is one kernel parameter)
 MAX_ROUTED_SHARDS = 64
 COMPACT_TILE = 24  # rows a block of HK6's compact entry takes (CT_TILE)
+# the least capacity of HK1's failure list (a sixteenth of the batch's
+# windows past it); a batch that fails more lists them in a second launch
+FAIL_CAP_MIN = 4096
 _PEERS: set = set()  # (device, peer) pairs with peer access enabled
 
 
@@ -200,7 +203,8 @@ def tile_insert_reads(bstate, meta, wire: torch.Tensor, b: int, length: int,
     """Insert every observation of one packed batch (in place) whose mer
     pass `part` of `n_parts` owns (ref.partition_mask; every mer when
     n_parts = 1). Returns (full, (keys, qual)) with the observations that
-    found no room."""
+    found no room (on the card in the order its list took them; the
+    plain version's is window order, and no caller depends on it)."""
     _check_build(bstate, meta)
     _check_parts(part, n_parts)
     ts, offs = _wire_offsets(wire, b, length, thresholds, qual_thresh)
@@ -208,18 +212,27 @@ def tile_insert_reads(bstate, meta, wire: torch.Tensor, b: int, length: int,
         keys, qual = ref.tile_insert_reads(bstate, meta, wire, b, length, ts,
                                            qual_thresh, part, n_parts)
         return bool(keys.numel()), (keys, qual)
-    n = b * length
-    failed = torch.empty(n, dtype=torch.uint8, device=wire.device)
-    fkeys = torch.empty(n, dtype=torch.int64, device=wire.device)
-    full = torch.zeros(1, dtype=torch.int32, device=wire.device)
-    launch("tile_insert", "tile_insert_reads", wire.data_ptr(), b, length,
-           *offs, meta.k, meta.rb_log2, meta.bits, part, n_parts,
-           bstate.tag.data_ptr(), bstate.hq.data_ptr(), bstate.lq.data_ptr(),
-           failed.data_ptr(), fkeys.data_ptr(), full.data_ptr())
-    if not int(full.item()):
-        empty = torch.empty(0, dtype=torch.int64, device=wire.device)
-        return False, (empty, empty.bool())
-    return True, _pending(failed, fkeys)
+    dev = wire.device
+    cap = max(FAIL_CAP_MIN, (b * length) >> 4)
+    flist = torch.empty(cap, dtype=torch.int64, device=dev)
+    n_fail = torch.zeros(1, dtype=torch.int32, device=dev)
+    args = (wire.data_ptr(), b, length, *offs, meta.k, meta.rb_log2,
+            meta.bits, part, n_parts)
+    table = (bstate.tag.data_ptr(), bstate.hq.data_ptr(),
+             bstate.lq.data_ptr())
+    launch("tile_insert", "tile_insert_reads", *args, 0, *table,
+           flist.data_ptr(), cap, n_fail.data_ptr())
+    nf = int(n_fail.item())
+    if nf > cap:
+        # the list overflowed: list the failed windows again, exactly (the
+        # windows whose key the table now lacks)
+        flist = torch.empty(nf, dtype=torch.int64, device=dev)
+        n_fail.zero_()
+        with launching("tile_insert", count=False):
+            call("tile_insert", "tile_insert_reads", *args, 1, *table,
+                 flist.data_ptr(), nf, n_fail.data_ptr())
+    words = flist[:nf]
+    return nf > 0, (words >> 1, (words & 1).bool())
 
 
 def tile_insert_keys(bstate, meta, keys: torch.Tensor, qual: torch.Tensor):
@@ -955,9 +968,9 @@ def event_planes(rows, meta, codes, hqb, lengths, start_off, keep, *,
     frame that consumes it, classified, and the continuation bits of
     every ambiguous position (see reference.event_planes): (clean bool,
     cnt int32, aux int32, val int32, f int64, r int64), all [B, L] in
-    read coordinates. Pass 1 (classify) runs a thread per window and
-    lists the ambiguous positions; pass 2 (prepass) a thread per listed
-    position. The table is one plane or shard planes (the sharded-table
+    read coordinates. Pass 1 (classify) runs a thread per window, its
+    warp probing the rows of its windows together, and lists the
+    ambiguous positions; pass 2 (prepass) a warp per listed position. The table is one plane or shard planes (the sharded-table
     entry, counted apart as event_planes_shard); the optional
     contaminant table (rows, meta) marks member windows unclean."""
     parts, sharded = _table(rows, meta)

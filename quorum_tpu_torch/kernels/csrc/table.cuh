@@ -1,15 +1,17 @@
 // Shared device code of the tile-bucket table: the Feistel key hash
 // (quorum_tpu/ops/ctable.py:151-198, 633-674), the preferred slot
 // (ctable.py:938), the direction-generic mer arithmetic
-// (quorum_tpu/ops/mer.py:104-190), the window extraction from the packed
-// wire that HK1, HK9 and HK11 share (ctable.extract_observations_impl,
-// ctable.py:1174), the one-row probe that HK3, HK5 and HK16 share and
-// the warp-cooperative one of HK4 (ctable.tile_lookup_impl,
-// ctable.py:677-696) with their two row accessors (one plane, or a table
-// sharded by leading row bits: quorum_tpu/parallel/tile_sharded.py:706
-// routed_lookup_local), the slot claim that HK1, HK8 and HK11 share, the count-min sketch hash of HK10 and HK11
-// (quorum_tpu/ops/sketch.py:111-132), a one-atomic-per-block sum, and the
-// exclusive scan of per-row entry counts that HK6 and HK7 share.
+// (quorum_tpu/ops/mer.py:104-190), the constant-time window extraction
+// from the packed wire that HK1, HK9, HK11 and HK15 share
+// (ctable.extract_observations_impl, ctable.py:1174), the one-row probe
+// that HK3 and HK5 share and the warp-cooperative one of HK4 and HK16
+// (ctable.tile_lookup_impl, ctable.py:677-696) with their two row
+// accessors (one plane, or a table sharded by leading row bits:
+// quorum_tpu/parallel/tile_sharded.py:706 routed_lookup_local), the slot
+// claim that HK1, HK8 and HK11 share, the count-min sketch hash of HK10
+// and HK11 (quorum_tpu/ops/sketch.py:111-132), a one-atomic-per-block
+// sum, and the exclusive scan of per-row entry counts that HK6 and HK7
+// share.
 //
 // A k-mer (k <= 31) is one uint64 of 2k bits; a table row is 128 u32
 // words = 64 (lo, hi) slot pairs.
@@ -119,31 +121,75 @@ __device__ __forceinline__ int wire_len(const Wire& w, int i) {
                ((uint32_t)lb[2] << 16) | ((uint32_t)lb[3] << 24));
 }
 
+// The little-endian 64 bits of the wire at byte `at`, zero past its end
+// (off_len + 4b bytes): one 8-byte load where the word is aligned and
+// inside the wire (every word but the last few, on a torch allocation),
+// else byte loads.
+__device__ __forceinline__ uint64_t wire_word(const Wire& w, long long at) {
+  const long long end = w.off_len + 4ll * w.b;
+  const uint8_t* q = w.p + at;
+  if (at + 8 <= end && ((uintptr_t)q & 7u) == 0)
+    return __ldg(reinterpret_cast<const unsigned long long*>(q));
+  uint64_t x = 0;
+  for (int j = 0; j < 8 && at + j < end; ++j)
+    x |= (uint64_t)__ldg(q + j) << (8 * j);
+  return x;
+}
+
+// `n` (< 64) bits of the wire from wire bit `bit` (bit b of byte j is
+// wire bit 8j + b): one or two words.
+__device__ __forceinline__ uint64_t wire_bits(const Wire& w, long long bit,
+                                              int n) {
+  const long long at = (bit >> 6) << 3;
+  const int sh = (int)(bit & 63);
+  uint64_t x = wire_word(w, at) >> sh;
+  if (sh + n > 64) x |= wire_word(w, at + 8) << (64 - sh);
+  return x & ((1ull << n) - 1ull);
+}
+
+// x's 32 2-bit groups in reverse order (group m -> group 31 - m).
+__device__ __forceinline__ uint64_t rev2(uint64_t x) {
+  x = __brevll(x);
+  return ((x >> 1) & 0x5555555555555555ull) |
+         ((x & 0x5555555555555555ull) << 1);
+}
+
+// Read i's three rows of the wire as wire bit offsets, and its length.
+struct ReadWire {
+  long long code, nmask, hq;
+  int len;
+};
+
+__device__ __forceinline__ ReadWire read_wire(const Wire& w, int i) {
+  const long long c4 = (w.L + 3) / 4, c8 = (w.L + 7) / 8;
+  return ReadWire{8 * (long long)i * c4, 8 * (w.off_nmask + i * c8),
+                  8 * (w.off_hq + i * c8), wire_len(w, i)};
+}
+
 // The canonical mer and its qual bit (all k bases high quality) of the
-// window of read i that ends at position p, read straight off the wire;
-// false where there is no window (p < k - 1, p past the read, or a
-// non-ACGT base in it).
+// window of read `r` that ends at position p, read straight off the wire
+// in constant time; false where there is no window (p < k - 1, p past
+// the read, or a non-ACGT base in it). The codes sit 2 bits a base at
+// bit 2 pos of the read's row, so the 2k bits from the window's first
+// base X hold the oldest base lowest: the reverse-complement word is ~X,
+// the forward word X with its 2-bit groups reversed (the newest base at
+// bits 0-1). The N mask and the qual plane give k-bit extracts.
+__device__ __forceinline__ bool read_window(const Wire& w, const ReadWire& r,
+                                            int p, int k, uint64_t* key,
+                                            bool* qual) {
+  if (p < k - 1 || p >= r.len || p >= w.L) return false;
+  const int s = p - k + 1;  // the window's first base
+  if (wire_bits(w, r.nmask + s, k)) return false;  // non-ACGT
+  const uint64_t x = wire_bits(w, r.code + 2 * s, 2 * k);
+  *key = canonical(rev2(x) >> (64 - 2 * k), ~x & ((1ull << (2 * k)) - 1ull));
+  *qual = wire_bits(w, r.hq + s, k) == (1ull << k) - 1ull;
+  return true;
+}
+
 __device__ __forceinline__ bool wire_window(const Wire& w, int i, int p,
                                             int k, uint64_t* key,
                                             bool* qual) {
-  if (p < k - 1 || p >= wire_len(w, i)) return false;
-  const int c4 = (w.L + 3) / 4, c8 = (w.L + 7) / 8;
-  const uint8_t* pc = w.p + (long long)i * c4;
-  const uint8_t* nm = w.p + w.off_nmask + (long long)i * c8;
-  const uint8_t* hp = w.p + w.off_hq + (long long)i * c8;
-  uint64_t f = 0, r = 0;
-  bool q = true;
-  for (int j = 0; j < k; ++j) {  // base at p-j -> bit 2j of f
-    const int at = p - j;
-    if ((nm[at >> 3] >> (at & 7)) & 1) return false;  // non-ACGT
-    const uint32_t c = (pc[at >> 2] >> (2 * (at & 3))) & 3u;
-    f |= (uint64_t)c << (2 * j);
-    r |= (uint64_t)(3 - c) << (2 * (k - 1 - j));
-    q &= ((hp[at >> 3] >> (at & 7)) & 1) != 0;
-  }
-  *key = canonical(f, r);
-  *qual = q;
-  return true;
+  return read_window(w, read_wire(w, i), p, k, key, qual);
 }
 
 // The count-min sketch's cell h (0 or 1) of a canonical mer: the two
@@ -260,7 +306,7 @@ __device__ __forceinline__ uint32_t probe_row(const uint32_t* __restrict__ row,
   return 0;
 }
 
-// The warp-cooperative probe (HK4): the 32 threads of a warp probe the
+// The warp-cooperative probe (HK4, HK16): the 32 threads of a warp probe the
 // same keys together, every thread calling with the same arguments.
 // Thread t loads the 16 bytes at row + 16 t, so the row comes in one
 // coalesced 512-byte request; a ballot finds the lane whose slot pair
@@ -283,24 +329,40 @@ __device__ __forceinline__ uint32_t warp_row_match(uint4 w, KeyParts p,
   return m ? ((lo & maxv) << 1) | ((lo >> bits) & 1u) : 0u;
 }
 
-// The value words of N canonical keys, the rows of the keys whose bit is
-// set in `want` all loaded before any compare (N requests in flight a
-// thread); a key left out reads 0.
+// KeyParts of lane `src`, for every lane.
+__device__ __forceinline__ KeyParts shfl_parts(KeyParts p, int src) {
+  return KeyParts{__shfl_sync(FULL_MASK, p.addr, src),
+                  __shfl_sync(FULL_MASK, p.rlo, src),
+                  __shfl_sync(FULL_MASK, p.rhi, src)};
+}
+
+// The value words of N keys given by their parts (the same on every
+// lane), the rows of those whose bit is set in `want` all loaded before
+// any compare (N requests in flight a thread); a key left out reads 0.
+template <int N, class Acc>
+__device__ __forceinline__ void warp_probe_parts(const Acc& rows,
+                                                 const KeyParts (&p)[N],
+                                                 unsigned want, int bits,
+                                                 uint32_t (&val)[N]) {
+  uint4 w[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    w[j] = (want >> j) & 1u ? warp_row_load(rows.row(p[j].addr))
+                            : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+  for (int j = 0; j < N; ++j) val[j] = warp_row_match(w[j], p[j], bits);
+}
+
+// The same for N canonical keys.
 template <int N, class Acc>
 __device__ __forceinline__ void warp_probe(const Acc& rows,
                                            const uint64_t (&keys)[N],
                                            unsigned want, int k, int rb,
                                            int bits, uint32_t (&val)[N]) {
   KeyParts p[N];
-  uint4 w[N];
 #pragma unroll
-  for (int j = 0; j < N; ++j) {
-    p[j] = key_parts(keys[j], k, rb, bits);
-    w[j] = (want >> j) & 1u ? warp_row_load(rows.row(p[j].addr))
-                            : make_uint4(0u, 0u, 0u, 0u);
-  }
-#pragma unroll
-  for (int j = 0; j < N; ++j) val[j] = warp_row_match(w[j], p[j], bits);
+  for (int j = 0; j < N; ++j) p[j] = key_parts(keys[j], k, rb, bits);
+  warp_probe_parts<N>(rows, p, want, bits, val);
 }
 
 // The value word of canonical `key` in the table behind accessor `rows`
@@ -340,6 +402,19 @@ __device__ __forceinline__ bool claim_add(uint32_t* tag, uint32_t* hq,
     }
   }
   return false;
+}
+
+// Whether the key's tag pair sits in one of the 64 slots of its build
+// table row (read after the launches that claim, so plain loads).
+__device__ __forceinline__ bool row_holds(const uint32_t* tag, KeyParts p) {
+  const unsigned long long* row =
+      reinterpret_cast<const unsigned long long*>(tag) +
+      (size_t)p.addr * TSLOTS;
+  const unsigned long long want =
+      ((unsigned long long)p.rhi << 32) | (unsigned long long)p.rlo;
+  bool hit = false;
+  for (int s = 0; s < TSLOTS; ++s) hit |= row[s] == want;
+  return hit;
 }
 
 // ------------------------------------------------------------------
