@@ -12,10 +12,15 @@ run. Phases, each printing one JSON line:
            card, at the main path's shapes (8192 x 160 batches, a
            2^22-row table), plus a small table that grows; HK1 also at
            k = 13, 24 and 31 on reads of 5-157 bases in 157-wide rows
-           (one batch, and a build from 100 slots that grows); HK5's, HK16's
-           and HK4's (plain and event) contaminant entries (kill and
-           trim) and HK14 on their output with a contaminant set of the
-           adapters and a 2 kbp segment of that batch's genome
+           (one batch, and a build from 100 slots that grows); HK5 at
+           k = 13, 24 and 31 on reads of 0-157 bases in 157-wide rows
+           (Ns, N at base 0, reads shorter than k, anchors at the scan's
+           chunk edges; skip 0, 1, 3 and good 1, 2, 4; the sharded-table
+           and contaminant entries); HK14 at B = 1, 2048, 3001 and 70001
+           and on empty logs, at four capacities; HK5's, HK16's and HK4's
+           (plain and event) contaminant entries (kill and trim) and
+           HK14 on their output with a contaminant set of the adapters
+           and a 2 kbp segment of that batch's genome
   golden   the stage CLIs reproduce tests/golden/expected*.fa/.log with
            --device cuda; the quorum driver's --device cuda output, and
            its --partitions 4 --device cuda output, are byte-equal to
@@ -168,6 +173,9 @@ run. Phases, each printing one JSON line:
            batches (payload equal to the devices build's),
            correct_step and correct_step_routed on 2,048-read slices
            (equal to correct_step_wire's results), and dryrun(mesh, 4)
+Kernel times are medians of CUDA events around each C launch, each
+timed call behind a ~1 ms spin on its stream (LEAD_CYCLES), so that
+the host's work before the launch does not count.
 Then one {"kernels": [...]} line (launches from the full, two_binary,
 the four prefilter, the three partitioned, the two contaminant, the
 devices runs, the routed and partitioned mesh runs and the event
@@ -555,8 +563,26 @@ def seq_codes(seqs, width: int):
 # ------------------------------------------------------------- timing
 
 
+# A timed call starts behind a spin of LEAD_CYCLES clocks on its stream
+# (torch.cuda._sleep, ~1 ms), so that the card is busy while the host
+# checks the wrapper's arguments, allocates its outputs, marshals the C
+# launcher's arguments and launches: the first event then fires when the
+# spin ends, with the launch already queued behind it, and the events
+# bracket the device's work alone. Without the spin the card waits idle
+# between the first event and the launch, and that wait counts too.
+LEAD_CYCLES = 2_000_000
+
+
+def lead() -> None:
+    """Queue the spin ahead of a timed call."""
+    import torch
+
+    torch.cuda._sleep(LEAD_CYCLES)
+
+
 def event_ms(fn, reps: int, setup=None) -> float:
-    """Median CUDA-event time of fn() over reps (setup() outside)."""
+    """Median CUDA-event time of fn() over reps (setup() outside), each
+    behind the lead spin."""
     import torch
 
     times = []
@@ -566,6 +592,7 @@ def event_ms(fn, reps: int, setup=None) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
+        lead()
         a.record()
         fn()
         b.record()
@@ -577,9 +604,10 @@ def event_ms(fn, reps: int, setup=None) -> float:
 
 def kernel_ms(fn, name: str, reps: int, setup=None, detail=None) -> float:
     """Median time of the kernel's own C launches (loader events around
-    each, summed over the wrapper call). With a `detail` dict, also the
-    median time of each C launcher and of the whole wrapper call
-    (`span`, with the host work between its launches)."""
+    each, summed over the wrapper call), each call behind the lead spin.
+    With a `detail` dict, also the median time of each C launcher and of
+    the whole wrapper call (`span`, with the host work between its
+    launches)."""
     import torch
 
     from quorum_tpu_torch.kernels.loader import STATS
@@ -593,6 +621,8 @@ def kernel_ms(fn, name: str, reps: int, setup=None, detail=None) -> float:
             setup()
         STATS.events.clear()
         STATS.calls.clear()
+        torch.cuda.synchronize()
+        lead()
         STATS.timing = True
         try:
             fn()
@@ -746,6 +776,8 @@ def phase_kernels(card: str) -> dict:
     check(grow_equal, "tile_insert/tile_seal differ through grows")
     check(seal_equal, "tile_seal differs from its plain version")
     shapes = insert_shapes()
+    head = head_shapes()
+    packs = pack_shapes()
 
     # HK1's and HK2's times come from the loaded phase, at the load the
     # main path meets (HK2's same-address counter atomics grow with it)
@@ -782,7 +814,8 @@ def phase_kernels(card: str) -> dict:
     emit({"kernels": [{"name": nm, "equal": bool(v["equal"]), "n": v["n"]}
                       for nm, v in out.items()],
           "tile_insert_shapes": {f"k{k}": v for k, v in shapes.items()},
-          "card": card})
+          "stage2_head_shapes": {f"k{k}": v for k, v in head.items()},
+          "pack_finish_shapes": packs, "card": card})
     return out
 
 
@@ -855,6 +888,178 @@ def insert_shapes() -> dict:
                       grows=stk.grows, distinct=stk.distinct)
         check(one and grown, f"tile_insert differs from its plain version "
               f"at k = {k}, width {w}")
+    return out
+
+
+# HK5's anchor scan at the shapes its control flow can get wrong: the
+# (skip, good) pairs beside the default (1, 2), and the chunk lanes of an
+# anchor at a chunk's edge (the scan takes window ends 32 at a time from
+# skip + k - 1): a chunk's last lane, or its first three past the first
+# chunk (a run that crossed the edge)
+HEAD_MODES = ((1, 2), (0, 1), (3, 4))
+EDGE_LANES = (0, 1, 2, 31)
+
+
+def head_shapes() -> dict:
+    """HK5 against its plain version at SHAPE_KS on 2,048 seeded reads of
+    5-157 bases in rows SHAPE_WIDTH wide, against a table built (HK1,
+    HK2) from clean reads of their 5 kbp genome at ~64x: the plane entry
+    at every (skip, good) of HEAD_MODES, the sharded-table entry on the
+    table as DEVICES row ranges, and the contaminant entry (kill, trim)
+    with a 400 bp segment of the genome as the set. The reads hold 1% Ns
+    and 0.5% substitutions; an empty read and reads shorter than k;
+    random sequence (no anchor), half with an N at position 0; and reads
+    whose first bases up to a random q are N, so that the first valid
+    window ends at q + k and anchors fall on every chunk lane, the
+    chunks' edges included. Every output of every call must equal the
+    plain version's; each k and mode must anchor reads at EDGE_LANES of
+    a chunk and leave reads without an anchor."""
+    import numpy as np
+    import torch
+
+    from quorum_tpu_torch import kernels
+    from quorum_tpu_torch.io import packing
+    from quorum_tpu_torch.io.contaminant import load_contaminant as load_set
+    from quorum_tpu_torch.io.fastq import ReadBatch
+    from quorum_tpu_torch.kernels import reference as ref
+    from quorum_tpu_torch.models import create_database
+    from quorum_tpu_torch.ops import ctable
+    from quorum_tpu_torch.parallel import tile_sharded as ts
+
+    rng = np.random.default_rng(SEED + 8)
+    gbp, n, w, qc = 5_000, 2048, SHAPE_WIDTH, 33 + 40
+    genome = rng.integers(0, 4, gbp).astype(np.int8)
+    start = rng.integers(0, gbp - w, n)
+    clean = genome[start[:, None] + np.arange(w)[None, :]]
+    quals = np.where(rng.random((n, w)) < 0.1, 33 + 27,
+                     33 + 42).astype(np.uint8)
+    quals[rng.random((n, w)) < 0.01] = 33 + 2
+    full_len = np.full(n, w, np.int32)
+    batches = [(ReadBatch(None, None, full_len[a:a + 1024], [], 1024),
+                packing.pack_reads(clean[a:a + 1024], quals[a:a + 1024],
+                                   full_len[a:a + 1024], thresholds=(QT,)))
+               for a in range(0, n, 1024)]
+    fa = os.path.join(WORK, "head_shapes.fa")
+    with open(fa, "w") as f:
+        f.write(">segment\n" + np.frombuffer(b"ACGT", np.uint8)[
+            genome[2_000:2_400]].tobytes().decode() + "\n")
+    out = {}
+    for k in SHAPE_KS:
+        cfg = create_database.BuildConfig(k=k, bits=7, qual_thresh=QT,
+                                          initial_size=1 << 16,
+                                          batch_size=1024)
+        state, meta, _st = create_database.build_database(
+            [], cfg, torch.device("cuda"), lambda: batches)
+        cset = load_set(fa, k, "cuda")
+        smeta = ts.RoutedTileMeta(k=k, bits=meta.bits, rb_log2=meta.rb_log2,
+                                  n_shards=DEVICES)
+        shards = list(ts.row_shards(state, smeta, ["cuda"] * DEVICES).shards)
+        codes = clean.copy()
+        lengths = rng.integers(5, w + 1, n).astype(np.int32)
+        lengths[0] = 0
+        lengths[1:41] = rng.integers(1, k, 40)
+        rnd = np.arange(41, 101)
+        codes[rnd] = rng.integers(0, 4, (rnd.size, w))
+        codes[rnd[::2], 0] = -1
+        edge = np.arange(101, 701)
+        lengths[edge] = w
+        q = rng.integers(0, w - k - 8, edge.size)
+        codes[edge] = np.where(np.arange(w)[None, :] <= q[:, None], -1,
+                               codes[edge])
+        rest = np.arange(701, n)
+        sub = rng.random((rest.size, w)) < 0.005
+        codes[rest] = np.where(sub, (codes[rest] + rng.integers(1, 4, (
+            rest.size, w))) % 4, codes[rest])
+        codes[rest] = np.where(rng.random((rest.size, w)) < 0.01, -1,
+                               codes[rest])
+        outside = np.arange(w)[None, :] >= lengths[:, None]
+        codes[outside] = -2
+        qs = np.where(outside, 0, quals)
+        pk = packing.pack_reads(codes, qs, lengths, thresholds=(qc,))
+        wire = torch.from_numpy(pk.to_wire()).to("cuda")
+        tail = (wire, n, pk.length, pk.thresholds, qc)
+        res = {}
+        for skip, good in HEAD_MODES:
+            kw = dict(skip=skip, good=good, anchor_count=3)
+            calls = [("plane", state.rows, meta, {}),
+                     ("shard", shards, smeta, {})]
+            if (skip, good) == HEAD_MODES[0]:
+                calls += [("contaminant", state.rows, meta,
+                           dict(contam=(cset[0].rows, cset[1]))),
+                          ("contaminant_trim", state.rows, meta,
+                           dict(contam=(cset[0].rows, cset[1]),
+                                trim_contaminant=True))]
+            for name, rows, m, extra in calls:
+                hk = kernels.stage2_head(rows, m, *tail, **kw, **extra)
+                hp = ref.stage2_head(rows, m, *tail, **kw, **extra)
+                equal = all(torch.equal(x, y) for x, y in
+                            zip(hk[:3] + tuple(hk[3]), hp[:3] + tuple(hp[3])))
+                check(equal, f"stage2_head ({name}) differs from its plain "
+                      f"version at k = {k}, skip {skip}, good {good}, "
+                      f"width {w}")
+                found, start_off, status = hk[3][0], hk[3][1], hk[3][5]
+                rel = start_off - 1 - (skip + k - 1)  # from the first chunk
+                lane = rel % 32
+                at_edge = found & ((lane == 31) | ((rel >= 32) & torch.isin(
+                    lane, torch.tensor(EDGE_LANES, device=lane.device))))
+                res[f"{name}_s{skip}_g{good}"] = dict(
+                    found=int(found.sum()),
+                    no_anchor=int((status == ref.ST_NO_ANCHOR).sum()),
+                    contaminated=int((status == ref.ST_CONTAMINANT).sum()),
+                    at_chunk_edges=int(at_edge.sum()))
+                check(int(at_edge.sum()) > 0 and bool((~found).any()),
+                      f"stage2_head shapes at k = {k} ({name}, skip {skip}, "
+                      f"good {good}) anchor no read at a chunk's edge")
+            check(res["contaminant_s1_g2"]["contaminated"] > 0,
+                  f"stage2_head shapes at k = {k}: no read contaminated")
+        out[k] = res
+        del state, shards, cset
+    return out
+
+
+def pack_shapes() -> dict:
+    """HK14 against its plain version, buffer word for word and merged
+    status, on seeded lanes (statuses, start/end, logs of 0..maxe
+    entries) at B = 1, 2,048 (the devices slices), 3,001 (no multiple
+    of a tile) and 70,001 (more tiles than a block has threads), and on
+    2,048 reads whose logs are all empty: with room
+    for every entry (the tail zeroed), at half the entries (entries
+    dropped, `total` past the capacity), at no capacity, and with HK4's
+    overflow flag set."""
+    import numpy as np
+    import torch
+
+    from quorum_tpu_torch import kernels
+    from quorum_tpu_torch.kernels import reference as ref
+
+    rng = np.random.default_rng(SEED + 9)
+    length, maxe = 160, 24
+    out = {}
+    for name, b, empty in (("b1", 1, False), ("b2048", 2048, False),
+                           ("b3001", 3001, False), ("b70001", 70001, False),
+                           ("empty", 2048, True)):
+        def lanes(*shape, lo=-12, hi=length):
+            return torch.from_numpy(rng.integers(lo, hi, shape).astype(
+                np.int32)).to("cuda")
+        st = [lanes(b, lo=0, hi=3) for _ in range(2)]
+        n = [torch.zeros(b, dtype=torch.int32, device="cuda") if empty
+             else lanes(b, lo=0, hi=maxe + 1) for _ in range(2)]
+        logs = [(n[d], lanes(b, maxe, lo=-1, hi=length + 1),
+                 lanes(b, maxe, lo=0, hi=1 << 16)) for d in range(2)]
+        args = (lanes(b), lanes(b), st[0], st[1], logs[0], logs[1])
+        total = int(n[0].sum() + n[1].sum())
+        res = {}
+        for cap, flag in ((total + 7, 0), (total // 2, 0), (0, 0),
+                          (total + 7, 1)):
+            over = torch.full((1,), flag, dtype=torch.int32, device="cuda")
+            bk, sk = kernels.pack_finish(*args, over, length=length, cap=cap)
+            bp, sp = ref.pack_finish(*args, over, cap)
+            equal = (torch.equal(bk, bp) and torch.equal(sk, sp)
+                     and int(bk[1]) == total)
+            check(equal, f"pack_finish differs from its plain version "
+                  f"({name}, cap {cap}, overflow {flag})")
+            res[f"cap{cap}" + ("_overflow" if flag else "")] = equal
+        out[name] = dict(entries=total, **res)
     return out
 
 
@@ -945,8 +1150,8 @@ def stage2_kernels(state, meta, c, q, lengths, reps: int,
             check(bool((status == ref.ST_CONTAMINANT).any()),
                   "no read killed by the contaminant")
         tables = [(state.rows, meta)] + ([ctab] if ctab else [])
-        # HK5's least traffic: the wire, its outputs, and one read of the
-        # row of every window the scan must probe (checked-or-valid
+        # HK5's least traffic: the wire, its outputs, and the lines that
+        # probing every window the scan must probe reads (checked-or-valid
         # windows up to the anchor; all of them in a read without one),
         # in each table
         f, r, validk = mer.rolling_kmers(codes, K)
@@ -954,11 +1159,13 @@ def stage2_kernels(state, meta, c, q, lengths, reps: int,
         p = torch.arange(L, device=dev)[None, :]
         vw = validk & (p >= cfg.skip + K - 1)
         need = vw & ((status != 0)[:, None] | (p < anc[1][:, None]))
-        prow = sum(torch.unique(ref.tile_key_parts(sweep[need], m)[0]).numel()
-                   for _rows, m in tables)
+        probe = [probe_bytes(rows, m, sweep[need]) for rows, m in tables]
         head = dict(equal=head_equal, n=b,
                     bound_bytes=wire.numel() + 2 * b * L + 33 * b
-                    + 512 * prow)
+                    + sum(x["bytes"] for x in probe),
+                    probe_bytes=probe,
+                    probes_per_read=head_probes(vw, anc[1],
+                                                cfg.skip + K - 1))
         args = (state.rows, meta, codes, hqb, lens, status, anc[1], anc[2],
                 anc[3], anc[4], keep)
         kw = dict(window=cfg.effective_window, error=cfg.effective_error,
@@ -1005,6 +1212,71 @@ def stage2_kernels(state, meta, c, q, lengths, reps: int,
             out["pack_finish"][entry] = pack
     out.update(lookup_kernel(state, meta, sweep.reshape(-1), reps))
     return out
+
+
+def probe_bytes(rows, meta, keys) -> dict:
+    """The least bytes that probing canonical mers `keys` in the table
+    plane `rows` (at `meta`'s geometry) must read: the 128-byte line (16
+    slots) that holds each found key, and the whole 512-byte row of each
+    absent key (no probe knows a key is absent before it has read every
+    slot of the row), each line or row once."""
+    import torch
+
+    from quorum_tpu_torch.kernels import reference as ref
+
+    addr, rlo, rhi = ref.tile_key_parts(torch.unique(keys), meta)
+    r3 = rows.view(-1, ref.TSLOTS, 2)
+    line = torch.empty_like(addr)
+    step = 1 << 16
+    for a in range(0, addr.numel(), step):
+        g = r3[addr[a:a + step]]
+        lo, hi = ref.u32(g[..., 0]), ref.u32(g[..., 1])
+        match = (((lo & meta.max_val) != 0)
+                 & ((lo >> (meta.bits + 1)) == rlo[a:a + step, None])
+                 & (hi == rhi[a:a + step, None]))
+        line[a:a + step] = torch.where(match.any(dim=1),
+                                       match.int().argmax(dim=1) // 16, -1)
+    absent = torch.unique(addr[line < 0])
+    held = torch.unique(addr[line >= 0] * 4 + line[line >= 0])
+    held = held[~torch.isin(held // 4, absent)]
+    return {"bytes": 512 * absent.numel() + 128 * held.numel(),
+            "absent_rows": absent.numel(), "found_lines": held.numel()}
+
+
+def head_probes(vw, start_off, base: int) -> dict:
+    """Mean windows a read probes in HK5's scan (each probe one row a
+    table), from the valid windows past `skip` (vw [B, L]) and the
+    anchors (start_off, one past the first window whose run reaches
+    `good`; 1 where there is none): `need`, the windows up to the anchor
+    (every one without it); `chunk32`, every window of each 32-position
+    chunk from position 0 up to the anchor's chunk (a lane a window, as
+    the kernel once probed); `grouped`, the windows in groups of the
+    build's group size (stage2_head.cu's `stage2_head_group`) of each
+    32-window chunk from `base` (skip + k - 1) up to the anchor's group
+    (the kernel's design)."""
+    import ctypes
+
+    import torch
+
+    from quorum_tpu_torch.kernels import loader
+
+    group = ctypes.c_int.in_dll(loader.library("stage2_head"),
+                                "stage2_head_group").value
+    b, L = vw.shape
+    p = torch.arange(L, device=vw.device)[None, :]
+    hit = start_off > 1
+    hp = (start_off - 1).clamp(min=0).to(torch.int64)[:, None]
+    chunk = (p - base).clamp(min=0) // 32
+    first = base + 32 * chunk  # the chunk's first window end
+    cs = torch.cumsum(vw.to(torch.int64), dim=1)
+    before = torch.where(first > 0, torch.gather(
+        cs, 1, (first - 1).clamp(min=0).expand(b, L)), 0)
+    gid = chunk * 64 + (cs - vw.to(torch.int64) - before) // group
+    upto = {"need": p <= hp,
+            "chunk32": p < 32 * (hp // 32 + 1),
+            "grouped": gid <= torch.gather(gid.expand(b, L), 1, hp)}
+    return {name: round(float((vw & (~hit[:, None] | m)).sum()) / b, 4)
+            for name, m in upto.items()}
 
 
 def lookup_kernel(state, meta, sweep, reps: int) -> dict:
@@ -1123,10 +1395,9 @@ def pack_check(rk, L: int, reps: int):
     """HK14 against its plain version on HK4's output `rk`, buffer word
     for word and merged status, at the main path's first capacity
     (16384 entries) and at half the batch's entries (entries dropped,
-    `total` past the capacity); with reps > 0 each timed, and its two C
-    launches (the one-block scan `pack_head`, the grid-stride
-    `pack_entries`) apart as `parts_ms`. Byte bound: 24 B a read and
-    8 B a live entry read, the buffer and the status written."""
+    `total` past the capacity); with reps > 0 each timed (`parts_ms`:
+    its C launch and the wrapper call's span). Byte bound: 24 B a read
+    and 8 B a live entry read, the buffer and the status written."""
     import torch
 
     from quorum_tpu_torch import kernels

@@ -882,16 +882,12 @@ def pack_finish(start, end, status_f, status_b, fwd, bwd, overflow, *,
     dev = start.device
     buf = torch.empty(2 + 3 * b + cap, dtype=torch.int32, device=dev)
     status = torch.empty(b, dtype=torch.int32, device=dev)
-    offs = torch.empty(b, dtype=torch.int64, device=dev)
-    with launching("pack_finish"):
-        call("pack_finish", "pack_head", start.data_ptr(), end.data_ptr(),
-             status_f.data_ptr(), status_b.data_ptr(), fwd[0].data_ptr(),
-             bwd[0].data_ptr(), overflow.data_ptr(), b, maxe,
-             buf.data_ptr(), status.data_ptr(), offs.data_ptr())
-        call("pack_finish", "pack_entries", fwd[0].data_ptr(),
-             bwd[0].data_ptr(), fwd[1].data_ptr(), fwd[2].data_ptr(),
-             bwd[1].data_ptr(), bwd[2].data_ptr(), b, maxe, cap,
-             offs.data_ptr(), buf.data_ptr())
+    sums = torch.empty(max(b, 1), dtype=torch.int64, device=dev)  # scratch
+    launch("pack_finish", "pack_finish", start.data_ptr(), end.data_ptr(),
+           status_f.data_ptr(), status_b.data_ptr(), fwd[0].data_ptr(),
+           bwd[0].data_ptr(), overflow.data_ptr(), fwd[1].data_ptr(),
+           fwd[2].data_ptr(), bwd[1].data_ptr(), bwd[2].data_ptr(), b, maxe,
+           cap, buf.data_ptr(), status.data_ptr(), sums.data_ptr())
     return buf, status
 
 

@@ -2,9 +2,10 @@
 // (quorum_tpu/ops/ctable.py:151-198, 633-674), the preferred slot
 // (ctable.py:938), the direction-generic mer arithmetic
 // (quorum_tpu/ops/mer.py:104-190), the constant-time window extraction
-// from the packed wire that HK1, HK9, HK11 and HK15 share
-// (ctable.extract_observations_impl, ctable.py:1174), the one-row probe
-// that HK3 and HK5 share and the warp-cooperative one of HK4 and HK16
+// from the packed wire that HK1, HK5, HK9, HK11 and HK15 share
+// (ctable.extract_observations_impl, ctable.py:1174),
+// HK3's one-row probe, the warp-cooperative one of HK4 and HK16 and the
+// slot-pair match they share with HK5's line probes
 // (ctable.tile_lookup_impl, ctable.py:677-696) with their two row
 // accessors (one plane, or a table sharded by leading row bits:
 // quorum_tpu/parallel/tile_sharded.py:706 routed_lookup_local), the slot
@@ -287,9 +288,9 @@ static inline bool shard_rows(const uint32_t* const* shards, int n,
 }
 
 // The value word (count << 1) | qual of the key in `row`, its 512-byte
-// row (an accessor's row(p.addr)), or 0: 32 16-byte loads over the 64
-// slots, stopping at the match (a key occupies at most one slot of its
-// row).
+// row (an accessor's row(p.addr)), or 0 (HK3): 32 16-byte loads over the
+// 64 slots, stopping at the match (a key occupies at most one slot of
+// its row).
 __device__ __forceinline__ uint32_t probe_row(const uint32_t* __restrict__ row,
                                               KeyParts p, int bits) {
   const uint4* r4 = reinterpret_cast<const uint4*>(row);
@@ -316,17 +317,25 @@ __device__ __forceinline__ uint4 warp_row_load(const uint32_t* row) {
   return __ldg(reinterpret_cast<const uint4*>(row) + (threadIdx.x & 31));
 }
 
-__device__ __forceinline__ uint32_t warp_row_match(uint4 w, KeyParts p,
-                                                   int bits) {
+// Whether one of the two slot pairs in `w` holds the key, and then its
+// value word (count << 1) | qual in *val.
+__device__ __forceinline__ bool pair_match(uint4 w, KeyParts p, int bits,
+                                           uint32_t* val) {
   const uint32_t maxv = (1u << bits) - 1u;
   const bool h0 = (w.x & maxv) && (w.x >> (bits + 1)) == p.rlo &&
                   w.y == p.rhi;
   const bool h1 = (w.z & maxv) && (w.z >> (bits + 1)) == p.rlo &&
                   w.w == p.rhi;
-  const unsigned m = __ballot_sync(FULL_MASK, h0 || h1);
-  const uint32_t lo = __shfl_sync(FULL_MASK, h0 ? w.x : w.z,
-                                  m ? __ffs(m) - 1 : 0);
-  return m ? ((lo & maxv) << 1) | ((lo >> bits) & 1u) : 0u;
+  const uint32_t lo = h0 ? w.x : w.z;
+  *val = ((lo & maxv) << 1) | ((lo >> bits) & 1u);
+  return h0 || h1;
+}
+
+__device__ __forceinline__ uint32_t warp_row_match(uint4 w, KeyParts p,
+                                                   int bits) {
+  uint32_t v;
+  const unsigned m = __ballot_sync(FULL_MASK, pair_match(w, p, bits, &v));
+  return m ? __shfl_sync(FULL_MASK, v, __ffs(m) - 1) : 0u;
 }
 
 // KeyParts of lane `src`, for every lane.

@@ -127,8 +127,7 @@ SIGNATURES = {
     "tile_departition": {"tile_departition": [_P, _LL, _I, _I, _I, _I, _P,
                                               _P]},
     "pack_finish": {
-        "pack_head": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
-        "pack_entries": [_P, _P, _P, _P, _P, _P, _I, _I, _LL, _P, _P, _P],
+        "pack_finish": [*[_P] * 11, _I, _I, _LL, _P, _P, _P, _P],
     },
     "shard_route": {
         "shard_route_wire": [_P, _I, _I, _LL, _LL, _LL, _I, _I, _I, _I, _I,
