@@ -20,7 +20,12 @@ run. Phases, each printing one JSON line:
            and on empty logs, at four capacities; HK5's, HK16's and HK4's
            (plain and event) contaminant entries (kill and trim) and
            HK14 on their output with a contaminant set of the adapters
-           and a 2 kbp segment of that batch's genome
+           and a 2 kbp segment of that batch's genome; HK2 and HK6's
+           export at k = 13, 24 and 31 on tables with planted repeats of
+           a tag pair, dense (60-64 occupied slots a row) and empty
+           tables, the seal into one shard's rows of a larger plane and
+           the export of row ranges, with its count and without
+           (seal_export_shapes), and both timed on a dense 2^20-row table
   golden   the stage CLIs reproduce tests/golden/expected*.fa/.log with
            --device cuda; the quorum driver's --device cuda output, and
            its --partitions 4 --device cuda output, are byte-equal to
@@ -91,7 +96,11 @@ run. Phases, each printing one JSON line:
            contaminated (>= 90% of those inside the segment), and no
            trimmed read keeps a contaminant mer; launch counts reset
            before and read after each run
-  table    HK7 loading and HK6 exporting the full run's database (and
+  table    HK7 loading and HK6 exporting the full run's database (the
+           export with the file's count, as write_db passes the seal's,
+           timed, and without it, timed; on the loaded table and on the
+           driver's handoff table, every batch through HK1 and HK2, both
+           equal to the file's payload; a count one off raising; and
            HK6's compact entry compacting it at caps 0, n - 7, n and
            n + 9, and one of its DEVICES row ranges; timed beside
            boolean-mask indexing), and HK5, HK3, HK4 and
@@ -778,6 +787,7 @@ def phase_kernels(card: str) -> dict:
     shapes = insert_shapes()
     head = head_shapes()
     packs = pack_shapes()
+    sealx = seal_export_shapes()
 
     # HK1's and HK2's times come from the loaded phase, at the load the
     # main path meets (HK2's same-address counter atomics grow with it)
@@ -786,7 +796,12 @@ def phase_kernels(card: str) -> dict:
     out["tile_insert"] = dict(equal=ins_equal and grow_equal,
                               n=int(valid.sum()), shapes=shapes)
     out["tile_seal"] = dict(equal=seal_equal, n=meta.rows * 64,
-                            bound_bytes=meta.rows * (512 + 512 + 512) + 32)
+                            bound_bytes=meta.rows * (512 + 512 + 512) + 32,
+                            dense=sealx["dense"]["tile_seal"])
+    # the export's main-path figures come from the table phase
+    out["tile_export"] = dict(equal=sealx["dense"]["tile_export"]["equal"],
+                              n=sealx["dense"]["tile_export"]["n"],
+                              dense=sealx["dense"]["tile_export"])
     del bk
 
     # --- HK5, HK3, HK4: the batch with Ns, short reads and reads with
@@ -815,7 +830,8 @@ def phase_kernels(card: str) -> dict:
                       for nm, v in out.items()],
           "tile_insert_shapes": {f"k{k}": v for k, v in shapes.items()},
           "stage2_head_shapes": {f"k{k}": v for k, v in head.items()},
-          "pack_finish_shapes": packs, "card": card})
+          "pack_finish_shapes": packs,
+          "seal_export_shapes": sealx["shapes"], "card": card})
     return out
 
 
@@ -1061,6 +1077,175 @@ def pack_shapes() -> dict:
             res[f"cap{cap}" + ("_overflow" if flag else "")] = equal
         out[name] = dict(entries=total, **res)
     return out
+
+
+# HK2's duplicate check and HK6's export at the shapes their control flow
+# can get wrong: a planted repeat of one tag pair in one half of a row,
+# across its halves (slots 0 and 63), and in a row of three occupied
+# slots (each must set the flag); a repeat whose second slot has no
+# count, and one whose hi word is all ones (neither may); rows of 60-64
+# occupied slots (the warp sort past 32), with and without a repeat; an
+# empty table
+SEAL_TABLES = {"dup_same_half": (0.25, "half", True),
+               "dup_across_halves": (0.25, "across", True),
+               "dup_row_of_three": (0.25, "three", True),
+               "no_dup_repeats": (0.25, "repeats", False),
+               "dense": (0.97, None, False),
+               "dense_dup": (0.97, "dense", True),
+               "empty": (0.0, None, False)}
+SEAL_PAIR = (0x5A5A5, 3)  # the planted tag pair (rlo, rhi)
+
+
+def seal_planes(meta, occupancy: float, plant, seed: int):
+    """A seeded build table on the card at meta's geometry: each slot
+    occupied with probability `occupancy` (rlo unique in its row by the
+    slot in its top bits; hq 0-199, 30% without, lq 0-3; a tenth single
+    observations, some tags without a count but in a dense table), with
+    `plant`'s repeats of SEAL_PAIR (SEAL_TABLES)."""
+    import torch
+
+    from quorum_tpu_torch.ops import ctable
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rows, sh = meta.rows, (meta.rows, 64)
+
+    def rand(hi):
+        return torch.randint(0, hi, sh, device="cuda", generator=g,
+                             dtype=torch.int64)
+
+    occ = torch.rand(sh, device="cuda", generator=g) < occupancy
+    top = meta.rlo_bits - 6
+    tlo = (torch.arange(64, device="cuda")[None] << top) | rand(1 << top)
+    thi = rand(1 << min(31, max(0, meta.rem_bits - meta.rlo_bits)))
+    hq, lq = rand(200), rand(4)
+    hq[torch.rand(sh, device="cuda", generator=g) < 0.3] = 0
+    one = torch.rand(sh, device="cuda", generator=g) < 0.1
+    hq[one], lq[one] = 1, 0
+    if occupancy > 0.9:  # a dense table: every tag counted
+        lq[hq == 0] |= 1
+
+    def put(r, s, pair=SEAL_PAIR, h=5, q=1):
+        occ[r, s] = True
+        tlo[r, s], thi[r, s] = pair
+        hq[r, s], lq[r, s] = h, q
+
+    if plant == "half":
+        put(0, 3)
+        put(0, 10)
+    elif plant == "across":
+        put(1, 0)
+        put(1, 63)
+    elif plant == "three":
+        occ[2] = False
+        put(2, 7)
+        put(2, 40)
+        put(2, 21, pair=(77, 0))
+    elif plant == "repeats":
+        put(0, 5)
+        put(0, 40, h=0, q=0)
+        put(1, 2, pair=(99, 0xFFFFFFFF))
+        put(1, 50, pair=(99, 0xFFFFFFFF))
+    elif plant == "dense":
+        put(3, 1)
+        put(3, 62)
+    tag = torch.stack([torch.where(occ, tlo, -1), torch.where(occ, thi, -1)],
+                      dim=2).view(rows, 128)
+    return ctable.TBuildState(
+        tag.to(torch.int32).contiguous(),
+        torch.where(occ, hq, 0).view(-1).to(torch.int32),
+        torch.where(occ, lq, 0).view(-1).to(torch.int32))
+
+
+def seal_export_shapes() -> dict:
+    """HK2 and HK6's export against their plain versions on every table
+    of SEAL_TABLES at SHAPE_KS (4,096 rows): sealed rows and all five
+    statistics equal, the duplicate flag as planted; the seal written
+    into one shard's rows of a plane four times its size (`out=`, as
+    tile_sharded.finalize passes it) equal, the rows around it
+    untouched; the export with the seal's count and without it equal on
+    the table, on shards 1, 2 and 3 of 4 and on its first 1 and 2 rows
+    (lo words unaligned), and a count one too high raising. Then, at k =
+    24 on a dense table of 2^20 rows, both kernels timed (the export
+    with its count, and without it) beside their plain versions."""
+    import torch
+
+    from quorum_tpu_torch import kernels
+    from quorum_tpu_torch.kernels import reference as ref
+    from quorum_tpu_torch.ops import ctable
+
+    out: dict = {}
+    ok = True
+    for k in SHAPE_KS:
+        meta = ctable.TileMeta(k, 7, 12)
+        for i, (name, (occupancy, plant, dup)) in enumerate(
+                SEAL_TABLES.items()):
+            bt = seal_planes(meta, occupancy, plant, SEED + 100 * k + i)
+            rows_k, st_k = kernels.tile_seal(bt, meta)
+            rows_p, st_p = ref.tile_seal(bt, meta)
+            q = meta.rows
+            whole = torch.full((4 * q, 128), 7, dtype=torch.int32,
+                               device="cuda")
+            r_out, st_out = kernels.tile_seal(bt, meta,
+                                              out=whole[q:2 * q])
+            seal = (torch.equal(rows_k, rows_p) and torch.equal(st_k, st_p)
+                    and int(st_k[0]) == int(dup)
+                    and torch.equal(whole[q:2 * q], rows_p)
+                    and torch.equal(st_out, st_p)
+                    and not bool((whole[:q] != 7).any())
+                    and not bool((whole[2 * q:] != 7).any()))
+            del whole, r_out, bt
+            n = int(st_k[1])
+            export = True
+            for a, b in ((0, q), (q // 4, q // 2), (q // 2, 3 * q // 4),
+                         (3 * q // 4, q), (0, 1), (0, 2)):
+                sub = rows_k[a:b]
+                want = ref.tile_export(sub, meta)
+                m = n if (a, b) == (0, q) else int(want[:b - a].sum())
+                export &= (torch.equal(kernels.tile_export(sub, meta, m),
+                                       want)
+                           and torch.equal(kernels.tile_export(sub, meta),
+                                           want))
+            try:
+                kernels.tile_export(rows_k, meta, n + 1)
+                export = False
+            except RuntimeError:
+                pass
+            out[f"k{k}_{name}"] = dict(seal_equal=seal, export_equal=export,
+                                       occupied=n, dup=int(st_k[0]))
+            ok &= seal and export
+    check(ok, f"tile_seal or tile_export differs from its plain version "
+          f"at SEAL_TABLES' shapes: {out}")
+    # a dense table at the main path's k, timed
+    meta = ctable.TileMeta(K, 7, 20)
+    bt = seal_planes(meta, 0.97, None, SEED + 3000)
+    rows_k, st_k = kernels.tile_seal(bt, meta)
+    rows_p, st_p = ref.tile_seal(bt, meta)
+    n = int(st_k[1])
+    want = ref.tile_export(rows_k, meta)
+    equal = torch.equal(rows_k, rows_p) and torch.equal(st_k, st_p)
+    exp_equal = (torch.equal(kernels.tile_export(rows_k, meta, n), want)
+                 and torch.equal(kernels.tile_export(rows_k, meta), want))
+    check(equal and exp_equal, "tile_seal or tile_export differs from its "
+          "plain version on the dense table")
+    row_bytes = meta.rows * 512
+    dense = {
+        "tile_seal": dict(
+            equal=equal, n=n,
+            ms=kernel_ms(lambda: kernels.tile_seal(bt, meta), "tile_seal",
+                         5),
+            plain_ms=event_ms(lambda: ref.tile_seal(bt, meta), 2),
+            bound_bytes=3 * row_bytes + 40),
+        "tile_export": dict(
+            equal=exp_equal, n=n,
+            ms=kernel_ms(lambda: kernels.tile_export(rows_k, meta, n),
+                         "tile_export", 5),
+            plain_ms=event_ms(lambda: ref.tile_export(rows_k, meta), 2),
+            bound_bytes=row_bytes + want.numel())}
+    out["dense_k24_rows"] = meta.rows
+    out["dense_k24_occupied"] = n
+    out.update({f"dense_{nm}_{key}": round(v[key], 5)
+                for nm, v in dense.items() for key in ("ms", "plain_ms")})
+    return dict(shapes=out, dense=dense)
 
 
 def planes_layout(state, meta, c, q, lengths, label: str, reps: int) -> dict:
@@ -2287,7 +2472,8 @@ def phase_contaminant(card: str, full: dict) -> dict:
 
 def phase_table(card: str, full: dict, contam: dict) -> dict:
     """HK7 loading and HK6 exporting the full run's database, each held
-    against its plain version (and HK6 against the file's payload
+    against its plain version (and HK6, with the count and without, on
+    that table and on the handoff table, against the file's payload
     bytes); then HK5, HK3, HK4 and HK14 on the full batch of the run's
     reads that holds the most reads the contaminant phase touched,
     against that table, held and timed there, and HK5's and HK4's
@@ -2316,11 +2502,37 @@ def phase_table(card: str, full: dict, contam: dict) -> dict:
                                          b.total_hq])
     check(load_equal, "tile_load differs from its plain version")
     del rows_p
-    ek = kernels.tile_export(rows, meta)
+    # HK6's export with the file's count (as write_db passes the seal's)
+    # and without it, on this HK7-loaded table (rows packed from slot 0)
+    # and on the table the driver hands to stage 2 (every batch inserted
+    # by HK1 and sealed by HK2: keys at or after their preferred slot);
+    # a count one off raises
+    ek = kernels.tile_export(rows, meta, n)
     export_equal = (torch.equal(ek, ref.tile_export(rows, meta))
-                    and ek.cpu().numpy().tobytes() == raw)
-    check(export_equal, "tile_export differs from its plain version")
+                    and ek.cpu().numpy().tobytes() == raw
+                    and torch.equal(kernels.tile_export(rows, meta), ek))
     del ek
+    build = ctable.make_tile_build(meta, dev)
+    for pk, wire in full["wires"]:
+        grown, _left = kernels.tile_insert_reads(
+            build, meta, wire, pk.n_reads, pk.length, pk.thresholds, QT)
+        check(not grown, "the handoff table reported full")
+    hrows, hstats = kernels.tile_seal(build, meta)
+    del build
+    hk = kernels.tile_export(hrows, meta, n)
+    handoff_equal = (int(hstats[1]) == n
+                     and hk.cpu().numpy().tobytes() == raw
+                     and torch.equal(hk, ref.tile_export(hrows, meta))
+                     and torch.equal(kernels.tile_export(hrows, meta), hk))
+    del hk
+    for wrong in (n - 1, n + 1):
+        try:
+            kernels.tile_export(rows, meta, wrong)
+            export_equal = False
+        except RuntimeError:
+            pass
+    check(export_equal and handoff_equal,
+          "tile_export differs from its plain version")
     # HK6's compact entry (K22): the occupied slots in slot order, against
     # its plain version at caps that drop entries, fit them exactly, leave
     # lanes to zero and take none, and on the second of DEVICES row ranges
@@ -2339,6 +2551,7 @@ def phase_table(card: str, full: dict, contam: dict) -> dict:
           "plain version")
     row_bytes = meta.rows * 512
     export_parts: dict = {}
+    no_n_parts: dict = {}
     # K22 as one PyTorch call: boolean-mask indexing of the slot pairs
     # (the occupancy mask made beforehand, outside the timing)
     slots = rows.view(-1, 2)
@@ -2352,10 +2565,23 @@ def phase_table(card: str, full: dict, contam: dict) -> dict:
             bound_bytes=len(raw) + row_bytes),
         "tile_export": dict(
             equal=export_equal, n=n,
-            ms=kernel_ms(lambda: kernels.tile_export(rows, meta),
+            ms=kernel_ms(lambda: kernels.tile_export(rows, meta, n),
                          "tile_export", 5, detail=export_parts),
             plain_ms=event_ms(lambda: ref.tile_export(rows, meta), 2),
-            bound_bytes=row_bytes + len(raw)),
+            bound_bytes=row_bytes + len(raw),
+            # without the count (the same function and bound; its count
+            # launch reads the rows a second time)
+            no_n=dict(ms=kernel_ms(lambda: kernels.tile_export(rows, meta),
+                                   "tile_export", 5, detail=no_n_parts),
+                      plain_ms=event_ms(lambda: ref.tile_export(rows, meta),
+                                        2),
+                      bound_bytes=row_bytes + len(raw)),
+            handoff=dict(
+                equal=handoff_equal,
+                ms=kernel_ms(lambda: kernels.tile_export(hrows, meta, n),
+                             "tile_export", 5),
+                plain_ms=event_ms(lambda: ref.tile_export(hrows, meta), 2),
+                bound_bytes=row_bytes + len(raw))),
         # the rows read once, three 4-byte words written per entry
         "tile_export_compact": dict(
             equal=compact_equal, n=n,
@@ -2365,7 +2591,7 @@ def phase_table(card: str, full: dict, contam: dict) -> dict:
             library_ms=event_ms(lambda: slots[occupied], 5),
             bound_bytes=row_bytes + 12 * n),
     }
-    del slots, occupied
+    del slots, occupied, hrows
     codes, quals = full["codes"], full["quals"]
     touched = contam["touched"]
     nb = -(-codes.shape[0] // BATCH)
@@ -2380,9 +2606,11 @@ def phase_table(card: str, full: dict, contam: dict) -> dict:
                                     lengths, 5, cset, out))
     out["pack_finish"]["repack"] = repack_check(ctable.TileState(rows), meta,
                                                 c, q, lengths, cset)
-    # HK6's wrapper span and its two C launches apart: the span adds the
-    # host's wait for the payload size and the buffer's allocation
+    # HK6's wrapper span and its C launches apart: with the count, one
+    # launch; without it, the count launch, the host's wait for the
+    # payload size and the buffer's allocation, then that launch
     out["tile_export"]["parts_ms"] = export_parts
+    out["tile_export"]["no_n"]["parts_ms"] = no_n_parts
     out["tile_floor"] = floor_table(rows, meta)
     emit({"phase": "table", "card": card, "rows": meta.rows, "entries": n,
           "payload_bytes": len(raw), "batch": i,
@@ -4976,7 +5204,8 @@ def run() -> int:
                        **({"library_ms": round(v[e]["library_ms"], 5)}
                           if "library_ms" in v[e] else {})}
                    for e in ("query", "inline", "partition",
-                             "contaminant", "contaminant_trim", "overflow")
+                             "contaminant", "contaminant_trim", "overflow",
+                             "dense", "no_n", "handoff")
                    if e in v}
         # HK4's event entry on the first quarter of its batch
         quarter = {e: (round(v[e], 5) if isinstance(v[e], float) else v[e])

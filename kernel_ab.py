@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Time the kernels of two checkouts of the port on one card, on the
-same table and batch: HK5 (the stage-2 head), HK14 (the packed result),
-HK16 (K16's planes and pre-pass), HK1 (the stage-1 insert), HK6's
-compact entry (K22) and HK4's entries.
+same table and batch: HK2 (the stage-1 seal), HK6's export (K8) and its
+compact entry (K22), HK5 (the stage-2 head), HK14 (the packed result),
+HK16 (K16's planes and pre-pass), HK1 (the stage-1 insert) and HK4's
+entries.
 
     python3 kernel_ab.py OTHER_TREE     # from the root of a checkout
 
@@ -34,6 +35,18 @@ of the FASTQ:
   build table holding the other batches), each digested as the map it
   holds: the sealed table's v5 payload and statistics (the slot a new key
   takes depends on which CAS wins);
+- HK2 on the table the quorum driver seals (every packed batch
+  inserted by the tree's own HK1 at the full geometry, copied before
+  each timed seal), digested as the map it holds (its sealed rows'
+  payload by the plain export, and the five statistics: which slot a
+  new key takes depends on which CAS wins), and on a seeded dense table
+  at that geometry (60-64 occupied slots a row: chip_smoke.py's
+  seal_planes), its rows and statistics digested;
+- HK6's export on the HK7-loaded table and on the handoff table (that
+  table sealed by the tree's HK2), with the seal's count where the
+  tree's wrapper takes one, else as it runs, and here also without it:
+  each C launch, the wrapper's span and the profiler duration, the
+  payload digested;
 - HK6's compact entry at cap = n beside boolean-mask indexing, HK4's
   event entry at B = 8192 and on the first quarter of the batch (HK5,
   HK16 and HK17 make its inputs), its sharded-table entry and HK4's
@@ -51,9 +64,9 @@ of the FASTQ:
   launcher apart, the buffer and merged status digested.
 
 Times are medians of the kernels' own C launches (CUDA events), each
-call behind chip_smoke.py's lead spin (`lead`); HK5's and HK14's are
-also given as the kernels' own durations from torch.profiler (CUPTI:
-`_prof_ms`, the mean a call). Beside them, the floor a launch can
+call behind chip_smoke.py's lead spin (`lead`); HK2's, HK6's export's,
+HK5's and HK14's are also given as the kernels' own durations from
+torch.profiler (CUPTI: `_prof_ms`, the mean a call). Beside them, the floor a launch can
 reach: an empty kernel built here and launched through ctypes as the
 port's launchers are (`empty_*`), and the stage 2 of the full run's
 first PATH_BATCHES batches in a plain loop and through the stage-2
@@ -87,7 +100,11 @@ LARGE_REPEAT = 32  # HK14's large batch: the batch's lanes this many times
 # the kernels' names as the profiler reports them (HK14's two kernels
 # are pack_head/pack_entries in the parent, pack_sums/pack here)
 PROFILED = {"stage2_head": r"\bhead_kernel\b",
-            "pack_finish": r"\bpack_(head_|entries_|sums_)?kernel\b"}
+            "pack_finish": r"\bpack_(head_|entries_|sums_)?kernel\b",
+            "tile_seal": r"\bseal_kernel\b",
+            # the parent's two passes and its row scan; this tree's
+            # export and, without the count, its count launch
+            "tile_export": r"\b(export|scan)_\w*kernel\b"}
 EMPTY_CU = r"""
 #include <cuda_runtime.h>
 __global__ void empty_kernel() {}
@@ -138,24 +155,26 @@ def prof_ms(fn, reps: int, match: str) -> float | None:
     return round(sum(us) / reps / 1e3, 5) if us else None
 
 
-def timed(c, res: dict, key: str, fn, counter: str) -> None:
+def timed(c, res: dict, key: str, fn, counter: str, setup=None,
+          span: bool = False) -> None:
     """fn()'s C launches timed two ways into res (see the module
-    docstring): behind the lead spin (each C launcher apart too) and by
-    the profiler."""
+    docstring): behind the lead spin (each C launcher apart too, and
+    with `span` the whole wrapper call) and by the profiler."""
     parts: dict = {}
-    res[f"{key}_ms"] = c.kernel_ms(fn, counter, REPS, detail=parts)
+    res[f"{key}_ms"] = c.kernel_ms(fn, counter, REPS, setup, detail=parts)
     for launcher, t in parts.items():
-        if launcher != "span":
+        if launcher != "span" or span:
             res[f"{key}_{launcher}_ms"] = t
     res[f"{key}_prof_ms"] = prof_ms(fn, REPS,
                                     PROFILED[counter.replace("_shard", "")])
 
 
-def handoff_rows(meta, packed: str):
-    """The full run's table as the quorum driver hands it to stage 2:
-    every packed batch inserted by the tree's own HK1 at the full
-    geometry and sealed by its HK2 (keys at or after their preferred
-    slot, where HK7's load packs each row from slot 0)."""
+def handoff_build(meta, packed: str):
+    """The full run's build table as the quorum driver seals it: every
+    packed batch inserted by the tree's own HK1 at the full geometry
+    (keys at or after their preferred slot, where HK7's load packs each
+    row from slot 0; which slot a new key takes depends on which CAS
+    wins, so the layout differs from run to run, not the content)."""
     import torch
 
     from quorum_tpu_torch import kernels
@@ -169,14 +188,63 @@ def handoff_rows(meta, packed: str):
                                                 p.length, p.thresholds, qt)
         if full:
             raise RuntimeError("the handoff table is full")
-    rows, _stats = kernels.tile_seal(build, meta)
-    del build, batches
+    return build
+
+
+def seal_export_times(c, rows, meta, n: int, packed: str) -> tuple:
+    """HK2's and HK6's export's times and output digests (see the module
+    docstring). Returns (res, the handoff table's sealed rows)."""
+    import inspect
+
+    import torch
+
+    from quorum_tpu_torch import kernels
+    from quorum_tpu_torch.kernels import reference as ref
+    from quorum_tpu_torch.ops import ctable
+
+    res = {}
+    # HK2 on the handoff build table, a fresh copy before each seal, and
+    # on a seeded dense table at the same geometry
+    base = handoff_build(meta, packed)
+    work = ctable.TBuildState(*(t.clone() for t in base))
+
+    def reset():
+        for dst, src in zip(work, base):
+            dst.copy_(src)
+
+    timed(c, res, "seal_handoff", lambda: kernels.tile_seal(work, meta),
+          "tile_seal", reset)
+    hrows, hstats = kernels.tile_seal(base, meta)
+    # its layout differs from run to run: digested as the map it holds
+    res["seal_handoff_digest"] = _digest([ref.tile_export(hrows, meta),
+                                          hstats])
+    del base, work
     torch.cuda.empty_cache()
-    return rows
+    dense = c.seal_planes(meta, 0.97, None, c.SEED + 3000)
+    timed(c, res, "seal_dense", lambda: kernels.tile_seal(dense, meta),
+          "tile_seal")
+    drows, dstats = kernels.tile_seal(dense, meta)
+    res["seal_dense_digest"] = _digest([drows, dstats])
+    del dense, drows
+    torch.cuda.empty_cache()
+    # HK6's export with the seal's count where the tree's wrapper takes
+    # it, on the HK7-loaded and the handoff table; without it too here
+    with_n = "n" in inspect.signature(kernels.tile_export).parameters
+    for key, r in (("export_loaded", rows), ("export_handoff", hrows)):
+        def fn(r=r):
+            return (kernels.tile_export(r, meta, n) if with_n
+                    else kernels.tile_export(r, meta))
+        timed(c, res, key, fn, "tile_export", span=True)
+        res[f"{key}_digest"] = _digest([fn()])
+    if with_n:
+        timed(c, res, "export_loaded_no_n",
+              lambda: kernels.tile_export(rows, meta), "tile_export",
+              span=True)
+    return res, hrows
 
 
 def head_pack_times(c, state, meta, srows, smeta, cb, qb, lb, fasta,
-                    packed: str) -> dict:
+                    hrows) -> dict:
     """HK5's and HK14's times and output digests (see the module
     docstring)."""
     import torch
@@ -188,7 +256,6 @@ def head_pack_times(c, state, meta, srows, smeta, cb, qb, lb, fasta,
     dev = state.rows.device
     cset = c.load_contaminant(fasta)
     ctab = (cset[0].rows, cset[1])
-    hrows = handoff_rows(meta, packed)
     res = {}
     b = cb.shape[0]
     cfg = corrector.ECConfig(k=meta.k, cutoff=4, qual_cutoff=33 + 40)
@@ -348,6 +415,8 @@ def path_split(state, meta, path_npz: str, db: str, fastq: str) -> dict:
         kms = STATS.kernel_ms()
         calls = dict(STATS.launches)
         for name, us in _kernel_prof(run).items():  # HK14 was two kernels
+            if not calls[name]:  # HK2, HK6: stage 1's
+                continue
             res[f"path_{label}_{name}_span_ms"] = round(
                 kms[name] / calls[name], 5)
             res[f"path_{label}_{name}_prof_ms"] = round(
@@ -395,6 +464,8 @@ def time_tree(tree: str, db: str, npz: str, packed: str, fasta: str,
     res["compact_library_ms"] = c.event_ms(lambda: slots[occupied], REPS)
     del slots, occupied
     res["compact_digest"] = _digest(kernels.tile_compact(rows, meta, n))
+    sx, hrows = seal_export_times(c, rows, meta, n, packed)
+    res.update(sx)
     batch = np.load(npz)
     cb, qb, lb = batch["c"], batch["q"], batch["lengths"]
     state = ctable.TileState(rows)
@@ -403,7 +474,8 @@ def time_tree(tree: str, db: str, npz: str, packed: str, fasta: str,
     srows = list(ts.row_shards(state, smeta, [dev] * SHARDS).shards)
     res.update(planes_times(c, state, meta, srows, smeta, cb, qb, lb, fasta))
     res.update(head_pack_times(c, state, meta, srows, smeta, cb, qb, lb,
-                               fasta, packed))
+                               fasta, hrows))
+    del hrows
     res.update(path_split(state, meta, path_npz, db, path_fq))
     for b in (cb.shape[0], cb.shape[0] // QUARTER):
         w = c.walk_inputs(state, meta, cb[:b], qb[:b], lb[:b])

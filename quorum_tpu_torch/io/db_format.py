@@ -141,15 +141,15 @@ def write_db(path: str, state: TileState, meta: TileMeta,
              db_version: int = DEFAULT_DB_VERSION,
              extra_header: dict | None = None) -> None:
     """Export the sealed table (K8 on its device, one D2H) as a v4 or
-    v5 file, atomically (tmp, fsync, rename). `extra_header` merges
-    into the header (a prefiltered build's `prefilter` declaration and
-    full-table `poisson_stats`); the payload bytes do not change."""
+    v5 file, atomically (tmp, fsync, rename). `n_entries`, where the
+    caller holds it (the seal's occupied count), lets the export read the
+    table once; a table that holds another number raises RuntimeError
+    and writes nothing. `extra_header` merges into the header (a
+    prefiltered build's `prefilter` declaration and full-table
+    `poisson_stats`); the payload bytes do not change."""
     _check_version(db_version)
-    buf = ctable.tile_export_v4(state, meta)
+    buf = ctable.tile_export_v4(state, meta, n_entries)
     n = int(buf[:meta.rows].sum(dtype=np.int64))
-    if n_entries is not None and n_entries != n:
-        raise RuntimeError(f"export holds {n} entries, seal counted "
-                           f"{n_entries}")
     header = {
         "format": FORMAT,
         "version": db_version,
@@ -174,18 +174,20 @@ def shard_file_name(prefix: str, shard: int, n_shards: int) -> str:
 def write_db_shard_file(path_prefix: str, rows_s: torch.Tensor,
                         meta: GlobalMeta, s: int, S: int,
                         cmdline: list[str] | None = None,
-                        db_version: int = DEFAULT_DB_VERSION) -> dict:
+                        db_version: int = DEFAULT_DB_VERSION,
+                        n_entries: int | None = None) -> dict:
     """Write shard `s` of S: `rows_s`, the sealed rows [s * rows / S,
     (s + 1) * rows / S) of the GLOBAL geometry `meta` (a partition
     pass's rows after HK13, or a card's whole table when S = 1),
     exported by HK6 on their device into ``PREFIX.shard-s-of-S.qdb``, a
-    self-contained v4/v5 file. Returns the manifest record."""
+    self-contained v4/v5 file; `n_entries` as for write_db, the shard's
+    own. Returns the manifest record."""
     _check_version(db_version)
     rows_local = meta.rows // S
     if rows_s.shape[0] != rows_local:
         raise ValueError(f"shard {s} of {S} holds {rows_s.shape[0]} rows, "
                          f"not {rows_local}")
-    buf = ctable.tile_export_v4(TileState(rows_s), meta)
+    buf = ctable.tile_export_v4(TileState(rows_s), meta, n_entries)
     occ = int(buf[:rows_local].sum(dtype=np.int64))
     shard_path = shard_file_name(path_prefix, s, S)
     header = {
@@ -241,24 +243,29 @@ def write_db_manifest(path: str, recs: list, meta: GlobalMeta, S: int,
 def write_db_sharded(path: str, state, meta: GlobalMeta,
                      cmdline: list[str] | None = None,
                      db_version: int = DEFAULT_DB_VERSION,
-                     extra_header: dict | None = None) -> None:
+                     extra_header: dict | None = None,
+                     n_entries: list | None = None) -> None:
     """`--db-layout sharded`: one shard file per shard of a row-sharded
     table (a ShardedTileState under its TileShardedMeta, --devices N),
     each exported by HK6's row-range entry on its own device, with no
-    gather; or one card's table as a 1-shard manifest. Then the sealed
-    manifest at `path`; its payload (db_payload_bytes) is the single
-    file's."""
+    gather; or one card's table as a 1-shard manifest. `n_entries`, where
+    the caller holds them, are the shards' entries (HK2's occupied count
+    of each), as for write_db. Then the sealed manifest at `path`; its
+    payload (db_payload_bytes) is the single file's."""
     _check_version(db_version)
     from ..kernels import device_scope
 
     shards = (state.shards if isinstance(state, ctable.ShardedTileState)
               else (state.rows,))
     S = len(shards)
+    if n_entries is not None and len(n_entries) != S:
+        raise ValueError(f"{len(n_entries)} entry counts for {S} shards")
     recs = []
     for s, rows in enumerate(shards):
         with device_scope(rows.device):
-            recs.append(write_db_shard_file(path, rows, meta, s, S, cmdline,
-                                            db_version))
+            recs.append(write_db_shard_file(
+                path, rows, meta, s, S, cmdline, db_version,
+                None if n_entries is None else n_entries[s]))
     write_db_manifest(path, recs, meta, S, cmdline, db_version, extra_header)
 
 

@@ -83,7 +83,7 @@ MAX_SHARDS = 1024  # the bucket passes keep 12 bytes a shard in shared memory
 # shards of a table the probes read in place (table.cuh MAX_ROUTED_SHARDS:
 # the pointer table is one kernel parameter)
 MAX_ROUTED_SHARDS = 64
-COMPACT_TILE = 24  # rows a block of HK6's compact entry takes (CT_TILE)
+COMPACT_TILE = 24  # rows a block of HK6's export and compact entry take
 # the least capacity of HK1's failure list (a sixteenth of the batch's
 # windows past it); a batch that fails more lists them in a second launch
 FAIL_CAP_MIN = 4096
@@ -279,12 +279,20 @@ def tile_insert_shard(bstate, meta, lanes: torch.Tensor):
 def tile_seal(bstate, meta, out: torch.Tensor | None = None):
     """Returns (rows int32 [rows, 128], stats int64 [5] = dup, occupied,
     distinct_hq, total_hq, singletons: slots with hq + lq == 1). With
-    `out` (int32 [rows, 128], contiguous) the rows are written there."""
+    `out` (int32 [rows, 128], contiguous, 16-byte aligned) the rows are
+    written there. The kernel loads a lane's slot pair as one vector:
+    tag must be 16-byte aligned, hq and lq 8-byte."""
     _check_build(bstate, meta)
+    if bstate.tag.data_ptr() % 16 or bstate.hq.data_ptr() % 8 \
+            or bstate.lq.data_ptr() % 8:
+        raise ValueError("build planes: tag must be 16-byte aligned, hq "
+                         "and lq 8-byte")
     if out is not None:
-        _check(out, torch.int32, "out", align8=True)
+        _check(out, torch.int32, "out")
         if out.shape != bstate.tag.shape or out.device != bstate.tag.device:
             raise ValueError("out does not match the build table")
+        if out.data_ptr() % 16:
+            raise ValueError("out: must be 16-byte aligned")
     if not _on_cuda(bstate.tag):
         rows, stats = ref.tile_seal(bstate, meta)
         if out is not None:
@@ -507,7 +515,7 @@ def stage2_head(rows, meta, wire: torch.Tensor, b: int, length: int,
 
 
 def _scan_scratch(nrows: int, dev):
-    """HK6/HK7 scratch: chunk sums and per-row first entry (+ total)."""
+    """HK7 scratch: chunk sums and per-row first entry (+ total)."""
     return (torch.empty(-(-nrows // 1024), dtype=torch.int64, device=dev),
             torch.empty(nrows + 1, dtype=torch.int64, device=dev))
 
@@ -525,34 +533,49 @@ def _check_range(rows, meta) -> int:
     return nrows
 
 
-def _export_counts(rows, nrows: int, meta):
-    """HK6 pass 1 (inside the caller's launch): per-row occupancy
-    counts and their exclusive scan `first` (first[nrows] = total)."""
-    dev = rows.device
-    counts = torch.empty(nrows, dtype=torch.uint8, device=dev)
-    sums, first = _scan_scratch(nrows, dev)
-    call("tile_export", "tile_export_counts", rows.data_ptr(), nrows,
-         meta.bits, counts.data_ptr(), sums.data_ptr(), first.data_ptr())
-    return counts, first
+def _held_to(total: int, n: int | None) -> None:
+    """Raise where the rows hold `total` entries and the caller said n."""
+    if n is not None and total != n:
+        raise RuntimeError(f"the rows hold {total} entries, not the {n} "
+                           "the caller counted")
 
 
-def tile_export(rows: torch.Tensor, meta) -> torch.Tensor:
+def tile_export(rows: torch.Tensor, meta, n: int | None = None
+                ) -> torch.Tensor:
     """The v4/v5 payload (uint8 tensor on the rows' device) of `rows`,
     meta's table or a row range of it at meta's geometry (one shard):
     per-row occupancy counts, the entries' LE u32 lo words in canonical
     order (each row sorted by (hi, lo)), then meta.hi_bytes byte planes
-    of their hi words."""
+    of their hi words. `n` is the entries the rows hold, as the caller
+    counted them (the seal's occupied count): with it the export is one
+    launch that reads the rows once; without it a count launch reads
+    them first. Raises RuntimeError where the rows hold other than n
+    entries (after the launch, which drops every entry past the n-th:
+    a stale count never leaves a payload)."""
     nrows = _check_range(rows, meta)
+    if n is not None and n < 0:
+        raise ValueError(f"n must be >= 0, got {n}")
     if not _on_cuda(rows):
-        return ref.tile_export(rows, meta)
+        out = ref.tile_export(rows, meta)
+        _held_to(int(out[:nrows].sum()), n)
+        return out
+    dev = rows.device
+    # a status word per tile of COMPACT_TILE rows, the tile ticket, the
+    # total
+    status = torch.zeros(-(-nrows // COMPACT_TILE) + 2, dtype=torch.int64,
+                         device=dev)
     with launching("tile_export"):
-        counts, first = _export_counts(rows, nrows, meta)
-        n = int(first[nrows].item())  # sizes the payload
+        if n is None:
+            total = torch.zeros(1, dtype=torch.int64, device=dev)
+            call("tile_export", "tile_export_total", rows.data_ptr(), nrows,
+                 meta.bits, total.data_ptr())
+            n = int(total.item())  # sizes the payload
         out = torch.empty(nrows + (4 + meta.hi_bytes) * n,
-                          dtype=torch.uint8, device=rows.device)
+                          dtype=torch.uint8, device=dev)
         call("tile_export", "tile_export_rows", rows.data_ptr(), nrows,
-             meta.bits, counts.data_ptr(), first.data_ptr(), n,
-             meta.hi_bytes, out.data_ptr())
+             meta.bits, n, meta.hi_bytes, out.data_ptr(), status.data_ptr(),
+             status.numel())
+    _held_to(int(status[-1].item()), n)
     return out
 
 

@@ -11,8 +11,8 @@
 // quorum_tpu/parallel/tile_sharded.py:706 routed_lookup_local), the slot
 // claim that HK1, HK8 and HK11 share, the count-min sketch hash of HK10
 // and HK11 (quorum_tpu/ops/sketch.py:111-132), a one-atomic-per-block
-// sum, and the exclusive scan of per-row entry counts that HK6 and HK7
-// share.
+// sum, the warp's 64-key sort that HK2 and HK6 share, and HK7's
+// exclusive scan of per-row entry counts.
 //
 // A k-mer (k <= 31) is one uint64 of 2k bits; a table row is 128 u32
 // words = 64 (lo, hi) slot pairs.
@@ -427,6 +427,36 @@ __device__ __forceinline__ bool row_holds(const uint32_t* tag, KeyParts p) {
 }
 
 // ------------------------------------------------------------------
+// Sort 64 keys held two a lane ascending across a whole warp (a bitonic
+// network: shuffles, no shared memory): element e sits in lane e & 31, in
+// `a` for e < 32 and in `b` above. HK2's duplicate check and HK6's export
+// sort a row's occupied keys with it where the row holds more than 32
+// (padded with ~0, which sorts last).
+__device__ __forceinline__ void warp_sort64(unsigned long long& a,
+                                            unsigned long long& b) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 2; k <= 64; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      if (j == 32) {  // k == 64: the partner is the lane's other element
+        const unsigned long long lo = a < b ? a : b;
+        b = a < b ? b : a;
+        a = lo;
+      } else {
+        const unsigned long long pa = __shfl_xor_sync(FULL_MASK, a, j);
+        const unsigned long long pb = __shfl_xor_sync(FULL_MASK, b, j);
+        // the lower element of a pair keeps the minimum where its run
+        // ascends (bit k of the element clear)
+        const bool low = (lane & j) == 0;
+        const bool upa = (lane & k) == 0, upb = ((lane + 32) & k) == 0;
+        a = (low == upa) == (a < pa) ? a : pa;
+        b = (low == upb) == (b < pb) ? b : pb;
+      }
+    }
+  }
+}
+
 // Exclusive scan of per-row u8 entry counts: first[r] = sum of
 // counts[0..r), first[rows] = the total. Two passes over chunks of
 // SCAN_CHUNK rows (chunk sums; one block scans the chunk sums), then the

@@ -99,8 +99,8 @@ SIGNATURES = {
                               _P, _P, _P, _P, _P, _P],
     },
     "tile_export": {
-        "tile_export_counts": [_P, _LL, _I, _P, _P, _P, _P],
-        "tile_export_rows": [_P, _LL, _I, _P, _P, _LL, _I, _P, _P],
+        "tile_export_total": [_P, _LL, _I, _P, _P],
+        "tile_export_rows": [_P, _LL, _I, _LL, _I, _P, _P, _LL, _P],
         "tile_export_compact": [_P, _LL, _I, _LL, _P, _P, _P, _P, _LL, _P],
     },
     "tile_load": {"tile_load": [_P, _LL, _LL, _I, _I, _P, _P, _P, _P, _P]},

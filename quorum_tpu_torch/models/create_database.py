@@ -450,7 +450,7 @@ def _build_partitioned(paths: Sequence[str], cfg: BuildConfig, output: str,
                                            "counted a mer outside its bin")
                     recs.append(db_format.write_db_shard_file(
                         output, state.rows, gmeta, p, P, cmdline,
-                        cfg.db_version))
+                        cfg.db_version, n_entries=occ))
                 del state
                 stats.distinct += occ
                 stats.poisson_distinct_hq += distinct
@@ -516,9 +516,10 @@ def create_database_main(paths: Sequence[str], output: str, cfg: BuildConfig,
                                db_version=cfg.db_version)
             del whole
         elif cfg.db_layout == "sharded":
-            db_format.write_db_sharded(output, state, meta, cmdline,
-                                       db_version=cfg.db_version,
-                                       extra_header=stats.db_extra_header())
+            db_format.write_db_sharded(
+                output, state, meta, cmdline, db_version=cfg.db_version,
+                extra_header=stats.db_extra_header(),
+                n_entries=stats.shard_occupancy or [stats.distinct])
         else:
             db_format.write_db(output, state, meta, cmdline,
                                n_entries=stats.distinct,

@@ -199,14 +199,18 @@ def tile_floor(state: TileState, meta: TileMeta, floor: int) -> TileState:
     return state
 
 
-def tile_export_v4(state: TileState, meta: GlobalMeta) -> np.ndarray:
+def tile_export_v4(state: TileState, meta: GlobalMeta,
+                   n: int | None = None) -> np.ndarray:
     """K8 (HK6): the v4/v5 payload -- per-row occupancy counts (u8), the
     occupied entries' lo words (LE u32) in canonical order (each row
     sorted by (empty, hi, lo), so the file is a pure function of the
     table's content), then `hi_bytes` byte planes of their hi words --
     built on the table's device, then one D2H. `state` may be a row
-    range of meta's table (one shard, its rows at meta's geometry)."""
-    return kernels.tile_export(state.rows, meta).cpu().numpy()
+    range of meta's table (one shard, its rows at meta's geometry). `n`,
+    where the caller holds it (the seal's occupied count), is the
+    entries the rows hold: the export reads the rows once, and raises
+    RuntimeError where they hold another number."""
+    return kernels.tile_export(state.rows, meta, n).cpu().numpy()
 
 
 def tile_compact_device(state: TileState, meta: GlobalMeta, cap: int):
