@@ -35,13 +35,26 @@ run. Phases, each printing one JSON line:
            and the driver's with all three
   full     the quorum driver on a seeded E. coli-size FASTQ (random
            4,641,652 bp genome, 150 bp reads at 40x, 1% substitutions,
-           ~10% low-quality bases, k = 24); launch counts are reset
-           just before it and read just after
+           ~10% low-quality bases, k = 24) at its defaults (-t the cpu
+           count, --render-workers min(4, cores)), its reads parsed by
+           the native parser; launch counts are reset just before it
+           and read just after
+  pipeline the same driver run at -t 1 --render-workers 1, then at the
+           defaults again: .fa/.log byte-equal to the full run's; each
+           run's stage seconds, producer parse + pack seconds, main-thread
+           seconds blocked on the prefetch queue and on the render drain,
+           render workers' summed seconds, the card's busy seconds
+           (torch.profiler's device activity, as around the full run) and
+           host share (launch counts reset before and read after)
+  parser   the native parser built, and equal to the Python parser
+           batch for batch on the full run's FASTQ; both times
   two_binary  the same FASTQ through quorum_create_database with -s a
            sixteenth of the full run's (the table doubles at least
            twice), the v5 file, then quorum_error_correct_reads on its
-           own from that file: the table holds the full run's content
-           and the .fa/.log are byte-equal to the full run's; launch
+           own from that file, at the defaults with --gzip and at -t 1
+           --render-workers 1 without: the table holds the full run's
+           content, the plain .fa/.log are byte-equal to the full run's
+           and the gzip run's gunzip to them; both runs' times; launch
            counts reset before and read after, as for full
   prefilter  the same FASTQ through the driver with --prefilter two-pass
            at the full run's -s (the database's header, and its content
@@ -57,7 +70,8 @@ run. Phases, each printing one JSON line:
            before and read after each driver run
   partitions  the same FASTQ through the driver with --partitions 4 at
            the full run's -s (four passes into 2^20-row tables, HK13,
-           one shard each, stage 2 from the manifest): payload and
+           one shard each, stage 2 from the manifest; every pass parsed
+           by the native parser, the first pass's parse seconds): payload and
            .fa/.log equal to the full run's, each stage's peak device
            memory beside the full run's; then quorum_create_database
            --partitions 4 --prefilter two-pass fed the full run's packed
@@ -185,7 +199,7 @@ run. Phases, each printing one JSON line:
 Kernel times are medians of CUDA events around each C launch, each
 timed call behind a ~1 ms spin on its stream (LEAD_CYCLES), so that
 the host's work before the launch does not count.
-Then one {"kernels": [...]} line (launches from the full, two_binary,
+Then one {"kernels": [...]} line (launches from the full, pipeline, two_binary,
 the four prefilter, the three partitioned, the two contaminant, the
 devices runs, the routed and partitioned mesh runs and the event
 phase's two runs and the flat, minimizer and devices_unpacked runs,
@@ -202,6 +216,7 @@ a checkout, or when any phase fails. Imports nothing of JAX.
 from __future__ import annotations
 
 import filecmp
+import gzip
 import json
 import os
 import shutil
@@ -308,6 +323,8 @@ S2 = ("stage2_head", "event_planes", "event_scan", "extend_reads_event",
       "pack_finish")
 PATH_KERNELS = {
     "full": ("tile_insert", "tile_seal", "tile_export", *S2),
+    # the same driver run at -t 1 --render-workers 1, then at the defaults
+    "pipeline": ("tile_insert", "tile_seal", "tile_export", *S2),
     "two_binary": ("tile_insert", "tile_grow", "tile_seal", "tile_export",
                    "tile_load", *S2),
     "prefilter_two_pass": ("batch_aggregate", "sketch_update", "gated_insert",
@@ -651,6 +668,45 @@ def kernel_ms(fn, name: str, reps: int, setup=None, detail=None) -> float:
         detail["span"] = median(spans)
         detail.update({f: median(v) for f, v in per.items()})
     return median(times)
+
+
+class DeviceBusy:
+    """The card's busy seconds over a window: the union of every device
+    activity interval (kernels, copies, sets) torch.profiler's CUPTI
+    records. Read `busy_s` and `wall_s` after the block."""
+
+    def __enter__(self):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        self.prof = profile(activities=[ProfilerActivity.CUDA])
+        self.prof.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        from torch.autograd import DeviceType
+
+        torch.cuda.synchronize()
+        self.wall_s = time.perf_counter() - self.t0
+        self.prof.__exit__(*exc)
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in self.prof.events()
+                       if e.device_type == DeviceType.CUDA)
+        busy, end = 0, None
+        for a, b in spans:
+            if end is None or a > end:
+                busy += b - a
+                end = b
+            elif b > end:
+                busy += b - end
+                end = b
+        self.busy_s = busy / 1e6
+        self.events = len(spans)
+        del self.prof
+        return False
 
 
 class StagePeaks:
@@ -1721,6 +1777,7 @@ def phase_full(card: str) -> dict:
 
     from quorum_tpu_torch.cli import quorum
     from quorum_tpu_torch.kernels.loader import STATS
+    from quorum_tpu_torch.native import binding as native
 
     gen = torch.Generator().manual_seed(SEED)
     t0 = time.perf_counter()
@@ -1734,13 +1791,15 @@ def phase_full(card: str) -> dict:
     size = table_size(bases, GENOME_BP)
     prefix = os.path.join(WORK, "full")
     report: dict = {}
+    native0 = native.STATS["batches"]
     STATS.reset()
     STATS.timing = True
-    with StagePeaks() as peaks:
+    with StagePeaks() as peaks, DeviceBusy() as busy:
         t1 = time.perf_counter()
         rc = quorum.main(["-s", str(size), "-k", str(K), "-p", prefix,
                           "--device", "cuda", fq], report=report)
         wall = time.perf_counter() - t1
+    report["busy"] = busy
     STATS.timing = False
     launches = dict(STATS.launches)
     kms = STATS.kernel_ms()
@@ -1777,7 +1836,8 @@ def phase_full(card: str) -> dict:
     check(checked > 0 and errs_out < errs_in,
           f"correction did not reduce errors ({errs_in} -> {errs_out})")
     s1, s2 = report["stage1_s"], report["stage2_s"]
-    host_s = report["stage1_host_s"] + ec.host_s
+    check(native.STATS["batches"] > native0,
+          "the native parser did not parse the full run's reads")
     emit({"phase": "full", "card": card, "genome_bp": GENOME_BP,
           "reads": n, "bases": bases, "k": K, "size": size,
           "fastq_gen_s": round(gen_s, 3), "stage1_s": round(s1, 3),
@@ -1788,13 +1848,10 @@ def phase_full(card: str) -> dict:
           "corrected_share": round(ec.corrected / n, 6),
           "distinct_mers": build.distinct, "grows": build.grows,
           "cutoff": ec.cutoff,
-          "host_s": {"stage1_parse_pack": round(report["stage1_host_s"], 3),
-                     "stage2_finish_render": round(ec.host_s, 3)},
-          "stage2_device_s": round(ec.device_s, 3),
+          "pipeline": pipeline_times(report),
           "kernel_s": {k: round(v / 1e3, 4) for k, v in kms.items()},
           "kernel_ms_per_launch": {k: round(v / launches[k], 5)
                                    for k, v in kms.items() if launches[k]},
-          "host_share": round(host_s / (s1 + s2), 4),
           "sample_errors_in_out": [errs_in, errs_out, checked],
           "launches": launches})
     return dict(launches=launches, codes=codes, quals=quals, size=size,
@@ -1804,7 +1861,117 @@ def phase_full(card: str) -> dict:
                 grows=build.grows, fastq=fq, prefix=prefix,
                 db=prefix + "_mer_database.jf", build=build,
                 insert_ms_per_launch=kms["tile_insert"]
-                / launches["tile_insert"])
+                / launches["tile_insert"], report=report)
+
+
+def pipeline_times(report: dict) -> dict:
+    """A driver run's host pipeline: each stage's wall seconds, the
+    producer thread's parse + pack seconds (stage 1's first pass; stage
+    2 replays its batches), the main thread's seconds blocked on the
+    prefetch queue (both stages) and on the render drain (stage 2), the
+    render workers' summed seconds, stage 2's main-thread device step
+    (H2D, kernels, synchronize) and fetch seconds; where the run was
+    profiled (DeviceBusy), the card's busy seconds and the host share:
+    the share of the run's wall seconds in which the card ran nothing,
+    waiting on the host (PERF.md section 2)."""
+    ec = report["ec"]
+    s1, s2 = report["stage1_s"], report["stage2_s"]
+    blocked = report["stage1_wait_s"] + ec.queue_wait_s
+    out = {"threads": report["threads"],
+           "render_workers": ec.render_workers,
+           "stage1_s": round(s1, 3), "stage2_s": round(s2, 3),
+           "parse_pack_s": round(report["stage1_host_s"]
+                                 + ec.parse_pack_s, 3),
+           "blocked_on_prefetch_s": round(blocked, 3),
+           "blocked_on_render_s": round(ec.drain_wait_s, 3),
+           "render_s": round(ec.render_s, 3),
+           "stage2_device_step_s": round(ec.device_s, 3),
+           "stage2_fetch_s": round(ec.fetch_s, 3)}
+    busy = report.get("busy")
+    if busy is not None:
+        out.update(device_busy_s=round(busy.busy_s, 3),
+                   profiled_wall_s=round(busy.wall_s, 3),
+                   device_events=busy.events,
+                   host_share=round(1 - busy.busy_s / busy.wall_s, 4))
+    return out
+
+
+def phase_parser(card: str, full: dict) -> dict:
+    """The native parser on the full run's FASTQ against the Python
+    parser, batch for batch (headers, n, codes, quals, lengths); each
+    one's seconds."""
+    import numpy as np
+
+    from quorum_tpu_torch.io import fastq
+    from quorum_tpu_torch.native import binding
+
+    check(binding.available(), "the native FASTQ parser did not build")
+    nat = binding.read_batches([full["fastq"]], BATCH)
+    py = fastq.batch_records(fastq.iter_records([full["fastq"]]), BATCH)
+    t_nat = t_py = 0.0
+    batches = reads = 0
+    while True:
+        t0 = time.perf_counter()
+        a = next(nat, None)
+        t1 = time.perf_counter()
+        b = next(py, None)
+        t_nat += t1 - t0
+        t_py += time.perf_counter() - t1
+        if a is None or b is None:
+            check(a is None and b is None, "the parsers' batch counts differ")
+            break
+        check(a.n == b.n and a.headers == b.headers
+              and np.array_equal(a.codes, b.codes)
+              and np.array_equal(a.quals, b.quals)
+              and np.array_equal(a.lengths, b.lengths),
+              f"native batch {batches} differs from the Python parser's")
+        batches += 1
+        reads += a.n
+    emit({"phase": "parser", "card": card, "library": binding.library_path(),
+          "batches": batches, "reads": reads, "native_s": round(t_nat, 3),
+          "python_s": round(t_py, 3), "equal": True})
+    return {"native_s": t_nat, "python_s": t_py}
+
+
+def phase_serial(card: str, full: dict) -> dict:
+    """The full run's driver again at -t 1 --render-workers 1 (one parse
+    worker, one render worker), then at the defaults once more (so each
+    setting runs once before and once after the other's run): .fa/.log
+    byte-equal to the full run's, and the three runs' pipeline times
+    side by side. Launch counts reset before the first and read after
+    the last."""
+    from quorum_tpu_torch.cli import quorum
+    from quorum_tpu_torch.kernels.loader import STATS
+
+    runs = {}
+    STATS.reset()
+    STATS.timing = True  # as in the full run: the same event overhead
+    for tag, extra in (("serial", ["-t", "1", "--render-workers", "1"]),
+                       ("default_again", [])):
+        prefix = os.path.join(WORK, tag)
+        report: dict = {}
+        with DeviceBusy() as busy:
+            rc = quorum.main(["-s", str(full["size"]), "-k", str(K), "-p",
+                              prefix, *extra, "--device", "cuda",
+                              full["fastq"]], report=report)
+        check(rc == 0, f"{tag} driver rc {rc}")
+        report["busy"] = busy
+        runs[tag] = (report, same_fa_log(prefix, full["prefix"]))
+    STATS.timing = False
+    STATS.events.clear()
+    STATS.calls.clear()
+    launches = dict(STATS.launches)
+    for name in PATH_KERNELS["pipeline"]:
+        check(launches[name] > 0, f"{name} was not launched on the "
+                                  "pipeline runs")
+    emit({"phase": "pipeline", "card": card,
+          "default": pipeline_times(full["report"]),
+          **{tag: pipeline_times(r) for tag, (r, _same) in runs.items()},
+          "same_fa_log": {tag: same for tag, (_r, same) in runs.items()},
+          "launches": launches})
+    for tag, (_r, same) in runs.items():
+        check(same, f"the {tag} run's .fa/.log differ from the full run's")
+    return launches
 
 
 def table_content(path: str):
@@ -1832,6 +1999,21 @@ def table_content(path: str):
     full_hash = ((hi << rl) | (lo >> (bits + 1))) << rb | addr
     order = torch.argsort(full_hash)
     return full_hash[order], (lo & ((1 << (bits + 1)) - 1))[order]
+
+
+def stage2_times(stats, wall: float) -> dict:
+    """A stand-alone stage 2's pipeline: wall seconds, the producer's
+    parse + pack, the main thread blocked on the prefetch queue and on
+    the render drain, the render workers' sum, and the main thread's
+    device and fetch seconds."""
+    return {"render_workers": stats.render_workers,
+            "wall_s": round(wall, 3),
+            "parse_pack_s": round(stats.parse_pack_s, 3),
+            "blocked_on_prefetch_s": round(stats.queue_wait_s, 3),
+            "blocked_on_render_s": round(stats.drain_wait_s, 3),
+            "render_s": round(stats.render_s, 3),
+            "device_s": round(stats.device_s, 3),
+            "fetch_s": round(stats.fetch_s, 3)}
 
 
 def phase_two_binary(card: str, full: dict) -> dict:
@@ -1864,20 +2046,36 @@ def phase_two_binary(card: str, full: dict) -> dict:
                    handoff=handoff)
     t1 = time.perf_counter()
     build = handoff.pop("db")[2] if rc1 == 0 else None
-    rc2 = ec.main(["--device", "cuda", "-o", prefix, db, full["fastq"]],
-                  report=report) if rc1 == 0 else None
+    # stage 2 at the defaults with --gzip, then at -t 1 --render-workers 1
+    rc2 = ec.main(["--device", "cuda", "--gzip", "-o", prefix + "_gz", db,
+                   full["fastq"]], report=report) if rc1 == 0 else None
     t2 = time.perf_counter()
+    serial: dict = {}
+    rc3 = ec.main(["--device", "cuda", "-t", "1", "--render-workers", "1",
+                   "-o", prefix, db, full["fastq"]],
+                  report=serial) if rc2 == 0 else None
+    t3 = time.perf_counter()
     STATS.timing = False
     peak = torch.cuda.max_memory_allocated() - resident
     launches = dict(STATS.launches)
     kms = STATS.kernel_ms()
-    check(rc1 == 0 and rc2 == 0, f"two-binary run rc {rc1}, {rc2}")
+    check(rc1 == 0 and rc2 == 0 and rc3 == 0,
+          f"two-binary run rc {rc1}, {rc2}, {rc3}")
     for name in PATH_KERNELS["two_binary"]:
         check(launches[name] > 0,
               f"{name} was not launched on the two-binary path")
     rb = db_format.read_header(db)["rb_log2"]
     same_out = all(filecmp.cmp(prefix + ext, full["prefix"] + ext,
                                shallow=False) for ext in (".fa", ".log"))
+    same_gz = True
+    for ext in (".fa", ".log"):
+        with gzip.open(prefix + "_gz" + ext + ".gz", "rb") as g, \
+                open(prefix + ext, "rb") as f:
+            while same_gz:
+                a, b = g.read(1 << 24), f.read(1 << 24)
+                same_gz = a == b
+                if not a:
+                    break
     ha, va = table_content(db)
     hb, vb = table_content(full["db"])
     same_table = torch.equal(ha, hb) and torch.equal(va, vb)
@@ -1891,9 +2089,15 @@ def phase_two_binary(card: str, full: dict) -> dict:
           "distinct_mers": build.distinct, "cutoff": stats.cutoff,
           "create_database_s": round(t1 - t0, 3),
           "build_s": round(build.seconds, 3),
+          "create_database_parse_pack_s": round(build.parse_pack_s, 3),
+          "create_database_blocked_on_prefetch_s": round(build.queue_wait_s,
+                                                         3),
           "error_correct_s": round(t2 - t1, 3),
           "stage2_device_s": round(stats.device_s, 3),
           "stage2_host_s": round(stats.host_s, 3),
+          "stage2_gzip_default": stage2_times(stats, t2 - t1),
+          "stage2_serial": stage2_times(serial["stats"], t3 - t2),
+          "same_gunzipped_fa_log": same_gz,
           "max_memory_allocated": peak, "resident_before_run": resident,
           "same_table_content": same_table, "same_payload_bytes": same_payload,
           "same_fa_log": same_out, "launches": launches,
@@ -1905,6 +2109,8 @@ def phase_two_binary(card: str, full: dict) -> dict:
     check(same_payload == (rb == rb_full),
           "payload bytes disagree with the table geometry")
     check(same_out, "two-binary .fa/.log differ from the full run's")
+    check(same_gz, "the --gzip run's output does not gunzip to the plain "
+                   "run's")
     return dict(launches=launches, rb_start=rb_full - 4, peak=peak, db=db,
                 rb_end=rb, grows=build.grows)
 
@@ -2179,9 +2385,11 @@ def partition_run(card: str, full: dict, path: str, extra: list) -> dict:
     from quorum_tpu_torch.cli import quorum
     from quorum_tpu_torch.io import db_format
     from quorum_tpu_torch.kernels.loader import STATS
+    from quorum_tpu_torch.native import binding as native
 
     prefix = os.path.join(WORK, path)
     report: dict = {}
+    native0 = native.STATS["batches"]
     STATS.reset()
     STATS.timing = True
     with StagePeaks() as peaks:
@@ -2190,12 +2398,14 @@ def partition_run(card: str, full: dict, path: str, extra: list) -> dict:
                           "--device", "cuda", "--partitions", str(PARTS),
                           *extra, full["fastq"]], report=report)
         wall = time.perf_counter() - t0
+    native_batches = native.STATS["batches"] - native0
     STATS.timing = False
     launches = dict(STATS.launches)
     kms = STATS.kernel_ms()
     check(rc == 0, f"{path} driver rc {rc}")
     for name in PATH_KERNELS[path]:
         check(launches[name] > 0, f"{name} was not launched on the {path} path")
+    check(native_batches > 0, f"{path}: the native parser did not run")
     build, ec = report["build"], report["ec"]
     db = prefix + "_mer_database.jf"
     h = db_format.read_header(db)
@@ -2205,6 +2415,8 @@ def partition_run(card: str, full: dict, path: str, extra: list) -> dict:
           "stage1_s": round(report["stage1_s"], 3),
           "sketch_pass_s": round(build.sketch_seconds, 3),
           "stage1_parse_pack_s": round(report["stage1_host_s"], 3),
+          "native_batches": native_batches,
+          "pipeline": pipeline_times(report),
           "stage2_s": round(report["stage2_s"], 3),
           "stage2_device_s": round(ec.device_s, 3),
           "stage2_host_s": round(ec.host_s, 3),
@@ -5150,6 +5362,8 @@ def run() -> int:
         stats = phase_kernels(card)
         phase_golden()
         full = phase_full(card)
+        serial = phase_serial(card, full)
+        phase_parser(card, full)
         two = phase_two_binary(card, full)
         full["wires"] = full_wires(full)
         prefilter, two_pass = phase_prefilter(card, full, two)
@@ -5179,7 +5393,8 @@ def run() -> int:
         return 1
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
-    by_path = {"full": full["launches"], "two_binary": two["launches"],
+    by_path = {"full": full["launches"], "pipeline": serial,
+               "two_binary": two["launches"],
                **prefilter, **partitions, **contam["launches"],
                "devices": devices["launches"],
                "devices_single": devices["single_launches"],

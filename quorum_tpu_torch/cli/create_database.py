@@ -1,7 +1,7 @@
 """quorum_create_database (port): flags -s -m -b -q/-Q -o -t
 --db-version --db-layout --batch-size --prefilter --partitions --devices
---device, as the reference CLI (src/create_database_cmdline.yaggo) and
-quorum_tpu's stage-1 CLI.
+--on-bad-read --device, as the reference CLI
+(src/create_database_cmdline.yaggo) and quorum_tpu's stage-1 CLI.
 
     python -m quorum_tpu_torch.cli.create_database -s 64k -m 13 -b 7 \\
         -q 38 -o db.jf reads.fastq
@@ -20,6 +20,7 @@ import sys
 import torch
 
 from .. import resolve_device
+from ..io.fastq import BadReadPolicy
 from ..models.create_database import BuildConfig, create_database_main
 from ..ops.sketch import PREFILTER_MODES, prefilter_default
 from ..parallel import tile_sharded as ts
@@ -137,7 +138,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-Q", "--min-qual-char",
                    help="Min quality as a ASCII character")
     p.add_argument("-t", "--threads", type=int, default=1,
-                   help="Number of threads (accepted; the parse runs on one)")
+                   help="Number of threads (host I/O; device is parallel)")
     p.add_argument("-o", "--output", default="combined_database",
                    help="Output file")
     p.add_argument("--db-version", type=int, choices=(4, 5), default=5,
@@ -167,6 +168,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "by one). The database declares a presence floor of "
                         "2, which stage 2 applies. auto = QUORUM_PREFILTER "
                         "env, else off")
+    p.add_argument("--on-bad-read",
+                   choices=BadReadPolicy.MODES, default="abort",
+                   help="Malformed-record policy: abort the run "
+                        "(default), skip and count, or quarantine to "
+                        "<output>.quarantine.fastq")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (plain PyTorch versions of "
                         "the kernels)")
@@ -238,7 +244,10 @@ def main(argv=None, handoff: dict | None = None,
         db_version=args.db_version, device=args.device, prefilter=prefilter,
         # the partitioned export IS the sharded manifest
         db_layout="sharded" if P > 1 else args.db_layout, partitions=P,
-        devices=args.devices)
+        devices=args.devices, threads=args.threads,
+        on_bad_read=args.on_bad_read,
+        quarantine_path=(args.output + ".quarantine.fastq"
+                         if args.on_bad_read == "quarantine" else None))
     try:
         create_database_main(args.reads, args.output, cfg,
                              cmdline=list(sys.argv), handoff=handoff,

@@ -1,8 +1,9 @@
 """quorum_error_correct_reads (port): the reference-named correction
-flags of quorum_tpu's stage-2 CLI (-m -s -g -a -w -e -p -q -Q -d
+flags of quorum_tpu's stage-2 CLI (-t -m -s -g -a -w -e -p -q -Q -d -M
 --contaminant --trim-contaminant --homo-trim --apriori-error-rate
---poisson-threshold -o, same defaults) plus --presence-floor,
---batch-size, --verify-db, --devices and --device.
+--poisson-threshold --gzip -o, same defaults) plus --presence-floor,
+--batch-size, --verify-db, --devices, --render-workers, --on-bad-read
+and --device.
 
     python -m quorum_tpu_torch.cli.error_correct_reads -p 4 db.jf \\
         reads.fastq -o corrected
@@ -15,6 +16,7 @@ import sys
 
 from .. import resolve_device
 from ..io import db_format
+from ..io.fastq import BadReadPolicy
 from ..io.integrity import IntegrityError
 from ..models.ec_config import DEFAULT_QUAL_CUTOFF
 from ..models.error_correct import ECOptions, run_error_correct
@@ -27,6 +29,8 @@ def build_parser() -> argparse.ArgumentParser:
         prog="quorum_error_correct_reads",
         description="Error correct reads from a fastq file based on the "
                     "k-mer frequencies.")
+    p.add_argument("-t", "--thread", type=int, default=1,
+                   help="Number of threads (host I/O; device is parallel)")
     p.add_argument("-m", "--min-count", type=int, default=1,
                    help='Minimum count for a k-mer to be considered "good"')
     p.add_argument("-s", "--skip", type=int, default=1,
@@ -41,6 +45,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Maximum number of error in a window")
     p.add_argument("-o", "--output", default=None, metavar="prefix",
                    help="Output file prefix (default: stdout/stderr)")
+    p.add_argument("--gzip", action="store_true", help="Gzip output file")
+    p.add_argument("-M", "--no-mmap", action="store_true",
+                   help="Do not memory map the input mer database")
     p.add_argument("--contaminant", metavar="path",
                    help="Contaminant sequences (fasta/fastq) or k-mer "
                         "database")
@@ -72,6 +79,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Checksum verification of v5 databases at load")
     p.add_argument("--batch-size", type=int, default=8192,
                    help="Reads per device batch")
+    p.add_argument("--render-workers", type=int, default=0, metavar="N",
+                   help="Host finish/render workers behind a sequence-"
+                        "numbered reorder stage (0 = auto, min(4, "
+                        "cores)). Output is byte-identical for any N; "
+                        "N > 1 hides the per-batch host tail behind "
+                        "the device")
+    p.add_argument("--on-bad-read",
+                   choices=BadReadPolicy.MODES, default="abort",
+                   help="Malformed-record policy: abort the run "
+                        "(default), skip and count, or quarantine to "
+                        "<prefix>.quarantine.fastq")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (plain PyTorch versions of "
                         "the kernels)")
@@ -123,7 +141,10 @@ def main(argv=None, db=None, prepacked=None,
                      poisson_threshold=args.poisson_threshold,
                      batch_size=args.batch_size, verify_db=args.verify_db,
                      device=args.device, presence_floor=args.presence_floor,
-                     contaminant=args.contaminant, devices=args.devices)
+                     contaminant=args.contaminant, devices=args.devices,
+                     threads=args.thread, render_workers=args.render_workers,
+                     gzip=args.gzip, on_bad_read=args.on_bad_read,
+                     no_mmap=args.no_mmap)
     try:
         stats = run_error_correct(args.db, args.sequence, opts,
                                   qual_cutoff=qual_cutoff, skip=args.skip,

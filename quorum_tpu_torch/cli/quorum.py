@@ -19,12 +19,18 @@ both stages (parallel/tile_sharded; with --partitions P every pass is a
 sharded build); stage 2 replicates the table or, past
 QUORUM_REPLICATE_TABLE_BYTES or 2^24 rows, keeps it row-sharded (the
 routed layout). The output is --devices 1's.
+
+The reads are parsed (-t workers; the native parser where it serves)
+and packed on a producer thread ahead of stage 1's main thread, which
+makes every CUDA call; stage 2 renders on --render-workers threads. The
+output bytes do not depend on -t or --render-workers.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import re
 import sys
 import time
@@ -36,6 +42,7 @@ from ..io import db_format, fastq, packing
 from ..models.ec_config import DEFAULT_QUAL_CUTOFF
 from ..ops.sketch import PREFILTER_MODES
 from ..parallel import tile_sharded as ts
+from ..utils.pipeline import prefetch
 from ..utils.sizes import parse_size
 from . import create_database as cdb_cli
 from . import error_correct_reads as ec_cli
@@ -53,6 +60,8 @@ def build_parser() -> argparse.ArgumentParser:
                     "files.")
     p.add_argument("-s", "--size", default="200M",
                    help="Mer database size (default 200M)")
+    p.add_argument("-t", "--threads", type=int, default=None,
+                   help="Number of threads (default number of cpus)")
     p.add_argument("-p", "--prefix", default="quorum_corrected",
                    help="Output prefix (default quorum_corrected)")
     p.add_argument("-k", "--kmer-len", type=int, default=24,
@@ -104,6 +113,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "(power of two <= 256), each at 1/P the table "
                         "memory, exported straight into the sharded "
                         "manifest; byte-identical payload")
+    p.add_argument("--on-bad-read",
+                   choices=fastq.BadReadPolicy.MODES, default="abort",
+                   help="Malformed-record policy: abort (default), "
+                        "skip and count, or quarantine to "
+                        "<prefix>.quarantine.fastq")
+    p.add_argument("--render-workers", type=int, default=0, metavar="N",
+                   help="Stage-2 host finish/render workers behind a "
+                        "sequence-numbered reorder stage (0 = auto, "
+                        "min(4, cores)); output is byte-identical for "
+                        "any N")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (plain PyTorch versions of "
                         "the kernels)")
@@ -192,9 +211,12 @@ def main(argv=None, report: dict | None = None) -> int:
             print(str(e), file=sys.stderr)
             return 1
     t1 = min_q + args.min_quality
+    # the cpu count, like the reference driver (quorum.in:110-120),
+    # forwarded to both stages' host decode
+    threads = args.threads if args.threads else (os.cpu_count() or 1)
     db_file = args.prefix + "_mer_database.jf"
     cdb_argv = ["-s", args.size, "-m", str(args.kmer_len), "-q", str(t1),
-                "-b", "7", "-o", db_file, "--batch-size",
+                "-b", "7", "-t", str(threads), "-o", db_file, "--batch-size",
                 str(args.batch_size), "--db-version", str(args.db_version),
                 "--db-layout", args.db_layout, "--device", args.device,
                 "--devices", str(args.devices)]
@@ -202,58 +224,65 @@ def main(argv=None, report: dict | None = None) -> int:
         cdb_argv.extend(["--prefilter", args.prefilter])
     if P != 1:
         cdb_argv.extend(["--partitions", str(P)])
+    if args.on_bad_read != "abort":
+        cdb_argv.extend(["--on-bad-read", args.on_bad_read])
 
-    # one parse + pack for both stages: stage 1's first pass consumes
-    # the caching generator, stage 2 replays the cached batches packed
-    # with ITS quality plane, unless they outgrow REPLAY_CACHE_BYTES
-    # (then stage 2 re-parses); later stage-1 passes (the two-pass
-    # prefilter's, the partitions', every pass after a geometry restart)
-    # re-parse quietly. A first pass cut short by a restart leaves the
-    # cache incomplete, and stage 2 re-parses.
+    # one parse + pack for both stages, on a producer thread: stage 1's
+    # first pass consumes the caching producer, stage 2 replays the
+    # cached batches packed with ITS quality plane, unless they outgrow
+    # REPLAY_CACHE_BYTES (then stage 2 re-parses); later stage-1 passes
+    # (the two-pass prefilter's, the partitions', every pass after a
+    # geometry restart) re-parse quietly. A first pass cut short by a
+    # restart leaves the cache incomplete, and stage 2 re-parses. The
+    # bad-read policy lives on the driver's reader (its quarantine
+    # beside the corrected output); repeat passes skip silently.
     cache: list = []
-    host = {"s1": 0.0, "cached": 0, "keep": True, "complete": False}
+    host = {"cached": 0, "keep": True, "complete": False}
+    times: dict = {}
 
-    def parsed_batches():
-        it = fastq.read_batches(args.reads, args.batch_size)
-        while True:
-            t0 = time.perf_counter()
-            b = next(it, None)
-            if b is None:
-                break
+    def policy(first: bool):
+        if args.on_bad_read == "abort":
+            return None
+        if not first:
+            return fastq.BadReadPolicy("skip")
+        return fastq.BadReadPolicy(args.on_bad_read,
+                                   args.prefix + ".quarantine.fastq")
+
+    def packed(first: bool):
+        """(batch without quals, packed stage-1 wire) pairs; the first
+        pass also fills the replay cache."""
+        for b in fastq.read_batches(args.reads, args.batch_size,
+                                    threads=threads, policy=policy(first)):
             pk1 = packing.pack_reads(b.codes, b.quals, b.lengths,
                                      thresholds=(t1,))
-            host["s1"] += time.perf_counter() - t0
-            yield b, pk1
-
-    def shared_batches():
-        for b, pk1 in parsed_batches():
-            t0 = time.perf_counter()
-            if host["keep"]:
+            pk1.to_wire()  # build the fused buffer off the main thread
+            lean = dataclasses.replace(b, quals=None)
+            if first and host["keep"]:
                 pk2 = packing.PackedReads(
                     pcodes=pk1.pcodes, nmask=pk1.nmask,
                     hq={DEFAULT_QUAL_CUTOFF: np.packbits(
                         b.quals >= DEFAULT_QUAL_CUTOFF, axis=1,
                         bitorder="little")},
                     lengths=pk1.lengths, length=pk1.length)
-                b = dataclasses.replace(b, quals=None)
                 host["cached"] += (
                     b.codes.nbytes + pk2.pcodes.nbytes + pk2.nmask.nbytes
                     + pk2.hq[DEFAULT_QUAL_CUTOFF].nbytes
                     + sum(len(h) + 90 for h in b.headers))
                 host["keep"] = host["cached"] <= REPLAY_CACHE_BYTES
                 if host["keep"]:
-                    cache.append((b, pk2))
+                    cache.append((lean, pk2))
                 else:
                     cache.clear()
-            host["s1"] += time.perf_counter() - t0
-            yield b, pk1
-        host["complete"] = True
+            yield lean, pk1
+        if first:
+            host["complete"] = True
 
     calls = {"n": 0}
 
     def factory():
         calls["n"] += 1
-        return shared_batches() if calls["n"] == 1 else parsed_batches()
+        first = calls["n"] == 1
+        return prefetch(packed(first), times=times if first else None)
 
     handoff: dict = {}
     t_s1 = time.perf_counter()
@@ -270,7 +299,10 @@ def main(argv=None, report: dict | None = None) -> int:
         return 1
 
     ec_argv = ["--batch-size", str(args.batch_size), "--device",
-               args.device, "--devices", str(args.devices)]
+               args.device, "--devices", str(args.devices), "-t",
+               str(threads), "--render-workers", str(args.render_workers)]
+    if args.on_bad_read != "abort":
+        ec_argv.extend(["--on-bad-read", args.on_bad_read])
     for flag, val in (("--min-count", args.min_count), ("--skip", args.skip),
                       ("--good", args.anchor),
                       ("--anchor-count", args.anchor_count),
@@ -295,7 +327,9 @@ def main(argv=None, report: dict | None = None) -> int:
         return 1
     if report is not None:
         report.update(stage1_s=s1_s, stage2_s=time.perf_counter() - t_s2,
-                      stage1_host_s=host["s1"], build=handoff["stats"],
+                      stage1_host_s=times.get("produce_s", 0.0),
+                      stage1_wait_s=times.get("wait_s", 0.0),
+                      threads=threads, build=handoff["stats"],
                       ec=ec_stats.get("stats"))
     return 0
 

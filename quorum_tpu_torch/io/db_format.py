@@ -294,11 +294,28 @@ def header_rb_log2(path: str) -> int | None:
     return int(read_header(path)["rb_log2"])
 
 
-def _verify_v5(path: str, header: dict, offset: int, mode: str) -> dict:
+def _map_or_read(path: str, offset: int, count: int,
+                 no_mmap: bool) -> np.ndarray:
+    """Up to `count` bytes of `path` from `offset`: memory-mapped (copy
+    on write, so torch may wrap it) or, with `no_mmap`, read. Shorter
+    where the file ends first."""
+    if no_mmap:
+        with open(path, "rb") as f:
+            f.seek(offset)
+            return np.fromfile(f, np.uint8, count)
+    avail = max(0, min(count, os.path.getsize(path) - offset))
+    if avail == 0:
+        return np.zeros(0, np.uint8)
+    return np.memmap(path, dtype=np.uint8, mode="c", offset=offset,
+                     shape=(avail,))
+
+
+def _verify_v5(path: str, header: dict, offset: int, mode: str,
+               no_mmap: bool = False) -> dict:
     """Check a v5 file's digests: "full" every section plus the derived
     whole-file digest, "sample" the header, the bucket index and a
-    random subset of entry chunks. Raises IntegrityError; returns the
-    trailer."""
+    random subset of entry chunks. The payload is mapped, or read with
+    `no_mmap`. Raises IntegrityError; returns the trailer."""
     def bad(section, off, msg):
         raise IntegrityError(f"v5 database '{path}': {msg}", path=path,
                              section=section, offset=off)
@@ -313,9 +330,9 @@ def _verify_v5(path: str, header: dict, offset: int, mode: str) -> dict:
     payload_len = bi_len + e_len
     with open(path, "rb") as f:
         line = f.readline(1 << 20)
-        f.seek(offset)
-        payload = np.frombuffer(f.read(payload_len), np.uint8)
+        f.seek(offset + payload_len)
         trailer_line = f.readline(1 << 20)
+    payload = _map_or_read(path, offset, payload_len, no_mmap)
     try:
         trailer = json.loads(trailer_line)
     except ValueError:
@@ -361,13 +378,13 @@ def _verify_v5(path: str, header: dict, offset: int, mode: str) -> dict:
 
 
 def _read_payload(path: str, offset: int, rows_n: int, n: int,
-                  hi_bytes: int, what: str = "database") -> np.ndarray:
-    """One v4/v5 payload as raw bytes, after its structural refusals
-    (size, at most 64 entries a row, counts summing to n_entries)."""
+                  hi_bytes: int, what: str = "database",
+                  no_mmap: bool = False) -> np.ndarray:
+    """One v4/v5 payload as raw bytes, memory-mapped (read with
+    `no_mmap`), after its structural refusals (size, at most 64 entries
+    a row, counts summing to n_entries)."""
     count = rows_n + (4 + hi_bytes) * n
-    with open(path, "rb") as f:
-        f.seek(offset)
-        payload = np.fromfile(f, np.uint8, count)
+    payload = _map_or_read(path, offset, count, no_mmap)
     if payload.shape[0] != count:
         raise IntegrityError(f"corrupt {what} '{path}': payload "
                              "truncated", path=path, section="entries",
@@ -386,7 +403,8 @@ def _read_payload(path: str, offset: int, rows_n: int, n: int,
     return payload
 
 
-def _load_manifest(path: str, header: dict, verify: str, on_mesh: bool):
+def _load_manifest(path: str, header: dict, verify: str, on_mesh: bool,
+                   no_mmap: bool = False):
     """A sharded database through its manifest (quorum_tpu's
     _read_db_manifest): the seal, every shard's own digests per
     `verify`, and the manifest's per-shard whole-file digests (a shard
@@ -446,7 +464,7 @@ def _load_manifest(path: str, header: dict, verify: str, on_mesh: bool):
         n_s = int(sh["n_entries"])
         if verify != "off":
             if int(sh.get("version", 1)) >= 5:
-                got = int(_verify_v5(sp, sh, offset, verify)
+                got = int(_verify_v5(sp, sh, offset, verify, no_mmap)
                           .get("file_crc32c", -1))
             else:
                 got = integrity.crc32c_file(sp)
@@ -458,7 +476,7 @@ def _load_manifest(path: str, header: dict, verify: str, on_mesh: bool):
                     "manifest committed", path=sp, section="shard",
                     offset=0)
         pay = _read_payload(sp, offset, rows_local, n_s, hi_bytes,
-                            f"shard {s} of sharded database")
+                            f"shard {s} of sharded database", no_mmap)
         counts.append(pay[:rows_local])
         los.append(pay[rows_local:rows_local + 4 * n_s])
         base = rows_local + 4 * n_s
@@ -506,7 +524,8 @@ def _load_on_mesh(payload: np.ndarray, n: int, gmeta: GlobalMeta, mesh):
             tuple(int(x) for x in totals))
 
 
-def load_db(path: str, device="cpu", verify: str = "full", mesh=None):
+def load_db(path: str, device="cpu", verify: str = "full", mesh=None,
+            no_mmap: bool = False):
     """Load a single-file v4/v5 database, or a sharded one through its
     manifest, onto `device`. Returns (TileState, TileMeta, header,
     (n_occupied, distinct_hq, total_hq)); the header (a manifest's own)
@@ -521,7 +540,8 @@ def load_db(path: str, device="cpu", verify: str = "full", mesh=None):
     len(mesh) on mesh[s] (_load_on_mesh), as (ShardedTileState,
     TileShardedMeta, header, stats); only such a load takes a table past
     rb_log2 24 (a manifest the JAX package or a --devices N build
-    wrote)."""
+    wrote). Payloads are memory-mapped, or read with `no_mmap` (-M), as
+    the JAX package's loader does."""
     if verify not in VERIFY_MODES:
         raise ValueError(f"verify must be one of {VERIFY_MODES}, "
                          f"got {verify!r}")
@@ -538,7 +558,7 @@ def load_db(path: str, device="cpu", verify: str = "full", mesh=None):
     header = read_header(path)
     if header.get("format") == MANIFEST_FORMAT:
         payload, n, gmeta = _load_manifest(path, header, verify,
-                                           mesh is not None)
+                                           mesh is not None, no_mmap)
         if mesh is not None:
             state, meta, stats = _load_on_mesh(payload, n, gmeta, mesh)
             return state, meta, header, stats
@@ -557,7 +577,7 @@ def load_db(path: str, device="cpu", verify: str = "full", mesh=None):
     with open(path, "rb") as f:
         offset = len(f.readline(1 << 20))
     if version == 5 and verify != "off":
-        _verify_v5(path, header, offset, verify)
+        _verify_v5(path, header, offset, verify, no_mmap)
     meta = TileMeta(k=header["key_len"] // 2, bits=header["bits"],
                     rb_log2=header["rb_log2"])
     if header["hi_bytes"] != meta.hi_bytes:
@@ -566,7 +586,8 @@ def load_db(path: str, device="cpu", verify: str = "full", mesh=None):
             f"{meta.hi_bytes} for this geometry", path=path,
             section="header", offset=0)
     n = int(header["n_entries"])
-    payload = _read_payload(path, offset, meta.rows, n, meta.hi_bytes)
+    payload = _read_payload(path, offset, meta.rows, n, meta.hi_bytes,
+                            no_mmap=no_mmap)
     if mesh is not None:
         state, meta, stats = _load_on_mesh(payload, n, meta, mesh)
         return state, meta, header, stats

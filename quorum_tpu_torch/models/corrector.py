@@ -285,16 +285,25 @@ def _render_dir_flat(nv, offs, pos, meta, trunc: str) -> list[str]:
 def finish_batch(res: BatchResult, n: int, codes: np.ndarray,
                  cfg: ECConfig | None = None) -> list[ReadResult]:
     """Host finish (corrector.finish_batch's lean path) for the first n
-    reads, from HK14's buffer alone. The corrected sequence is rebuilt
-    from the INPUT codes (`codes`, int8 [B, L]; a non-ACGT base prints
-    as A) plus the logged substitutions; then, with cfg.homo_trim, the
-    3' homopolymer trim and its force-truncate, whose reference quirk is
-    kept (err_log.hpp:42-46: the forward log drops entries at raw >= the
-    trim position, the backward log those at raw <= it, and the forward
-    log gains `pos:3_trunc`)."""
+    reads: fetch_finish's copy, then finish_batch_host."""
     b, maxe = res.fwd_log.pos.shape
-    l = res.out.shape[1]
-    buf = fetch_finish(res)
+    return finish_batch_host(fetch_finish(res), n, codes, b,
+                             res.out.shape[1], maxe, cfg)
+
+
+def finish_batch_host(buf: np.ndarray, n: int, codes: np.ndarray, b: int,
+                      l: int, maxe: int,
+                      cfg: ECConfig | None = None) -> list[ReadResult]:
+    """The host half of the finish, on numpy alone (a render worker runs
+    it while the card corrects the next batch): the first n reads of a
+    [b, l] batch with logs of maxe entries, from HK14's fetched buffer.
+    The corrected sequence is rebuilt from the INPUT codes (`codes`,
+    int8 [B, L]; a non-ACGT base prints as A) plus the logged
+    substitutions; then, with cfg.homo_trim, the 3' homopolymer trim and
+    its force-truncate, whose reference quirk is kept (err_log.hpp:42-46:
+    the forward log drops entries at raw >= the trim position, the
+    backward log those at raw <= it, and the forward log gains
+    `pos:3_trunc`)."""
     if int(buf[0]) > maxe:
         raise RuntimeError(f"log overflow: more than {maxe} entries")
     total = int(buf[1])

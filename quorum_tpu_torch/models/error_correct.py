@@ -1,16 +1,28 @@
 """Stage 2 as a program: FASTQ in, corrected FASTA + skip log out
-(counterpart of quorum_tpu/models/error_correct.py, in-order loop).
+(counterpart of quorum_tpu/models/error_correct.py).
+
+The pipeline: a producer thread parses and packs batches ahead
+(utils/pipeline.prefetch; the quorum driver's replayed batches skip it);
+the main thread makes every CUDA call: H2D, the correction, the
+synchronize and the one D2H (corrector.fetch_finish, which may launch
+HK14 again); N render workers finish and render the fetched numpy
+buffers (render_batch_host), drained in submission order
+(ReorderingPool); one writer thread writes `.fa`/`.log` (AsyncWriter).
+The output bytes do not depend on -t or --render-workers.
 
 Output contract (byte-compatible with the reference):
   * `.fa` record: ``>header fwd_log bwd_log\\nseq\\n``;
   * `.log` record per skipped read: ``Skipped <header>: <reason>\\n``;
   * `--no-discard`: skipped reads also emit ``>header\\nN\\n``;
-  * `-o PREFIX` writes PREFIX.fa / PREFIX.log, else stdout / stderr.
+  * `-o PREFIX` writes PREFIX.fa / PREFIX.log (plus .gz with --gzip),
+    else stdout / stderr.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gzip as gzip_mod
+import os
 import sys
 import time
 from typing import Iterable, Sequence
@@ -19,7 +31,9 @@ from ..io import contaminant as contaminant_mod
 from ..io import db_format, fastq, packing
 from ..ops import ctable
 from ..ops.poisson import compute_poisson_cutoff
-from .corrector import correct_batch_packed, finish_batch, make_keep_table
+from ..utils.pipeline import AsyncWriter, ReorderingPool, prefetch
+from .corrector import (correct_batch_packed, fetch_finish,
+                        finish_batch_host, make_keep_table)
 from .ec_config import DEFAULT_QUAL_CUTOFF, ECConfig
 
 
@@ -32,6 +46,63 @@ def render_result(hdr: str, r, cfg: ECConfig) -> tuple[str, str]:
     return fa, f"Skipped {hdr}: {r.error}\n"
 
 
+def resolve_render_workers(n: int) -> int:
+    """`--render-workers`: 0 (the default) = min(4, cores); an explicit
+    N as given (1 = one worker)."""
+    if n and n > 0:
+        return int(n)
+    return min(4, os.cpu_count() or 1)
+
+
+def render_batch_host(batch: fastq.ReadBatch, buf, b: int, l: int,
+                      maxe: int, cfg: ECConfig):
+    """One batch's host tail on numpy alone (a render worker runs it):
+    finish the fetched buffer and render every read's `.fa`/`.log`
+    text. Returns (fa_text, log_text, n_corrected, n_skipped, bases_out,
+    seconds)."""
+    t0 = time.perf_counter()
+    results = finish_batch_host(buf, batch.n, batch.codes, b, l, maxe, cfg)
+    fa_parts: list[str] = []
+    log_parts: list[str] = []
+    n_corr = n_skip = bases_out = 0
+    for hdr, r in zip(batch.headers, results):
+        fa, lg = render_result(hdr, r, cfg)
+        if r.ok:
+            n_corr += 1
+            bases_out += r.end - r.start
+        else:
+            n_skip += 1
+        if fa:
+            fa_parts.append(fa)
+        if lg:
+            log_parts.append(lg)
+    return ("".join(fa_parts), "".join(log_parts), n_corr, n_skip,
+            bases_out, time.perf_counter() - t0)
+
+
+def pack_for_stage2(batch: fastq.ReadBatch, cfg: ECConfig):
+    """Bit-pack one batch for the corrector's wire, on the producer
+    thread (the main thread only copies the wire to the card)."""
+    pk = packing.pack_reads(batch.codes, batch.quals, batch.lengths,
+                            thresholds=(cfg.qual_cutoff,))
+    pk.to_wire()  # build the fused buffer off the main thread
+    return pk
+
+
+def _open_out(prefix: str | None, suffix: str, default_stream, gzip: bool):
+    """open_file (error_correct_reads.cc:133-155): the default stream
+    without a prefix; --gzip appends .gz to named files and compresses
+    at level 1."""
+    if prefix is None:
+        if gzip:
+            return gzip_mod.open(default_stream.buffer, "wt", compresslevel=1)
+        return default_stream
+    path = prefix + suffix + (".gz" if gzip else "")
+    if gzip:
+        return gzip_mod.open(path, "wt", compresslevel=1)
+    return open(path, "w")
+
+
 @dataclasses.dataclass
 class ECStats:
     reads: int = 0
@@ -41,8 +112,14 @@ class ECStats:
     bases_out: int = 0
     cutoff: int = 0
     presence_floor: int = 1
-    host_s: float = 0.0    # parse, pack, finish and render
-    device_s: float = 0.0  # H2D + correction until the result is ready
+    render_workers: int = 1
+    host_s: float = 0.0        # parse, pack, finish and render, summed
+    parse_pack_s: float = 0.0  # the producer thread's parse and pack
+    render_s: float = 0.0      # the render workers' finish and render
+    device_s: float = 0.0      # H2D + correction until the result is ready
+    fetch_s: float = 0.0       # the one D2H (and an overflow re-pack)
+    queue_wait_s: float = 0.0  # main thread blocked on the next batch
+    drain_wait_s: float = 0.0  # main thread blocked on a rendered batch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +140,13 @@ class ECOptions:
     # device, against the table replicated on each or, past the
     # replicated layout, row-sharded over them (parallel/tile_sharded)
     devices: int = 1
+    threads: int = 1  # -t: parse workers (several files, or spans)
+    # --render-workers: finish/render workers behind the reorder stage
+    # (0 = min(4, cores)); the output is the same for any count
+    render_workers: int = 0
+    gzip: bool = False  # --gzip: .fa.gz/.log.gz at compresslevel 1
+    on_bad_read: str = "abort"  # abort, skip or quarantine
+    no_mmap: bool = False  # -M: read the database instead of mapping it
 
 
 def resolve_cutoff(opts: ECOptions, stats: tuple[int, int],
@@ -130,7 +214,7 @@ def run_error_correct(db_path: str, sequences: Sequence[str],
         on_mesh = devices > 1 and rb is not None and ts.routed_layout(rb)
         state, meta, header, (_occ, distinct, total) = db_format.load_db(
             db_path, device=device, verify=opts.verify_db,
-            mesh=mesh if on_mesh else None)
+            mesh=mesh if on_mesh else None, no_mmap=opts.no_mmap)
         table_stats = (distinct, total)
     if devices == 1 and isinstance(state, ctable.ShardedTileState):
         state, meta = ts.gather_table(state, meta)
@@ -170,46 +254,89 @@ def run_error_correct(db_path: str, sequences: Sequence[str],
         def correct(pk):
             return correct_batch_packed(state, meta, pk, cfg, keep, contam,
                                         event_driven)
-    stats = ECStats(cutoff=cutoff, presence_floor=floor)
-    if prepacked is None:
-        prepacked = ((b, packing.pack_reads(b.codes, b.quals, b.lengths,
-                                            thresholds=(qual_cutoff,)))
-                     for b in fastq.read_batches(sequences, opts.batch_size))
-    out = open(opts.output + ".fa", "w") if opts.output else sys.stdout
-    log = open(opts.output + ".log", "w") if opts.output else sys.stderr
+    n_render = resolve_render_workers(opts.render_workers)
+    stats = ECStats(cutoff=cutoff, presence_floor=floor,
+                    render_workers=n_render)
+    policy = None
+    if opts.on_bad_read != "abort":
+        qpath = opts.output + ".quarantine.fastq" if opts.output else None
+        if opts.on_bad_read == "quarantine" and qpath is None:
+            raise RuntimeError(
+                "--on-bad-read=quarantine requires -o PREFIX (the "
+                "quarantine file lands beside the output)")
+        policy = fastq.BadReadPolicy(opts.on_bad_read, qpath)
+    out = _open_out(opts.output, ".fa", sys.stdout, opts.gzip)
+    log = _open_out(opts.output, ".log", sys.stderr, opts.gzip)
+    writer = AsyncWriter([out, log])
+    times: dict = {}
     try:
-        it = iter(prepacked)
-        while True:
-            t0 = time.perf_counter()
-            item = next(it, None)
-            if item is None:
-                break
-            batch, pk = item
-            t1 = time.perf_counter()
-            res = correct(pk)
-            ts.synchronize(mesh)
-            t2 = time.perf_counter()
-            results = finish_batch(res, batch.n, batch.codes, cfg)
-            fa_parts, log_parts = [], []
-            for hdr, r in zip(batch.headers, results):
-                fa, lg = render_result(hdr, r, cfg)
-                if r.ok:
-                    stats.corrected += 1
-                    stats.bases_out += r.end - r.start
-                else:
-                    stats.skipped += 1
-                fa_parts.append(fa)
-                log_parts.append(lg)
-            out.write("".join(fa_parts))
-            log.write("".join(log_parts))
-            stats.reads += batch.n
-            stats.bases_in += int(batch.lengths[:batch.n].sum())
-            stats.device_s += t2 - t1
-            stats.host_s += (t1 - t0) + (time.perf_counter() - t2)
+        if prepacked is not None:
+            # the driver's replay: parsed and packed already
+            batches = prepacked
+        else:
+            src = fastq.read_batches(sequences, opts.batch_size,
+                                     threads=opts.threads, policy=policy)
+            batches = prefetch(((b, pack_for_stage2(b, cfg)) for b in src),
+                               times=times)
+
+        def sink(result):
+            fa, lg, n_corr, n_skip, bases_out, render_s = result
+            stats.corrected += n_corr
+            stats.skipped += n_skip
+            stats.bases_out += bases_out
+            stats.render_s += render_s
+            writer.write(0, fa)
+            writer.write(1, lg)
+
+        pool = ReorderingPool(n_render, sink)
+        it = iter(batches)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                item = next(it, None)
+                t1 = time.perf_counter()
+                stats.queue_wait_s += t1 - t0
+                if item is None:
+                    break
+                batch, pk = item
+                res = correct(pk)
+                ts.synchronize(mesh)
+                t2 = time.perf_counter()
+                buf = fetch_finish(res)
+                stats.fetch_s += time.perf_counter() - t2
+                stats.device_s += t2 - t1
+                b, maxe = res.fwd_log.pos.shape
+                l = res.out.shape[1]
+                del res
+                pool.submit(render_batch_host, batch, buf, b, l, maxe, cfg)
+                stats.reads += batch.n
+                stats.bases_in += int(batch.lengths[:batch.n].sum())
+            pool.flush()
+        finally:
+            stats.drain_wait_s = pool.take_reorder_wait()
+            pool.shutdown()
+            close = getattr(it, "close", None)
+            if close is not None:
+                close()  # stops and joins the producer
     finally:
-        for f in (out, log):
-            if f is sys.stdout or f is sys.stderr:
-                f.flush()
-            else:
-                f.close()
+        try:
+            writer.close()
+        finally:
+            # every stream closes, even if another failed (a gzip
+            # stream needs its trailer)
+            try:
+                _finish(out)
+            finally:
+                _finish(log)
+                if policy is not None:
+                    policy.close()
+    stats.parse_pack_s = times.get("produce_s", 0.0)
+    stats.host_s = stats.parse_pack_s + stats.render_s
     return stats
+
+
+def _finish(f) -> None:
+    if f is sys.stdout or f is sys.stderr:
+        f.flush()
+    else:
+        f.close()
