@@ -56,6 +56,30 @@ run. Phases, each printing one JSON line:
            content, the plain .fa/.log are byte-equal to the full run's
            and the gzip run's gunzip to them; both runs' times; launch
            counts reset before and read after, as for full
+  paired   mate pairs of the full run's genome (as many reads as the
+           full run: 150 bp mates of 400 +- 50 bp fragments, mate 2
+           reverse-complemented, the full run's error model) in two
+           FASTQ files through `quorum -P`, then `quorum -d` on the same
+           files: equal payloads, <prefix>_1.fa byte-equal to the -d
+           run's records of file 1, _2.fa to those of file 2, the same
+           .log lines; both runs' stage seconds and Gbases/h; launch
+           counts reset before and read after each run
+  ref_format  quorum_create_database --ref-format on the full FASTQ on
+           the card (the host iterate and the write timed, the file's
+           bytes); histo_mer_database (lines and --json) and
+           query_mer_database (1,000 seeded mers, half of them genome
+           mers, all found) of that file equal to those of the full
+           run's v5 database, both on the card (the bins by a bincount
+           there, the mers by one HK3 launch), and on the v5 file equal
+           to numpy's bins and host lookups over the rows brought back;
+           stage 2 from each at the full run's cutoff (-p): .fa/.log
+           equal; launch counts reset and read around stage 1, around
+           the inspection CLIs (the `inspect` path) and around the two
+           stage-2 runs
+  legacy   v1, v2 and v3 files of the golden table (as
+           tests/test_ref_format.py builds them), stage 2 on each and on
+           the golden v5 file with --device cuda (HK7 places each) and
+           --device cpu at -p 4: all equal to tests/golden/expected.*
   prefilter  the same FASTQ through the driver with --prefilter two-pass
            at the full run's -s (the database's header, and its content
            against the full table); quorum_error_correct_reads
@@ -200,7 +224,7 @@ Kernel times are medians of CUDA events around each C launch, each
 timed call behind a ~1 ms spin on its stream (LEAD_CYCLES), so that
 the host's work before the launch does not count.
 Then one {"kernels": [...]} line (launches from the full, pipeline, two_binary,
-the four prefilter, the three partitioned, the two contaminant, the
+paired (both runs), ref_format, inspect, legacy, the four prefilter, the three partitioned, the two contaminant, the
 devices runs, the routed and partitioned mesh runs and the event
 phase's two runs and the flat, minimizer and devices_unpacked runs,
 times and bounds from the kernels, loaded, table, event, devices, flat
@@ -393,6 +417,17 @@ PATH_KERNELS.update({
                          *S2, *S2_SHARD, "tile_lookup_shard",
                          "tile_export_compact"),
 })
+# the driver's -P and its -d comparison run (stage 1 exports the v5
+# file); stage 1 with --ref-format and stage 2 from the reference-format
+# and v5 files; the inspection CLIs on both files (HK7 places each
+# table, HK3 answers the queries); stage 2 from v1-v3 files and the v5
+# file (HK7)
+PATH_KERNELS.update({
+    "paired": ("tile_insert", "tile_seal", "tile_export", *S2),
+    "ref_format": ("tile_insert", "tile_seal", "tile_load", *S2),
+    "inspect": ("tile_load", "tile_lookup"),
+    "legacy": ("tile_load", *S2),
+})
 # the sharded build's device time by step (CUDA events, STATS.timing):
 # the step's name -> the counter or span its events are kept under
 SPLIT = {"route": "shard_route", "exchange": "exchange",
@@ -455,16 +490,17 @@ def synth_reads(gen, genome_bp: int, coverage: int, low_q: bool = True):
     return genome, codes, true, hi, start
 
 
-def write_fastq(path: str, codes, quals):
-    """Fixed-width records: @r<9 digits>\\n seq \\n+\\n qual \\n."""
+def write_fastq(path: str, codes, quals, suffix: bytes = b""):
+    """Fixed-width records: @r<9 digits><suffix>\\n seq \\n+\\n qual \\n."""
     import numpy as np
 
     n, l = codes.shape
     acgt = np.frombuffer(b"ACGT", np.uint8)
-    h = 12  # len(b"@r%09d\n")
+    h = 12 + len(suffix)  # len(b"@r%09d" + suffix + b"\n")
     rec = np.empty((n, h + l + 3 + l + 1), np.uint8)
-    rec[:, :h] = np.frombuffer(b"".join(b"@r%09d\n" % i for i in range(n)),
-                               np.uint8).reshape(n, h)
+    rec[:, :h] = np.frombuffer(
+        b"".join(b"@r%09d%s\n" % (i, suffix) for i in range(n)),
+        np.uint8).reshape(n, h)
     rec[:, h:h + l] = acgt[codes.numpy()]
     rec[:, h + l:h + l + 3] = np.frombuffer(b"\n+\n", np.uint8)
     rec[:, h + l + 3:h + 2 * l + 3] = quals.numpy()
@@ -5341,6 +5377,354 @@ def phase_devices_unpacked(card: str, full: dict) -> dict:
     check(all(res.values()), f"devices_unpacked: {res}")
     return dict(launches=launches)
 
+# ---------------------------------------------- paired, ref_format, legacy
+
+FRAGMENT = (400, 50)  # the paired phase's fragment length, mean and sd (bp)
+REF_QUERIES = 1000  # the ref_format phase's query mers, half present
+
+
+def synth_pairs(gen, genome, n_pairs: int):
+    """Seeded mate pairs of `genome` (int8 codes): fragments of 400 +- 50
+    bp (normal, at least READ_LEN) at random positions and strands, mate
+    1 the fragment's first READ_LEN bases on its strand and mate 2 the
+    reverse complement of its last READ_LEN, with the full run's error
+    model (1% substitutions, ~10% low-quality bases). Returns (codes,
+    quals), each [2, n_pairs, READ_LEN]: mate 1's, then mate 2's."""
+    import torch
+
+    genome_bp = genome.shape[0]
+    mean, sd = FRAGMENT
+    frag = (mean + sd * torch.randn(n_pairs, generator=gen)).round().long()
+    frag = frag.clamp(READ_LEN, genome_bp)
+    start = (torch.rand(n_pairs, generator=gen, dtype=torch.float64)
+             * (genome_bp - frag + 1)).long()
+    ar = torch.arange(READ_LEN)
+    left = genome[start[:, None] + ar]
+    right = (3 - genome[(start + frag - READ_LEN)[:, None] + ar]).flip(1)
+    # a fragment of the reverse strand reads its other end first
+    rev = (torch.rand(n_pairs, generator=gen) < 0.5)[:, None]
+    true = torch.stack([torch.where(rev, right, left),
+                        torch.where(rev, left, right)])
+    del left, right
+    err = torch.rand(true.shape, generator=gen) < ERR_RATE
+    shift = torch.randint(1, 4, true.shape, generator=gen, dtype=torch.int8)
+    codes = torch.where(err, (true + shift) % 4, true)
+    quals = torch.full(true.shape, 33 + 40, dtype=torch.uint8)
+    quals[torch.rand(true.shape, generator=gen) < LOW_Q_RATE] = 33 + 2
+    return codes, quals
+
+
+def phase_paired(card: str, full: dict) -> dict:
+    """The driver's paired mode at full width: mate pairs of the full
+    run's genome, as many reads as the full run (two FASTQ files), through
+    `quorum -P`, then through `quorum -d` (unpaired, --no-discard) on the
+    same two files. Each read is corrected alone against the same table,
+    so the two runs' payloads are equal, <prefix>_1.fa is byte for byte
+    the unpaired .fa's records of file 1, in order, <prefix>_2.fa those
+    of file 2, and the .log lines are the same. Launch counts reset
+    before each run and read after it."""
+    import torch
+
+    from quorum_tpu_torch.cli import quorum
+    from quorum_tpu_torch.io import db_format
+    from quorum_tpu_torch.kernels.loader import STATS
+
+    gen = torch.Generator().manual_seed(SEED + 15)
+    n = full["codes"].shape[0] // 2
+    t0 = time.perf_counter()
+    codes, quals = synth_pairs(gen, full["genome"], n)
+    mates = [os.path.join(WORK, f"mates_{m}.fastq") for m in (1, 2)]
+    for m in (0, 1):
+        write_fastq(mates[m], codes[m], quals[m], b"/%d" % (m + 1))
+    del codes, quals
+    gen_s = time.perf_counter() - t0
+    bases = 2 * n * READ_LEN
+    runs, launches = {}, {}
+    for tag, flag in (("paired", "-P"), ("unpaired", "-d")):
+        prefix = os.path.join(WORK, tag)
+        report: dict = {}
+        STATS.reset()
+        rc = quorum.main(["-s", str(full["size"]), "-k", str(K), "-p", prefix,
+                          flag, "--device", "cuda", *mates], report=report)
+        launches[tag] = dict(STATS.launches)
+        check(rc == 0, f"{tag} driver rc {rc}")
+        for name in PATH_KERNELS["paired"]:
+            check(launches[tag][name] > 0,
+                  f"{name} was not launched on the {tag} run")
+        runs[tag] = (prefix, report)
+    (pp, rp), (up, ru) = runs["paired"], runs["unpaired"]
+    same_payload = (db_format.db_payload_bytes(pp + "_mer_database.jf")
+                    == db_format.db_payload_bytes(up + "_mer_database.jf"))
+    with open(up + ".fa", "rb") as f:
+        whole = f.read()
+    with open(pp + "_1.fa", "rb") as f:
+        one = f.read()
+    with open(pp + "_2.fa", "rb") as f:
+        two = f.read()
+    same_1, same_2 = whole[:len(one)] == one, whole[len(one):] == two
+    records = [one.count(b"\n") // 2, two.count(b"\n") // 2]
+    del whole, one, two
+    logs = []
+    for prefix in (pp, up):
+        with open(prefix + ".log", "rb") as f:
+            logs.append(sorted(f.read().split(b"\n")))
+    same_log = logs[0] == logs[1]
+    del logs
+
+    def times(report):
+        s1, s2 = report["stage1_s"], report["stage2_s"]
+        return {"stage1_s": round(s1, 3), "stage2_s": round(s2, 3),
+                "stage1_parse_pack_s": round(report["stage1_host_s"], 3),
+                "stage2_parse_pack_s": round(report["ec"].parse_pack_s, 3),
+                "render_s": round(report["ec"].render_s, 3),
+                "gbases_per_hour": round(bases / (s1 + s2) * 3600 / 1e9, 4),
+                "corrected": report["ec"].corrected,
+                "skipped": report["ec"].skipped}
+
+    emit({"phase": "paired", "card": card, "pairs": n, "bases": bases,
+          "fragment_mean_sd": list(FRAGMENT), "fastq_gen_s": round(gen_s, 3),
+          "paired": times(rp), "unpaired_d": times(ru),
+          "records_1_2": records, "same_payload": same_payload,
+          "mate1_eq_file1_records": same_1, "mate2_eq_file2_records": same_2,
+          "same_log_lines": same_log, "launches": launches["paired"],
+          "launches_unpaired": launches["unpaired"]})
+    check(records == [n, n], f"paired records {records}, not {n} a file")
+    check(same_payload, "the paired run's payload differs from the "
+                        "unpaired run's")
+    check(same_1 and same_2, "a mate file differs from the unpaired "
+                             "run's records of its input file")
+    check(same_log, "the paired run's .log lines differ from the "
+                    "unpaired run's")
+    for path in (pp + "_1.fa", pp + "_2.fa", up + ".fa") + tuple(mates):
+        os.remove(path)
+    return launches
+
+
+def _cli_stdout(main, argv):
+    """(rc, stdout) of an in-process CLI run."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, buf.getvalue()
+
+
+def phase_ref_format(card: str, full: dict) -> dict:
+    """The reference's binary/quorum_db at the full run's reads: stage 1
+    with --ref-format on the card (the sealed table's entries iterated
+    and written on the host, each timed); histo_mer_database of that file
+    and of the full run's v5 database (lines and --json document equal);
+    query_mer_database of 1,000 seeded mers, half of them genome mers, on
+    both (lines equal, every genome mer found); the v5 file's bins and
+    query answers on the card equal to the host's (numpy over the rows
+    brought back: the bins by np.bincount, the mers by db_lookup_np);
+    stage 2 on the card from each file at the full run's cutoff given
+    with -p (.fa/.log equal). Launch counts reset before stage 1 and
+    read after it, reset before the first inspection CLI and read after
+    the last (the `inspect` path), and reset before the first stage 2
+    and read after the last; `ref_format` is stage 1's and stage 2's."""
+    import numpy as np
+    import torch
+
+    from quorum_tpu_torch.cli import create_database as cdb
+    from quorum_tpu_torch.cli import error_correct_reads as ec
+    from quorum_tpu_torch.cli import histo_mer_database as histo
+    from quorum_tpu_torch.cli import query_mer_database as query
+    from quorum_tpu_torch.io import db_format, quorum_db
+    from quorum_tpu_torch.kernels.loader import STATS
+    from quorum_tpu_torch.ops import ctable, mer
+
+    ref = os.path.join(WORK, "ref_format.jf")
+    spent: dict = {}
+    originals = (quorum_db.write_ref_db, ctable.tile_iterate)
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[name] = round(time.perf_counter() - t, 3)
+        return run
+
+    quorum_db.write_ref_db = timed("write_s", originals[0])
+    ctable.tile_iterate = timed("iterate_s", originals[1])
+    STATS.reset()
+    try:
+        t0 = time.perf_counter()
+        rc = cdb.main(["-s", str(full["size"]), "-m", str(K), "-q", str(QT),
+                       "-b", "7", "--ref-format", "-o", ref, "--device",
+                       "cuda", full["fastq"]])
+        spent["stage1_s"] = round(time.perf_counter() - t0, 3)
+    finally:
+        quorum_db.write_ref_db, ctable.tile_iterate = originals
+    stage1 = dict(STATS.launches)
+    check(rc == 0, f"--ref-format stage 1 rc {rc}")
+    rng = np.random.default_rng(SEED)
+    genome = full["genome"].numpy()
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    present = [acgt[genome[a:a + K]].tobytes().decode()
+               for a in rng.integers(0, GENOME_BP - K + 1, REF_QUERIES // 2)]
+    absent = ["".join("ACGT"[c] for c in rng.integers(0, 4, K))
+              for _ in range(REF_QUERIES - len(present))]
+    files = (("ref", ref), ("v5", full["db"]))
+    out: dict = {tag: {} for tag, _db in files}
+    STATS.reset()
+    for tag, db in files:
+        js = os.path.join(WORK, f"histo_{tag}.json")
+        t0 = time.perf_counter()
+        rc1, text = _cli_stdout(histo.main, ["--device", "cuda", "--json",
+                                             js, db])
+        t1 = time.perf_counter()
+        rc2, lines = _cli_stdout(query.main, ["--device", "cuda", db]
+                                 + present + absent)
+        t2 = time.perf_counter()
+        check(rc1 == 0 and rc2 == 0, f"inspection CLIs on {tag}: rc "
+                                     f"{rc1}, {rc2}")
+        with open(js) as f:
+            doc = json.load(f)
+        out[tag].update(histo=text, doc=doc, query=lines,
+                        histo_s=round(t1 - t0, 3), query_s=round(t2 - t1, 3))
+    inspect = dict(STATS.launches)
+    for name in PATH_KERNELS["inspect"]:
+        check(inspect[name] > 0, f"{name} was not launched on the inspect "
+                                 "path")
+    # the card's bins and answers against numpy on the rows brought back
+    state, meta, _h, _st = db_format.load_db(full["db"], device="cuda")
+    rows = ctable.host_rows(state.rows)
+    lo = rows[:, 0::2].astype(np.int64)
+    count = lo & meta.max_val
+    v = count[count != 0]
+    bins = np.bincount(np.minimum(v, histo.HLEN - 1) * 2
+                       + ((lo[count != 0] >> meta.bits) & 1),
+                       minlength=2 * histo.HLEN).reshape(histo.HLEN, 2)
+    del lo, count, v
+    keys = [(chi << 32) | clo for chi, clo in
+            (mer.canonical_py(*mer.pack_kmer(s), K) for s in present + absent)]
+    host = ctable.TileState(torch.from_numpy(rows.view(np.int32)))
+    same_card_host = {
+        "histo": np.array_equal(
+            histo.histo(ctable.slot_values(state.rows, meta)), bins),
+        "query": (query.lookup_values(state, meta, keys)
+                  == query.lookup_values(host, meta, keys))}
+    del state, host, rows
+    STATS.reset()
+    for tag, db in files:
+        o = os.path.join(WORK, f"ref_s2_{tag}")
+        t0 = time.perf_counter()
+        rc3 = ec.main(["-p", str(full["cutoff"]), "--device", "cuda", "-o", o,
+                       db, full["fastq"]])
+        check(rc3 == 0, f"stage 2 on the {tag} file rc {rc3}")
+        out[tag].update(out=o, stage2_s=round(time.perf_counter() - t0, 3))
+    launches = {name: n + stage1.get(name, 0)
+                for name, n in STATS.launches.items()}
+    for name in PATH_KERNELS["ref_format"]:
+        check(launches[name] > 0, f"{name} was not launched on the "
+                                  "ref_format path")
+    found = sum(" val:0 " not in ln for ln in
+                out["v5"]["query"].splitlines()[1:1 + len(present)])
+    res = {"same_histo": out["ref"]["histo"] == out["v5"]["histo"],
+           "same_histo_json": out["ref"]["doc"] == out["v5"]["doc"],
+           "same_query": out["ref"]["query"] == out["v5"]["query"],
+           "same_stage2_fa_log": same_fa_log(out["ref"]["out"],
+                                             out["v5"]["out"]),
+           **{f"card_{k}_eq_host": v for k, v in same_card_host.items()}}
+    emit({"phase": "ref_format", "card": card, **spent,
+          "file_bytes": os.path.getsize(ref),
+          "v5_file_bytes": os.path.getsize(full["db"]),
+          "entries": out["v5"]["doc"]["stats"]["distinct_total"],
+          "cutoff": full["cutoff"], "genome_mers_found": found,
+          "queries": REF_QUERIES,
+          **{f"{tag}_{k}": v[k] for tag, v in out.items()
+             for k in ("histo_s", "query_s", "stage2_s")},
+          **res, "launches": launches, "launches_inspect": inspect})
+    check(all(res.values()), f"ref_format mismatch: {res}")
+    check(found == len(present), f"{found} of {len(present)} genome mers "
+                                 "found")
+    check(out["v5"]["doc"]["stats"]["distinct_total"]
+          == full["build"].distinct, "the histogram's entries differ from "
+                                     "the full run's")
+    os.remove(ref)
+    return {"ref_format": launches, "inspect": inspect}
+
+
+def legacy_files(d: str, v5: str) -> dict:
+    """Version 1, 2 and 3 files of the table in `v5`, as
+    tests/test_ref_format.py builds them for the JAX reader: v1 the wide
+    keys with empty slots between, v2 the raw row plane, v3 (address, lo,
+    hi) triplets in a seeded shuffled order."""
+    import numpy as np
+
+    from quorum_tpu_torch.io import db_format
+    from quorum_tpu_torch.ops import ctable
+
+    state, meta, _h, _st = db_format.load_db(v5, device="cpu")
+    rows = np.ascontiguousarray(ctable.host_rows(state.rows))
+    base = {"format": db_format.FORMAT, "key_len": 2 * meta.k,
+            "bits": meta.bits}
+    rng = np.random.default_rng(SEED)
+    paths = {}
+
+    def write(name, header, *planes):
+        paths[name] = os.path.join(d, f"legacy_{name}.qdb")
+        with open(paths[name], "wb") as f:
+            f.write((json.dumps(header) + "\n").encode())
+            for plane in planes:
+                f.write(np.ascontiguousarray(plane).tobytes())
+
+    khi, klo, vals = ctable.tile_iterate(state, meta)
+    size = len(vals) + 37
+    at = np.sort(rng.choice(size, len(vals), replace=False))
+    wide = np.zeros((3, size), np.uint32)
+    wide[0, at], wide[1, at], wide[2, at] = khi, klo, vals
+    write("v1", dict(base, version=1, size=size), *wide)
+    write("v2", dict(base, version=2, rb_log2=meta.rb_log2, rows=meta.rows),
+          rows)
+    lo = rows[:, 0::2]
+    r, s = np.nonzero(lo & np.uint32(meta.max_val))
+    order = rng.permutation(len(r))
+    write("v3", dict(base, version=3, rb_log2=meta.rb_log2, rows=meta.rows,
+                     n_entries=len(r)),
+          r[order].astype(np.int32), lo[r, s][order],
+          rows[:, 1::2][r, s][order])
+    return paths
+
+
+def phase_legacy(card: str) -> dict:
+    """Stage 2 on v1, v2 and v3 files of the golden table (legacy_files)
+    and on the golden v5 file, with --device cuda (HK7 places each) and
+    with --device cpu, all at -p 4: every run's .fa/.log equal, and equal
+    to tests/golden/expected.fa/.log. Launch counts reset before the
+    runs and read after."""
+    from quorum_tpu_torch.cli import error_correct_reads as ec
+    from quorum_tpu_torch.kernels.loader import STATS
+
+    d = os.path.join(WORK, "golden")
+    v5 = os.path.join(d, "db.jf")
+    reads = os.path.join(GOLDEN, "reads.fastq")
+    files = {"v5": v5, **legacy_files(d, v5)}
+    STATS.reset()
+    outs = {}
+    for name, path in files.items():
+        for dev in ("cuda", "cpu"):
+            o = os.path.join(d, f"legacy_{name}_{dev}")
+            check(ec.main(["-p", "4", "--batch-size", "256", "--device", dev,
+                           "-o", o, path, reads]) == 0,
+                  f"stage 2 on the {name} file ({dev})")
+            outs[f"{name}_{dev}"] = o
+    launches = dict(STATS.launches)
+    res = {tag: same_fa_log(o, os.path.join(GOLDEN, "expected"))
+           for tag, o in outs.items()}
+    emit({"phase": "legacy", "card": card, "equal_to_golden": res,
+          "launches": launches})
+    check(all(res.values()), f"legacy stage 2 differs: {res}")
+    for name in PATH_KERNELS["legacy"]:
+        check(launches[name] > 0, f"{name} was not launched on the legacy "
+                                  "path")
+    return launches
+
 
 def run() -> int:
     import torch
@@ -5365,6 +5749,9 @@ def run() -> int:
         serial = phase_serial(card, full)
         phase_parser(card, full)
         two = phase_two_binary(card, full)
+        paired = phase_paired(card, full)
+        ref_format = phase_ref_format(card, full)
+        legacy = phase_legacy(card)
         full["wires"] = full_wires(full)
         prefilter, two_pass = phase_prefilter(card, full, two)
         partitions = phase_partitions(card, full, two_pass, two)
@@ -5405,7 +5792,10 @@ def run() -> int:
                "devices_routed_manifest": routed["manifest_launches"],
                **event["launches"], "flat": flat["launches"],
                "minimizer": minim["launches"],
-               "devices_unpacked": unpacked["launches"]}
+               "devices_unpacked": unpacked["launches"],
+               "paired": paired["paired"],
+               "paired_unpaired": paired["unpaired"],
+               **ref_format, "legacy": legacy}
     def bound_ms(nbytes):
         return round(nbytes / H100_BYTES_PER_S * 1e3, 5)
 

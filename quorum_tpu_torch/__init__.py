@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+__version__ = "0.1.0"
+
 DEFAULT_DEVICE = "cuda"
 
 

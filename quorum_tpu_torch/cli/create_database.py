@@ -1,10 +1,11 @@
-"""quorum_create_database (port): flags -s -m -b -q/-Q -o -t
---db-version --db-layout --batch-size --prefilter --partitions --devices
---on-bad-read --device, as the reference CLI
+"""quorum_create_database (port): flags -s -m -b -q/-Q -o -t -p
+--ref-format --db-version --db-layout --batch-size --prefilter
+--partitions --devices --on-bad-read --device -v, as the reference CLI
 (src/create_database_cmdline.yaggo) and quorum_tpu's stage-1 CLI.
 
     python -m quorum_tpu_torch.cli.create_database -s 64k -m 13 -b 7 \\
         -q 38 -o db.jf reads.fastq
+    ... --ref-format ...           # the reference's binary/quorum_db
     ... --prefilter two-pass ...   # drop singletons; declares floor 2
     ... --partitions 4 ...         # 4 passes at 1/4 the table memory;
                                    # db.jf is a manifest over 4 shards
@@ -24,6 +25,7 @@ from ..io.fastq import BadReadPolicy
 from ..models.create_database import BuildConfig, create_database_main
 from ..ops.sketch import PREFILTER_MODES, prefilter_default
 from ..parallel import tile_sharded as ts
+from ..utils import vlog as vlog_mod
 from ..utils.sizes import parse_size
 
 # quorum_tpu's flags whose paths are not ported yet: accepted by the
@@ -34,6 +36,19 @@ UNPORTED = {
     "coordinator": "--coordinator (the multi-host fleet)",
     "num_processes": "--num-processes (the multi-host fleet)",
     "process_id": "--process-id (the multi-host fleet)",
+    # the observability block of the inspection CLIs
+    # (add_observability_args)
+    "metrics": "--metrics (the telemetry core)",
+    "metrics_interval": "--metrics-interval (the telemetry core)",
+    "metrics_port": "--metrics-port (the telemetry core)",
+    "metrics_textfile": "--metrics-textfile (the telemetry core)",
+    "metrics_push_url": "--metrics-push-url (the telemetry core)",
+    "metrics_push_interval": "--metrics-push-interval (the telemetry core)",
+    "trace_spans": "--trace-spans (the telemetry core)",
+    "alert_rules": "--alert-rules (the telemetry core)",
+    "preflight": "--preflight (the resource guards)",
+    "stall_timeout_s": "--stall-timeout-s (the resource guards)",
+    "metrics_live": "--metrics-live (the telemetry core)",
 }
 
 
@@ -113,11 +128,24 @@ def add_unported_args(p: argparse.ArgumentParser) -> None:
                    help=argparse.SUPPRESS)
 
 
+def add_observability_args(p: argparse.ArgumentParser) -> None:
+    """quorum_tpu's observability flags of the inspection CLIs
+    (cli/observability.add_observability_args with metrics=True), as
+    it spells them; refuse_unported() turns any use into an error."""
+    for flag in ("--metrics", "--metrics-interval", "--metrics-port",
+                 "--metrics-textfile", "--metrics-push-url",
+                 "--metrics-push-interval", "--trace-spans",
+                 "--alert-rules", "--preflight", "--stall-timeout-s"):
+        p.add_argument(flag, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--metrics-live", action="store_true",
+                   help=argparse.SUPPRESS)
+
+
 def refuse_unported(args, prog: str) -> bool:
     """Print why and return True if `args` ask for a path the port does
     not have yet."""
     asked = [flag for dest, flag in UNPORTED.items()
-             if getattr(args, dest) not in (None, False)]
+             if getattr(args, dest, None) not in (None, False)]
     for flag in asked:
         print(f"{prog}: {flag} is not ported to quorum_tpu_torch yet",
               file=sys.stderr)
@@ -141,6 +169,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Number of threads (host I/O; device is parallel)")
     p.add_argument("-o", "--output", default="combined_database",
                    help="Output file")
+    p.add_argument("-p", "--reprobe", type=int, default=126,
+                   help="Maximum number of reprobes (of a --ref-format "
+                        "file's open addressing)")
+    p.add_argument("--ref-format", action="store_true",
+                   help="Write the reference's binary/quorum_db format "
+                        "instead of the native format")
     p.add_argument("--db-version", type=int, choices=(4, 5), default=5,
                    help="Export version: 5 (default) carries CRC32C "
                         "digests, 4 is the bare layout (same payload)")
@@ -178,6 +212,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "the kernels)")
     add_devices_arg(p, "Build the table sharded by leading row bits")
     add_unported_args(p)
+    p.add_argument("-v", "--verbose", action="store_true")
     p.add_argument("reads", nargs="+", help="Read files")
     return p
 
@@ -187,6 +222,8 @@ def main(argv=None, handoff: dict | None = None,
     """`handoff`, `batches_factory`: the quorum driver's in-process table
     handoff and shared parse (models/create_database.build_database)."""
     args = build_parser().parse_args(argv)
+    # OR, not assign: QUORUM_TPU_VERBOSE may have enabled it already
+    vlog_mod.verbose = args.verbose or vlog_mod.verbose
     if args.min_qual_value is None and args.min_qual_char is None:
         print("Either a min-qual-value or min-qual-char must be provided.",
               file=sys.stderr)
@@ -236,6 +273,10 @@ def main(argv=None, handoff: dict | None = None,
         print("Prefilter default inline does not compose with "
               "--partitions; running unfiltered", file=sys.stderr)
         prefilter = "off"
+    if args.ref_format and (P > 1 or prefilter != "off"):
+        print("--ref-format supports neither --partitions nor "
+              "--prefilter", file=sys.stderr)
+        return 1
     cfg = BuildConfig(
         k=args.mer, bits=args.bits,
         qual_thresh=(ord(args.min_qual_char) if args.min_qual_char
@@ -245,13 +286,14 @@ def main(argv=None, handoff: dict | None = None,
         # the partitioned export IS the sharded manifest
         db_layout="sharded" if P > 1 else args.db_layout, partitions=P,
         devices=args.devices, threads=args.threads,
-        on_bad_read=args.on_bad_read,
+        on_bad_read=args.on_bad_read, max_reprobe=args.reprobe,
         quarantine_path=(args.output + ".quarantine.fastq"
                          if args.on_bad_read == "quarantine" else None))
     try:
         create_database_main(args.reads, args.output, cfg,
                              cmdline=list(sys.argv), handoff=handoff,
-                             batches_factory=batches_factory)
+                             batches_factory=batches_factory,
+                             ref_format=args.ref_format)
     except (RuntimeError, OSError, ValueError) as e:
         print(str(e), file=sys.stderr)
         return 1

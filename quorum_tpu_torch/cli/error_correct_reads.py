@@ -1,7 +1,7 @@
 """quorum_error_correct_reads (port): the reference-named correction
 flags of quorum_tpu's stage-2 CLI (-t -m -s -g -a -w -e -p -q -Q -d -M
 --contaminant --trim-contaminant --homo-trim --apriori-error-rate
---poisson-threshold --gzip -o, same defaults) plus --presence-floor,
+--poisson-threshold --gzip -o -v, same defaults) plus --presence-floor,
 --batch-size, --verify-db, --devices, --render-workers, --on-bad-read
 and --device.
 
@@ -20,6 +20,7 @@ from ..io.fastq import BadReadPolicy
 from ..io.integrity import IntegrityError
 from ..models.ec_config import DEFAULT_QUAL_CUTOFF
 from ..models.error_correct import ECOptions, run_error_correct
+from ..utils import vlog as vlog_mod
 from .create_database import (add_devices_arg, resolve_devices_arg,
                               routed_devices_ok)
 
@@ -96,16 +97,21 @@ def build_parser() -> argparse.ArgumentParser:
     add_devices_arg(p, "Correct data-parallel (the table replicated, or "
                        "row-sharded past QUORUM_REPLICATE_TABLE_BYTES or "
                        "2^24 rows)")
+    p.add_argument("-v", "--verbose", action="store_true", help="Be verbose")
     p.add_argument("db", help="Mer database")
     p.add_argument("sequence", nargs="+", help="Input sequence")
     return p
 
 
-def main(argv=None, db=None, prepacked=None,
+def main(argv=None, db=None, prepacked=None, records=None,
          report: dict | None = None) -> int:
-    """`db`/`prepacked`: the quorum driver's in-process handoff and
-    replayed batches; `report` (optional dict) receives the ECStats."""
+    """`db`/`prepacked`/`records`: the quorum driver's in-process
+    handoff, replayed batches and merged mate pairs ((header, seq, qual)
+    tuples read in place of the sequence files); `report` (optional
+    dict) receives the ECStats."""
     args = build_parser().parse_args(argv)
+    # OR, not assign: QUORUM_TPU_VERBOSE may have enabled it already
+    vlog_mod.verbose = args.verbose or vlog_mod.verbose
     if args.qual_cutoff_char is not None and \
             args.qual_cutoff_value is not None:
         print("Switches -q and -Q are conflicting.", file=sys.stderr)
@@ -155,7 +161,8 @@ def main(argv=None, db=None, prepacked=None,
                                   no_discard=args.no_discard,
                                   homo_trim=args.homo_trim,
                                   trim_contaminant=args.trim_contaminant,
-                                  db=db, prepacked=prepacked)
+                                  db=db, prepacked=prepacked,
+                                  records=records)
     except IntegrityError as e:
         print(str(e), file=sys.stderr)
         return 3

@@ -10,6 +10,7 @@ ONCE, builds the mer table (stage 1), hands it to stage 2 in-process
     python -m quorum_tpu_torch.cli.quorum --devices 2 ...   # two cards
     python -m quorum_tpu_torch.cli.quorum --contaminant \
         $(python -m quorum_tpu_torch.data) --trim-contaminant ...
+    python -m quorum_tpu_torch.cli.quorum -P -p out r_1.fastq r_2.fastq
 
 With --partitions P > 1 stage 1 writes a sharded manifest pass by pass
 and keeps no table on the card, so stage 2 loads the manifest from disk
@@ -24,6 +25,15 @@ The reads are parsed (-t workers; the native parser where it serves)
 and packed on a producer thread ahead of stage 1's main thread, which
 makes every CUDA call; stage 2 renders on --render-workers threads. The
 output bytes do not depend on -t or --render-workers.
+
+With -P/--paired-files (an even number of files, taken pairwise) stage
+1 counts the files as they are and stage 2 runs the reference's merge |
+correct | split pipe in process (quorum.in:172-231): the mates,
+interleaved by merge_mate_pairs.merge_records, are corrected with
+--no-discard forced, so that every read gives one record, and
+<prefix>.fa is split into <prefix>_1.fa and <prefix>_2.fa and removed.
+Paired mode keeps no replay cache: the cache holds the files' order,
+not the merged one.
 """
 
 from __future__ import annotations
@@ -37,15 +47,23 @@ import time
 
 import numpy as np
 
-from .. import resolve_device
+from .. import __version__, resolve_device
 from ..io import db_format, fastq, packing
 from ..models.ec_config import DEFAULT_QUAL_CUTOFF
 from ..ops.sketch import PREFILTER_MODES
 from ..parallel import tile_sharded as ts
+from ..utils import vlog as vlog_mod
 from ..utils.pipeline import prefetch
 from ..utils.sizes import parse_size
+from ..utils.vlog import vlog
 from . import create_database as cdb_cli
 from . import error_correct_reads as ec_cli
+from .merge_mate_pairs import merge_records
+from .split_mate_pairs import split_stream
+
+# The reference quorum is 1.x and wrappers gate on `quorum --version`:
+# a 1.x version with the package's own as its local segment (PEP 440).
+VERSION = f"1.1.1+torch.{__version__}"
 
 # Host bytes the driver may hold of parsed batches for stage 2 to
 # replay (the JAX driver's default cap). Past it the cache is dropped
@@ -57,7 +75,9 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="quorum",
         description="Run the quorum error corrector on the given fastq "
-                    "files.")
+                    "files. With --paired-files, an even number of files "
+                    "is expected and corrected pairs are written to "
+                    "<prefix>_1.fa and <prefix>_2.fa.")
     p.add_argument("-s", "--size", default="200M",
                    help="Mer database size (default 200M)")
     p.add_argument("-t", "--threads", type=int, default=None,
@@ -90,12 +110,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Trim sequences with contaminant mers")
     p.add_argument("-d", "--no-discard", action="store_true",
                    help="Do not discard reads, output a single N (false)")
+    p.add_argument("-P", "--paired-files", action="store_true",
+                   help="Preserve mate pairs in two files")
     p.add_argument("--homo-trim", type=int, default=None,
                    help="Trim homo-polymer on 3' end")
     p.add_argument("--batch-size", type=int, default=8192,
                    help="Reads per device batch")
     p.add_argument("--db-version", type=int, choices=(4, 5), default=5,
                    help="Mer-database export version (default 5)")
+    p.add_argument("--verify-db", choices=("full", "sample", "off"),
+                   default="full",
+                   help="Checksum verification when stage 2 loads a v5 "
+                        "database: full (default), sample (random chunk "
+                        "scrub), or off. A bad digest refuses the run")
     p.add_argument("--prefilter", choices=("auto",) + PREFILTER_MODES,
                    default="auto",
                    help="Stage-1 singleton prefilter: drop mers seen once "
@@ -132,6 +159,9 @@ def build_parser() -> argparse.ArgumentParser:
            "replicated, or row-sharded past QUORUM_REPLICATE_TABLE_BYTES "
            "or 2^24 rows)")
     cdb_cli.add_unported_args(p)
+    p.add_argument("--debug", action="store_true",
+                   help="Display debugging information")
+    p.add_argument("--version", action="version", version=VERSION)
     p.add_argument("reads", nargs="*", help="Input fastq files")
     return p
 
@@ -168,6 +198,8 @@ def main(argv=None, report: dict | None = None) -> int:
     """`report` (optional dict) receives per-stage seconds, the host
     share of each, and the two stages' statistics."""
     args = build_parser().parse_args(argv)
+    # OR, not assign: QUORUM_TPU_VERBOSE may have enabled it already
+    vlog_mod.verbose = args.debug or vlog_mod.verbose
     if not re.match(r"^\d+[kMGT]?$", args.size):
         print(f"Invalid size '{args.size}'. It must be a number, maybe "
               "followed by a suffix (like k, M, G for thousand, million "
@@ -176,12 +208,17 @@ def main(argv=None, report: dict | None = None) -> int:
     if not args.reads:
         print("No sequence files. See quorum --help.", file=sys.stderr)
         return 1
+    if args.paired_files and len(args.reads) % 2 != 0:
+        print("With --paired-files an even number of input files is "
+              "required.", file=sys.stderr)
+        return 1
     if cdb_cli.refuse_unported(args, "quorum"):
         return 1
     # resolve once and forward the count to both stages
     if not cdb_cli.resolve_devices_arg(args, "quorum"):
         return 1
     resolve_device(args.device)  # no card for --device cuda: raise here
+    vlog("Using ", args.devices, " device(s)")
     P = args.partitions
     if P < 1 or P > 256 or (P & (P - 1)):
         print(f"quorum: --partitions must be a power of two in "
@@ -210,10 +247,12 @@ def main(argv=None, report: dict | None = None) -> int:
         except (RuntimeError, ValueError, OSError) as e:
             print(str(e), file=sys.stderr)
             return 1
+    vlog("Using min quality char ", min_q, " (+", args.min_quality, ")")
     t1 = min_q + args.min_quality
     # the cpu count, like the reference driver (quorum.in:110-120),
     # forwarded to both stages' host decode
     threads = args.threads if args.threads else (os.cpu_count() or 1)
+    vlog("Using ", threads, " threads for host decode")
     db_file = args.prefix + "_mer_database.jf"
     cdb_argv = ["-s", args.size, "-m", str(args.kmer_len), "-q", str(t1),
                 "-b", "7", "-t", str(threads), "-o", db_file, "--batch-size",
@@ -226,6 +265,10 @@ def main(argv=None, report: dict | None = None) -> int:
         cdb_argv.extend(["--partitions", str(P)])
     if args.on_bad_read != "abort":
         cdb_argv.extend(["--on-bad-read", args.on_bad_read])
+    if args.debug:
+        cdb_argv.append("-v")
+        print("+ quorum_create_database " + " ".join(cdb_argv)
+              + " " + " ".join(args.reads), file=sys.stderr)
 
     # one parse + pack for both stages, on a producer thread: stage 1's
     # first pass consumes the caching producer, stage 2 replays the
@@ -235,9 +278,11 @@ def main(argv=None, report: dict | None = None) -> int:
     # geometry restart) re-parse quietly. A first pass cut short by a
     # restart leaves the cache incomplete, and stage 2 re-parses. The
     # bad-read policy lives on the driver's reader (its quarantine
-    # beside the corrected output); repeat passes skip silently.
+    # beside the corrected output); repeat passes skip silently. Paired
+    # mode caches nothing: stage 2 reads the mates merged, not in the
+    # files' order.
     cache: list = []
-    host = {"cached": 0, "keep": True, "complete": False}
+    host = {"cached": 0, "keep": not args.paired_files, "complete": False}
     times: dict = {}
 
     def policy(first: bool):
@@ -300,8 +345,11 @@ def main(argv=None, report: dict | None = None) -> int:
 
     ec_argv = ["--batch-size", str(args.batch_size), "--device",
                args.device, "--devices", str(args.devices), "-t",
-               str(threads), "--render-workers", str(args.render_workers)]
-    if args.on_bad_read != "abort":
+               str(threads), "--verify-db", args.verify_db,
+               "--render-workers", str(args.render_workers)]
+    # a bad read skipped in one mate file would unpair the rest: paired
+    # stage 2 reads the merged mates under the abort policy
+    if args.on_bad_read != "abort" and not args.paired_files:
         ec_argv.extend(["--on-bad-read", args.on_bad_read])
     for flag, val in (("--min-count", args.min_count), ("--skip", args.skip),
                       ("--good", args.anchor),
@@ -313,18 +361,42 @@ def main(argv=None, report: dict | None = None) -> int:
             ec_argv.extend([flag, str(val)])
     if args.trim_contaminant:
         ec_argv.append("--trim-contaminant")
-    if args.no_discard:
+    if args.no_discard or args.paired_files:
         ec_argv.append("--no-discard")
+    if args.debug:
+        ec_argv.append("-v")
+        if args.paired_files:
+            print(f"+ merge_mate_pairs {' '.join(args.reads)} | "
+                  f"quorum_error_correct_reads {' '.join(ec_argv)} "
+                  f"{db_file} /dev/fd/0 | split_mate_pairs {args.prefix}",
+                  file=sys.stderr)
     ec_argv += ["-o", args.prefix, db_file] + list(args.reads)
+    if args.debug and not args.paired_files:
+        print("+ quorum_error_correct_reads " + " ".join(ec_argv),
+              file=sys.stderr)
     t_s2 = time.perf_counter()
     ec_stats: dict = {}
     replay = host["keep"] and host["complete"]
+    # paired mode: merge | correct | split in process
+    # (quorum.in:172-231), every read kept so that the split pairs the
+    # mates again
     rc = ec_cli.main(ec_argv, db=handoff.get("db"),
                      prepacked=_drain(cache) if replay else None,
+                     records=(merge_records(args.reads)
+                              if args.paired_files else None),
                      report=ec_stats)
     if rc != 0:
         print("Error correction failed", file=sys.stderr)
         return 1
+    if args.paired_files:
+        fa_path = args.prefix + ".fa"
+        try:
+            with open(fa_path, "r") as inp:
+                split_stream(inp, args.prefix)
+        except OSError as e:
+            print(str(e), file=sys.stderr)
+            return 1
+        os.remove(fa_path)
     if report is not None:
         report.update(stage1_s=s1_s, stage2_s=time.perf_counter() - t_s2,
                       stage1_host_s=times.get("produce_s", 0.0),

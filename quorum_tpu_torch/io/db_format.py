@@ -1,6 +1,6 @@
-"""On-disk mer database: single-file v4/v5 and the sharded manifest
-(counterpart of quorum_tpu/io/db_format.py; files are interchangeable
-both ways).
+"""On-disk mer database: single-file v4/v5 and the sharded manifest, and
+reads of the legacy versions 1-3 (counterpart of
+quorum_tpu/io/db_format.py; files are interchangeable both ways).
 
 A JSON header line, then the v4 payload — per-row occupancy counts
 (u8[rows]), the occupied entries' lo words (LE u32) in canonical
@@ -287,11 +287,12 @@ def read_header(path: str) -> dict:
 
 def header_rb_log2(path: str) -> int | None:
     """The table geometry (rb_log2) a database file or manifest declares
-    in its header, or None for a reference `binary/quorum_db` file
-    (whose geometry comes from its entries at load)."""
+    in its header, or None for a reference `binary/quorum_db` file or a
+    version-1 file (whose geometry comes from their entries at load)."""
     if quorum_db.is_ref_db(path):
         return None
-    return int(read_header(path)["rb_log2"])
+    rb = read_header(path).get("rb_log2")
+    return None if rb is None else int(rb)
 
 
 def _map_or_read(path: str, offset: int, count: int,
@@ -524,6 +525,79 @@ def _load_on_mesh(payload: np.ndarray, n: int, gmeta: GlobalMeta, mesh):
             tuple(int(x) for x in totals))
 
 
+def _compact_payload(addr, lo, hi, meta: TileMeta) -> np.ndarray:
+    """Entries as (row address, lo word, hi word) -> the v4 payload HK7
+    places: row counts, then the lo words and hi byte planes in
+    row-major order (a stable sort by row)."""
+    order = ctable.stable_argsort(addr)
+    hi = np.asarray(hi, np.uint32)[order]
+    return np.concatenate(
+        [np.bincount(addr, minlength=meta.rows).astype(np.uint8),
+         np.asarray(lo, "<u4")[order].view(np.uint8)]
+        + [((hi >> np.uint32(8 * j)) & np.uint32(0xFF)).astype(np.uint8)
+           for j in range(meta.hi_bytes)])
+
+
+def _load_legacy(path: str, header: dict, version: int, offset: int,
+                 device, no_mmap: bool):
+    """A version 1-3 file (quorum_tpu's read_db, db_format.py:849-910),
+    checked on the host and placed on `device` by HK7: v3's (address,
+    lo, hi) triplets after the JAX loader's bounds checks; v2's raw
+    [rows, 128] plane, its occupied slots in row-major order; v1's wide
+    keys through tile_from_entries. Returns load_db's tuple."""
+    k, bits = header["key_len"] // 2, header["bits"]
+
+    def plane(dtype, count, words):
+        raw = _map_or_read(path, offset, 4 * words, no_mmap)
+        if raw.shape[0] != 4 * words:
+            raise IntegrityError(f"corrupt v{version} database '{path}': "
+                                 "payload truncated", path=path,
+                                 section="entries", offset=offset)
+        return [np.asarray(raw[4 * i * count:4 * (i + 1) * count])
+                .view(dtype) for i in range(words // count)]
+
+    if version == 1:
+        size = int(header["size"])
+        keys_hi, keys_lo, vals = plane("<u4", size, 3 * size)
+        occ = np.nonzero(vals != 0)[0]
+        state, meta, stats = ctable.tile_from_entries(
+            keys_hi[occ], keys_lo[occ], vals[occ], k, bits, device)
+        return state, meta, header, stats
+    meta = TileMeta(k=k, bits=bits, rb_log2=header["rb_log2"])
+    if version == 2:
+        if header.get("rows", meta.rows) != meta.rows:
+            raise ValueError(f"corrupt header: rows={header.get('rows')} "
+                             f"!= 2^rb_log2={meta.rows} in '{path}'")
+        (rows,) = plane("<u4", meta.rows * ctable.TILE,
+                        meta.rows * ctable.TILE)
+        rows = rows.reshape(meta.rows, ctable.TILE)
+        lo = rows[:, 0::2]
+        addr, slot = np.nonzero(lo & np.uint32(meta.max_val))
+        payload = _compact_payload(addr, lo[addr, slot],
+                                   rows[:, 1::2][addr, slot], meta)
+        n = len(addr)
+    else:
+        n = int(header["n_entries"])
+        addr, lo, hi = plane("<i4", n, 3 * n) if n else ([], [], [])
+        addr = np.asarray(addr, np.int64)
+        # the JAX loader's bounds checks, before anything is placed
+        if n:
+            amin, amax = int(addr.min()), int(addr.max())
+            if amin < 0 or amax >= meta.rows:
+                raise ValueError(
+                    f"corrupt v3 database '{path}': bucket address "
+                    f"range [{amin}, {amax}] outside [0, {meta.rows})")
+            per_bucket = int(np.unique(addr, return_counts=True)[1].max())
+            if per_bucket > ctable.TILE // 2:
+                raise ValueError(
+                    f"corrupt v3 database '{path}': {per_bucket} entries "
+                    f"in one bucket (capacity {ctable.TILE // 2})")
+        payload = _compact_payload(addr, np.asarray(lo).view("<u4"),
+                                   np.asarray(hi).view("<u4"), meta)
+    state, stats = ctable.tile_load(payload, meta, n, device)
+    return state, meta, header, stats
+
+
 def load_db(path: str, device="cpu", verify: str = "full", mesh=None,
             no_mmap: bool = False):
     """Load a single-file v4/v5 database, or a sharded one through its
@@ -533,7 +607,8 @@ def load_db(path: str, device="cpu", verify: str = "full", mesh=None,
     Digests and the payload's structure are checked on the host BEFORE
     any byte reaches the device; then the raw payload crosses once and
     HK7 decodes and places it there. A reference `binary/quorum_db` file
-    (io/quorum_db) is decoded on the host and placed the same way.
+    (io/quorum_db) and a legacy version 1-3 file (_load_legacy) are
+    decoded on the host and placed the same way.
 
     With `mesh` (a list of devices, --devices N's routed stage-2
     layout) the table is loaded row-sharded instead, shard s of
@@ -545,10 +620,10 @@ def load_db(path: str, device="cpu", verify: str = "full", mesh=None,
     if verify not in VERIFY_MODES:
         raise ValueError(f"verify must be one of {VERIFY_MODES}, "
                          f"got {verify!r}")
-    if mesh is not None and quorum_db.is_ref_db(path):
-        raise ValueError(f"'{path}' is a reference quorum_db file; it "
-                         "loads onto one device only")
     if quorum_db.is_ref_db(path):
+        if mesh is not None:
+            raise ValueError(f"'{path}' is a reference quorum_db file; "
+                             "it loads onto one device only")
         khi, klo, vals, k, bits = quorum_db.read_ref_db(path)
         state, meta, stats = ctable.tile_from_entries(khi, klo, vals, k,
                                                       bits, device)
@@ -571,11 +646,16 @@ def load_db(path: str, device="cpu", verify: str = "full", mesh=None,
             f"{header.get('n_shards')} — load the sharded database "
             "through its manifest (the PREFIX the export wrote)")
     version = header.get("version", 1)
-    if version not in (4, 5):
+    if version not in (1, 2, 3, 4, 5):
         raise ValueError(f"'{path}': database version {version} is not "
-                         "supported (single-file v4/v5 only)")
+                         "supported (single-file v1-v5 only)")
     with open(path, "rb") as f:
         offset = len(f.readline(1 << 20))
+    if version < 4:
+        if mesh is not None:
+            raise ValueError(f"'{path}' is a version-{version} database; "
+                             "it loads onto one device only")
+        return _load_legacy(path, header, version, offset, device, no_mmap)
     if version == 5 and verify != "off":
         _verify_v5(path, header, offset, verify, no_mmap)
     meta = TileMeta(k=header["key_len"] // 2, bits=header["bits"],
@@ -593,6 +673,17 @@ def load_db(path: str, device="cpu", verify: str = "full", mesh=None,
         return state, meta, header, stats
     state, stats = ctable.tile_load(payload, meta, n, device)
     return state, meta, header, stats
+
+
+def db_lookup_np(state, meta, khi, klo) -> int:
+    """Scalar host lookup of one canonical key's value word."""
+    return ctable.tile_lookup_np(ctable.host_rows(state.rows), meta, khi,
+                                 klo)
+
+
+def db_iterate(state, meta):
+    """(khi, klo, val) numpy arrays of every occupied entry."""
+    return ctable.tile_iterate(state, meta)
 
 
 def db_payload_bytes(path: str) -> bytes:

@@ -225,21 +225,25 @@ def batch_records(records: Iterable[tuple[str, bytes, bytes]],
 
 
 def _make_batch(buf, batch_size) -> ReadBatch:
-    maxlen = max((len(seq) for _, seq, _ in buf), default=1)
-    L = bucket_for(max(maxlen, 1))
+    """One ReadBatch of the records in `buf`: the sequences' codes and
+    the qualities (zeros for a FASTA record's empty quality) laid row by
+    row from their concatenation, in one pass for the batch."""
+    n = len(buf)
+    lens = np.fromiter((len(seq) for _, seq, _ in buf), np.int64, n)
+    L = bucket_for(max(int(lens.max()) if n else 1, 1))
     codes = np.full((batch_size, L), -2, dtype=np.int8)
     quals = np.zeros((batch_size, L), dtype=np.uint8)
     lengths = np.zeros((batch_size,), dtype=np.int32)
-    headers = []
-    for i, (hdr, seq, qual) in enumerate(buf):
-        headers.append(hdr)
-        m = len(seq)
-        lengths[i] = m
-        codes[i, :m] = mer.seq_to_codes(seq)
-        if qual:
-            quals[i, :m] = np.frombuffer(qual, dtype=np.uint8)
+    lengths[:n] = lens
+    headers = [hdr for hdr, _, _ in buf]
+    if any(qual and len(qual) != len(seq) for _, seq, qual in buf):
+        raise ValueError("a record's quality and sequence lengths differ")
+    inside = np.arange(L)[None, :] < lens[:, None]
+    codes[:n][inside] = mer.seq_to_codes(b"".join(seq for _, seq, _ in buf))
+    quals[:n][inside] = np.frombuffer(
+        b"".join(qual or bytes(len(seq)) for _, seq, qual in buf), np.uint8)
     return ReadBatch(codes=codes, quals=quals, lengths=lengths,
-                     headers=headers, n=len(buf))
+                     headers=headers, n=n)
 
 
 # ---------------------------------------------------------------------------

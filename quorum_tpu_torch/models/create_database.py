@@ -45,18 +45,18 @@ device, rebased (HK13) and exported as the pass's shard, as on one card.
 from __future__ import annotations
 
 import dataclasses
-import sys
 import time
 from typing import Callable, Iterable, Sequence
 
 import torch
 
 from .. import kernels
-from ..io import db_format, fastq, packing
+from ..io import db_format, fastq, packing, quorum_db
 from ..ops import ctable
 from ..ops import sketch as sketch_mod
 from ..ops.ctable import MAX_GROWS
 from ..utils.pipeline import prefetch
+from ..utils.vlog import vlog
 
 @dataclasses.dataclass(frozen=True)
 class BuildConfig:
@@ -81,6 +81,8 @@ class BuildConfig:
     threads: int = 1  # -t: parse workers (several files, or spans)
     on_bad_read: str = "abort"  # abort, skip or quarantine
     quarantine_path: str | None = None  # where quarantine mode writes
+    # -p: the reprobe limit of a --ref-format file's open addressing
+    max_reprobe: int = 126
 
 
 @dataclasses.dataclass
@@ -205,8 +207,7 @@ def _insert_pass(wires, meta, bstate, stats: BuildStats, insert: Callable):
         for _ in range(MAX_GROWS + 1):
             if not full:
                 break
-            print(f"Hash table full at {meta.rows} buckets; doubling",
-                  file=sys.stderr)
+            vlog("Hash table full at ", meta.rows, " buckets; doubling")
             bstate, meta = ctable.tile_grow_build(bstate, meta)
             stats.grows += 1
             keys, qual = ctable.tile_insert_pending(bstate, meta, keys, qual)
@@ -340,6 +341,13 @@ def build_database(paths: Sequence[str], cfg: BuildConfig,
         stats.poisson_total_hq = total + stats.prefilter_dropped_hq
     stats.seconds = time.perf_counter() - t0
     _stamp_times(stats, times)
+    if cfg.prefilter == "two-pass":
+        vlog("Counted ", stats.reads, " reads, ", stats.bases, " bases, ",
+             stats.distinct, " distinct mers (two-pass prefilter dropped ",
+             stats.prefilter_dropped, " singleton observations)")
+    else:
+        vlog("Counted ", stats.reads, " reads, ", stats.bases, " bases, ",
+             stats.distinct, " distinct mers")
     return state, meta, stats
 
 
@@ -376,6 +384,8 @@ def _build_sharded(cfg: BuildConfig, device: torch.device,
         int(x) for x in seal[:, 1:].sum(0))
     stats.shard_occupancy = ts.shard_occupancy(seal)
     stats.seconds = time.perf_counter() - t0
+    vlog("Counted ", stats.reads, " reads, ", stats.bases, " bases, ",
+         stats.distinct, " distinct mers over ", S, " shards")
     return state, meta, stats
 
 
@@ -513,8 +523,8 @@ def _build_partitioned(paths: Sequence[str], cfg: BuildConfig, output: str,
                     stats.prefilter_false_pass += singles
             break
         except _PartitionGrew as e:
-            print(f"Partition pass overflowed at local rb_log2={rb_local}; "
-                  f"restarting all passes at {e.rb_local}", file=sys.stderr)
+            vlog("Partition pass overflowed at local rb_log2=", rb_local,
+                 "; restarting all passes at ", e.rb_local)
             stats.grows += 1
             for field in ("distinct", "poisson_distinct_hq", "poisson_total_hq",
                           "singletons", "prefilter_dropped",
@@ -536,6 +546,9 @@ def _build_partitioned(paths: Sequence[str], cfg: BuildConfig, output: str,
                                 cfg.db_version, stats.db_extra_header())
     stats.seconds = time.perf_counter() - t0
     _stamp_times(stats, times)
+    vlog("Counted ", stats.reads, " reads, ", stats.bases, " bases, ",
+         stats.distinct, " distinct mers over ", P,
+         " partition passes (peak table rows 1/", P, " of global)")
     return stats
 
 
@@ -543,9 +556,12 @@ def create_database_main(paths: Sequence[str], output: str, cfg: BuildConfig,
                          cmdline: list[str] | None = None,
                          handoff: dict | None = None,
                          batches_factory: Callable[[], Iterable] | None = None,
-                         mesh: list | None = None) -> BuildStats:
+                         mesh: list | None = None,
+                         ref_format: bool = False) -> BuildStats:
     """Build and write the database (one file, or a sharded manifest
-    with --db-layout sharded or --partitions P). With `handoff` (a
+    with --db-layout sharded or --partitions P; with `ref_format` the
+    reference's binary/quorum_db file, io/quorum_db, written from the
+    sealed table's entries on the host). With `handoff` (a
     dict) the BuildStats go to handoff["stats"], and a single-pass
     build keeps its device-resident table as handoff["db"] = (state,
     meta, stats) for an in-process stage 2; a partitioned build never
@@ -554,6 +570,11 @@ def create_database_main(paths: Sequence[str], output: str, cfg: BuildConfig,
     or its table gathered onto the lead device (single)."""
     from .. import resolve_device
 
+    if ref_format and (cfg.partitions > 1 or cfg.prefilter != "off"):
+        raise ValueError(
+            "--ref-format supports neither --partitions nor "
+            "--prefilter (the reference format carries no manifest "
+            "or prefilter declaration)")
     device = resolve_device(cfg.device)
     if cfg.partitions > 1:
         stats = _build_partitioned(paths, cfg, output, device,
@@ -561,7 +582,17 @@ def create_database_main(paths: Sequence[str], output: str, cfg: BuildConfig,
     else:
         state, meta, stats = build_database(paths, cfg, device,
                                             batches_factory, mesh)
-        if cfg.devices > 1 and cfg.db_layout == "single":
+        if ref_format:
+            wstate, wmeta = state, meta
+            if cfg.devices > 1:
+                from ..parallel import tile_sharded as ts
+
+                wstate, wmeta = ts.gather_table(state, meta)
+            khi, klo, vals = ctable.tile_iterate(wstate, wmeta)
+            del wstate
+            quorum_db.write_ref_db(output, khi, klo, vals, wmeta.k,
+                                   wmeta.bits, cfg.max_reprobe, cmdline)
+        elif cfg.devices > 1 and cfg.db_layout == "single":
             from ..parallel import tile_sharded as ts
 
             whole, wmeta = ts.gather_table(state, meta)

@@ -34,6 +34,7 @@ from ..ops.poisson import compute_poisson_cutoff
 from ..utils.pipeline import AsyncWriter, ReorderingPool, prefetch
 from .corrector import (correct_batch_packed, fetch_finish,
                         finish_batch_host, make_keep_table)
+from ..utils.vlog import vlog
 from .ec_config import DEFAULT_QUAL_CUTOFF, ECConfig
 
 
@@ -158,6 +159,7 @@ def resolve_cutoff(opts: ECOptions, stats: tuple[int, int],
     load's). 0 = failed."""
     if opts.cutoff is not None:
         return opts.cutoff
+    vlog("Computing Poisson cutoff")
     ps = (header or {}).get("poisson_stats")
     distinct, total = ((ps["distinct_hq"], ps["total_hq"]) if ps
                        else stats)
@@ -174,11 +176,16 @@ def run_error_correct(db_path: str, sequences: Sequence[str],
                       trim_contaminant: bool = False, db=None,
                       prepacked: Iterable | None = None,
                       mesh: list | None = None,
-                      event_driven: bool = True) -> ECStats:
+                      event_driven: bool = True,
+                      records: Iterable | None = None) -> ECStats:
     """Run stage 2. `db` is an in-process handoff (state, meta, build
     stats) that skips reading the database file; `prepacked` replays
     (ReadBatch, PackedReads) pairs packed with the qual_cutoff plane
-    instead of parsing `sequences` again. A handed-off table is floored
+    instead of parsing `sequences` again; `records`, an iterator of
+    (header, seq, qual) tuples (the quorum driver's merged mate pairs,
+    cli/merge_mate_pairs.merge_records), is batched by
+    fastq.batch_records in opts.batch_size rows and read instead of
+    `sequences`, never through the native parser. A handed-off table is floored
     in place. With opts.devices > 1 the batches are corrected over a
     mesh of that many devices (a --devices N build hands off its
     row-sharded table): `mesh`, or by default the first opts.devices
@@ -204,6 +211,7 @@ def run_error_correct(db_path: str, sequences: Sequence[str],
                 f"--devices {devices}; round it up")
         if mesh is None:
             mesh = ts.make_mesh(devices, device=device)
+    vlog("Loading mer database")
     if db is not None:
         # the header fields the build wrote into the file
         state, meta, bstats = db
@@ -219,6 +227,7 @@ def run_error_correct(db_path: str, sequences: Sequence[str],
     if devices == 1 and isinstance(state, ctable.ShardedTileState):
         state, meta = ts.gather_table(state, meta)
     cutoff = resolve_cutoff(opts, table_stats, header)
+    vlog("Using cutoff of ", cutoff)
     if cutoff == 0 and opts.cutoff is None:
         raise RuntimeError(
             "Cutoff computation failed. Pass it explicitly with -p switch.")
@@ -233,6 +242,9 @@ def run_error_correct(db_path: str, sequences: Sequence[str],
         state = ts.floor(state, meta, floor)
     else:
         state = ctable.tile_floor(state, meta, floor)
+    if floor > 1:
+        vlog("Applying presence floor of ", floor,
+             " (count-below-floor mers treated as absent)")
     cfg = ECConfig(k=meta.k, skip=skip, good=good,
                    anchor_count=anchor_count, min_count=min_count,
                    cutoff=cutoff, qual_cutoff=qual_cutoff, window=window,
@@ -242,11 +254,14 @@ def run_error_correct(db_path: str, sequences: Sequence[str],
                    poisson_threshold=opts.poisson_threshold)
     contam = None
     if opts.contaminant is not None:
+        vlog("Loading contaminant sequences")
         contam = contaminant_mod.load_contaminant(opts.contaminant, cfg.k,
                                                   device)
     if devices > 1:
         correct = ts.ShardedCorrector(mesh, state, meta, cfg, contam,
                                       event_driven=event_driven)
+        vlog("Correcting over ", devices, " devices, table ",
+             correct.layout)
     else:
         mesh = [device]
         keep = make_keep_table(meta, cfg, device)
@@ -269,13 +284,16 @@ def run_error_correct(db_path: str, sequences: Sequence[str],
     log = _open_out(opts.output, ".log", sys.stderr, opts.gzip)
     writer = AsyncWriter([out, log])
     times: dict = {}
+    vlog("Correcting reads")
     try:
-        if prepacked is not None:
+        if prepacked is not None and records is None:
             # the driver's replay: parsed and packed already
             batches = prepacked
         else:
-            src = fastq.read_batches(sequences, opts.batch_size,
-                                     threads=opts.threads, policy=policy)
+            src = (fastq.batch_records(records, opts.batch_size)
+                   if records is not None else
+                   fastq.read_batches(sequences, opts.batch_size,
+                                      threads=opts.threads, policy=policy))
             batches = prefetch(((b, pack_for_stage2(b, cfg)) for b in src),
                                times=times)
 
@@ -332,6 +350,8 @@ def run_error_correct(db_path: str, sequences: Sequence[str],
                     policy.close()
     stats.parse_pack_s = times.get("produce_s", 0.0)
     stats.host_s = stats.parse_pack_s + stats.render_s
+    vlog("Done. ", stats.corrected, " corrected, ", stats.skipped,
+         " skipped of ", stats.reads, " reads")
     return stats
 
 

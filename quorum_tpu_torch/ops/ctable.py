@@ -270,31 +270,129 @@ def tile_from_entries(khi, klo, vals, k: int, bits: int, device,
     one would take more than 64) into a v4 payload, which HK7 places.
     `rb_log2` is the first row count tried (by default tile_rb_for's).
     Returns (TileState, TileMeta, (n_occupied, distinct_hq, total_hq))."""
-    khi = np.asarray(khi, np.uint32)
-    klo = np.asarray(klo, np.uint32)
     vals = np.asarray(vals, np.uint32)
     n = len(vals)
-    keys = torch.from_numpy((khi.astype(np.int64) << 32)
-                            | klo.astype(np.int64))
+    keys = torch.from_numpy((np.asarray(khi, np.int64) << 32)
+                            | np.asarray(klo, np.int64))
+    full = host_feistel(keys, k).numpy()
     rb = tile_rb_for(n, k, bits) if rb_log2 is None else rb_log2
     while True:
         meta = TileMeta(k=k, bits=bits, rb_log2=rb)
-        addr, rlo, rhi = (x.numpy() for x in
-                          kernels.ref.tile_key_parts(keys, meta))
+        addr = full & (meta.rows - 1)
         counts = np.bincount(addr, minlength=meta.rows)
         if n == 0 or counts.max() <= TSLOTS:
             break
         rb += 1
-    order = np.argsort(addr, kind="stable")
-    count = np.minimum(vals[order] >> 1, meta.max_val).astype(np.int64)
-    lo = (rlo[order] << (bits + 1)) | ((vals[order] & 1) << bits) | count
-    hi = rhi[order]
-    payload = np.concatenate(
-        [counts.astype(np.uint8), lo.astype("<u4").view(np.uint8)]
-        + [((hi >> (8 * j)) & 0xFF).astype(np.uint8)
-           for j in range(meta.hi_bytes)])
+    order = stable_argsort(addr)
+    del addr
+    rows = meta.rows
+    payload = np.empty(rows + (4 + meta.hi_bytes) * n, np.uint8)
+    payload[:rows] = counts
+    lo_out = payload[rows:rows + 4 * n].view("<u4")
+    his = [payload[rows + (4 + j) * n:rows + (5 + j) * n]
+           for j in range(meta.hi_bytes)]
+    # the payload a chunk of the row-sorted entries at a time
+    for a in range(0, n, _CHUNK):
+        o = order[a:a + _CHUNK]
+        v = vals[o]
+        rem = full[o] >> meta.rb_log2
+        lo_out[a:a + len(o)] = (
+            ((rem & ((1 << meta.rlo_bits) - 1)) << (bits + 1))
+            | ((v & 1).astype(np.int64) << bits)
+            | np.minimum(v >> 1, meta.max_val))
+        rhi = rem >> meta.rlo_bits
+        for j, h in enumerate(his):
+            h[a:a + len(o)] = (rhi >> (8 * j)) & 0xFF
     state, stats = tile_load(payload, meta, n, device)
     return state, meta, stats
+
+
+# ------------------------------------------------------------ host helpers
+# The reference-format writer's and the inspection CLIs' host view of a
+# sealed table (quorum_tpu/ops/ctable.py:837-905), on kernels.ref's
+# Feistel over CPU int64 tensors.
+
+# keys a pass of the host Feistel takes: its temporaries stay in the
+# core's cache, and under torch's intra-op grain (32,768) each op runs
+# on the calling thread
+_CHUNK = 1 << 14
+# rows a pass of the host iteration reads (1 MiB of the plane)
+_ROW_CHUNK = 1 << 11
+
+
+def host_feistel(keys: torch.Tensor, k: int,
+                 inverse: bool = False) -> torch.Tensor:
+    """kernels.ref.feistel (or feistel_inverse) of a CPU int64 tensor,
+    a cache-sized chunk at a time."""
+    fn = kernels.ref.feistel_inverse if inverse else kernels.ref.feistel
+    out = torch.empty_like(keys)
+    for a in range(0, keys.numel(), _CHUNK):
+        out[a:a + _CHUNK] = fn(keys[a:a + _CHUNK], k)
+    return out
+
+
+def stable_argsort(a: np.ndarray) -> np.ndarray:
+    """np.argsort(a, kind="stable") of an integer array, by torch's
+    stable sort on the host (several threads; numpy's takes one)."""
+    return torch.sort(torch.from_numpy(np.ascontiguousarray(a)),
+                      stable=True)[1].numpy()
+
+
+def host_rows(rows) -> np.ndarray:
+    """A row plane (an int32 tensor on any device, or numpy) as numpy
+    uint32 [rows, 128] on the host."""
+    if isinstance(rows, torch.Tensor):
+        rows = rows.cpu().numpy()
+    return np.asarray(rows).view(np.uint32)
+
+
+def tile_iterate(state: TileState, meta: TileMeta):
+    """(khi, klo, val) numpy uint32 arrays of every occupied entry, in
+    row-major slot order (quorum_tpu's np.nonzero order); val = count
+    << 1 | qual. The rows come to the host once."""
+    rows = host_rows(state.rows)
+    khi, klo, vals = [], [], []
+    for a in range(0, rows.shape[0], _ROW_CHUNK):
+        lo = rows[a:a + _ROW_CHUNK, 0::2]
+        count = lo & np.uint32(meta.max_val)
+        r, s = np.nonzero(count)
+        lo = lo[r, s]
+        vals.append((count[r, s] << np.uint32(1))
+                    | ((lo >> np.uint32(meta.bits)) & np.uint32(1)))
+        rem = ((lo >> np.uint32(meta.bits + 1)).astype(np.int64)
+               | (rows[a:a + _ROW_CHUNK, 1::2][r, s].astype(np.int64)
+                  << meta.rlo_bits))
+        keys = host_feistel(torch.from_numpy((rem << meta.rb_log2) | (r + a)),
+                            meta.k, inverse=True).numpy()
+        khi.append((keys >> 32).astype(np.uint32))
+        klo.append((keys & 0xFFFFFFFF).astype(np.uint32))
+    if not vals:
+        return tuple(np.zeros(0, np.uint32) for _ in range(3))
+    return np.concatenate(khi), np.concatenate(klo), np.concatenate(vals)
+
+
+def slot_values(rows: torch.Tensor, meta: TileMeta) -> torch.Tensor:
+    """The value word (count << 1 | qual, int64; 0 where empty) of
+    every slot of a row plane, on the plane's device."""
+    lo = kernels.ref.u32(rows[:, 0::2])
+    count = lo & meta.max_val
+    return torch.where(count != 0, (count << 1) | ((lo >> meta.bits) & 1),
+                       0)
+
+
+def tile_lookup_np(rows, meta: TileMeta, khi, klo) -> int:
+    """Scalar host lookup over a [rows, 128] plane (numpy uint32): the
+    key's row matched against its tags; the stored value word, or 0."""
+    key = torch.tensor([(int(khi) << 32) | int(klo)])
+    addr, rlo, rhi = (int(x) for x in kernels.ref.tile_key_parts(key, meta))
+    lo, hi = rows[addr, 0::2], rows[addr, 1::2]
+    count = lo & np.uint32(meta.max_val)
+    idx = np.flatnonzero((count != 0) & (hi == rhi)
+                         & ((lo >> np.uint32(meta.bits + 1)) == rlo))
+    if not len(idx):
+        return 0
+    j = idx[0]
+    return (int(count[j]) << 1) | ((int(lo[j]) >> meta.bits) & 1)
 
 
 # ------------------------------------------------------------ flat table

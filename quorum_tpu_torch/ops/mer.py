@@ -30,6 +30,47 @@ def seq_to_codes(seq: bytes | str) -> np.ndarray:
     return _CODE_TABLE[np.frombuffer(seq, dtype=np.uint8)]
 
 
+MAX_K = 31
+
+
+# ------------------------------------------------- host helpers (Python ints)
+# k-mers as (hi, lo) unsigned 32-bit halves held in Python ints, for the
+# inspection CLIs (quorum_tpu/ops/mer.py:60-100).
+
+def pack_kmer(seq: str, k: int | None = None) -> tuple[int, int]:
+    """String of ACGT -> (hi, lo) u32 halves. The leftmost base is the
+    most significant (base index k - 1), as repeated shift_left."""
+    k = len(seq) if k is None else k
+    assert len(seq) == k <= MAX_K
+    v = 0
+    for ch in seq:
+        code = int(_CODE_TABLE[ord(ch)])
+        assert code >= 0, f"non-ACGT base {ch!r}"
+        v = (v << 2) | code
+    return (v >> 32) & 0xFFFFFFFF, v & 0xFFFFFFFF
+
+
+def unpack_kmer(hi: int, lo: int, k: int) -> str:
+    v = (int(hi) << 32) | int(lo)
+    return "".join("ACGT"[(v >> (2 * (k - 1 - i))) & 3] for i in range(k))
+
+
+def revcomp_py(hi: int, lo: int, k: int) -> tuple[int, int]:
+    v = (int(hi) << 32) | int(lo)
+    r = 0
+    for _ in range(k):
+        r = (r << 2) | (3 - (v & 3))
+        v >>= 2
+    return (r >> 32) & 0xFFFFFFFF, r & 0xFFFFFFFF
+
+
+def canonical_py(hi: int, lo: int, k: int) -> tuple[int, int]:
+    """min(fwd, revcomp) of a (hi, lo) k-mer, compared unsigned."""
+    rhi, rlo = revcomp_py(hi, lo, k)
+    m = min((int(hi) << 32) | int(lo), (rhi << 32) | rlo)
+    return (m >> 32) & 0xFFFFFFFF, m & 0xFFFFFFFF
+
+
 def mer_mask(k: int) -> int:
     return (1 << (2 * k)) - 1
 

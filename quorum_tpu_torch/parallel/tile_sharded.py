@@ -73,6 +73,7 @@ from ..ops import ctable
 from ..ops.ctable import (MAX_GROWS, GlobalMeta, ShardedBuildState,
                           ShardedTileState, TileMeta, TileState)
 from ..utils.sizes import parse_size
+from ..utils.vlog import vlog
 
 
 def _device(d) -> torch.device:
@@ -297,8 +298,7 @@ def build_step_wire(bstate: ShardedBuildState, meta: TileShardedMeta, mesh,
             raise PassFull
         if grows >= max_grows:
             raise RuntimeError("Hash is full")
-        print(f"Hash table full at {meta.rows} buckets; doubling",
-              file=sys.stderr)
+        vlog("Sharded hash full at ", meta.rows, " buckets; doubling")
         bstate, meta = grow(bstate, meta, mesh)
         grows += 1
         sent = kernels.shard_route_lanes(pending, meta)

@@ -87,12 +87,31 @@ KINDS = ("plain", "crlf", "no_newline", "gzip", "fasta", "wrapped",
          "oversized", "two_files")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def private_jax_binding_cache(tmp_path_factory):
+    """Build the JAX parser into this module's own directory.
+
+    The JAX binding builds into one shared ~/.cache/quorum_tpu under a
+    fixed temporary name, and keeps a failed build for the rest of the
+    process. Test workers that build it at once on a cold cache race,
+    and the losers see the native parser as missing. Pointing the cache
+    at a private directory, with the memo reset, lets it build once
+    here with nothing to race."""
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jbinding, "_CACHE", str(tmp_path_factory.mktemp("jaxlib")))
+    mp.setattr(jbinding, "_TRIED", False)
+    mp.setattr(jbinding, "_LIB", None)
+    yield
+    mp.undo()
+
+
 @pytest.fixture(params=["native", "python"])
 def parser(request, monkeypatch):
     """Both packages through the native parser, or both through Python."""
     if request.param == "native":
-        if not (GXX and jbinding.available() and tbinding.available()):
+        if not GXX:
             pytest.skip("no g++: the native parser cannot build")
+        assert jbinding.available() and tbinding.available()
     else:
         monkeypatch.setattr(jbinding, "available", lambda: False)
         monkeypatch.setattr(tbinding, "available", lambda: False)

@@ -1,6 +1,6 @@
 """The port stands alone: no file of quorum_tpu_torch/ (nor
-chip_smoke.py or kernel_ab.py) imports jax or quorum_tpu, the entry points default to
-the card, and without a card they raise instead of running on the
+chip_smoke.py, kernel_ab.py or host_ab.py) imports jax or quorum_tpu,
+the entry points default to the card, and without a card they raise instead of running on the
 CPU. The ctypes signatures of the kernels' launchers match their C
 declarations."""
 
@@ -15,6 +15,8 @@ import torch
 import quorum_tpu_torch
 from quorum_tpu_torch.cli import create_database as tcdb_cli
 from quorum_tpu_torch.cli import error_correct_reads as tec_cli
+from quorum_tpu_torch.cli import histo_mer_database as thisto
+from quorum_tpu_torch.cli import query_mer_database as tquery
 from quorum_tpu_torch.cli import quorum as tquorum
 from quorum_tpu_torch.kernels import loader
 from quorum_tpu_torch.models import create_database as tcdb
@@ -27,7 +29,8 @@ READS = os.path.join(ROOT, "tests", "golden", "reads.fastq")
 
 def _port_files():
     out = [os.path.join(ROOT, "chip_smoke.py"),
-           os.path.join(ROOT, "kernel_ab.py")]
+           os.path.join(ROOT, "kernel_ab.py"),
+           os.path.join(ROOT, "host_ab.py")]
     for d, _dirs, files in os.walk(PKG):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return out
@@ -55,7 +58,8 @@ def test_port_imports_neither_jax_nor_the_jax_package(forbidden):
 def test_default_device_is_cuda():
     assert quorum_tpu_torch.DEFAULT_DEVICE == "cuda"
     for parser in (tcdb_cli.build_parser(), tec_cli.build_parser(),
-                   tquorum.build_parser()):
+                   tquorum.build_parser(), thisto.build_parser(),
+                   tquery.build_parser()):
         assert parser.get_default("device") == "cuda"
     assert tcdb.BuildConfig().device == "cuda"
     assert tec.ECOptions().device == "cuda"
