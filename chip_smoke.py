@@ -27,7 +27,10 @@ run. Phases, each printing one JSON line:
            the export of row ranges, with its count and without
            (seal_export_shapes), and both timed on a dense 2^20-row table
   golden   the stage CLIs reproduce tests/golden/expected*.fa/.log with
-           --device cuda; the quorum driver's --device cuda output, and
+           --device cuda (the -p 4 stage 2 with --metrics: its quality
+           section's counts, rates and skip reasons equal to the golden
+           pins of QUALITY_BASELINE.json); the quorum driver's --device
+           cuda output, and
            its --partitions 4 --device cuda output, are byte-equal to
            its --device cpu output; so are quorum_error_correct_reads'
            with --contaminant (two 2k-base windows of golden reads),
@@ -46,6 +49,18 @@ run. Phases, each printing one JSON line:
            render workers' summed seconds, the card's busy seconds
            (torch.profiler's device activity, as around the full run) and
            host share (launch counts reset before and read after)
+  telemetry  the same driver run with --metrics --metrics-interval 1
+           --trace-spans, then with --profile --metrics (outside
+           DeviceBusy, the loader's event timing off): .fa/.log
+           byte-equal to the full run's; every metrics document, event
+           stream and span file valid under the port's schema copy and
+           contract name rules; the profile's step windows the run's
+           stage-1 insert and stage-2 device steps, kernel time in both
+           stages, the top kernel one of the port's; the first run's
+           Gbases/h beside the full run's, the profile's split by stage
+           and top kernels beside the full run's busy seconds, and
+           HK5's kernel time beside its wrapper's host and device spans
+           (launch counts reset before and read after each run)
   parser   the native parser built, and equal to the Python parser
            batch for batch on the full run's FASTQ; both times
   two_binary  the same FASTQ through quorum_create_database with -s a
@@ -223,11 +238,12 @@ run. Phases, each printing one JSON line:
 Kernel times are medians of CUDA events around each C launch, each
 timed call behind a ~1 ms spin on its stream (LEAD_CYCLES), so that
 the host's work before the launch does not count.
-Then one {"kernels": [...]} line (launches from the full, pipeline, two_binary,
-paired (both runs), ref_format, inspect, legacy, the four prefilter, the three partitioned, the two contaminant, the
-devices runs, the routed and partitioned mesh runs and the event
-phase's two runs and the flat, minimizer and devices_unpacked runs,
-times and bounds from the kernels, loaded, table, event, devices, flat
+Then one {"kernels": [...]} line (launches from the full, pipeline,
+telemetry (both runs), two_binary, paired (both runs), ref_format,
+inspect, legacy, the four prefilter, the three partitioned, the two
+contaminant, the devices runs, the routed and partitioned mesh runs
+and the event phase's two runs and the flat, minimizer and
+devices_unpacked runs, times and bounds from the kernels, loaded, table, event, devices, flat
 and minimizer phases; HK5's and HK4's sharded-table entries from
 the table phase, on its table as four shards; HK4's plain sharded-table
 entry has no default-path caller since event mode is the default), the
@@ -243,6 +259,7 @@ import filecmp
 import gzip
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -428,6 +445,10 @@ PATH_KERNELS.update({
     "inspect": ("tile_load", "tile_lookup"),
     "legacy": ("tile_load", *S2),
 })
+# the telemetry phase: the full run's driver with --metrics
+# --metrics-interval --trace-spans, then with --profile --metrics
+PATH_KERNELS.update({"telemetry": PATH_KERNELS["full"],
+                     "telemetry_profile": PATH_KERNELS["full"]})
 # the sharded build's device time by step (CUDA events, STATS.timing):
 # the step's name -> the counter or span its events are kept under
 SPLIT = {"route": "shard_route", "exchange": "exchange",
@@ -1747,7 +1768,8 @@ def phase_golden():
     check(cdb.main(["-s", "64k", "-m", "13", "-b", "7", "-q", "38", "-o", db,
                     "--device", "cuda", reads]) == 0, "golden stage 1")
     res = {}
-    for tag, extra, suffix in (("p4", ["-p", "4"], ""),
+    metrics = os.path.join(d, "p4.metrics.json")
+    for tag, extra, suffix in (("p4", ["-p", "4", "--metrics", metrics], ""),
                                ("auto", [], "_auto")):
         o = os.path.join(d, tag)
         check(ec.main(extra + [db, reads, "-o", o, "--device", "cuda"]) == 0,
@@ -1755,6 +1777,21 @@ def phase_golden():
         res[tag] = all(filecmp.cmp(o + ext, os.path.join(
             GOLDEN, f"expected{suffix}{ext}"), shallow=False)
             for ext in (".fa", ".log"))
+    # the -p 4 run's quality section, by the port's own arithmetic,
+    # against the golden pins of QUALITY_BASELINE.json (exact: the run
+    # is deterministic)
+    from quorum_tpu_torch.telemetry import quality
+
+    with open(metrics) as f:
+        doc = json.load(f)
+    with open(os.path.join(ROOT, "QUALITY_BASELINE.json")) as f:
+        pins = json.load(f)["docs"]["golden"]["metrics"]
+    prof = quality_profile(quality.section_from_doc(doc))
+    off = {k: (prof.get(k), pin["value"]) for k, pin in pins.items()
+           if prof.get(k) != pin["value"]}
+    res["quality_baseline"] = not off
+    res["quality_section_in_document"] = (
+        doc.get("quality") == quality.section_from_doc(doc))
     for dev in ("cuda", "cpu"):
         check(quorum.main(["-s", "64k", "-k", "13", "-p",
                            os.path.join(d, f"drv_{dev}"), "--device", dev,
@@ -1803,7 +1840,7 @@ def phase_golden():
                            reads]) == 0,
               f"golden driver with a contaminant ({dev})")
     res["driver_contaminant_cuda_eq_cpu"] = same_fa_log(*outs)
-    emit({"phase": "golden", **res})
+    emit({"phase": "golden", **res, "quality_off_baseline": off})
     check(all(res.values()), f"golden mismatch: {res}")
 
 
@@ -2008,6 +2045,258 @@ def phase_serial(card: str, full: dict) -> dict:
     for tag, (_r, same) in runs.items():
         check(same, f"the {tag} run's .fa/.log differ from the full run's")
     return launches
+
+
+# torch's own fill and copy kernels (tensor set-up and moves around the
+# port's kernels); sets show as gpu_memset, not as kernels
+TORCH_FILL_COPY = re.compile(r"^at::native::.*(FillFunctor|[Cc]opy)")
+
+
+def port_kernel_names() -> set:
+    """The __global__ functions of the port's CUDA sources."""
+    from quorum_tpu_torch.kernels import loader
+
+    pat = re.compile(r"__global__\s+(?:void\s+)?(?:__launch_bounds__\([^)]*\)"
+                     r"\s*)?(?:void\s+)?(\w+)\s*\(", re.S)
+    names = set()
+    for f in os.listdir(loader.CSRC):
+        if f.endswith((".cu", ".cuh")):
+            with open(os.path.join(loader.CSRC, f)) as src:
+                names |= set(pat.findall(src.read()))
+    return names
+
+
+def telemetry_artifacts(d: str) -> dict:
+    """Every telemetry file a driver run wrote under `d`, validated: each
+    by the port's copy of the schema (telemetry/schema.check_file), each
+    metrics document also by the contract's name rules
+    (contract.missing_names). Returns {file name: metrics document} for
+    the documents."""
+    from quorum_tpu_torch.telemetry import contract, schema
+
+    docs = {}
+    for root, _dirs, files in os.walk(d):
+        for f in files:
+            path = os.path.join(root, f)
+            if not f.endswith((".json", ".jsonl")) or \
+                    f == "torch_profiler.trace.json":
+                continue
+            problems = schema.check_file(path)
+            check(not problems, f"{path} fails the schema: {problems[:3]}")
+            if f.startswith("m") and f.endswith(".json") and \
+                    ".events." not in f:
+                with open(path) as fh:
+                    doc = json.load(fh)
+                missing = contract.missing_names(doc)
+                check(not missing, f"{path} lacks names: {missing[:3]}")
+                docs[f] = doc
+    return docs
+
+
+def phase_telemetry(card: str, full: dict) -> dict:
+    """The full run's driver twice more, launch counts reset before each
+    and read after: (a) with --metrics --metrics-interval 1
+    --trace-spans, (b) with --profile --metrics, outside DeviceBusy and
+    with the loader's CUDA-event timing off (one profiler session a
+    process; the events would pad the timeline). Both runs' .fa/.log
+    are byte-equal to the full run's and every document, event stream
+    and span file validates; in (b) the profile's step windows are the
+    run's stage-1 insert and stage-2 device steps, each stage's kernel
+    time is above 0 and the top kernel is one of the port's. Prints
+    (a)'s Gbases/h beside the full run's, (b)'s split by stage and its
+    top kernels beside the full run's DeviceBusy seconds, and HK5's
+    kernel time beside its wrapper's spans from the same trace."""
+    from quorum_tpu_torch.cli import quorum
+    from quorum_tpu_torch.kernels.loader import STATS
+    from quorum_tpu_torch.telemetry import devtrace
+
+    base = os.path.join(WORK, "telemetry")
+    bases = full["codes"].shape[0] * READ_LEN
+    runs, launches = {}, {}
+    for tag, path in (("metrics", "telemetry"),
+                      ("profile", "telemetry_profile")):
+        d = os.path.join(base, tag)
+        os.makedirs(d, exist_ok=True)
+        m = os.path.join(d, "m.json")
+        flags = (["--metrics", m, "--metrics-interval", "1", "--trace-spans",
+                  os.path.join(d, "s.jsonl")] if tag == "metrics" else
+                 ["--profile", os.path.join(d, "prof"), "--metrics", m])
+        report: dict = {}
+        STATS.reset()
+        STATS.timing = False
+        t0 = time.perf_counter()
+        with RenderCapture(every=4 if tag == "metrics" else 0) as captured:
+            rc = quorum.main(["-s", str(full["size"]), "-k", str(K), "-p",
+                              os.path.join(d, "out"), "--device", "cuda",
+                              *flags, full["fastq"]], report=report)
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"telemetry {tag} driver rc {rc}")
+        launches[path] = dict(STATS.launches)
+        for name in PATH_KERNELS[path]:
+            check(launches[path][name] > 0,
+                  f"{name} was not launched on the {path} run")
+        check(same_fa_log(os.path.join(d, "out"), full["prefix"]),
+              f"the telemetry {tag} run's .fa/.log differ from the full "
+              "run's")
+        docs = telemetry_artifacts(d)
+        check(set(docs) == {"m.json", "m.stage1.json", "m.stage2.json"},
+              f"telemetry {tag} documents: {sorted(docs)}")
+        s1, s2 = report["stage1_s"], report["stage2_s"]
+        runs[tag] = {"stage1_s": round(s1, 3), "stage2_s": round(s2, 3),
+                     "wall_s": round(wall, 3),
+                     "gbases_per_hour": round(bases / (s1 + s2) * 3600
+                                              / 1e9, 4),
+                     "documents": sorted(docs), "docs": docs,
+                     "steps": {"stage1_insert": report["build"].batches,
+                               "stage2_device":
+                                   launches[path]["stage2_head"]},
+                     "pipeline": pipeline_times(report),
+                     "dir": d}
+        if captured.args:
+            runs[tag]["render_cost"] = render_cost(captured.args)
+    fr = full["report"]
+    full_gbph = bases / (fr["stage1_s"] + fr["stage2_s"]) * 3600 / 1e9
+    a = runs["metrics"]
+    a["full_gbases_per_hour"] = round(full_gbph, 4)
+    a["cost_share"] = round(1 - a["gbases_per_hour"] / full_gbph, 4)
+    a["full_pipeline"] = pipeline_times(fr)
+    b = runs["profile"]
+    meta = b["docs"]["m.json"]["meta"]
+    counters = b["docs"]["m.json"]["counters"]
+    check(meta["devtrace_source"] == devtrace.SOURCE_LAUNCH,
+          f"the profile's device activity was not joined by launch "
+          f"correlation ({meta['devtrace_source']})")
+    check(meta["devtrace_stage_steps"] == b["steps"],
+          f"profile step windows {meta['devtrace_stage_steps']} != the "
+          f"run's steps {b['steps']}")
+    check(b["docs"]["m.json"]["gauges"]["devtrace_steps"]
+          == sum(b["steps"].values()), "devtrace_steps != the run's steps")
+    for doc in ("m.stage1.json", "m.stage2.json"):
+        check(b["docs"][doc]["counters"]["device_kernel_us_total"] > 0,
+              f"{doc}: no kernel time in the profile")
+    ours = port_kernel_names()
+    top = []
+    for ent in meta["devtrace_top_kernels"]:
+        label, _, us = ent.rpartition("=")
+        top.append({"kernel": label, "us": float(us),
+                    "port": label.split("<")[0] in ours,
+                    "torch_fill_copy": bool(TORCH_FILL_COPY.match(label))})
+    others = [t["kernel"] for t in top
+              if not (t["port"] or t["torch_fill_copy"])]
+    check(top and top[0]["port"] and not others,
+          f"top kernels that are neither the port's nor torch's fills and "
+          f"copies: {others} (top {top})")
+    hk5 = {key: meta.get(f"devtrace_launch_{key}", {}).get("stage2_head")
+           for key in ("calls", "host_us", "device_us", "kernel_us")}
+    check(hk5["calls"] and hk5["kernel_us"], f"no HK5 launch ranges: {hk5}")
+    traces = {os.path.relpath(p, b["dir"]): os.path.getsize(p)
+              for p in devtrace.find_trace_files(os.path.join(b["dir"],
+                                                              "prof"))}
+    out = {"phase": "telemetry", "card": card,
+           "metrics_run": {k: v for k, v in a.items()
+                           if k not in ("docs", "dir")},
+           "profile_run": {
+               **{k: v for k, v in b.items() if k not in ("docs", "dir")},
+               "devtrace_source": meta["devtrace_source"],
+               "stages": {s: {"steps": meta["devtrace_stage_steps"][s],
+                              "kernel_us":
+                                  meta["devtrace_stage_kernel_us"][s],
+                              "step_us": meta["devtrace_stage_step_us"][s],
+                              "idle_us": meta["devtrace_stage_idle_us"][s]}
+                          for s in meta["devtrace_stage_steps"]},
+               "device_kernel_us_total": counters["device_kernel_us_total"],
+               "device_kernel_unattributed_us_total":
+                   counters["device_kernel_unattributed_us_total"],
+               "memcpy_us": meta["devtrace_memcpy_us"],
+               "memset_us": meta["devtrace_memset_us"],
+               "top_kernels": top,
+               "trace_bytes": traces},
+           "full_device_busy_s": round(fr["busy"].busy_s, 3),
+           "hk5": {**hk5, **{f"{k}_per_call": round(hk5[k] / hk5["calls"], 3)
+                             for k in ("host_us", "device_us",
+                                       "kernel_us")}},
+           "launches": launches}
+    emit(out)
+    return launches
+
+
+class RenderCapture:
+    """Keeps the arguments of every `every`-th call of stage 2's render
+    (error_correct.render_batch_host, which the render workers look up
+    at each call) while a run is inside; `every` 0 keeps none."""
+
+    def __init__(self, every: int):
+        self.every, self.calls, self.args = every, 0, []
+
+    def __enter__(self):
+        from quorum_tpu_torch.models import error_correct
+
+        self.plain = error_correct.render_batch_host
+        if self.every:
+            error_correct.render_batch_host = self.render
+        return self
+
+    def render(self, *args):
+        if self.calls % self.every == 0:
+            self.args.append(args)
+        self.calls += 1
+        return self.plain(*args)
+
+    def __exit__(self, *exc):
+        from quorum_tpu_torch.models import error_correct
+
+        error_correct.render_batch_host = self.plain
+
+
+def render_cost(captured: list) -> dict:
+    """Where the outcome tallies' seconds go: stage 2's render of the
+    captured batches, serial on this thread, with `count_outcomes` off
+    and on (which runs first alternates by batch); and its parts on the
+    same batches: the finish (corrector.finish_batch_host) and the
+    tally loop alone (error_correct._tally_log over every corrected
+    read's two logs, as render_result runs it)."""
+    from quorum_tpu_torch.models import corrector, error_correct
+
+    secs = dict.fromkeys(("render_off", "render_on", "finish", "tally"), 0.0)
+    reads = entries = 0
+    for i, (batch, buf, b, l, maxe, cfg, _count) in enumerate(captured):
+        for on in ((False, True) if i % 2 == 0 else (True, False)):
+            t0 = time.perf_counter()
+            error_correct.render_batch_host(batch, buf, b, l, maxe, cfg, on)
+            secs["render_on" if on else "render_off"] += \
+                time.perf_counter() - t0
+        t0 = time.perf_counter()
+        results = corrector.finish_batch_host(buf, batch.n, batch.codes, b,
+                                              l, maxe, cfg)
+        t1 = time.perf_counter()
+        outcome = error_correct.new_outcome()
+        for r in results:
+            if r.ok:
+                error_correct._tally_log(r.fwd_log, outcome)
+                error_correct._tally_log(r.bwd_log, outcome)
+        secs["tally"] += time.perf_counter() - t1
+        secs["finish"] += t1 - t0
+        reads += batch.n
+        entries += outcome["subs"] + outcome["t3"] + outcome["t5"]
+    out = {"batches": len(captured), "reads": reads, "log_entries": entries,
+           **{f"{k}_s": round(v, 4) for k, v in secs.items()}}
+    out["tally_us_per_read"] = round(secs["tally"] / max(1, reads) * 1e6, 4)
+    out["on_minus_off_s"] = round(secs["render_on"] - secs["render_off"], 4)
+    return out
+
+
+def quality_profile(section: dict) -> dict:
+    """The flat metrics QUALITY_BASELINE.json pins, from one quality
+    section, by tools/quality_diff.py's own profile_from_quality (loaded
+    by path; its module-level imports are the standard library and
+    tools/perf_diff.py)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "quality_diff", os.path.join(ROOT, "tools", "quality_diff.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool.profile_from_quality(section)
 
 
 def table_content(path: str):
@@ -5747,6 +6036,7 @@ def run() -> int:
         phase_golden()
         full = phase_full(card)
         serial = phase_serial(card, full)
+        telemetry = phase_telemetry(card, full)
         phase_parser(card, full)
         two = phase_two_binary(card, full)
         paired = phase_paired(card, full)
@@ -5780,7 +6070,7 @@ def run() -> int:
         return 1
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
-    by_path = {"full": full["launches"], "pipeline": serial,
+    by_path = {"full": full["launches"], "pipeline": serial, **telemetry,
                "two_binary": two["launches"],
                **prefilter, **partitions, **contam["launches"],
                "devices": devices["launches"],

@@ -1,7 +1,9 @@
 """quorum_create_database (port): flags -s -m -b -q/-Q -o -t -p
 --ref-format --db-version --db-layout --batch-size --prefilter
---partitions --devices --on-bad-read --device -v, as the reference CLI
-(src/create_database_cmdline.yaggo) and quorum_tpu's stage-1 CLI.
+--partitions --devices --on-bad-read --device -v and the telemetry flags
+(--metrics, --metrics-interval, --trace-spans, --profile,
+--metrics-live), as the reference CLI (src/create_database_cmdline.yaggo)
+and quorum_tpu's stage-1 CLI.
 
     python -m quorum_tpu_torch.cli.create_database -s 64k -m 13 -b 7 \\
         -q 38 -o db.jf reads.fastq
@@ -27,28 +29,23 @@ from ..ops.sketch import PREFILTER_MODES, prefilter_default
 from ..parallel import tile_sharded as ts
 from ..utils import vlog as vlog_mod
 from ..utils.sizes import parse_size
+from .observability import (UNPORTED_OBSERVABILITY, add_observability_args,
+                            observability)
 
 # quorum_tpu's flags whose paths are not ported yet: accepted by the
 # parser so that a run that asks for them is refused with a reason
 UNPORTED = {
-    "checkpoint_dir": "--checkpoint-dir (checkpoints and --resume)",
-    "resume": "--resume (checkpoints and --resume)",
-    "coordinator": "--coordinator (the multi-host fleet)",
-    "num_processes": "--num-processes (the multi-host fleet)",
-    "process_id": "--process-id (the multi-host fleet)",
-    # the observability block of the inspection CLIs
-    # (add_observability_args)
-    "metrics": "--metrics (the telemetry core)",
-    "metrics_interval": "--metrics-interval (the telemetry core)",
-    "metrics_port": "--metrics-port (the telemetry core)",
-    "metrics_textfile": "--metrics-textfile (the telemetry core)",
-    "metrics_push_url": "--metrics-push-url (the telemetry core)",
-    "metrics_push_interval": "--metrics-push-interval (the telemetry core)",
-    "trace_spans": "--trace-spans (the telemetry core)",
-    "alert_rules": "--alert-rules (the telemetry core)",
-    "preflight": "--preflight (the resource guards)",
-    "stall_timeout_s": "--stall-timeout-s (the resource guards)",
-    "metrics_live": "--metrics-live (the telemetry core)",
+    "checkpoint_dir": "--checkpoint-dir (checkpoints and --resume, "
+                      "ROADMAP Queue 1 item 5)",
+    "resume": "--resume (checkpoints and --resume, ROADMAP Queue 1 "
+              "item 5)",
+    "coordinator": "--coordinator (the multi-host fleet, ROADMAP Queue 1 "
+                   "item 9)",
+    "num_processes": "--num-processes (the multi-host fleet, ROADMAP "
+                     "Queue 1 item 9)",
+    "process_id": "--process-id (the multi-host fleet, ROADMAP Queue 1 "
+                  "item 9)",
+    **UNPORTED_OBSERVABILITY,
 }
 
 
@@ -128,19 +125,6 @@ def add_unported_args(p: argparse.ArgumentParser) -> None:
                    help=argparse.SUPPRESS)
 
 
-def add_observability_args(p: argparse.ArgumentParser) -> None:
-    """quorum_tpu's observability flags of the inspection CLIs
-    (cli/observability.add_observability_args with metrics=True), as
-    it spells them; refuse_unported() turns any use into an error."""
-    for flag in ("--metrics", "--metrics-interval", "--metrics-port",
-                 "--metrics-textfile", "--metrics-push-url",
-                 "--metrics-push-interval", "--trace-spans",
-                 "--alert-rules", "--preflight", "--stall-timeout-s"):
-        p.add_argument(flag, default=None, help=argparse.SUPPRESS)
-    p.add_argument("--metrics-live", action="store_true",
-                   help=argparse.SUPPRESS)
-
-
 def refuse_unported(args, prog: str) -> bool:
     """Print why and return True if `args` ask for a path the port does
     not have yet."""
@@ -211,6 +195,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="cuda (default) or cpu (plain PyTorch versions of "
                         "the kernels)")
     add_devices_arg(p, "Build the table sharded by leading row bits")
+    add_observability_args(p)
     add_unported_args(p)
     p.add_argument("-v", "--verbose", action="store_true")
     p.add_argument("reads", nargs="+", help="Read files")
@@ -288,15 +273,24 @@ def main(argv=None, handoff: dict | None = None,
         devices=args.devices, threads=args.threads,
         on_bad_read=args.on_bad_read, max_reprobe=args.reprobe,
         quarantine_path=(args.output + ".quarantine.fastq"
-                         if args.on_bad_read == "quarantine" else None))
-    try:
-        create_database_main(args.reads, args.output, cfg,
-                             cmdline=list(sys.argv), handoff=handoff,
-                             batches_factory=batches_factory,
-                             ref_format=args.ref_format)
-    except (RuntimeError, OSError, ValueError) as e:
-        print(str(e), file=sys.stderr)
-        return 1
+                         if args.on_bad_read == "quarantine" else None),
+        profile=args.profile)
+    # a failed run (a missing reads file, a full hash) still lands its
+    # document, stamped status=error
+    with observability(args.metrics, args.metrics_interval,
+                       live=args.metrics_live, trace_spans=args.trace_spans,
+                       profile=args.profile) as obs:
+        try:
+            create_database_main(args.reads, args.output, cfg,
+                                 cmdline=list(sys.argv), handoff=handoff,
+                                 batches_factory=batches_factory,
+                                 ref_format=args.ref_format,
+                                 metrics=obs.registry, tracer=obs.tracer)
+        except (RuntimeError, OSError, ValueError) as e:
+            print(str(e), file=sys.stderr)
+            obs.status = "error"
+            return 1
+        obs.registry.set_meta(output=args.output)
     return 0
 
 

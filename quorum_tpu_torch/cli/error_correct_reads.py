@@ -2,8 +2,9 @@
 flags of quorum_tpu's stage-2 CLI (-t -m -s -g -a -w -e -p -q -Q -d -M
 --contaminant --trim-contaminant --homo-trim --apriori-error-rate
 --poisson-threshold --gzip -o -v, same defaults) plus --presence-floor,
---batch-size, --verify-db, --devices, --render-workers, --on-bad-read
-and --device.
+--batch-size, --verify-db, --devices, --render-workers, --on-bad-read,
+--device and the telemetry flags (--metrics, --metrics-interval,
+--trace-spans, --profile, --metrics-live).
 
     python -m quorum_tpu_torch.cli.error_correct_reads -p 4 db.jf \\
         reads.fastq -o corrected
@@ -21,8 +22,9 @@ from ..io.integrity import IntegrityError
 from ..models.ec_config import DEFAULT_QUAL_CUTOFF
 from ..models.error_correct import ECOptions, run_error_correct
 from ..utils import vlog as vlog_mod
-from .create_database import (add_devices_arg, resolve_devices_arg,
-                              routed_devices_ok)
+from .create_database import (add_devices_arg, refuse_unported,
+                              resolve_devices_arg, routed_devices_ok)
+from .observability import add_observability_args
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -97,6 +99,7 @@ def build_parser() -> argparse.ArgumentParser:
     add_devices_arg(p, "Correct data-parallel (the table replicated, or "
                        "row-sharded past QUORUM_REPLICATE_TABLE_BYTES or "
                        "2^24 rows)")
+    add_observability_args(p)
     p.add_argument("-v", "--verbose", action="store_true", help="Be verbose")
     p.add_argument("db", help="Mer database")
     p.add_argument("sequence", nargs="+", help="Input sequence")
@@ -132,6 +135,8 @@ def main(argv=None, db=None, prepacked=None, records=None,
         else args.qual_cutoff_value if args.qual_cutoff_value is not None
         else DEFAULT_QUAL_CUTOFF)
     prog = "quorum_error_correct_reads"
+    if refuse_unported(args, prog):
+        return 1
     if not resolve_devices_arg(args, prog):
         return 1
     resolve_device(args.device)  # no card for --device cuda: raise here
@@ -150,7 +155,10 @@ def main(argv=None, db=None, prepacked=None, records=None,
                      contaminant=args.contaminant, devices=args.devices,
                      threads=args.thread, render_workers=args.render_workers,
                      gzip=args.gzip, on_bad_read=args.on_bad_read,
-                     no_mmap=args.no_mmap)
+                     no_mmap=args.no_mmap, metrics=args.metrics,
+                     metrics_interval=args.metrics_interval,
+                     metrics_force=args.metrics_live,
+                     trace_spans=args.trace_spans, profile=args.profile)
     try:
         stats = run_error_correct(args.db, args.sequence, opts,
                                   qual_cutoff=qual_cutoff, skip=args.skip,

@@ -12,24 +12,28 @@ bins come back (with --device cpu, the plain version places it and the
 host bins it). `--json PATH` also writes
 the bins as a schema-versioned document (quorum-tpu-histo/1) with
 summary statistics, the fitted coverage mode among them, replaced
-atomically. The observability flags of quorum_tpu's tool are refused
-until the telemetry core is ported.
+atomically. `--metrics` records `distinct_mers`, `nonempty_bins`,
+`max_count` and, with --json, `coverage_mode`, as quorum_tpu's tool
+does; `--profile` traces the load and the binning.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import os
 import sys
 
 import numpy as np
 import torch
 
 from .. import resolve_device
-from ..io import db_format, integrity
+from ..io import db_format
 from ..ops import ctable
-from .create_database import add_observability_args, refuse_unported
+from ..telemetry import atomic_write
+from ..telemetry.quality import coverage_from_histo
+from ..utils.profiling import trace
+from .create_database import refuse_unported
+from .observability import add_observability_args, observability
 
 HLEN = 1001
 # quorum_tpu/telemetry/schema.HISTO_SCHEMA
@@ -49,26 +53,6 @@ def histo(vals) -> np.ndarray:
     return bins.view(HLEN, 2).cpu().numpy()
 
 
-def coverage_from_histo(bins) -> float:
-    """The mean trusted-mer coverage fitted from histogram rows
-    ``[count, n_lowqual, n_highqual]`` (quorum_tpu/telemetry/quality.py):
-    the high-quality spectrum's mode past its first valley, where errors
-    give way to real coverage. 0.0 where no valley exists."""
-    hq: dict[int, int] = {}
-    for row in bins or ():
-        count, _low, high = int(row[0]), int(row[1]), int(row[2])
-        if count > 0 and high > 0:
-            hq[count] = hq.get(count, 0) + high
-    if not hq:
-        return 0.0
-    xs = sorted(hq)
-    valley = next((a for a, b in zip(xs, xs[1:]) if hq[b] > hq[a]), None)
-    if valley is None:
-        return 0.0
-    past = [x for x in xs if x > valley]
-    return float(max(past, key=lambda x: (hq[x], -x)))
-
-
 def histo_doc(out: np.ndarray) -> dict:
     """The `--json` document of one histogram: the non-empty bins as
     rows, count ascending as on stdout, and the summary statistics."""
@@ -85,18 +69,6 @@ def histo_doc(out: np.ndarray) -> dict:
             "coverage_mode": coverage_from_histo(bins),
         },
     }
-
-
-def atomic_write(path: str, text: str) -> None:
-    """Write `text` to a sibling file, fsync it and rename it over
-    `path`: a reader never sees a torn document."""
-    tmp = path + ".tmp"
-    with open(tmp, "w") as f:
-        f.write(text)
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(tmp, path)
-    integrity.fsync_dir(path)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -120,18 +92,42 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if refuse_unported(args, "histo_mer_database"):
         return 1
-    try:
-        state, meta, _header, _stats = db_format.load_db(
-            args.db, device=resolve_device(args.device))
-    except (RuntimeError, ValueError, OSError) as e:
-        print(str(e), file=sys.stderr)
-        return 1
-    out = histo(ctable.slot_values(state.rows, meta))
-    for i in range(HLEN):
-        if out[i, 0] or out[i, 1]:
-            print(f"{i} {out[i, 0]} {out[i, 1]}")
-    if args.json:
-        atomic_write(args.json, json.dumps(histo_doc(out), indent=1) + "\n")
+    with observability(args.metrics, args.metrics_interval,
+                       live=args.metrics_live, trace_spans=args.trace_spans,
+                       profile=args.profile,
+                       stage="histo_mer_database") as obs:
+        reg, tracer = obs.registry, obs.tracer
+        try:
+            device = resolve_device(args.device)
+            with trace(args.profile, device):
+                with tracer.span("load_db"):
+                    state, meta, _header, _stats = db_format.load_db(
+                        args.db, device=device)
+                reg.set_meta(db=args.db, k=meta.k)
+                with tracer.span("histogram"):
+                    out = histo(ctable.slot_values(state.rows, meta))
+        except (RuntimeError, ValueError, OSError) as e:
+            print(str(e), file=sys.stderr)
+            obs.status = "error"
+            return 1
+        nonempty = 0
+        for i in range(HLEN):
+            if out[i, 0] or out[i, 1]:
+                print(f"{i} {out[i, 0]} {out[i, 1]}")
+                nonempty += 1
+        if args.json:
+            doc = histo_doc(out)
+            atomic_write(args.json, json.dumps(doc, indent=1) + "\n")
+            if reg.enabled:
+                reg.set_meta(histo_json=args.json)
+                reg.gauge("coverage_mode").set(
+                    doc["stats"]["coverage_mode"])
+        if reg.enabled:
+            reg.counter("distinct_mers").inc(int(out.sum()))
+            reg.gauge("nonempty_bins").set(nonempty)
+            occupied = np.nonzero(out.sum(axis=1))[0]
+            reg.gauge("max_count").set(
+                int(occupied.max()) if occupied.size else 0)
     return 0
 
 

@@ -9,8 +9,8 @@ one HK3 launch; with --device cpu it is placed by the plain version and
 each mer looked up in host memory, as quorum_tpu's tool does. The first
 line is k, then one ``mer:canonical val:N qual:Q`` line a mer; a mer of
 the wrong length is reported on stderr.
-The observability flags of quorum_tpu's tool are refused until the
-telemetry core is ported.
+`--metrics` records `mers_queried`, `mers_found` and `mers_bad_length`,
+as quorum_tpu's tool does; `--profile` traces the load and the lookups.
 """
 
 from __future__ import annotations
@@ -23,7 +23,9 @@ import torch
 from .. import kernels, resolve_device
 from ..io import db_format
 from ..ops import mer
-from .create_database import add_observability_args, refuse_unported
+from ..utils.profiling import trace
+from .create_database import refuse_unported
+from .observability import add_observability_args, observability
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -57,26 +59,46 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if refuse_unported(args, "query_mer_database"):
         return 1
-    try:
-        state, meta, _header, _stats = db_format.load_db(
-            args.db, device=resolve_device(args.device))
-    except (RuntimeError, ValueError, OSError) as e:
-        print(str(e), file=sys.stderr)
-        return 1
+    with observability(args.metrics, args.metrics_interval,
+                       live=args.metrics_live, trace_spans=args.trace_spans,
+                       profile=args.profile,
+                       stage="query_mer_database") as obs:
+        reg, tracer = obs.registry, obs.tracer
+        try:
+            device = resolve_device(args.device)
+            with trace(args.profile, device):
+                rc = _query(args, device, reg, tracer)
+        except (RuntimeError, ValueError, OSError) as e:
+            print(str(e), file=sys.stderr)
+            obs.status = "error"
+            return 1
+    return rc
+
+
+def _query(args, device, reg, tracer) -> int:
+    with tracer.span("load_db"):
+        state, meta, _header, _stats = db_format.load_db(args.db,
+                                                         device=device)
     k = meta.k
+    reg.set_meta(db=args.db, k=k)
     print(k)
     asked = []
     for s in args.mers:
         if len(s) != k:
             print(f"{s}: wrong length (k={k})", file=sys.stderr)
+            reg.counter("mers_bad_length").inc()
             continue
         hi, lo = mer.pack_kmer(s)
         asked.append((s, *mer.canonical_py(hi, lo, k)))
-    vals = lookup_values(state, meta,
-                         [(chi << 32) | clo for _s, chi, clo in asked])
+    with tracer.span("query", mers=len(asked)):
+        vals = lookup_values(state, meta,
+                             [(chi << 32) | clo for _s, chi, clo in asked])
     for (s, chi, clo), v in zip(asked, vals):
         print(f"{s}:{mer.unpack_kmer(chi, clo, k)} val:{v >> 1} "
               f"qual:{v & 1}")
+        reg.counter("mers_queried").inc()
+        if v >> 1 > 0:
+            reg.counter("mers_found").inc()
     return 0
 
 

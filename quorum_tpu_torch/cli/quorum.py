@@ -34,6 +34,13 @@ interleaved by merge_mate_pairs.merge_records, are corrected with
 <prefix>.fa is split into <prefix>_1.fa and <prefix>_2.fa and removed.
 Paired mode keeps no replay cache: the cache holds the files' order,
 not the merged one.
+
+Telemetry: --metrics m.json writes the driver's own document there and
+forwards m.stage1.json / m.stage2.json to the stages; --trace-spans
+s.jsonl writes s.driver.jsonl (the shared producer's spans) and forwards
+s.stage1.jsonl / s.stage2.jsonl; --profile prof/ forwards prof/stage1
+and prof/stage2, and the driver's document attributes the device time
+of both.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ import sys
 import time
 
 import numpy as np
+import torch
 
 from .. import __version__, resolve_device
 from ..io import db_format, fastq, packing
@@ -59,6 +67,7 @@ from ..utils.vlog import vlog
 from . import create_database as cdb_cli
 from . import error_correct_reads as ec_cli
 from .merge_mate_pairs import merge_records
+from .observability import add_observability_args, observability
 from .split_mate_pairs import split_stream
 
 # The reference quorum is 1.x and wrappers gate on `quorum --version`:
@@ -158,12 +167,23 @@ def build_parser() -> argparse.ArgumentParser:
            "bits, stage 2 corrects data-parallel with the table "
            "replicated, or row-sharded past QUORUM_REPLICATE_TABLE_BYTES "
            "or 2^24 rows)")
+    add_observability_args(p, driver=True)
     cdb_cli.add_unported_args(p)
     p.add_argument("--debug", action="store_true",
                    help="Display debugging information")
     p.add_argument("--version", action="version", version=VERSION)
     p.add_argument("reads", nargs="*", help="Input fastq files")
     return p
+
+
+def _stage_path(base: str, tag: str) -> str:
+    """Per-stage artifact path: out.json -> out.stage1.json (the same for
+    .jsonl); a path without a known extension gets the suffix
+    appended."""
+    for ext in (".jsonl", ".json"):
+        if base.endswith(ext):
+            return f"{base[:-len(ext)]}.{tag}{ext}"
+    return f"{base}.{tag}"
 
 
 def detect_min_q_char(path: str, max_reads: int = 1000) -> int:
@@ -200,6 +220,19 @@ def main(argv=None, report: dict | None = None) -> int:
     args = build_parser().parse_args(argv)
     # OR, not assign: QUORUM_TPU_VERBOSE may have enabled it already
     vlog_mod.verbose = args.debug or vlog_mod.verbose
+    if cdb_cli.refuse_unported(args, "quorum"):
+        return 1
+    with observability(args.metrics, args.metrics_interval,
+                       trace_spans=(_stage_path(args.trace_spans, "driver")
+                                    if args.trace_spans else None),
+                       profile=args.profile) as obs:
+        rc = _main(args, obs.registry, obs.tracer, report)
+        if rc != 0:
+            obs.status = "error"
+    return rc
+
+
+def _main(args, reg, tracer, report: dict | None) -> int:
     if not re.match(r"^\d+[kMGT]?$", args.size):
         print(f"Invalid size '{args.size}'. It must be a number, maybe "
               "followed by a suffix (like k, M, G for thousand, million "
@@ -211,8 +244,6 @@ def main(argv=None, report: dict | None = None) -> int:
     if args.paired_files and len(args.reads) % 2 != 0:
         print("With --paired-files an even number of input files is "
               "required.", file=sys.stderr)
-        return 1
-    if cdb_cli.refuse_unported(args, "quorum"):
         return 1
     # resolve once and forward the count to both stages
     if not cdb_cli.resolve_devices_arg(args, "quorum"):
@@ -240,6 +271,30 @@ def main(argv=None, report: dict | None = None) -> int:
               "--partitions nor --checkpoint-dir; use "
               "--prefilter=two-pass", file=sys.stderr)
         return 1
+    # per-stage telemetry paths, suffixed as quorum_tpu's driver does
+    m1 = _stage_path(args.metrics, "stage1") if args.metrics else None
+    m2 = _stage_path(args.metrics, "stage2") if args.metrics else None
+    p1 = os.path.join(args.profile, "stage1") if args.profile else None
+    p2 = os.path.join(args.profile, "stage2") if args.profile else None
+    ts1 = (_stage_path(args.trace_spans, "stage1")
+           if args.trace_spans else None)
+    ts2 = (_stage_path(args.trace_spans, "stage2")
+           if args.trace_spans else None)
+    if reg.enabled:
+        cuda = torch.cuda.is_available()
+        reg.set_meta(
+            driver="quorum", version=VERSION,
+            config={k: "" if v is None else str(v)
+                    for k, v in vars(args).items()},
+            torch_version=torch.__version__, device=args.device,
+            cuda_device_count=torch.cuda.device_count() if cuda else 0,
+            cuda_device_names=sorted({
+                torch.cuda.get_device_name(i)
+                for i in range(torch.cuda.device_count())} if cuda else ()),
+            devices_resolved=args.devices,
+            metrics_stage1=m1, metrics_stage2=m2)
+        # no stage retries in the port (ROADMAP Queue 1 item 5)
+        reg.counter("stage_retries_total")
     min_q = args.min_q_char
     if min_q is None:
         try:
@@ -265,6 +320,12 @@ def main(argv=None, report: dict | None = None) -> int:
         cdb_argv.extend(["--partitions", str(P)])
     if args.on_bad_read != "abort":
         cdb_argv.extend(["--on-bad-read", args.on_bad_read])
+    for flag, val in (("--metrics", m1), ("--profile", p1),
+                      ("--trace-spans", ts1)):
+        if val is not None:
+            cdb_argv.extend([flag, val])
+    if m1 is not None:
+        cdb_argv.extend(["--metrics-interval", str(args.metrics_interval)])
     if args.debug:
         cdb_argv.append("-v")
         print("+ quorum_create_database " + " ".join(cdb_argv)
@@ -290,8 +351,11 @@ def main(argv=None, report: dict | None = None) -> int:
             return None
         if not first:
             return fastq.BadReadPolicy("skip")
+        reg.counter("bad_reads_total")  # lands even at 0
+        reg.set_meta(on_bad_read=args.on_bad_read)
         return fastq.BadReadPolicy(args.on_bad_read,
-                                   args.prefix + ".quarantine.fastq")
+                                   args.prefix + ".quarantine.fastq",
+                                   reg if reg.enabled else None)
 
     def packed(first: bool):
         """(batch without quals, packed stage-1 wire) pairs; the first
@@ -327,7 +391,11 @@ def main(argv=None, report: dict | None = None) -> int:
     def factory():
         calls["n"] += 1
         first = calls["n"] == 1
-        return prefetch(packed(first), times=times if first else None)
+        if not first:
+            return prefetch(packed(False))
+        return prefetch(packed(True), times=times,
+                        metrics=reg if reg.enabled else None,
+                        name="reads_producer", tracer=tracer)
 
     handoff: dict = {}
     t_s1 = time.perf_counter()
@@ -338,6 +406,10 @@ def main(argv=None, report: dict | None = None) -> int:
               "passed to the -s switch is too small.", file=sys.stderr)
         return 1
     s1_s = time.perf_counter() - t_s1
+    if reg.enabled:
+        reg.gauge("stage1_seconds").set(round(s1_s, 3))
+        reg.event("stage_done", stage="create_database",
+                  seconds=round(s1_s, 3))
     # the table may have grown past the replicated stage-2 layout
     if args.devices > 1 and not cdb_cli.routed_devices_ok(
             args, "quorum", db_format.header_rb_log2(db_file)):
@@ -363,6 +435,12 @@ def main(argv=None, report: dict | None = None) -> int:
         ec_argv.append("--trim-contaminant")
     if args.no_discard or args.paired_files:
         ec_argv.append("--no-discard")
+    for flag, val in (("--metrics", m2), ("--profile", p2),
+                      ("--trace-spans", ts2)):
+        if val is not None:
+            ec_argv.extend([flag, val])
+    if m2 is not None:
+        ec_argv.extend(["--metrics-interval", str(args.metrics_interval)])
     if args.debug:
         ec_argv.append("-v")
         if args.paired_files:
@@ -397,8 +475,13 @@ def main(argv=None, report: dict | None = None) -> int:
             print(str(e), file=sys.stderr)
             return 1
         os.remove(fa_path)
+    s2_s = time.perf_counter() - t_s2
+    if reg.enabled:
+        reg.gauge("stage2_seconds").set(round(s2_s, 3))
+        reg.event("stage_done", stage="error_correct",
+                  seconds=round(s2_s, 3))
     if report is not None:
-        report.update(stage1_s=s1_s, stage2_s=time.perf_counter() - t_s2,
+        report.update(stage1_s=s1_s, stage2_s=s2_s,
                       stage1_host_s=times.get("produce_s", 0.0),
                       stage1_wait_s=times.get("wait_s", 0.0),
                       threads=threads, build=handoff["stats"],

@@ -34,7 +34,7 @@ from .. import kernels
 from ..ops import ctable
 from ..ops.ctable import GlobalMeta, TileMeta, TileState
 from . import integrity, quorum_db
-from .integrity import IntegrityError
+from .integrity import IntegrityError  # noqa: F401  (callers catch it here)
 
 FORMAT = "binary/quorum_tpu_db"
 TRAILER_FORMAT = "quorum_tpu_db_trailer/1"
@@ -316,10 +316,11 @@ def _verify_v5(path: str, header: dict, offset: int, mode: str,
     """Check a v5 file's digests: "full" every section plus the derived
     whole-file digest, "sample" the header, the bucket index and a
     random subset of entry chunks. The payload is mapped, or read with
-    `no_mmap`. Raises IntegrityError; returns the trailer."""
+    `no_mmap`. Raises IntegrityError; returns (the trailer, the header
+    and payload bytes verified)."""
     def bad(section, off, msg):
-        raise IntegrityError(f"v5 database '{path}': {msg}", path=path,
-                             section=section, offset=off)
+        raise integrity.record_error(f"v5 database '{path}': {msg}",
+                                     path=path, section=section, offset=off)
 
     cks = header.get("checksum") or {}
     sections = cks.get("sections") or {}
@@ -356,9 +357,11 @@ def _verify_v5(path: str, header: dict, offset: int, mode: str,
     idxs = list(range(len(chunks)))
     if mode == "sample" and len(chunks) > 4:
         idxs = sorted(random.Random().sample(idxs, max(4, len(idxs) // 16)))
+    verified = len(line) + bi_len
     entries = payload[bi_len:]
     for i in idxs:
         lo, hi = i * chunk, min((i + 1) * chunk, e_len)
+        verified += hi - lo
         if integrity.crc32c(entries[lo:hi]) != int(chunks[i]):
             bad("entries", offset + bi_len + lo,
                 f"entry chunk {i} digest mismatch")
@@ -375,7 +378,7 @@ def _verify_v5(path: str, header: dict, offset: int, mode: str,
         if fcrc != int(trailer.get("file_crc32c", -1)):
             bad("trailer", offset + payload_len,
                 "whole-file digest mismatch")
-    return trailer
+    return trailer, verified
 
 
 def _read_payload(path: str, offset: int, rows_n: int, n: int,
@@ -387,17 +390,17 @@ def _read_payload(path: str, offset: int, rows_n: int, n: int,
     count = rows_n + (4 + hi_bytes) * n
     payload = _map_or_read(path, offset, count, no_mmap)
     if payload.shape[0] != count:
-        raise IntegrityError(f"corrupt {what} '{path}': payload "
-                             "truncated", path=path, section="entries",
-                             offset=offset)
+        raise integrity.record_error(
+            f"corrupt {what} '{path}': payload truncated", path=path,
+            section="entries", offset=offset)
     counts = payload[:rows_n]
     if n and int(counts.max()) > ctable.TSLOTS:
-        raise IntegrityError(
+        raise integrity.record_error(
             f"corrupt {what} '{path}': {int(counts.max())} entries in "
             f"one bucket (capacity {ctable.TSLOTS})", path=path,
             section="bucket_index", offset=offset)
     if int(counts.sum(dtype=np.int64)) != n:
-        raise IntegrityError(
+        raise integrity.record_error(
             f"corrupt {what} '{path}': row counts sum "
             f"{int(counts.sum(dtype=np.int64))} != n_entries {n}",
             path=path, section="bucket_index", offset=offset)
@@ -416,6 +419,8 @@ def _load_manifest(path: str, header: dict, verify: str, on_mesh: bool,
     load (`on_mesh`) takes it."""
     if verify != "off":
         integrity.check_seal(header, "sharded database manifest", path)
+    version = int(header.get("version", 5))
+    verified = 0
     rb = int(header["rb_log2"])
     S = int(header["n_shards"])
     if rb > 24 and not on_mesh:
@@ -429,13 +434,13 @@ def _load_manifest(path: str, header: dict, verify: str, on_mesh: bool,
     rows_local = meta.rows // S
     hi_bytes = int(header["hi_bytes"])
     if hi_bytes != meta.hi_bytes:
-        raise IntegrityError(
+        raise integrity.record_error(
             f"corrupt sharded database manifest '{path}': hi_bytes "
             f"{hi_bytes} != {meta.hi_bytes} for this geometry",
             path=path, section="header", offset=0)
     recs = header.get("shards") or []
     if len(recs) != S:
-        raise IntegrityError(
+        raise integrity.record_error(
             f"corrupt sharded database manifest '{path}': {len(recs)} "
             f"shard records for n_shards={S}", path=path,
             section="header", offset=0)
@@ -445,7 +450,7 @@ def _load_manifest(path: str, header: dict, verify: str, on_mesh: bool,
     for s, rec in enumerate(recs):
         sp = os.path.join(dirn, str(rec["path"]))
         if not os.path.exists(sp):
-            raise IntegrityError(
+            raise integrity.record_error(
                 f"sharded database '{path}' is missing shard {s} "
                 f"('{sp}') — refusing to load a partial table",
                 path=sp, section="shard")
@@ -456,7 +461,7 @@ def _load_manifest(path: str, header: dict, verify: str, on_mesh: bool,
                           ("bits", header["bits"]),
                           ("n_entries", int(rec["n_entries"]))):
             if sh.get(key) != want:
-                raise IntegrityError(
+                raise integrity.record_error(
                     f"shard file '{sp}' disagrees with the manifest on "
                     f"{key} ({sh.get(key)!r} != {want!r})",
                     path=sp, section="header", offset=0)
@@ -465,12 +470,15 @@ def _load_manifest(path: str, header: dict, verify: str, on_mesh: bool,
         n_s = int(sh["n_entries"])
         if verify != "off":
             if int(sh.get("version", 1)) >= 5:
-                got = int(_verify_v5(sp, sh, offset, verify, no_mmap)
-                          .get("file_crc32c", -1))
+                trailer, nbytes = _verify_v5(sp, sh, offset, verify,
+                                             no_mmap)
+                got = int(trailer.get("file_crc32c", -1))
+                verified += nbytes
             else:
                 got = integrity.crc32c_file(sp)
+                verified += os.path.getsize(sp)
             if got != int(rec.get("file_crc32c", -2)):
-                raise IntegrityError(
+                raise integrity.record_error(
                     f"shard file '{sp}' digest {got:#010x} != manifest "
                     f"{int(rec.get('file_crc32c', -1)):#010x} — the "
                     "shard was swapped or regenerated after the "
@@ -485,10 +493,12 @@ def _load_manifest(path: str, header: dict, verify: str, on_mesh: bool,
             his[j].append(pay[base + j * n_s:base + (j + 1) * n_s])
         total += n_s
     if total != int(header.get("n_entries", total)):
-        raise IntegrityError(
+        raise integrity.record_error(
             f"corrupt sharded database manifest '{path}': shard entries "
             f"sum {total} != n_entries {header.get('n_entries')}",
             path=path, section="header", offset=0)
+    integrity.record_verified(verified, db_version=version,
+                              verify_db=verify)
     payload = np.concatenate(counts + los + [x for pl in his for x in pl])
     return payload, total, meta
 
@@ -550,9 +560,9 @@ def _load_legacy(path: str, header: dict, version: int, offset: int,
     def plane(dtype, count, words):
         raw = _map_or_read(path, offset, 4 * words, no_mmap)
         if raw.shape[0] != 4 * words:
-            raise IntegrityError(f"corrupt v{version} database '{path}': "
-                                 "payload truncated", path=path,
-                                 section="entries", offset=offset)
+            raise integrity.record_error(
+                f"corrupt v{version} database '{path}': payload truncated",
+                path=path, section="entries", offset=offset)
         return [np.asarray(raw[4 * i * count:4 * (i + 1) * count])
                 .view(dtype) for i in range(words // count)]
 
@@ -656,12 +666,16 @@ def load_db(path: str, device="cpu", verify: str = "full", mesh=None,
             raise ValueError(f"'{path}' is a version-{version} database; "
                              "it loads onto one device only")
         return _load_legacy(path, header, version, offset, device, no_mmap)
-    if version == 5 and verify != "off":
-        _verify_v5(path, header, offset, verify, no_mmap)
+    if version == 5:
+        nbytes = 0
+        if verify != "off":
+            nbytes = _verify_v5(path, header, offset, verify, no_mmap)[1]
+        # declares the checksummed load (counters at 0 with verify off)
+        integrity.record_verified(nbytes, db_version=5, verify_db=verify)
     meta = TileMeta(k=header["key_len"] // 2, bits=header["bits"],
                     rb_log2=header["rb_log2"])
     if header["hi_bytes"] != meta.hi_bytes:
-        raise IntegrityError(
+        raise integrity.record_error(
             f"corrupt database '{path}': hi_bytes {header['hi_bytes']} != "
             f"{meta.hi_bytes} for this geometry", path=path,
             section="header", offset=0)

@@ -49,12 +49,13 @@ class BadReadPolicy:
     ``abort`` (the default) raises; ``skip`` drops the record and counts
     it (`bad`); ``quarantine`` also appends the record's raw lines to
     `quarantine_path`. Thread-safe (the pooled readers parse on worker
-    threads)."""
+    threads). `registry` (an enabled telemetry registry, or None) counts
+    each bad record in `bad_reads_total`."""
 
     MODES = ("abort", "skip", "quarantine")
 
     def __init__(self, mode: str = "abort",
-                 quarantine_path: str | None = None):
+                 quarantine_path: str | None = None, registry=None):
         if mode not in self.MODES:
             raise ValueError(f"bad on-bad-read mode {mode!r} "
                              f"(one of {self.MODES})")
@@ -62,6 +63,7 @@ class BadReadPolicy:
             raise ValueError("quarantine mode needs a quarantine path")
         self.mode = mode
         self.quarantine_path = quarantine_path
+        self.registry = registry
         self.bad = 0
         self._lock = threading.Lock()
         self._f = None
@@ -76,6 +78,8 @@ class BadReadPolicy:
         quarantine mode, append its raw lines."""
         if self.mode == "abort":
             raise err
+        if self.registry is not None:
+            self.registry.counter("bad_reads_total").inc()
         with self._lock:
             self.bad += 1
             if self.mode == "quarantine" and raw_lines and not self._closed:

@@ -1,10 +1,15 @@
-"""CRC-32C digests and sealed JSON documents (counterpart of
-quorum_tpu/io/integrity.py, without its telemetry hook).
+"""CRC-32C digests, sealed JSON documents and the verification
+telemetry hook (counterpart of quorum_tpu/io/integrity.py).
 
 `crc32c()` chains like zlib.crc32 (``crc32c(b, crc32c(a)) ==
 crc32c(a + b)``); large inputs split into equal chunks whose CRCs run
 column-vectorized in numpy and fold with the GF(2) combine operator
 (`crc32c_combine`, zlib's crc32_combine construction).
+
+The loaders report what they verified (`integrity_bytes_verified_total`)
+and what they refused (`integrity_errors_total`, and an
+`integrity_error` event naming file, section and offset) into the run's
+registry, installed ambiently by cli/observability.observability().
 """
 
 from __future__ import annotations
@@ -144,7 +149,7 @@ def crc32c_file(path: str, start: int = 0, length: int | None = None,
             chunk = f.read(want)
             if not chunk:
                 if remaining is not None:
-                    raise IntegrityError(
+                    raise record_error(
                         f"'{path}' ends {remaining} bytes short of the "
                         f"digested range", path=path, offset=start)
                 break
@@ -172,13 +177,68 @@ def check_seal(doc: dict, what: str, path: str) -> None:
     want = doc.get(SEAL_FIELD)
     if want is None:
         return
-    got = crc32c(_body(doc))
+    body = _body(doc)
+    got = crc32c(body)
     if got != int(want):
-        raise IntegrityError(
+        raise record_error(
             f"{what} '{path}' failed its header self-digest (crc32c "
             f"{got:#010x} != recorded {int(want):#010x}) — the document "
             "was altered after it was written",
             path=path, section="header", offset=0)
+    record_verified(len(body))
+
+
+# -- verification telemetry hook -------------------------------------------
+# The loaders run far below the CLIs, so the run's registry is installed
+# ambiently; with none installed every record call is a no-op.
+
+_REG = None
+
+COUNTER_ERRORS = "integrity_errors_total"
+COUNTER_BYTES = "integrity_bytes_verified_total"
+
+
+def install_registry(reg):
+    """Install the ambient registry of verification telemetry; returns
+    the previous one (the caller restores it)."""
+    global _REG
+    prev = _REG
+    _REG = reg
+    return prev
+
+
+def _registry():
+    reg = _REG
+    return reg if reg is not None and getattr(reg, "enabled", False) \
+        else None
+
+
+def record_verified(nbytes: int, **meta) -> None:
+    """Count `nbytes` of artifact bytes that passed verification; `meta`
+    (db_version=..., verify_db=...) declares the feature in the run's
+    document, so metrics_check requires these counters."""
+    reg = _registry()
+    if reg is None:
+        return
+    reg.counter(COUNTER_ERRORS)  # lands even at 0
+    reg.counter(COUNTER_BYTES).inc(int(nbytes))
+    if meta:
+        reg.set_meta(**meta)
+
+
+def record_error(message: str, path: str | None = None,
+                 section: str | None = None,
+                 offset: int | None = None) -> IntegrityError:
+    """Count one detection, emit the event naming file, section and
+    offset, and return the IntegrityError for the caller to raise."""
+    reg = _registry()
+    if reg is not None:
+        reg.counter(COUNTER_BYTES)  # lands even at 0
+        reg.counter(COUNTER_ERRORS).inc()
+        reg.event("integrity_error", file=path, section=section,
+                  offset=offset, detail=message)
+    return IntegrityError(message, path=path, section=section,
+                          offset=offset)
 
 
 def fsync_dir(path: str) -> None:

@@ -284,7 +284,7 @@ def read_ref_db(path: str):
             f"'{path}': payload geometry mismatch (key {kbytes} vs "
             f"{exp_kbytes} expected, value {vbytes} vs {exp_vbytes})")
     if len(data) < off + kbytes + vbytes:
-        raise IntegrityError(
+        raise integrity.record_error(
             f"'{path}': truncated payload ({len(data) - off} of "
             f"{kbytes + vbytes} payload bytes)", path=path,
             section="payload", offset=off)

@@ -14,7 +14,10 @@ nowhere else: one per wrapper call, whatever number of C launchers the
 call enqueues) and, when `STATS.timing` is on, keeps CUDA
 events around everything the wrapper call enqueues (`events`) and
 around each C launch (`calls`): for a wrapper with two C launches and
-host work between them the two differ by the device's idle gap.
+host work between them the two differ by the device's idle gap. While
+`STATS.annotate` is on (a `--profile` run, utils/profiling.trace) each
+wrapper call is also a profiler range named `launch:<kernel>`, which
+telemetry/devtrace.py reads.
 """
 
 from __future__ import annotations
@@ -172,6 +175,7 @@ class KernelStats:
     def __init__(self):
         self.launches = {name: 0 for name in COUNTERS}
         self.timing = False
+        self.annotate = False  # a profiler range per wrapper call
         self.current: str | None = None  # the counter being launched
         self.events: list = []  # (kernel, start event, end event)
         self.calls: list = []  # (kernel, C launcher, start, end)
@@ -274,16 +278,22 @@ def launching(name: str, count: bool = True):
     if count:
         STATS.launches[name] += 1
     outer, STATS.current = STATS.current, name
+    annotation = contextlib.nullcontext()
+    if STATS.annotate:
+        from torch.profiler import record_function
+
+        annotation = record_function("launch:" + name)
     try:
-        if not STATS.timing:
+        with annotation:
+            if not STATS.timing:
+                yield
+                return
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
             yield
-            return
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        yield
-        b.record()
-        STATS.events.append((name, a, b))
+            b.record()
+            STATS.events.append((name, a, b))
     finally:
         STATS.current = outer
 

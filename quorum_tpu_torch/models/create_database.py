@@ -40,10 +40,20 @@ concatenate to the one-card table, so the payload is the same. With
 rows through HK15's partition entry (quorum_tpu's
 _run_partition_pass_sharded); its sealed plane is gathered on the lead
 device, rebased (HK13) and exported as the pass's shard, as on one card.
+
+Telemetry (`metrics`, `tracer`: cli/observability) follows quorum_tpu's
+names: the reads, bases, batches and distinct-mer counters, the hash
+geometry and fill gauges, grow events, the per-batch `insert_dispatch_us`
+/ `insert_wait_us` histograms, the prefilter and partition counters, the
+`stage1` timer table, and the spans `stage1_batch`, `stage1_insert` (a
+device step), `hash_grow`, `seal`, `sketch_batch` and `stage1_sketch`.
+With BuildConfig.profile the whole stage (build, seal, export) runs
+under utils/profiling.trace.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Callable, Iterable, Sequence
@@ -55,7 +65,9 @@ from ..io import db_format, fastq, packing, quorum_db
 from ..ops import ctable
 from ..ops import sketch as sketch_mod
 from ..ops.ctable import MAX_GROWS
+from ..telemetry import NULL, NULL_TRACER, observe_dispatch_wait
 from ..utils.pipeline import prefetch
+from ..utils.profiling import StageTimer, trace
 from ..utils.vlog import vlog
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +95,7 @@ class BuildConfig:
     quarantine_path: str | None = None  # where quarantine mode writes
     # -p: the reprobe limit of a --ref-format file's open addressing
     max_reprobe: int = 126
+    profile: str | None = None  # --profile DIR: a torch.profiler trace
 
 
 @dataclasses.dataclass
@@ -139,18 +152,26 @@ class BuildStats:
 
 
 def default_batches(paths: Sequence[str], cfg: BuildConfig,
-                    quiet: bool = False, times: dict | None = None):
+                    quiet: bool = False, times: dict | None = None,
+                    reg=NULL, tracer=NULL_TRACER):
     """(ReadBatch, PackedReads) pairs packed with the stage-1 plane, read
     with cfg.threads parse workers and packed on a producer thread
     (utils/pipeline.prefetch), ahead of the main thread's H2D. `quiet`
     marks a repeat pass of a multi-pass build: a skip or quarantine
     policy becomes a silent skip (the same batches, no second
-    quarantine write). `times` receives the producer's seconds
-    (prefetch)."""
+    quarantine write) and nothing is recorded. `times` receives the
+    producer's seconds (prefetch); `reg` and `tracer` the bad-read
+    counter and the producer's gauges and spans."""
     policy = None
     if cfg.on_bad_read != "abort":
-        policy = (fastq.BadReadPolicy("skip") if quiet else
-                  fastq.BadReadPolicy(cfg.on_bad_read, cfg.quarantine_path))
+        if quiet:
+            policy = fastq.BadReadPolicy("skip")
+        else:
+            policy = fastq.BadReadPolicy(cfg.on_bad_read,
+                                         cfg.quarantine_path,
+                                         reg if reg.enabled else None)
+            reg.counter("bad_reads_total")  # lands even at 0
+            reg.set_meta(on_bad_read=cfg.on_bad_read)
 
     def pack(src):
         for b in src:
@@ -161,20 +182,25 @@ def default_batches(paths: Sequence[str], cfg: BuildConfig,
 
     src = fastq.read_batches(paths, cfg.batch_size, threads=cfg.threads,
                              policy=policy)
-    return prefetch(pack(src), times=times)
+    return prefetch(pack(src), times=times,
+                    metrics=reg if reg.enabled and not quiet else None,
+                    tracer=tracer if not quiet else None)
 
 
-def default_factory(paths: Sequence[str], cfg: BuildConfig, times: dict):
+def default_factory(paths: Sequence[str], cfg: BuildConfig, times: dict,
+                    reg=NULL, tracer=NULL_TRACER):
     """A batches factory over the input files: the first call reads with
-    cfg's bad-read policy and times its producer into `times`, every
-    later call (a repeat pass) reads quietly."""
+    cfg's bad-read policy, times its producer into `times` and records
+    into `reg` and `tracer`; every later call (a repeat pass) reads
+    quietly."""
     calls = {"n": 0}
 
     def factory():
         first = calls["n"] == 0
         calls["n"] += 1
         return default_batches(paths, cfg, quiet=not first,
-                               times=times if first else None)
+                               times=times if first else None,
+                               reg=reg, tracer=tracer)
     return factory
 
 
@@ -183,38 +209,121 @@ def _stamp_times(stats: BuildStats, times: dict) -> None:
     stats.queue_wait_s = times.get("wait_s", 0.0)
 
 
+class _Tele:
+    """One stage-1 run's telemetry: the registry, the span tracer, the
+    stage timer and the running step number (unique across the passes
+    of a multi-pass build, so each step window is one batch)."""
+
+    def __init__(self, reg=None, tracer=None):
+        self.reg = reg if reg is not None else NULL
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.timer = StageTimer()
+        self.step = 0
+
+    def batch(self, stats: "BuildStats", n_reads: int, bases: int,
+              **extra):
+        """Enter one batch: heartbeat, and its `stage1_batch` span.
+        Returns (the span, the batch's step number)."""
+        step = self.step
+        self.step += 1
+        self.timer.add_units("insert_wait", bases)
+        self.reg.heartbeat(stage="create_database", reads=stats.reads,
+                           bases=stats.bases, batches=stats.batches,
+                           **extra)
+        return self.tracer.span("stage1_batch", step=step, reads=n_reads,
+                                **extra), step
+
+    @contextlib.contextmanager
+    def device_step(self, step: int, n_reads: int, name: str = "stage1_insert",
+                    prefix: str = "insert"):
+        """One batch's device step: its `name` step span and its
+        `<prefix>_dispatch_us` / `_wait_us` split. The wrappers read
+        their flags back (insert) or do not wait (sketch), so the
+        dispatch holds all of it."""
+        t0 = time.perf_counter()
+        with self.tracer.step(name, step, reads=n_reads):
+            yield
+        t1 = time.perf_counter()
+        observe_dispatch_wait(self.reg, prefix, t0, t1, t1, timer=self.timer)
+
+    def finish(self, stats: "BuildStats", rows: int,
+               distinct: bool = True) -> None:
+        """The end-of-build counters, geometry gauges and timer table
+        (`distinct`: count distinct_mers here; a sharded build's
+        record_shard_metrics counts it)."""
+        self.timer.report(stats.bases)
+        reg = self.reg
+        if not reg.enabled:
+            return
+        reg.counter("reads").inc(stats.reads)
+        reg.counter("bases").inc(stats.bases)
+        reg.counter("batches").inc(stats.batches)
+        if distinct:
+            reg.counter("distinct_mers").inc(stats.distinct)
+        slots = rows * ctable.TSLOTS
+        reg.gauge("hash_buckets").set(rows)
+        reg.gauge("hash_slots").set(slots)
+        reg.gauge("hash_fill").set(round(stats.distinct / slots, 6))
+        reg.set_timer("stage1", self.timer.as_dict(stats.bases))
+
+
 def _wires(batches: Iterable, cfg: BuildConfig, device, stats=None):
-    """(PackedReads, wire on `device`) per batch; counts reads, bases
-    and batches into `stats` when given."""
+    """(PackedReads, wire on `device`, bases) per batch; counts reads,
+    bases and batches into `stats` when given."""
     for batch, pk in batches:
         pk.require_plane(cfg.qual_thresh)
+        nb = int(batch.lengths.sum())
         if stats is not None:
             stats.batches += 1
             stats.reads += batch.n
-            stats.bases += int(batch.lengths.sum())
-        yield pk, torch.from_numpy(pk.to_wire()).to(device)
+            stats.bases += nb
+        yield pk, torch.from_numpy(pk.to_wire()).to(device), nb
 
 
-def _insert_pass(wires, meta, bstate, stats: BuildStats, insert: Callable):
+def _grow(tele: _Tele, bstate, meta, stats: BuildStats):
+    """Double a full table (HK8), recorded."""
+    rows_before = meta.rows
+    vlog("Hash table full at ", rows_before, " buckets; doubling")
+    with tele.timer.stage("grow"), tele.tracer.span(
+            "hash_grow", rows_before=rows_before):
+        bstate, meta = ctable.tile_grow_build(bstate, meta)
+    stats.grows += 1
+    tele.reg.counter("hash_grows").inc()
+    tele.reg.event("hash_grow", rows_before=rows_before,
+                   rows_after=meta.rows)
+    return bstate, meta
+
+
+def _dropped(tele: _Tele, stats: BuildStats, d_hq: int, d_lq: int):
+    stats.prefilter_dropped += d_hq + d_lq
+    stats.prefilter_dropped_hq += d_hq
+    if d_hq or d_lq:
+        tele.reg.counter("prefilter_dropped_total").inc(d_hq + d_lq)
+
+
+def _insert_pass(wires, meta, bstate, stats: BuildStats, insert: Callable,
+                 tele: _Tele):
     """Insert every batch with `insert(bstate, meta, pk, wire)` -> (full,
     (keys, qual) left over, dropped_hq, dropped_lq); on a full row the
     table doubles and the leftovers re-insert, as often as needed.
     Returns the final (bstate, meta)."""
-    for pk, wire in wires:
-        full, (keys, qual), d_hq, d_lq = insert(bstate, meta, pk, wire)
-        stats.prefilter_dropped += d_hq + d_lq
-        stats.prefilter_dropped_hq += d_hq
-        for _ in range(MAX_GROWS + 1):
-            if not full:
-                break
-            vlog("Hash table full at ", meta.rows, " buckets; doubling")
-            bstate, meta = ctable.tile_grow_build(bstate, meta)
-            stats.grows += 1
-            keys, qual = ctable.tile_insert_pending(bstate, meta, keys, qual)
-            full = keys.numel() > 0
-        else:
-            if full:
-                raise RuntimeError("Hash is full")
+    for pk, wire, nb in wires:
+        span, step = tele.batch(stats, pk.n_reads, nb)
+        with span:
+            with tele.device_step(step, pk.n_reads):
+                full, (keys, qual), d_hq, d_lq = insert(bstate, meta, pk,
+                                                        wire)
+            _dropped(tele, stats, d_hq, d_lq)
+            for _ in range(MAX_GROWS + 1):
+                if not full:
+                    break
+                bstate, meta = _grow(tele, bstate, meta, stats)
+                keys, qual = ctable.tile_insert_pending(bstate, meta, keys,
+                                                        qual)
+                full = keys.numel() > 0
+            else:
+                if full:
+                    raise RuntimeError("Hash is full")
     return bstate, meta
 
 
@@ -253,27 +362,41 @@ def _check_config(cfg: BuildConfig) -> None:
             "--partitions for multi-pass capacity over a mesh")
 
 
-def _sketch_pass(factory, cfg: BuildConfig, device, stats: BuildStats):
+def _sketch_pass(factory, cfg: BuildConfig, device, stats: BuildStats,
+                 tele: _Tele):
     """Pass 1 of the two-pass prefilter: every batch into a fresh sketch
     (HK9 + HK10); counts reads, bases and batches. Returns (sketch,
     its meta)."""
     smeta = sketch_mod.SketchMeta(sketch_mod.cells_log2_for(cfg.initial_size))
     sk = sketch_mod.make_sketch(smeta, device)
     stats.sketch_cells_log2 = smeta.cells_log2
+    tele.reg.set_meta(sketch_cells_log2=smeta.cells_log2)
     t_sk = time.perf_counter()
-    for pk, wire in _wires(factory(), cfg, device, stats):
-        sketch_mod.sketch_update_packed(sk, smeta, cfg.k, pk, wire,
-                                        cfg.qual_thresh)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    n_batches = 0
+    with tele.timer.stage("sketch_pass"):
+        for pk, wire, _nb in _wires(factory(), cfg, device, stats):
+            tele.reg.heartbeat(stage="create_database", partition="sketch",
+                               reads=stats.reads, batches=n_batches)
+            with tele.tracer.span("sketch_batch", step=n_batches,
+                                  reads=pk.n_reads), tele.device_step(
+                    n_batches, pk.n_reads, "stage1_sketch", "sketch"):
+                sketch_mod.sketch_update_packed(sk, smeta, cfg.k, pk, wire,
+                                                cfg.qual_thresh)
+            n_batches += 1
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
     stats.sketch_seconds = time.perf_counter() - t_sk
+    tele.reg.counter("partition_passes_total").inc()
+    tele.reg.event("partition_pass", partition="sketch",
+                   n_partitions=cfg.partitions, batches=n_batches,
+                   seconds=round(stats.sketch_seconds, 3))
     return sk, smeta
 
 
 def build_database(paths: Sequence[str], cfg: BuildConfig,
                    device: torch.device,
                    batches_factory: Callable[[], Iterable] | None = None,
-                   mesh: list | None = None):
+                   mesh: list | None = None, metrics=None, tracer=None):
     """Run stage 1. Returns (TileState, TileMeta, BuildStats).
     `batches_factory` overrides the disk reader: each call returns a
     FRESH iterable of (ReadBatch, PackedReads) pairs whose planes include
@@ -281,31 +404,44 @@ def build_database(paths: Sequence[str], cfg: BuildConfig,
     stages). One pass calls it once; the two-pass prefilter calls it
     twice, and the first call's pass counts reads and bases. `mesh`
     (cfg.devices > 1) names the shards' devices; by default the first
-    cfg.devices devices of `device`'s type (tile_sharded.make_mesh)."""
+    cfg.devices devices of `device`'s type (tile_sharded.make_mesh).
+    `metrics` and `tracer` (cli/observability) record the build."""
     _check_config(cfg)
     if cfg.partitions > 1:
         raise ValueError(
             "partitioned builds stream their export per pass — run "
             "them through create_database_main, not build_database")
+    tele = _Tele(metrics, tracer)
+    reg = tele.reg
     t0 = time.perf_counter()
     times: dict = {}
     if batches_factory is None:
-        batches_factory = default_factory(paths, cfg, times)
+        batches_factory = default_factory(paths, cfg, times, reg,
+                                          tele.tracer)
+    reg.set_meta(stage="create_database", k=cfg.k, bits=cfg.bits,
+                 qual_thresh=cfg.qual_thresh, batch_size=cfg.batch_size)
     if cfg.devices > 1:
         state, meta, stats = _build_sharded(cfg, device, batches_factory,
-                                            t0, mesh)
+                                            t0, mesh, tele)
         _stamp_times(stats, times)
         return state, meta, stats
     meta = ctable.TileMeta(k=cfg.k, bits=cfg.bits, rb_log2=ctable.tile_rb_for(
         cfg.initial_size, cfg.k, cfg.bits))
     bstate = ctable.make_tile_build(meta, device)
     stats = BuildStats(prefilter_mode=cfg.prefilter)
+    if cfg.prefilter != "off":
+        reg.set_meta(prefilter=cfg.prefilter)
+        reg.counter("prefilter_dropped_total")
+        reg.counter("prefilter_false_pass_total")
+    if cfg.prefilter == "two-pass":
+        reg.counter("partition_passes_total")
     sk = smeta = None
     if cfg.prefilter == "inline":
         smeta = sketch_mod.SketchMeta(
             sketch_mod.cells_log2_for(cfg.initial_size))
         sk = sketch_mod.make_sketch(smeta, device)
         stats.sketch_cells_log2 = smeta.cells_log2
+        reg.set_meta(sketch_cells_log2=smeta.cells_log2)
 
     if cfg.prefilter == "off":
         def insert(bs, m, pk, wire):
@@ -320,13 +456,21 @@ def build_database(paths: Sequence[str], cfg: BuildConfig,
 
     if cfg.prefilter == "two-pass":
         # pass 1: every batch into the sketch only
-        sk, smeta = _sketch_pass(batches_factory, cfg, device, stats)
+        sk, smeta = _sketch_pass(batches_factory, cfg, device, stats, tele)
         wires = _wires(batches_factory(), cfg, device)
     else:
         wires = _wires(batches_factory(), cfg, device, stats)
-    bstate, meta = _insert_pass(wires, meta, bstate, stats, insert)
+    t_pass = time.perf_counter()
+    bstate, meta = _insert_pass(wires, meta, bstate, stats, insert, tele)
+    if cfg.prefilter == "two-pass":
+        reg.counter("partition_passes_total").inc()
+        reg.event("partition_pass", partition=0, n_partitions=1,
+                  batches=stats.batches,
+                  seconds=round(time.perf_counter() - t_pass, 3))
     del sk
-    state, dup, occ, distinct, total, singles = ctable.tile_seal(bstate, meta)
+    with tele.timer.stage("seal"), tele.tracer.span("seal"):
+        state, dup, occ, distinct, total, singles = ctable.tile_seal(bstate,
+                                                                     meta)
     del bstate
     if dup:
         raise RuntimeError("internal error: duplicate tag pair in a bucket")
@@ -339,7 +483,9 @@ def build_database(paths: Sequence[str], cfg: BuildConfig,
         stats.prefilter_false_pass = singles
         stats.poisson_distinct_hq = distinct + stats.prefilter_dropped_hq
         stats.poisson_total_hq = total + stats.prefilter_dropped_hq
+        reg.counter("prefilter_false_pass_total").inc(singles)
     stats.seconds = time.perf_counter() - t0
+    tele.finish(stats, meta.rows)
     _stamp_times(stats, times)
     if cfg.prefilter == "two-pass":
         vlog("Counted ", stats.reads, " reads, ", stats.bases, " bases, ",
@@ -353,10 +499,12 @@ def build_database(paths: Sequence[str], cfg: BuildConfig,
 
 def _build_sharded(cfg: BuildConfig, device: torch.device,
                    batches_factory: Callable[[], Iterable], t0: float,
-                   mesh: list | None):
+                   mesh: list | None, tele: _Tele):
     """Stage 1 over a mesh of cfg.devices devices (quorum_tpu's
     _build_database_sharded without checkpoints). Returns
     (ShardedTileState, TileShardedMeta, BuildStats)."""
+    import numpy as np
+
     from ..parallel import tile_sharded as ts
 
     S = cfg.devices
@@ -367,16 +515,28 @@ def _build_sharded(cfg: BuildConfig, device: torch.device,
     meta = ts.TileShardedMeta(
         k=cfg.k, bits=cfg.bits, n_shards=S,
         rb_log2=ts.initial_rb(cfg.initial_size, cfg.k, cfg.bits, S))
+    reg = tele.reg
+    reg.set_meta(devices=S)
     bstate = ts.make_build_state(meta, mesh)
     stats = BuildStats()
+    inserts = np.zeros(S, np.int64)
     for batch, pk in batches_factory():
         stats.batches += 1
         stats.reads += batch.n
-        stats.bases += int(batch.lengths.sum())
-        bstate, meta, grows = ts.build_step_wire(bstate, meta, mesh, pk,
-                                                 cfg.qual_thresh)
+        nb = int(batch.lengths.sum())
+        stats.bases += nb
+        span, step = tele.batch(stats, batch.n, nb, devices=S)
+        with span, tele.device_step(step, batch.n):
+            bstate, meta, grows = ts.build_step_wire(
+                bstate, meta, mesh, pk, cfg.qual_thresh,
+                shard_inserts=inserts)
         stats.grows += grows
-    state, seal = ts.finalize(bstate, meta, mesh)
+        reg.counter("hash_grows").inc(grows)
+        reg.counter("shard_grows").inc(grows)
+        reg.counter("shard_batches").inc()
+        reg.counter("shard_reads").inc(batch.n)
+    with tele.timer.stage("seal"), tele.tracer.span("seal"):
+        state, seal = ts.finalize(bstate, meta, mesh)
     del bstate
     if int(seal[:, 0].sum()):
         raise RuntimeError("internal error: duplicate tag pair in a bucket")
@@ -384,13 +544,16 @@ def _build_sharded(cfg: BuildConfig, device: torch.device,
         int(x) for x in seal[:, 1:].sum(0))
     stats.shard_occupancy = ts.shard_occupancy(seal)
     stats.seconds = time.perf_counter() - t0
+    tele.finish(stats, meta.rows, distinct=False)
+    if reg.enabled:
+        ts.record_shard_metrics(reg, meta, inserts, stats.shard_occupancy)
     vlog("Counted ", stats.reads, " reads, ", stats.bases, " bases, ",
          stats.distinct, " distinct mers over ", S, " shards")
     return state, meta, stats
 
 
 def _pass_table(factory, cfg: BuildConfig, device, stats: BuildStats,
-                rb_local: int, p: int, sk, smeta):
+                rb_local: int, p: int, sk, smeta, tele: _Tele):
     """Pass `p` of a partitioned build on one device: insert the mers it
     owns (HK1, or HK11 behind the finished sketch) into a table of
     2^rb_local rows and seal it (HK2). Returns (the sealed TileState,
@@ -400,22 +563,28 @@ def _pass_table(factory, cfg: BuildConfig, device, stats: BuildStats,
     lmeta = ctable.TileMeta(k=cfg.k, bits=cfg.bits, rb_log2=rb_local)
     bstate = ctable.make_tile_build(lmeta, device)
     count = stats if stats.batches == 0 else None
-    for pk, wire in _wires(factory(), cfg, device, count):
-        if sk is None:
-            full, _left = kernels.tile_insert_reads(
-                bstate, lmeta, wire, pk.n_reads, pk.length, pk.thresholds,
-                cfg.qual_thresh, p, P)
-        else:
-            full, _left, d_hq, d_lq = sketch_mod.tile_insert_reads_packed_gated(
-                bstate, lmeta, sk, smeta, pk, wire, cfg.qual_thresh,
-                "two-pass", p, P)
-            stats.prefilter_dropped += d_hq + d_lq
-            stats.prefilter_dropped_hq += d_hq
+    for pk, wire, nb in _wires(factory(), cfg, device, count):
+        span, step = tele.batch(stats, pk.n_reads, nb, partition=p)
+        with span:
+            with tele.device_step(step, pk.n_reads):
+                if sk is None:
+                    full, _left = kernels.tile_insert_reads(
+                        bstate, lmeta, wire, pk.n_reads, pk.length,
+                        pk.thresholds, cfg.qual_thresh, p, P)
+                    d_hq = d_lq = 0
+                else:
+                    full, _left, d_hq, d_lq = \
+                        sketch_mod.tile_insert_reads_packed_gated(
+                            bstate, lmeta, sk, smeta, pk, wire,
+                            cfg.qual_thresh, "two-pass", p, P)
+            _dropped(tele, stats, d_hq, d_lq)
         if full:
             if rb_local >= 24:
                 raise RuntimeError("Hash is full")
             raise _PartitionGrew(rb_local + 1)
-    state, dup, occ, distinct, total, singles = ctable.tile_seal(bstate, lmeta)
+    with tele.timer.stage("seal"), tele.tracer.span("seal", partition=p):
+        state, dup, occ, distinct, total, singles = ctable.tile_seal(bstate,
+                                                                     lmeta)
     del bstate
     if dup:
         raise RuntimeError("internal error: duplicate tag pair in a bucket")
@@ -423,7 +592,7 @@ def _pass_table(factory, cfg: BuildConfig, device, stats: BuildStats,
 
 
 def _pass_table_sharded(factory, cfg: BuildConfig, mesh, stats: BuildStats,
-                        rb_local: int, p: int):
+                        rb_local: int, p: int, tele: _Tele):
     """Pass `p` of a partitioned build over the mesh (quorum_tpu's
     _run_partition_pass_sharded): the sharded build of 2^rb_local global
     rows with HK15's partition entry routing only the pass's mers, each
@@ -438,18 +607,22 @@ def _pass_table_sharded(factory, cfg: BuildConfig, mesh, stats: BuildStats,
     bstate = ts.make_build_state(lmeta, mesh)
     count = stats.batches == 0
     for batch, pk in factory():
+        nb = int(batch.lengths.sum())
         if count:
             stats.batches += 1
             stats.reads += batch.n
-            stats.bases += int(batch.lengths.sum())
+            stats.bases += nb
+        span, step = tele.batch(stats, batch.n, nb, partition=p)
         try:
-            bstate, lmeta, _g = ts.build_step_wire(
-                bstate, lmeta, mesh, pk, cfg.qual_thresh, p, P)
+            with span, tele.device_step(step, batch.n):
+                bstate, lmeta, _g = ts.build_step_wire(
+                    bstate, lmeta, mesh, pk, cfg.qual_thresh, p, P)
         except ts.PassFull:
             if rb_local >= 24 + lmeta.owner_bits:
                 raise RuntimeError("Hash is full") from None
             raise _PartitionGrew(rb_local + 1) from None
-    state, seal = ts.finalize(bstate, lmeta, mesh)
+    with tele.timer.stage("seal"), tele.tracer.span("seal", partition=p):
+        state, seal = ts.finalize(bstate, lmeta, mesh)
     del bstate
     if int(seal[:, 0].sum()):
         raise RuntimeError("internal error: duplicate tag pair in a bucket")
@@ -462,7 +635,8 @@ def _build_partitioned(paths: Sequence[str], cfg: BuildConfig, output: str,
                        device: torch.device,
                        batches_factory: Callable[[], Iterable] | None,
                        cmdline: list[str] | None,
-                       mesh: list | None = None) -> BuildStats:
+                       mesh: list | None = None,
+                       tele: _Tele | None = None) -> BuildStats:
     """The partitioned multi-pass build (quorum_tpu's
     _build_database_partitioned, without its checkpoint cursor): P
     passes, each rebased onto the global geometry (HK13) and exported
@@ -482,30 +656,44 @@ def _build_partitioned(paths: Sequence[str], cfg: BuildConfig, output: str,
                    max(rb_req - g, ctable.min_tile_rb_log2(cfg.k, cfg.bits),
                        4 + owner_bits))
     stats = BuildStats(prefilter_mode=cfg.prefilter)
+    tele = tele if tele is not None else _Tele()
+    reg = tele.reg
+    reg.set_meta(stage="create_database", k=cfg.k, bits=cfg.bits,
+                 qual_thresh=cfg.qual_thresh, batch_size=cfg.batch_size,
+                 devices=S, partitions=P, prefilter=cfg.prefilter)
+    reg.counter("partition_passes_total")
+    if cfg.prefilter != "off":
+        reg.counter("prefilter_dropped_total")
+        reg.counter("prefilter_false_pass_total")
     times: dict = {}
     if batches_factory is None:
-        batches_factory = default_factory(paths, cfg, times)
+        batches_factory = default_factory(paths, cfg, times, reg,
+                                          tele.tracer)
     if S > 1 and mesh is None:
         from ..parallel import tile_sharded as ts
 
         mesh = ts.make_mesh(S, device=device)
     sk = smeta = None
     if cfg.prefilter == "two-pass":
-        sk, smeta = _sketch_pass(batches_factory, cfg, device, stats)
+        sk, smeta = _sketch_pass(batches_factory, cfg, device, stats, tele)
     for _ in range(MAX_GROWS + 1):
         gmeta = ctable.GlobalMeta(k=cfg.k, bits=cfg.bits, rb_log2=rb_local + g)
         recs = []
         try:
             for p in range(P):
+                t_pass = time.perf_counter()
+                b0 = tele.step
                 if S > 1:
                     state, lmeta, (occ, distinct, total, singles) = \
                         _pass_table_sharded(batches_factory, cfg, mesh,
-                                            stats, rb_local, p)
+                                            stats, rb_local, p, tele)
                 else:
                     state, lmeta, (occ, distinct, total, singles) = \
                         _pass_table(batches_factory, cfg, device, stats,
-                                    rb_local, p, sk, smeta)
-                with kernels.device_scope(state.rows.device):
+                                    rb_local, p, sk, smeta, tele)
+                with tele.timer.stage("export"), tele.tracer.span(
+                        "partition_export", partition=p), \
+                        kernels.device_scope(state.rows.device):
                     state, bad = ctable.tile_departition_rows(state, lmeta,
                                                               g, p)
                     if bad:
@@ -521,11 +709,20 @@ def _build_partitioned(paths: Sequence[str], cfg: BuildConfig, output: str,
                 stats.singletons += singles
                 if sk is not None:
                     stats.prefilter_false_pass += singles
+                    reg.counter("prefilter_false_pass_total").inc(singles)
+                reg.counter("partition_passes_total").inc()
+                reg.gauge(f'partition_distinct{{partition="{p}"}}').set(occ)
+                reg.event("partition_pass", partition=p, n_partitions=P,
+                          batches=tele.step - b0, distinct=occ,
+                          seconds=round(time.perf_counter() - t_pass, 3))
             break
         except _PartitionGrew as e:
             vlog("Partition pass overflowed at local rb_log2=", rb_local,
                  "; restarting all passes at ", e.rb_local)
             stats.grows += 1
+            reg.counter("hash_grows").inc()
+            reg.event("partition_geometry_grow", rb_local_before=rb_local,
+                      rb_local_after=e.rb_local)
             for field in ("distinct", "poisson_distinct_hq", "poisson_total_hq",
                           "singletons", "prefilter_dropped",
                           "prefilter_dropped_hq", "prefilter_false_pass",
@@ -546,6 +743,8 @@ def _build_partitioned(paths: Sequence[str], cfg: BuildConfig, output: str,
                                 cfg.db_version, stats.db_extra_header())
     stats.seconds = time.perf_counter() - t0
     _stamp_times(stats, times)
+    tele.finish(stats, gmeta.rows)
+    reg.gauge("partition_rows_local").set(1 << rb_local)
     vlog("Counted ", stats.reads, " reads, ", stats.bases, " bases, ",
          stats.distinct, " distinct mers over ", P,
          " partition passes (peak table rows 1/", P, " of global)")
@@ -557,7 +756,8 @@ def create_database_main(paths: Sequence[str], output: str, cfg: BuildConfig,
                          handoff: dict | None = None,
                          batches_factory: Callable[[], Iterable] | None = None,
                          mesh: list | None = None,
-                         ref_format: bool = False) -> BuildStats:
+                         ref_format: bool = False, metrics=None,
+                         tracer=None) -> BuildStats:
     """Build and write the database (one file, or a sharded manifest
     with --db-layout sharded or --partitions P; with `ref_format` the
     reference's binary/quorum_db file, io/quorum_db, written from the
@@ -567,7 +767,9 @@ def create_database_main(paths: Sequence[str], output: str, cfg: BuildConfig,
     meta, stats) for an in-process stage 2; a partitioned build never
     holds the whole table, so its stage 2 loads the manifest. A
     --devices N build writes one shard file per shard (sharded layout)
-    or its table gathered onto the lead device (single)."""
+    or its table gathered onto the lead device (single). `metrics` and
+    `tracer` record the build; with cfg.profile all of it (build, seal,
+    export) runs under the profiler."""
     from .. import resolve_device
 
     if ref_format and (cfg.partitions > 1 or cfg.prefilter != "off"):
@@ -576,42 +778,54 @@ def create_database_main(paths: Sequence[str], output: str, cfg: BuildConfig,
             "--prefilter (the reference format carries no manifest "
             "or prefilter declaration)")
     device = resolve_device(cfg.device)
-    if cfg.partitions > 1:
-        stats = _build_partitioned(paths, cfg, output, device,
-                                   batches_factory, cmdline, mesh)
-    else:
-        state, meta, stats = build_database(paths, cfg, device,
-                                            batches_factory, mesh)
-        if ref_format:
-            wstate, wmeta = state, meta
-            if cfg.devices > 1:
-                from ..parallel import tile_sharded as ts
-
-                wstate, wmeta = ts.gather_table(state, meta)
-            khi, klo, vals = ctable.tile_iterate(wstate, wmeta)
-            del wstate
-            quorum_db.write_ref_db(output, khi, klo, vals, wmeta.k,
-                                   wmeta.bits, cfg.max_reprobe, cmdline)
-        elif cfg.devices > 1 and cfg.db_layout == "single":
-            from ..parallel import tile_sharded as ts
-
-            whole, wmeta = ts.gather_table(state, meta)
-            db_format.write_db(output, whole, wmeta, cmdline,
-                               n_entries=stats.distinct,
-                               db_version=cfg.db_version)
-            del whole
-        elif cfg.db_layout == "sharded":
-            db_format.write_db_sharded(
-                output, state, meta, cmdline, db_version=cfg.db_version,
-                extra_header=stats.db_extra_header(),
-                n_entries=stats.shard_occupancy or [stats.distinct])
-        else:
-            db_format.write_db(output, state, meta, cmdline,
-                               n_entries=stats.distinct,
-                               db_version=cfg.db_version,
-                               extra_header=stats.db_extra_header())
-        if handoff is not None:
-            handoff["db"] = (state, meta, stats)
+    with trace(cfg.profile, device):
+        stats = _build_and_write(paths, output, cfg, device, cmdline,
+                                 handoff, batches_factory, mesh,
+                                 ref_format, metrics, tracer)
     if handoff is not None:
         handoff["stats"] = stats
+    return stats
+
+
+def _build_and_write(paths, output, cfg: BuildConfig, device, cmdline,
+                     handoff, batches_factory, mesh, ref_format: bool,
+                     metrics, tracer) -> BuildStats:
+    """create_database_main's build and export."""
+    if cfg.partitions > 1:
+        return _build_partitioned(paths, cfg, output, device,
+                                  batches_factory, cmdline, mesh,
+                                  _Tele(metrics, tracer))
+    state, meta, stats = build_database(paths, cfg, device,
+                                        batches_factory, mesh,
+                                        metrics, tracer)
+    if ref_format:
+        wstate, wmeta = state, meta
+        if cfg.devices > 1:
+            from ..parallel import tile_sharded as ts
+
+            wstate, wmeta = ts.gather_table(state, meta)
+        khi, klo, vals = ctable.tile_iterate(wstate, wmeta)
+        del wstate
+        quorum_db.write_ref_db(output, khi, klo, vals, wmeta.k,
+                               wmeta.bits, cfg.max_reprobe, cmdline)
+    elif cfg.devices > 1 and cfg.db_layout == "single":
+        from ..parallel import tile_sharded as ts
+
+        whole, wmeta = ts.gather_table(state, meta)
+        db_format.write_db(output, whole, wmeta, cmdline,
+                           n_entries=stats.distinct,
+                           db_version=cfg.db_version)
+        del whole
+    elif cfg.db_layout == "sharded":
+        db_format.write_db_sharded(
+            output, state, meta, cmdline, db_version=cfg.db_version,
+            extra_header=stats.db_extra_header(),
+            n_entries=stats.shard_occupancy or [stats.distinct])
+    else:
+        db_format.write_db(output, state, meta, cmdline,
+                           n_entries=stats.distinct,
+                           db_version=cfg.db_version,
+                           extra_header=stats.db_extra_header())
+    if handoff is not None:
+        handoff["db"] = (state, meta, stats)
     return stats

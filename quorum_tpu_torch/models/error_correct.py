@@ -10,6 +10,17 @@ buffers (render_batch_host), drained in submission order
 (ReorderingPool); one writer thread writes `.fa`/`.log` (AsyncWriter).
 The output bytes do not depend on -t or --render-workers.
 
+Telemetry (ECOptions.metrics, .trace_spans, .profile; run through
+cli/observability) follows quorum_tpu's names: the read, base and
+outcome counters (substitutions, truncations, one `skipped_<slug>` per
+skip reason), the quality histograms, `render_ms` and
+`reorder_wait_ms`, the per-batch `device_dispatch_us` /
+`device_wait_us`, the `stage2` timer table, and the spans
+`stage2_batch`, `stage2_device` (a device step), `fetch` and `render`.
+The outcome tallies are counted only when metrics are on; each render
+worker returns its batch's, and the consuming thread folds them in
+batch order, so the totals do not depend on --render-workers.
+
 Output contract (byte-compatible with the reference):
   * `.fa` record: ``>header fwd_log bwd_log\\nseq\\n``;
   * `.log` record per skipped read: ``Skipped <header>: <reason>\\n``;
@@ -31,20 +42,113 @@ from ..io import contaminant as contaminant_mod
 from ..io import db_format, fastq, packing
 from ..ops import ctable
 from ..ops.poisson import compute_poisson_cutoff
+from ..telemetry import observe_dispatch_wait, quality
 from ..utils.pipeline import AsyncWriter, ReorderingPool, prefetch
+from ..utils.profiling import StageTimer, trace
 from .corrector import (correct_batch_packed, fetch_finish,
                         finish_batch_host, make_keep_table)
 from ..utils.vlog import vlog
-from .ec_config import DEFAULT_QUAL_CUTOFF, ECConfig
+from .ec_config import (DEFAULT_QUAL_CUTOFF, ECConfig, ERROR_CONTAMINANT,
+                        ERROR_HOMOPOLYMER, ERROR_NO_STARTING_MER)
+
+# skip reason -> counter slug (the reasons the .log prints, so the
+# counters can be recovered from the .log)
+REASON_SLUGS = {
+    ERROR_CONTAMINANT: "contaminant",
+    ERROR_NO_STARTING_MER: "no_anchor",
+    ERROR_HOMOPOLYMER: "homopolymer",
+}
 
 
-def render_result(hdr: str, r, cfg: ECConfig) -> tuple[str, str]:
+def _tally_log(log: str, outcome: dict) -> int:
+    """Decode one edit log (space-separated ``pos:sub:X-Y`` /
+    ``pos:3_trunc`` / ``pos:5_trunc`` entries) into the outcome tally,
+    bucketing each entry's read-cycle position for the quality spectra.
+    Returns the substitution count."""
+    ns = 0
+    for ent in log.split():
+        pos_s, _, kind = ent.partition(":")
+        try:
+            bucket = quality.position_bucket(int(pos_s))
+        except ValueError:  # pragma: no cover - malformed entry
+            continue
+        if kind.startswith("sub:"):
+            ns += 1
+            d = outcome["sub_pos"]
+        elif kind == "3_trunc":
+            outcome["t3"] += 1
+            d = outcome["t3_pos"]
+        elif kind == "5_trunc":
+            outcome["t5"] += 1
+            d = outcome["t5_pos"]
+        else:  # pragma: no cover - unknown entry kind
+            continue
+        d[bucket] = d.get(bucket, 0) + 1
+    outcome["subs"] += ns
+    return ns
+
+
+def render_result(hdr: str, r, cfg: ECConfig, outcome: dict | None = None,
+                  maxe: int | None = None) -> tuple[str, str]:
     """One read's `.fa` and `.log` text (error_correct_reads.cc
-    :246-341)."""
+    :246-341). `outcome` (from new_outcome()), when given, accumulates
+    the read's outcome tallies; `maxe` bounds the per-read substitution
+    count its histogram records."""
     if r.ok:
+        if outcome is not None:
+            ns = _tally_log(r.fwd_log, outcome)
+            ns += _tally_log(r.bwd_log, outcome)
+            if maxe is not None:
+                ns = quality.bounded(ns, maxe)
+            outcome["hist"][ns] = outcome["hist"].get(ns, 0) + 1
         return f">{hdr} {r.fwd_log} {r.bwd_log}\n{r.seq}\n", ""
+    if outcome is not None:
+        slug = REASON_SLUGS.get(r.error, "other")
+        outcome["skips"][slug] = outcome["skips"].get(slug, 0) + 1
     fa = f">{hdr}\nN\n" if cfg.no_discard else ""
     return fa, f"Skipped {hdr}: {r.error}\n"
+
+
+def new_outcome() -> dict:
+    """A fresh outcome tally for render_result: event counts (subs, t3,
+    t5), the per-read substitution histogram (hist), the skip reasons
+    (skips) and the bucketed read-cycle position spectra (sub_pos,
+    t3_pos, t5_pos)."""
+    return {"subs": 0, "t3": 0, "t5": 0, "hist": {}, "skips": {},
+            "sub_pos": {}, "t3_pos": {}, "t5_pos": {}}
+
+
+def precreate_outcome_counters(reg) -> None:
+    """Create the whole outcome surface at zero, so that the names land
+    in the document even when nothing happens (metrics_check requires
+    them of every stage-2 document)."""
+    if not getattr(reg, "enabled", False):
+        return
+    for name in ("substitutions", "truncations_3p", "truncations_5p",
+                 "skipped_contaminant", "skipped_no_anchor",
+                 "skipped_homopolymer", "skipped_other"):
+        reg.counter(name)
+    for name in ("substitutions_per_read", "sub_pos_bucket",
+                 "trunc_cycle_3p", "trunc_cycle_5p"):
+        reg.histogram(name)
+
+
+def record_outcome(reg, outcome: dict) -> None:
+    """Fold one batch's outcome tally into the registry."""
+    reg.counter("substitutions").inc(outcome["subs"])
+    reg.counter("truncations_3p").inc(outcome["t3"])
+    reg.counter("truncations_5p").inc(outcome["t5"])
+    hist = reg.histogram("substitutions_per_read")
+    for v, n in outcome["hist"].items():
+        hist.observe(v, n)
+    for name, key in (("sub_pos_bucket", "sub_pos"),
+                      ("trunc_cycle_3p", "t3_pos"),
+                      ("trunc_cycle_5p", "t5_pos")):
+        spectrum = reg.histogram(name)
+        for v, n in outcome[key].items():
+            spectrum.observe(v, n)
+    for slug, n in outcome["skips"].items():
+        reg.counter(f"skipped_{slug}").inc(n)
 
 
 def resolve_render_workers(n: int) -> int:
@@ -56,18 +160,20 @@ def resolve_render_workers(n: int) -> int:
 
 
 def render_batch_host(batch: fastq.ReadBatch, buf, b: int, l: int,
-                      maxe: int, cfg: ECConfig):
+                      maxe: int, cfg: ECConfig, count_outcomes: bool = False):
     """One batch's host tail on numpy alone (a render worker runs it):
     finish the fetched buffer and render every read's `.fa`/`.log`
     text. Returns (fa_text, log_text, n_corrected, n_skipped, bases_out,
-    seconds)."""
+    outcome, seconds); `outcome` is the batch's tally with
+    `count_outcomes` (metrics on), else None."""
     t0 = time.perf_counter()
     results = finish_batch_host(buf, batch.n, batch.codes, b, l, maxe, cfg)
     fa_parts: list[str] = []
     log_parts: list[str] = []
     n_corr = n_skip = bases_out = 0
+    outcome = new_outcome() if count_outcomes else None
     for hdr, r in zip(batch.headers, results):
-        fa, lg = render_result(hdr, r, cfg)
+        fa, lg = render_result(hdr, r, cfg, outcome, maxe)
         if r.ok:
             n_corr += 1
             bases_out += r.end - r.start
@@ -78,7 +184,7 @@ def render_batch_host(batch: fastq.ReadBatch, buf, b: int, l: int,
         if lg:
             log_parts.append(lg)
     return ("".join(fa_parts), "".join(log_parts), n_corr, n_skip,
-            bases_out, time.perf_counter() - t0)
+            bases_out, outcome, time.perf_counter() - t0)
 
 
 def pack_for_stage2(batch: fastq.ReadBatch, cfg: ECConfig):
@@ -148,6 +254,14 @@ class ECOptions:
     gzip: bool = False  # --gzip: .fa.gz/.log.gz at compresslevel 1
     on_bad_read: str = "abort"  # abort, skip or quarantine
     no_mmap: bool = False  # -M: read the database instead of mapping it
+    # telemetry (cli/observability): the final metrics JSON, its
+    # heartbeat period, a live registry without a path, the span JSONL,
+    # the torch.profiler directory
+    metrics: str | None = None
+    metrics_interval: float = 0.0
+    metrics_force: bool = False
+    trace_spans: str | None = None
+    profile: str | None = None
 
 
 def resolve_cutoff(opts: ECOptions, stats: tuple[int, int],
@@ -198,7 +312,33 @@ def run_error_correct(db_path: str, sequences: Sequence[str],
     package's run_error_correct lacks: the plain walk
     (corrector.correct_batch), for chip_smoke.py's plain-mode stage 2
     beside the event mode on the same entry point. The CLIs never pass
-    it and run event mode, as the JAX package's do."""
+    it and run event mode, as the JAX package's do.
+
+    The run goes through cli/observability.observability() with the
+    options' metrics, span and profile paths: a failed run still lands
+    its document, stamped status=error."""
+    from ..cli.observability import observability
+
+    with observability(opts.metrics, opts.metrics_interval,
+                       live=opts.metrics_force,
+                       trace_spans=opts.trace_spans, profile=opts.profile,
+                       stage="error_correct", batch_size=opts.batch_size,
+                       no_discard=bool(no_discard)) as obs:
+        return _run_ec(db_path, sequences, opts, obs.registry, obs.tracer,
+                       qual_cutoff=qual_cutoff, skip=skip, good=good,
+                       anchor_count=anchor_count, min_count=min_count,
+                       window=window, error=error, no_discard=no_discard,
+                       homo_trim=homo_trim,
+                       trim_contaminant=trim_contaminant, db=db,
+                       prepacked=prepacked, mesh=mesh,
+                       event_driven=event_driven, records=records)
+
+
+def _run_ec(db_path: str, sequences: Sequence[str], opts: ECOptions, reg,
+            tracer, *, qual_cutoff: int, skip: int, good: int,
+            anchor_count: int, min_count: int, window: int, error: int,
+            no_discard: bool, homo_trim: int | None, trim_contaminant: bool,
+            db, prepacked, mesh, event_driven: bool, records) -> ECStats:
     from .. import resolve_device
     from ..parallel import tile_sharded as ts
 
@@ -211,6 +351,39 @@ def run_error_correct(db_path: str, sequences: Sequence[str],
                 f"--devices {devices}; round it up")
         if mesh is None:
             mesh = ts.make_mesh(devices, device=device)
+    # the outcome surface lands (at zero) even when the load refuses
+    precreate_outcome_counters(reg)
+    with trace(opts.profile, device):
+        stats = _correct(db_path, sequences, opts, reg, tracer, device, mesh,
+                         qual_cutoff=qual_cutoff, skip=skip, good=good,
+                         anchor_count=anchor_count, min_count=min_count,
+                         window=window, error=error, no_discard=no_discard,
+                         homo_trim=homo_trim,
+                         trim_contaminant=trim_contaminant, db=db,
+                         prepacked=prepacked, event_driven=event_driven,
+                         records=records)
+    if reg.enabled:
+        reg.counter("reads_in").inc(stats.reads)
+        reg.counter("reads_corrected").inc(stats.corrected)
+        reg.counter("reads_skipped").inc(stats.skipped)
+        reg.counter("bases_in").inc(stats.bases_in)
+        reg.counter("bases_out").inc(stats.bases_out)
+        reg.gauge("cutoff").set(stats.cutoff)
+        reg.set_meta(status="ok")
+        reg.write()
+    return stats
+
+
+def _correct(db_path: str, sequences: Sequence[str], opts: ECOptions, reg,
+             tracer, device, mesh, *, qual_cutoff: int, skip: int,
+             good: int, anchor_count: int, min_count: int, window: int,
+             error: int, no_discard: bool, homo_trim: int | None,
+             trim_contaminant: bool, db, prepacked, event_driven: bool,
+             records) -> ECStats:
+    """Load the table, then correct every batch (run_error_correct)."""
+    from ..parallel import tile_sharded as ts
+
+    devices = opts.devices
     vlog("Loading mer database")
     if db is not None:
         # the header fields the build wrote into the file
@@ -245,6 +418,14 @@ def run_error_correct(db_path: str, sequences: Sequence[str],
     if floor > 1:
         vlog("Applying presence floor of ", floor,
              " (count-below-floor mers treated as absent)")
+    if reg.enabled:
+        reg.set_meta(presence_floor=floor)
+        # the header's coverage statistic feeds the quality scorecard's
+        # coverage model (mean hq multiplicity predicts the anchor rate)
+        ps = header.get("poisson_stats")
+        if ps and ps.get("distinct_hq"):
+            reg.set_meta(coverage_mean=round(
+                float(ps["total_hq"]) / float(ps["distinct_hq"]), 4))
     cfg = ECConfig(k=meta.k, skip=skip, good=good,
                    anchor_count=anchor_count, min_count=min_count,
                    cutoff=cutoff, qual_cutoff=qual_cutoff, window=window,
@@ -262,6 +443,8 @@ def run_error_correct(db_path: str, sequences: Sequence[str],
                                       event_driven=event_driven)
         vlog("Correcting over ", devices, " devices, table ",
              correct.layout)
+        reg.gauge("n_shards").set(devices)
+        reg.set_meta(devices=devices, table_layout=correct.layout)
     else:
         mesh = [device]
         keep = make_keep_table(meta, cfg, device)
@@ -272,6 +455,7 @@ def run_error_correct(db_path: str, sequences: Sequence[str],
     n_render = resolve_render_workers(opts.render_workers)
     stats = ECStats(cutoff=cutoff, presence_floor=floor,
                     render_workers=n_render)
+    pipe_metrics = reg if reg.enabled else None
     policy = None
     if opts.on_bad_read != "abort":
         qpath = opts.output + ".quarantine.fastq" if opts.output else None
@@ -279,10 +463,18 @@ def run_error_correct(db_path: str, sequences: Sequence[str],
             raise RuntimeError(
                 "--on-bad-read=quarantine requires -o PREFIX (the "
                 "quarantine file lands beside the output)")
-        policy = fastq.BadReadPolicy(opts.on_bad_read, qpath)
+        policy = fastq.BadReadPolicy(opts.on_bad_read, qpath, pipe_metrics)
+        reg.counter("bad_reads_total")  # lands even at 0
+        reg.set_meta(on_bad_read=opts.on_bad_read)
+    count_outcomes = reg.enabled
+    if reg.enabled:
+        reg.set_meta(render_workers=n_render)
+        reg.histogram("render_ms")  # lands even for an empty input
+        reg.histogram("reorder_wait_ms")
+    timer = StageTimer()
     out = _open_out(opts.output, ".fa", sys.stdout, opts.gzip)
     log = _open_out(opts.output, ".log", sys.stderr, opts.gzip)
-    writer = AsyncWriter([out, log])
+    writer = AsyncWriter([out, log], metrics=pipe_metrics)
     times: dict = {}
     vlog("Correcting reads")
     try:
@@ -295,19 +487,35 @@ def run_error_correct(db_path: str, sequences: Sequence[str],
                    fastq.read_batches(sequences, opts.batch_size,
                                       threads=opts.threads, policy=policy))
             batches = prefetch(((b, pack_for_stage2(b, cfg)) for b in src),
-                               times=times)
+                               times=times, metrics=pipe_metrics,
+                               tracer=tracer)
+
+        def render(batch, buf, b, l, maxe):
+            with tracer.span("render", reads=batch.n):
+                return render_batch_host(batch, buf, b, l, maxe, cfg,
+                                         count_outcomes)
 
         def sink(result):
-            fa, lg, n_corr, n_skip, bases_out, render_s = result
+            fa, lg, n_corr, n_skip, bases_out, outcome, render_s = result
+            wait_s = pool.take_reorder_wait()
+            stats.drain_wait_s += wait_s
+            timer.add_time("drain", wait_s)
             stats.corrected += n_corr
             stats.skipped += n_skip
             stats.bases_out += bases_out
             stats.render_s += render_s
+            if outcome is not None:
+                record_outcome(reg, outcome)
+            if reg.enabled:
+                reg.histogram("render_ms").observe(round(render_s * 1e3, 3))
+                reg.histogram("reorder_wait_ms").observe(
+                    round(wait_s * 1e3, 3))
             writer.write(0, fa)
             writer.write(1, lg)
 
         pool = ReorderingPool(n_render, sink)
         it = iter(batches)
+        step = 0
         try:
             while True:
                 t0 = time.perf_counter()
@@ -317,21 +525,32 @@ def run_error_correct(db_path: str, sequences: Sequence[str],
                 if item is None:
                     break
                 batch, pk = item
-                res = correct(pk)
-                ts.synchronize(mesh)
-                t2 = time.perf_counter()
-                buf = fetch_finish(res)
-                stats.fetch_s += time.perf_counter() - t2
-                stats.device_s += t2 - t1
-                b, maxe = res.fwd_log.pos.shape
-                l = res.out.shape[1]
-                del res
-                pool.submit(render_batch_host, batch, buf, b, l, maxe, cfg)
-                stats.reads += batch.n
-                stats.bases_in += int(batch.lengths[:batch.n].sum())
+                with tracer.span("stage2_batch", step=step, reads=batch.n):
+                    with tracer.step("stage2_device", step, reads=batch.n):
+                        res = correct(pk)
+                        t_enq = time.perf_counter()
+                        ts.synchronize(mesh)
+                        t2 = time.perf_counter()
+                    observe_dispatch_wait(reg, "device", t1, t_enq, t2,
+                                          timer=timer)
+                    with timer.stage("fetch"), tracer.span("fetch"):
+                        buf = fetch_finish(res)
+                    stats.fetch_s += time.perf_counter() - t2
+                    stats.device_s += t2 - t1
+                    b, maxe = res.fwd_log.pos.shape
+                    l = res.out.shape[1]
+                    del res
+                    pool.submit(render, batch, buf, b, l, maxe)
+                    stats.reads += batch.n
+                    nb = int(batch.lengths[:batch.n].sum())
+                    stats.bases_in += nb
+                    timer.add_units("device_wait", nb)
+                    reg.heartbeat(stage="error_correct", reads=stats.reads,
+                                  bases=stats.bases_in)
+                step += 1
             pool.flush()
         finally:
-            stats.drain_wait_s = pool.take_reorder_wait()
+            stats.drain_wait_s += pool.take_reorder_wait()
             pool.shutdown()
             close = getattr(it, "close", None)
             if close is not None:
@@ -350,6 +569,8 @@ def run_error_correct(db_path: str, sequences: Sequence[str],
                     policy.close()
     stats.parse_pack_s = times.get("produce_s", 0.0)
     stats.host_s = stats.parse_pack_s + stats.render_s
+    timer.report(stats.bases_in)
+    reg.set_timer("stage2", timer.as_dict(stats.bases_in))
     vlog("Done. ", stats.corrected, " corrected, ", stats.skipped,
          " skipped of ", stats.reads, " reads")
     return stats

@@ -34,12 +34,12 @@ every dropped mer finalizes below the floor).
 
 from __future__ import annotations
 
-import os
 from typing import NamedTuple
 
 import torch
 
 from .. import kernels
+from ..utils import levers
 
 PREFILTER_MODES = ("off", "two-pass", "inline")
 
@@ -64,7 +64,7 @@ def cells_log2_for(n_hint: int) -> int:
     """~8 cells per expected distinct mer (a false-pass rate near
     (1/8)^2), clamped to [16, 30]; an explicit QUORUM_SKETCH_BITS is
     clamped to [10, 30]."""
-    explicit = float(os.environ.get("QUORUM_SKETCH_BITS") or 0)
+    explicit = float(levers.raw("QUORUM_SKETCH_BITS") or 0)
     if explicit:
         return int(min(30, max(10, explicit)))
     auto = max(1, int(n_hint)) * 8
@@ -86,7 +86,7 @@ def prefilter_default() -> str:
     """The mode when the flag is absent or `auto`: QUORUM_PREFILTER if
     it names a mode, else off (the prefilter implies the stage-2 floor,
     so it is an opt-in)."""
-    raw = os.environ.get("QUORUM_PREFILTER", "")
+    raw = levers.raw("QUORUM_PREFILTER", "")
     return raw if raw in PREFILTER_MODES else "off"
 
 

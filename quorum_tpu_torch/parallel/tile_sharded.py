@@ -59,7 +59,6 @@ tensors of one process.
 from __future__ import annotations
 
 import dataclasses
-import os
 import sys
 
 import numpy as np
@@ -72,6 +71,7 @@ from ..kernels.loader import launching
 from ..ops import ctable
 from ..ops.ctable import (MAX_GROWS, GlobalMeta, ShardedBuildState,
                           ShardedTileState, TileMeta, TileState)
+from ..utils import levers
 from ..utils.sizes import parse_size
 from ..utils.vlog import vlog
 
@@ -266,7 +266,7 @@ class PassFull(Exception):
 def build_step_wire(bstate: ShardedBuildState, meta: TileShardedMeta, mesh,
                     pk: packing.PackedReads, qual_thresh: int,
                     part: int = 0, n_parts: int = 1,
-                    max_grows: int = MAX_GROWS):
+                    max_grows: int = MAX_GROWS, shard_inserts=None):
     """Count one packed batch into the sharded build table (JAX's
     build_step_wire and its caller's grow loop): each shard routes its
     row range of the batch (HK15), the buckets cross to their owners,
@@ -277,7 +277,9 @@ def build_step_wire(bstate: ShardedBuildState, meta: TileShardedMeta, mesh,
     PassFull instead of growing; past `max_grows` doublings in one batch
     it raises "Hash is full". Each step is launched on every shard
     before the host waits on any: the waits are HK15's bucket counts and
-    the unplaced lanes' sizes. Returns (bstate, meta, grows)."""
+    the unplaced lanes' sizes. `shard_inserts` (an int64 numpy array of
+    S, or None) accumulates the lanes each owner inserted, retries
+    included (record_shard_metrics). Returns (bstate, meta, grows)."""
     pk.require_plane(qual_thresh)
     subs = packing.split_rows(pk, meta.n_shards)
     wires = [torch.from_numpy(sub.to_wire()).to(mesh[s])
@@ -290,6 +292,8 @@ def build_step_wire(bstate: ShardedBuildState, meta: TileShardedMeta, mesh,
     while True:
         recv = _exchange(sent, mesh)
         del sent
+        if shard_inserts is not None:
+            shard_inserts += [lanes.shape[0] for lanes in recv]
         pending = _insert(bstate, meta, mesh, recv)
         del recv
         if not any(p.numel() for p in pending):
@@ -429,7 +433,7 @@ def replicate_cap_bytes() -> int:
     replicated per device; bigger ones take the routed layout.
     QUORUM_REPLICATE_TABLE_BYTES (k/M/G/T suffixes, decimal), as the
     JAX package reads it; default 4 GiB."""
-    raw = os.environ.get("QUORUM_REPLICATE_TABLE_BYTES")
+    raw = levers.raw("QUORUM_REPLICATE_TABLE_BYTES")
     if raw:
         try:
             return parse_size(raw)
@@ -598,7 +602,8 @@ def _pack_unpacked(codes, quals, lengths, qual_thresh: int
 
 
 def build_database_tile_sharded(batches, mesh, meta: TileShardedMeta,
-                                qual_thresh: int, max_grows: int = 8):
+                                qual_thresh: int, max_grows: int = 8,
+                                metrics=None, tracer=None):
     """Stage 1 over the mesh from unpacked batches: every (codes, quals)
     batch (rows a multiple of the shard count) packed on the host with
     every row's length L and the qual >= qual_thresh plane, counted by
@@ -607,17 +612,61 @@ def build_database_tile_sharded(batches, mesh, meta: TileShardedMeta,
     and sealed by HK2. CUDA-tensor batches take a round trip through
     the host for the pack. Returns (ShardedTileState, meta). JAX's
     `bucket_slack` overflow retries have no counterpart (HK15 buckets
-    exactly: the same table). JAX's `metrics` and `tracer` parameters
-    and record_shard_metrics wait for the port's telemetry."""
+    exactly: the same table).
+
+    `metrics` (a telemetry registry, or None) records the batches and
+    reads routed, the grows, each step's `shard_step_dispatch_us` /
+    `shard_step_wait_us` and, at the end, record_shard_metrics; `tracer`
+    (a span tracer, or None) marks each batch a `shard_build_step`
+    device step."""
+    import time
+
+    from ..telemetry import NULL, NULL_TRACER, observe_dispatch_wait
+
+    reg = metrics if metrics is not None else NULL
+    tracer = tracer if tracer is not None else NULL_TRACER
     mesh = list(mesh)
     bstate = make_build_state(meta, mesh)
-    for codes, quals in batches:
+    inserts = np.zeros(meta.n_shards, np.int64)
+    for step, (codes, quals) in enumerate(batches):
+        reg.counter("shard_batches").inc()
+        reg.counter("shard_reads").inc(codes.shape[0])
         pk = _pack_unpacked(codes, quals, None, qual_thresh)
-        bstate, meta, _grows = build_step_wire(bstate, meta, mesh, pk,
-                                               qual_thresh,
-                                               max_grows=max_grows)
-    state, _seal = finalize(bstate, meta, mesh)
+        rb_before = meta.rb_log2
+        t0 = time.perf_counter()
+        with tracer.step("shard_build_step", step):
+            bstate, meta, grows = build_step_wire(bstate, meta, mesh, pk,
+                                                  qual_thresh,
+                                                  max_grows=max_grows,
+                                                  shard_inserts=inserts)
+        t1 = time.perf_counter()
+        observe_dispatch_wait(reg, "shard_step", t0, t1, t1)
+        if grows:
+            reg.counter("shard_grows").inc(grows)
+            reg.event("shard_grow", rb_log2_before=rb_before,
+                      rb_log2_after=meta.rb_log2)
+    state, seal = finalize(bstate, meta, mesh)
+    if reg.enabled:
+        record_shard_metrics(reg, meta, inserts, shard_occupancy(seal))
     return state, meta
+
+
+def record_shard_metrics(reg, meta: TileShardedMeta, shard_inserts,
+                         per: list[int]) -> None:
+    """The per-shard telemetry of a finished sharded build (JAX's
+    record_shard_metrics): the occupancy spread gauges, the per-shard
+    distinct-mer and insert lists in meta, and the totals;
+    tools/metrics_check.py requires them when n_shards > 1. `per` is
+    shard_occupancy of the seal's statistics."""
+    ins = [int(x) for x in shard_inserts]
+    reg.gauge("n_shards").set(meta.n_shards)
+    reg.gauge("shard_distinct_min").set(min(per))
+    reg.gauge("shard_distinct_max").set(max(per))
+    reg.counter("distinct_mers").inc(sum(per))
+    reg.counter("shard_inserts_total").inc(sum(ins))
+    reg.gauge("shard_inserts_min").set(min(ins))
+    reg.gauge("shard_inserts_max").set(max(ins))
+    reg.set_meta(shard_distinct_mers=per, shard_inserts=ins)
 
 
 def _keeps(mesh, meta, cfg) -> list:

@@ -13,12 +13,12 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
-import os
 import queue
 import threading
 import time
 from typing import Iterable, Iterator, TypeVar
 
+from . import levers
 from .sizes import parse_size
 
 T = TypeVar("T")
@@ -27,11 +27,11 @@ _STOP = object()
 _ITEM = object()
 
 
-def queue_bytes_budget(env: str, default: str) -> int:
-    """The byte budget of one bounded queue, from the environment
-    variable `env` (k/M/G/T suffixes), else `default`; 0 disables."""
+def queue_bytes_budget(lever: str, default: str) -> int:
+    """The byte budget of one bounded queue, from the lever `lever`
+    (k/M/G/T suffixes), else `default`; 0 disables."""
     try:
-        return parse_size(os.environ.get(env) or default)
+        return parse_size(levers.raw(lever) or default)
     except ValueError:
         return parse_size(default)
 
@@ -56,21 +56,29 @@ def batch_nbytes(item) -> int:
 
 
 def put_or_stop(q: queue.Queue, item, stop: threading.Event,
-                timeout: float = 0.2) -> bool:
+                timeout: float = 0.2, stall_gauge=None) -> bool:
     """Put on a bounded queue, giving up once `stop` is set (the
-    consumer went away). Returns False if stopped."""
+    consumer went away). Returns False if stopped. `stall_gauge` (a
+    telemetry Gauge, or None) accumulates the seconds spent blocked on
+    a full queue."""
+    t0 = time.perf_counter() if stall_gauge is not None else 0.0
+    blocked = False
     while not stop.is_set():
         try:
             q.put(item, timeout=timeout)
+            if blocked and stall_gauge is not None:
+                stall_gauge.add(time.perf_counter() - t0)
             return True
         except queue.Full:
+            blocked = True
             continue
     return False
 
 
 def prefetch(it: Iterable[T], depth: int = 4,
              max_bytes: int | None = None, size_fn=batch_nbytes,
-             times: dict | None = None) -> Iterator[T]:
+             times: dict | None = None, metrics=None,
+             name: str = "prefetch", tracer=None) -> Iterator[T]:
     """Run `it` on a producer thread, buffering up to `depth` items and,
     past `max_bytes` queued (default QUORUM_PREFETCH_QUEUE_BYTES, "1G";
     0 disables), blocking even below `depth`; an empty queue always
@@ -79,7 +87,15 @@ def prefetch(it: Iterable[T], depth: int = 4,
 
     `times` (a dict, or None) accumulates "produce_s", the producer's
     seconds inside `it`, and "wait_s", the consumer's seconds blocked
-    on the queue."""
+    on the queue.
+
+    `metrics` (an enabled telemetry registry, or None) records
+    `<name>_queue_depth_max` (items buffered when the consumer asks),
+    `<name>_queue_bytes_max` (the buffer's byte high-water) and
+    `<name>_producer_stall_seconds` (the producer's seconds blocked on
+    a full or over-budget queue: the consumer was the bottleneck).
+    `tracer` (an enabled span tracer, or None) records one
+    `<name>_produce` span per item on the producer thread."""
     q: queue.Queue = queue.Queue(maxsize=depth)
     stop = threading.Event()
     budget = (queue_bytes_budget("QUORUM_PREFETCH_QUEUE_BYTES", "1G")
@@ -89,22 +105,43 @@ def prefetch(it: Iterable[T], depth: int = 4,
     if times is not None:
         times.setdefault("produce_s", 0.0)
         times.setdefault("wait_s", 0.0)
+    depth_g = metrics.gauge(f"{name}_queue_depth_max") if metrics else None
+    bytes_g = (metrics.gauge(f"{name}_queue_bytes_max")
+               if metrics and budget else None)
+    stall_g = (metrics.gauge(f"{name}_producer_stall_seconds")
+               if metrics else None)
+    span = (tracer.span if tracer is not None and tracer.enabled
+            else None)
 
     def put_data(item) -> bool:
         sz = size_fn(item) if budget else 0
         if budget and sz:
+            t0 = time.perf_counter()
+            blocked = False
             with cv:
                 while (pending["bytes"] > 0
                        and pending["bytes"] + sz > budget):
                     if stop.is_set():
                         return False
+                    blocked = True
                     cv.wait(0.2)
-        if not put_or_stop(q, (_ITEM, sz, item), stop):
+            if blocked and stall_g is not None:
+                stall_g.add(time.perf_counter() - t0)
+        if not put_or_stop(q, (_ITEM, sz, item), stop, stall_gauge=stall_g):
             return False
         if budget and sz:
             with cv:
                 pending["bytes"] += sz
+                high = pending["bytes"]
+            if bytes_g is not None:
+                bytes_g.set_max(high)
         return True
+
+    def produce(src):
+        if span is None:
+            return next(src)
+        with span(f"{name}_produce"):
+            return next(src)
 
     def loop():
         src = iter(it)
@@ -112,7 +149,7 @@ def prefetch(it: Iterable[T], depth: int = 4,
             while True:
                 t0 = time.perf_counter()
                 try:
-                    item = next(src)
+                    item = produce(src)
                 except StopIteration:
                     break
                 finally:
@@ -133,6 +170,8 @@ def prefetch(it: Iterable[T], depth: int = 4,
     t.start()
     try:
         while True:
+            if depth_g is not None:
+                depth_g.set_max(q.qsize())
             t0 = time.perf_counter()
             item = q.get()
             if times is not None:
@@ -211,10 +250,14 @@ class AsyncWriter:
     `max_bytes` of text (default QUORUM_WRITER_QUEUE_BYTES, "256M"; 0
     disables) are queued; an empty queue always admits one record. A
     stream error makes the next write() raise (fail fast) and close()
-    raise it once if no write() did; close() drains and joins."""
+    raise it once if no write() did; close() drains and joins.
+    `metrics` (an enabled telemetry registry, or None) records
+    `writer_queue_depth_max` (records queued when the caller writes:
+    maxsize means output I/O was the bottleneck) and
+    `writer_queue_bytes_max` (the pending text's byte high-water)."""
 
     def __init__(self, streams, maxsize: int = 64,
-                 max_bytes: int | None = None):
+                 max_bytes: int | None = None, metrics=None):
         self.streams = list(streams)
         self.q: queue.Queue = queue.Queue(maxsize=maxsize)
         self.err: BaseException | None = None
@@ -224,6 +267,10 @@ class AsyncWriter:
                           if max_bytes is None else int(max_bytes))
         self._cv = threading.Condition()
         self._pending_bytes = 0
+        self._depth_g = (metrics.gauge("writer_queue_depth_max")
+                         if metrics else None)
+        self._bytes_g = (metrics.gauge("writer_queue_bytes_max")
+                         if metrics and self.max_bytes else None)
         self.t = threading.Thread(target=self._loop, daemon=True,
                                   name="writer")
         self.t.start()
@@ -259,6 +306,11 @@ class AsyncWriter:
                         break  # close() surfaces it
                     self._cv.wait(0.2)
                 self._pending_bytes += len(text)
+                high = self._pending_bytes
+            if self._bytes_g is not None:
+                self._bytes_g.set_max(high)
+        if self._depth_g is not None:
+            self._depth_g.set_max(self.q.qsize() + 1)
         self.q.put((i, text))
 
     def close(self) -> None:

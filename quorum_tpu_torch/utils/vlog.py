@@ -10,17 +10,12 @@ flags OR into it and never turn it off.
 
 from __future__ import annotations
 
-import os
 import sys
 import time
 
+from . import levers
 
-def _env_enabled() -> bool:
-    val = os.environ.get("QUORUM_TPU_VERBOSE", "").strip()
-    return bool(val) and val.lower() not in ("0", "false", "no")
-
-
-verbose = _env_enabled()
+verbose = levers.get_bool("QUORUM_TPU_VERBOSE")
 
 
 def vlog(*parts) -> None:
