@@ -42,9 +42,8 @@ run. Phases, each printing one JSON line:
            count, --render-workers min(4, cores)), its reads parsed by
            the native parser; launch counts are reset just before it
            and read just after
-  pipeline the same driver run at -t 1 --render-workers 1, then at the
-           defaults again: .fa/.log byte-equal to the full run's; each
-           run's stage seconds, producer parse + pack seconds, main-thread
+  pipeline the same driver run at -t 1 --render-workers 1: .fa/.log
+           byte-equal to the full run's; both runs' stage seconds, producer parse + pack seconds, main-thread
            seconds blocked on the prefetch queue and on the render drain,
            render workers' summed seconds, the card's busy seconds
            (torch.profiler's device activity, as around the full run) and
@@ -95,16 +94,31 @@ run. Phases, each printing one JSON line:
            tests/test_ref_format.py builds them), stage 2 on each and on
            the golden v5 file with --device cuda (HK7 places each) and
            --device cpu at -p 4: all equal to tests/golden/expected.*
+  resume   crash safety at the full run's size: quorum_create_database
+           --checkpoint-dir --checkpoint-every 64 killed (its own process,
+           a hard-exit fault plan) at stage1.insert batch 100, then
+           --resume (a second process; the two start right after `full`
+           and run beside the phases up to `legacy`, one parse thread
+           each: their time is the 4 GiB snapshot's CRC32C on one host
+           core): payload equal to the full run's; the snapshot's
+           bytes, its save seconds (D2H, CRC32C, write with fsync), its
+           load seconds and the resumed stage 1's seconds;
+           quorum_error_correct_reads --checkpoint-every 16 killed at
+           stage2.correct batch 100, then --resume: .fa/.log equal to the
+           full run's, the journal commits' seconds; the golden stage 2
+           with a hang fault and --stall-timeout-s 2: rc 75 (at least 10
+           GiB free first; launch counts reset and read around each
+           resumed run)
   prefilter  the same FASTQ through the driver with --prefilter two-pass
            at the full run's -s (the database's header, and its content
            against the full table); quorum_error_correct_reads
            --presence-floor 2 on the full run's database, byte-equal to
            the two-pass run's .fa/.log; the driver with --prefilter
            inline, held to inline's guarantees against the exact counts;
-           then both modes again from a table of a 64th of the full
-           run's rows (sketch kept at the full size), so the gated build
-           grows: two-pass equal to the full-s two-pass run in table,
-           header and .fa/.log, inline held to its guarantees, peak
+           then two-pass again from a table of a 64th of the full run's
+           rows (sketch kept at the full size), so the gated build
+           grows: equal to the full-s two-pass run in table, header and
+           .fa/.log, peak
            memory beside the two_binary run's; launch counts reset
            before and read after each driver run
   partitions  the same FASTQ through the driver with --partitions 4 at
@@ -364,7 +378,7 @@ S2 = ("stage2_head", "event_planes", "event_scan", "extend_reads_event",
       "pack_finish")
 PATH_KERNELS = {
     "full": ("tile_insert", "tile_seal", "tile_export", *S2),
-    # the same driver run at -t 1 --render-workers 1, then at the defaults
+    # the same driver run at -t 1 --render-workers 1
     "pipeline": ("tile_insert", "tile_seal", "tile_export", *S2),
     "two_binary": ("tile_insert", "tile_grow", "tile_seal", "tile_export",
                    "tile_load", *S2),
@@ -378,9 +392,8 @@ PATH_KERNELS = {
     "contaminant_trim": ("tile_insert", "tile_seal", "tile_load", *S2),
 }
 # a gated build that grows adds HK8 and HK1's keys entry
-PATH_KERNELS.update({
-    p + "_grow": PATH_KERNELS[p] + ("tile_grow", "tile_insert")
-    for p in ("prefilter_two_pass", "prefilter_inline")})
+PATH_KERNELS["prefilter_two_pass_grow"] = (
+    PATH_KERNELS["prefilter_two_pass"] + ("tile_grow", "tile_insert"))
 # the partitioned paths: each pass seals, rebases (HK13) and exports its
 # shard; stage 2 loads the manifest (HK7); the restart run is stage 1
 PATH_KERNELS.update({
@@ -449,6 +462,12 @@ PATH_KERNELS.update({
 # --metrics-interval --trace-spans, then with --profile --metrics
 PATH_KERNELS.update({"telemetry": PATH_KERNELS["full"],
                      "telemetry_profile": PATH_KERNELS["full"]})
+# the resume phase: stage 1 resumed from a snapshot (its table back on
+# the card, then HK1, HK2 and HK6 over the rest), stage 2 resumed from a
+# journal over the full run's database (HK7, then the event path)
+PATH_KERNELS.update({"resume_stage1": ("tile_insert", "tile_seal",
+                                       "tile_export"),
+                     "resume_stage2": ("tile_load", *S2)})
 # the sharded build's device time by step (CUDA events, STATS.timing):
 # the step's name -> the counter or span its events are kept under
 SPLIT = {"route": "shard_route", "exchange": "exchange",
@@ -470,7 +489,14 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
+START = time.perf_counter()  # run() sets it again
+
+
 def emit(obj):
+    """Print one JSON line; a phase's line carries the script's elapsed
+    seconds at its end."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": round(time.perf_counter() - START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -2008,19 +2034,17 @@ def phase_parser(card: str, full: dict) -> dict:
 
 def phase_serial(card: str, full: dict) -> dict:
     """The full run's driver again at -t 1 --render-workers 1 (one parse
-    worker, one render worker), then at the defaults once more (so each
-    setting runs once before and once after the other's run): .fa/.log
-    byte-equal to the full run's, and the three runs' pipeline times
-    side by side. Launch counts reset before the first and read after
-    the last."""
+    worker, one render worker): .fa/.log byte-equal to the full run's,
+    and both runs' pipeline times side by side. Launch counts reset
+    before and read after. (The defaults' second run went to make room
+    for the resume phase.)"""
     from quorum_tpu_torch.cli import quorum
     from quorum_tpu_torch.kernels.loader import STATS
 
     runs = {}
     STATS.reset()
     STATS.timing = True  # as in the full run: the same event overhead
-    for tag, extra in (("serial", ["-t", "1", "--render-workers", "1"]),
-                       ("default_again", [])):
+    for tag, extra in (("serial", ["-t", "1", "--render-workers", "1"]),):
         prefix = os.path.join(WORK, tag)
         report: dict = {}
         with DeviceBusy() as busy:
@@ -2593,14 +2617,13 @@ def phase_prefilter(card: str, full: dict, two_binary: dict) -> dict:
     on the full run's database (HK7, HK12) gives the two-pass run's
     .fa/.log. inline: every mer seen >= 2 times is present, every entry
     is a real mer, every absent mer is a true singleton, and a stored
-    count is within one of the truth in its quality class. Then both
-    modes again at the -s of a table with fewer slots than the two-pass
-    table holds entries (a 64th of the full run's rows at full width),
-    with the sketch held at the full run's size (QUORUM_SKETCH_BITS), so
-    that the gated build grows: the two-pass table, header and .fa/.log equal the
-    full-s two-pass run's, the inline table meets inline's guarantees,
-    and each run's peak device memory stands beside the unfiltered
-    two-binary run's."""
+    count is within one of the truth in its quality class. Then two-pass
+    again at the -s of a table with fewer slots than the two-pass table
+    holds entries (a 64th of the full run's rows at full width), with
+    the sketch held at the full run's size (QUORUM_SKETCH_BITS), so that
+    the gated build grows: its table, header and .fa/.log equal the
+    full-s two-pass run's, and each run's peak device memory stands
+    beside the unfiltered two-binary run's."""
     import torch
 
     from quorum_tpu_torch.cli import error_correct_reads as ec_cli
@@ -2660,14 +2683,14 @@ def phase_prefilter(card: str, full: dict, two_binary: dict) -> dict:
     exact = exact_counts(full)
     inline_check(card, inl, exact, two["db"], "prefilter_inline_check")
 
-    # both modes from a table with fewer slots than the two-pass run
-    # keeps entries, so it must grow; the sketch as large as above
+    # two-pass from a table with fewer slots than the two-pass run keeps
+    # entries, so it must grow; the sketch as large as above (the inline
+    # mode's grown run went to make room for the resume phase)
     small = 24 << (h["n_entries"] // 128).bit_length()
     before = os.environ.get("QUORUM_SKETCH_BITS")
     os.environ["QUORUM_SKETCH_BITS"] = str(pf["sketch_cells_log2"])
     try:
         two_g = driver_run(card, full, "two-pass", small)
-        inl_g = driver_run(card, full, "inline", small)
     finally:
         if before is None:
             del os.environ["QUORUM_SKETCH_BITS"]
@@ -2681,25 +2704,21 @@ def phase_prefilter(card: str, full: dict, two_binary: dict) -> dict:
     same_out = same_fa_log(two_g["prefix"], two["prefix"])
     emit({"phase": "prefilter_grow", "card": card, "size": small,
           "grows_two_pass": two_g["build"].grows,
-          "grows_inline": inl_g["build"].grows,
           "same_table_as_full_s_two_pass": same_table,
           "same_header_as_full_s_two_pass": same_header,
           "same_fa_log_as_full_s_two_pass": same_out,
           "max_memory_allocated": {
               "prefilter_two_pass_grow": two_g["peak"],
-              "prefilter_inline_grow": inl_g["peak"],
               "prefilter_two_pass": two["peak"],
               "prefilter_inline": inl["peak"],
               "two_binary": two_binary["peak"]}})
     check(same_table and same_header and same_out,
           f"grown two-pass run: table {same_table}, header {same_header}, "
           f".fa/.log {same_out} against the full-s two-pass run")
-    inline_check(card, inl_g, exact, inl["db"], "prefilter_inline_grow_check")
     del exact
     return {"prefilter_two_pass": two["launches"],
             "prefilter_inline": inl["launches"],
-            "prefilter_two_pass_grow": two_g["launches"],
-            "prefilter_inline_grow": inl_g["launches"]}, two
+            "prefilter_two_pass_grow": two_g["launches"]}, two
 
 
 def partition_run(card: str, full: dict, path: str, extra: list) -> dict:
@@ -6015,6 +6034,228 @@ def phase_legacy(card: str) -> dict:
     return launches
 
 
+RESUME_FREE_BYTES = 10 << 30  # the resume phase's snapshot, its tmp, room
+RESUME_KILL = 100  # the batch both killed runs die at
+RESUME_EVERY = (64, 16)  # --checkpoint-every of stage 1 and of stage 2
+# the resumed stage 1 in a process of its own: its launch counts are set
+# to 0 just before the run and printed (the last stdout line) just after
+RESUMED_STAGE1 = """
+import json, sys, time
+from quorum_tpu_torch.cli import create_database
+from quorum_tpu_torch.kernels.loader import STATS
+STATS.reset()
+t0 = time.perf_counter()
+rc = create_database.main(sys.argv[1:])
+print(json.dumps({"rc": rc, "seconds": time.perf_counter() - t0,
+                  "launches": dict(STATS.launches)}))
+"""
+
+
+def fault_env(site: str, batch: int, action: str = "exit") -> dict:
+    """This process's environment with a one-fault plan in
+    QUORUM_FAULT_PLAN (`exit` is the hard kill, os._exit(41))."""
+    return dict(os.environ, QUORUM_FAULT_PLAN=json.dumps(
+        [{"site": site, "batch": batch, "action": action}]))
+
+
+def run_events(metrics: str, kind: str) -> list:
+    """The `kind` events of a run's metrics event stream."""
+    with open(metrics[:-len(".json")] + ".events.jsonl") as f:
+        return [e for e in map(json.loads, f) if e.get("event") == kind]
+
+
+def resume_stage1_start(full: dict) -> dict:
+    """Start the resume phase's stage 1 (a) on a thread of its own, right
+    after the full run: quorum_create_database --checkpoint-dir
+    --checkpoint-every 64 -t 1 on the full run's FASTQ at its -s, killed
+    (its own process, a hard-exit fault plan) at stage1.insert batch
+    100, then the same command with --resume in a second process
+    (RESUMED_STAGE1). Their ~400 s are mostly one host core computing
+    the 4 GiB snapshot's CRC32C (the save, then the load's check), so
+    they run beside the phases up to `legacy`, one parse thread each;
+    phase_resume joins them. At least RESUME_FREE_BYTES must be free
+    first. Returns the chain's state (stop_chain ends it)."""
+    import threading
+
+    d = os.path.join(WORK, "resume")
+    os.makedirs(d, exist_ok=True)
+    free = shutil.disk_usage(d).free
+    check(free >= RESUME_FREE_BYTES,
+          f"resume: {free} B free, {RESUME_FREE_BYTES} B needed")
+    chain = {"ck": os.path.join(d, "ck"), "db": os.path.join(d, "db.jf"),
+             "m0": os.path.join(d, "killed.json"),
+             "m1": os.path.join(d, "stage1.json"), "proc": None,
+             "stop": False, "error": None}
+    argv = ["-s", str(full["size"]), "-m", str(K), "-b", "7", "-q", str(QT),
+            "-t", "1", "--batch-size", str(BATCH), "-o", chain["db"],
+            "--device", "cuda", "--checkpoint-dir", chain["ck"]]
+
+    def step(cmd, env):
+        if chain["stop"]:
+            raise RuntimeError("stopped")
+        t0 = time.perf_counter()
+        p = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True)
+        chain["proc"] = p
+        out, err = p.communicate()
+        return p.returncode, out, err, time.perf_counter() - t0
+
+    def work():
+        try:
+            # the killed run's event stream is unbuffered: its snapshot's
+            # `checkpoint` event (bytes, D2H, CRC32C, write seconds)
+            # survives the kill
+            chain["killed"] = step(
+                [sys.executable, "-m", "quorum_tpu_torch.cli.create_database",
+                 *argv, "--checkpoint-every", str(RESUME_EVERY[0]),
+                 "--metrics", chain["m0"], "--metrics-interval", "3600",
+                 full["fastq"]],
+                fault_env("stage1.insert", RESUME_KILL))
+            ckpt = os.path.join(chain["ck"], "stage1.ckpt")
+            chain["snapshot_bytes"] = (os.path.getsize(ckpt)
+                                       if os.path.exists(ckpt) else 0)
+            # the resumed run takes no snapshot of its own
+            # (--checkpoint-every 0): a second 4 GiB save would add ~170 s
+            chain["resumed"] = step(
+                [sys.executable, "-c", RESUMED_STAGE1, *argv,
+                 "--checkpoint-every", "0", "--resume", "--metrics",
+                 chain["m1"], "--metrics-interval", "3600", full["fastq"]],
+                dict(os.environ))
+        except BaseException as e:  # noqa: BLE001 - phase_resume reports it
+            chain["error"] = e
+
+    chain["thread"] = threading.Thread(target=work, name="resume-stage1",
+                                       daemon=True)
+    chain["thread"].start()
+    return chain
+
+
+def stop_chain(chain) -> None:
+    """End resume_stage1_start's processes (a failed run) and join."""
+    if chain is None:
+        return
+    chain["stop"] = True
+    p = chain["proc"]
+    if p is not None and p.poll() is None:
+        p.kill()
+    chain["thread"].join()
+
+
+def phase_resume(card: str, full: dict, chain: dict) -> dict:
+    """Crash safety on the card, on the full run's data: (a)
+    resume_stage1_start's kill and resume, joined here: the payload equal
+    to the full run's; the snapshot's bytes, its save seconds (D2H,
+    CRC32C, write with fsync; the killed run's `checkpoint` event), its
+    load seconds (read, digest check, H2D; the `resume` event) and the
+    resumed stage 1's seconds; (b) quorum_error_correct_reads -o P
+    --checkpoint-every 16 on the full run's database killed at
+    stage2.correct batch 100 (RESUME_KILL, RESUME_EVERY), then --resume
+    in this process: .fa/.log equal to the full run's, the journal
+    commits' seconds; (c) the golden stage 2 (64-read batches) with a
+    `hang` at stage2.correct batch 1 and --stall-timeout-s 2: rc 75.
+    Launch counts reset before and read after each resumed run."""
+    from quorum_tpu_torch.cli import error_correct_reads as ec
+    from quorum_tpu_torch.io import checkpoint, db_format
+    from quorum_tpu_torch.kernels.loader import STATS
+
+    d = os.path.join(WORK, "resume")
+    prefix = os.path.join(d, "s2")
+    argv = ["--device", "cuda", "-t", str(full["report"]["threads"]),
+            "--batch-size", str(BATCH), "--checkpoint-every",
+            str(RESUME_EVERY[1]), "-o", prefix, full["db"], full["fastq"]]
+    cursor2 = RESUME_KILL // RESUME_EVERY[1] * RESUME_EVERY[1]
+    t0 = time.perf_counter()
+    killed = subprocess.run(
+        [sys.executable, "-m", "quorum_tpu_torch.cli.error_correct_reads",
+         *argv], cwd=ROOT, env=fault_env("stage2.correct", RESUME_KILL),
+        capture_output=True, text=True, timeout=600)
+    kill2_s = time.perf_counter() - t0
+    check(killed.returncode == 41, f"killed stage 2 rc {killed.returncode}: "
+                                   f"{killed.stderr[-500:]}")
+    check(checkpoint.Stage2Journal(prefix).batches_done() == cursor2,
+          f"the killed stage 2 left no journal at batch {cursor2}")
+    report: dict = {}
+    STATS.reset()
+    t0 = time.perf_counter()
+    rc = ec.main(argv[:-2] + ["--resume", *argv[-2:]], report=report)
+    s2 = time.perf_counter() - t0
+    launches2 = dict(STATS.launches)
+    check(rc == 0, f"resumed stage 2 rc {rc}")
+    for name in PATH_KERNELS["resume_stage2"]:
+        check(launches2[name] > 0, f"{name} was not launched by the "
+                                   "resumed stage 2")
+    same_out = same_fa_log(prefix, full["prefix"])
+    st = report["stats"]
+
+    # batch 1 of the golden reads' four: the watchdog arms at the first
+    # beat, which follows batch 0's fault site
+    t0 = time.perf_counter()
+    stall = subprocess.run(
+        [sys.executable, "-m", "quorum_tpu_torch.cli.error_correct_reads",
+         "-p", "4", "--batch-size", "64", "--device", "cuda",
+         "--stall-timeout-s", "2", "-o", os.path.join(d, "stall"),
+         os.path.join(WORK, "golden", "db.jf"),
+         os.path.join(GOLDEN, "reads.fastq")],
+        cwd=ROOT, env=fault_env("stage2.correct", 1, "hang"),
+        capture_output=True, text=True, timeout=300)
+    stall_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    chain["thread"].join()
+    chain_wait_s = time.perf_counter() - t0
+    check(chain["error"] is None, f"resume stage 1: {chain['error']!r}")
+    rc1, _out, err1, kill1_s = chain["killed"]
+    check(rc1 == 41, f"killed stage 1 rc {rc1}: {err1[-500:]}")
+    rc1, out1, err1, resumed1_s = chain["resumed"]
+    res1 = json.loads(out1.strip().splitlines()[-1]) if out1.strip() else {}
+    check(rc1 == 0 and res1.get("rc") == 0,
+          f"resumed stage 1 rc {rc1}/{res1.get('rc')}: {err1[-500:]}")
+    launches1 = res1["launches"]
+    for name in PATH_KERNELS["resume_stage1"]:
+        check(launches1[name] > 0, f"{name} was not launched by the "
+                                   "resumed stage 1")
+    cursor1 = RESUME_KILL // RESUME_EVERY[0] * RESUME_EVERY[0]
+    (resume,) = run_events(chain["m1"], "resume")
+    saves = run_events(chain["m0"], "checkpoint")
+    check(len(saves) == 1 and resume["cursor"] == cursor1,
+          f"stage 1 events: resume {resume}, {len(saves)} saves")
+    same_payload = (db_format.db_payload_bytes(chain["db"])
+                    == db_format.db_payload_bytes(full["db"]))
+    shutil.rmtree(d, ignore_errors=True)
+    (save,) = saves
+    emit({"phase": "resume", "card": card,
+          "stage1": {"killed_at_batch": RESUME_KILL, "threads": 1,
+                     "killed_run_s": round(kill1_s, 3),
+                     "resumed_from_batch": resume["cursor"],
+                     "snapshot_file_bytes": chain["snapshot_bytes"],
+                     "snapshot_bytes": save["bytes"],
+                     "save_d2h_s": round(save["d2h_s"], 3),
+                     "save_crc32c_s": round(save["crc_s"], 3),
+                     "save_write_fsync_s": round(save["write_s"], 3),
+                     "load_s": round(resume["load_s"], 3),
+                     "resumed_stage1_s": round(res1["seconds"], 3),
+                     "resumed_process_s": round(resumed1_s, 3),
+                     "waited_for_s": round(chain_wait_s, 3),
+                     "payload_equal_full": same_payload},
+          "stage2": {"killed_at_batch": RESUME_KILL,
+                     "killed_run_s": round(kill2_s, 3),
+                     "resumed_from_batch": cursor2, "commits": st.commits,
+                     "commit_s": round(st.commit_s, 4),
+                     "commit_s_each": round(st.commit_s / max(st.commits, 1),
+                                            4),
+                     "resumed_stage2_s": round(s2, 3),
+                     "fa_log_equal_full": same_out},
+          "stall": {"rc": stall.returncode, "seconds": round(stall_s, 3),
+                    "soft_abort": "aborting the stalled step" in stall.stderr,
+                    "hard_exit": "still wedged" in stall.stderr},
+          "launches_stage1": launches1, "launches_stage2": launches2})
+    check(same_payload, "the resumed stage 1's payload differs from full's")
+    check(same_out, "the resumed stage 2's .fa/.log differ from full's")
+    check(stall.returncode == 75, f"the stalled stage 2 rc "
+                                  f"{stall.returncode}: {stall.stderr[-500:]}")
+    return {"resume_stage1": launches1, "resume_stage2": launches2}
+
+
 def run() -> int:
     import torch
 
@@ -6028,13 +6269,17 @@ def run() -> int:
         print(f"chip_smoke: run from the root of a quorum-tpu checkout "
               f"({e})", file=sys.stderr)
         return 2
+    global START
+    START = time.perf_counter()
     card = card_line()
     os.makedirs(WORK, exist_ok=True)
+    chain = None
     try:
         phase_build()
         stats = phase_kernels(card)
         phase_golden()
         full = phase_full(card)
+        chain = resume_stage1_start(full)
         serial = phase_serial(card, full)
         telemetry = phase_telemetry(card, full)
         phase_parser(card, full)
@@ -6042,6 +6287,7 @@ def run() -> int:
         paired = phase_paired(card, full)
         ref_format = phase_ref_format(card, full)
         legacy = phase_legacy(card)
+        resume = phase_resume(card, full, chain)
         full["wires"] = full_wires(full)
         prefilter, two_pass = phase_prefilter(card, full, two)
         partitions = phase_partitions(card, full, two_pass, two)
@@ -6069,6 +6315,7 @@ def run() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     finally:
+        stop_chain(chain)
         shutil.rmtree(WORK, ignore_errors=True)
     by_path = {"full": full["launches"], "pipeline": serial, **telemetry,
                "two_binary": two["launches"],
@@ -6085,7 +6332,7 @@ def run() -> int:
                "devices_unpacked": unpacked["launches"],
                "paired": paired["paired"],
                "paired_unpaired": paired["unpaired"],
-               **ref_format, "legacy": legacy}
+               **ref_format, "legacy": legacy, **resume}
     def bound_ms(nbytes):
         return round(nbytes / H100_BYTES_PER_S * 1e3, 5)
 

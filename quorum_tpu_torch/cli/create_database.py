@@ -1,9 +1,11 @@
 """quorum_create_database (port): flags -s -m -b -q/-Q -o -t -p
 --ref-format --db-version --db-layout --batch-size --prefilter
---partitions --devices --on-bad-read --device -v and the telemetry flags
+--partitions --devices --on-bad-read --device -v, the telemetry flags
 (--metrics, --metrics-interval, --trace-spans, --profile,
---metrics-live), as the reference CLI (src/create_database_cmdline.yaggo)
-and quorum_tpu's stage-1 CLI.
+--metrics-live), and crash safety's (--checkpoint-dir,
+--checkpoint-every, --resume, --fault-plan, --preflight,
+--stall-timeout-s), as the reference CLI
+(src/create_database_cmdline.yaggo) and quorum_tpu's stage-1 CLI.
 
     python -m quorum_tpu_torch.cli.create_database -s 64k -m 13 -b 7 \\
         -q 38 -o db.jf reads.fastq
@@ -13,6 +15,15 @@ and quorum_tpu's stage-1 CLI.
                                    # db.jf is a manifest over 4 shards
     ... --devices 2 ...            # the table sharded over 2 cards
     ... --partitions 4 --devices 2 # each pass sharded over 2 cards
+    ... --checkpoint-dir ck        # snapshots every 64 batches; after
+                                   # a kill, the same command with
+                                   # --resume goes on from the last
+
+Exit codes: 0 done; 1 failed; 3 (io/checkpoint.NON_RETRYABLE_RC) a
+checkpoint or database that cannot be used (corrupt, or another run's);
+4 (utils/resources.DISK_FULL_RC) out of disk at the database or a strict
+preflight; 75 (utils/resources.STALL_RC) the stall watchdog aborted the
+build (a retry resumes from the checkpoint).
 """
 
 from __future__ import annotations
@@ -23,10 +34,13 @@ import sys
 import torch
 
 from .. import resolve_device
+from ..io.checkpoint import NON_RETRYABLE_RC, CheckpointError
 from ..io.fastq import BadReadPolicy
+from ..io.integrity import IntegrityError
 from ..models.create_database import BuildConfig, create_database_main
 from ..ops.sketch import PREFILTER_MODES, prefilter_default
 from ..parallel import tile_sharded as ts
+from ..utils import faults, resources
 from ..utils import vlog as vlog_mod
 from ..utils.sizes import parse_size
 from .observability import (UNPORTED_OBSERVABILITY, add_observability_args,
@@ -35,10 +49,6 @@ from .observability import (UNPORTED_OBSERVABILITY, add_observability_args,
 # quorum_tpu's flags whose paths are not ported yet: accepted by the
 # parser so that a run that asks for them is refused with a reason
 UNPORTED = {
-    "checkpoint_dir": "--checkpoint-dir (checkpoints and --resume, "
-                      "ROADMAP Queue 1 item 5)",
-    "resume": "--resume (checkpoints and --resume, ROADMAP Queue 1 "
-              "item 5)",
     "coordinator": "--coordinator (the multi-host fleet, ROADMAP Queue 1 "
                    "item 9)",
     "num_processes": "--num-processes (the multi-host fleet, ROADMAP "
@@ -113,11 +123,24 @@ def routed_devices_ok(args, prog: str, rb_log2: int) -> bool:
     return False
 
 
+def failure_rc(e: BaseException) -> int:
+    """The exit code of a stage that failed with `e` (quorum_tpu's
+    mapping, which the driver's retries read): 4 for a full disk or a
+    strict preflight and 75 for a stall (both ResourceExhausted /
+    StallError), 3 for an artifact that cannot be used (CheckpointError,
+    IntegrityError); the driver retries neither 3 nor 4. Else 1."""
+    if isinstance(e, resources.ResourceExhausted):
+        return resources.DISK_FULL_RC
+    if isinstance(e, resources.StallError):
+        return resources.STALL_RC
+    if isinstance(e, (CheckpointError, IntegrityError)):
+        return NON_RETRYABLE_RC
+    return 1
+
+
 def add_unported_args(p: argparse.ArgumentParser) -> None:
     """The flags of UNPORTED, as quorum_tpu spells them;
     refuse_unported() turns any use into an error."""
-    p.add_argument("--checkpoint-dir", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--resume", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--coordinator", default=None, help=argparse.SUPPRESS)
     p.add_argument("--num-processes", type=int, default=None,
                    help=argparse.SUPPRESS)
@@ -196,6 +219,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "the kernels)")
     add_devices_arg(p, "Build the table sharded by leading row bits")
     add_observability_args(p)
+    p.add_argument("--checkpoint-dir", metavar="dir", default=None,
+                   help="Write atomic snapshots of the counting table "
+                        "(plus the input batch cursor) here; a killed "
+                        "run restarted with --resume continues from "
+                        "the last one")
+    p.add_argument("--checkpoint-every", metavar="batches", type=int,
+                   default=64,
+                   help="Batches between snapshots (default 64; each "
+                        "snapshot syncs the device)")
+    p.add_argument("--resume", action="store_true",
+                   help="Continue from the last valid checkpoint in "
+                        "--checkpoint-dir (fresh start if none)")
+    faults.add_fault_args(p)
     add_unported_args(p)
     p.add_argument("-v", "--verbose", action="store_true")
     p.add_argument("reads", nargs="+", help="Read files")
@@ -226,6 +262,7 @@ def main(argv=None, handoff: dict | None = None,
         return 1
     if refuse_unported(args, "quorum_create_database"):
         return 1
+    faults.setup(args.fault_plan)
     if not resolve_devices_arg(args, "quorum_create_database"):
         return 1
     resolve_device(args.device)  # no card for --device cuda: raise here
@@ -247,7 +284,7 @@ def main(argv=None, handoff: dict | None = None,
               f"--devices {args.devices}; running unfiltered",
               file=sys.stderr)
         prefilter = "off"
-    if prefilter == "inline" and P > 1:
+    if prefilter == "inline" and (P > 1 or args.checkpoint_dir):
         if not auto:
             print("--prefilter=inline supports neither --partitions "
                   "nor --checkpoint-dir (the online sketch is "
@@ -256,7 +293,8 @@ def main(argv=None, handoff: dict | None = None,
             return 1
         # a default from the environment degrades; only the flag refuses
         print("Prefilter default inline does not compose with "
-              "--partitions; running unfiltered", file=sys.stderr)
+              "--partitions/--checkpoint-dir; running unfiltered",
+              file=sys.stderr)
         prefilter = "off"
     if args.ref_format and (P > 1 or prefilter != "off"):
         print("--ref-format supports neither --partitions nor "
@@ -274,24 +312,43 @@ def main(argv=None, handoff: dict | None = None,
         on_bad_read=args.on_bad_read, max_reprobe=args.reprobe,
         quarantine_path=(args.output + ".quarantine.fastq"
                          if args.on_bad_read == "quarantine" else None),
-        profile=args.profile)
+        profile=args.profile, checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every, resume=args.resume)
     # a failed run (a missing reads file, a full hash) still lands its
-    # document, stamped status=error
+    # document, stamped status=error; the resource guards watch the
+    # output, checkpoint and metrics filesystems
+    watch = [p for p in (args.output, args.checkpoint_dir, args.metrics)
+             if p]
+    rc = 0
     with observability(args.metrics, args.metrics_interval,
                        live=args.metrics_live, trace_spans=args.trace_spans,
-                       profile=args.profile) as obs:
+                       profile=args.profile, watch_paths=watch,
+                       stall_timeout_s=args.stall_timeout_s) as obs:
         try:
+            # the disk preflight, before any parse or device work: an
+            # export that cannot fit refuses in seconds, not hours
+            resources.preflight(
+                args.preflight,
+                resources.estimate_stage1_needs(
+                    args.output, cfg.initial_size, cfg.k, cfg.bits,
+                    checkpoint_dir=cfg.checkpoint_dir,
+                    partitions=cfg.partitions))
             create_database_main(args.reads, args.output, cfg,
                                  cmdline=list(sys.argv), handoff=handoff,
                                  batches_factory=batches_factory,
                                  ref_format=args.ref_format,
                                  metrics=obs.registry, tracer=obs.tracer)
+            obs.registry.set_meta(output=args.output)
         except (RuntimeError, OSError, ValueError) as e:
+            rc = failure_rc(e)
+            if rc == 1 and resources.is_enospc(e):
+                # a bare ENOSPC out of stage 1 is the database export
+                # (every optional writer degrades in place): required
+                resources.fail_required("db.payload", e, path=args.output)
+                rc = resources.DISK_FULL_RC
             print(str(e), file=sys.stderr)
             obs.status = "error"
-            return 1
-        obs.registry.set_meta(output=args.output)
-    return 0
+    return rc
 
 
 if __name__ == "__main__":

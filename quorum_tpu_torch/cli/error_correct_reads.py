@@ -3,11 +3,19 @@ flags of quorum_tpu's stage-2 CLI (-t -m -s -g -a -w -e -p -q -Q -d -M
 --contaminant --trim-contaminant --homo-trim --apriori-error-rate
 --poisson-threshold --gzip -o -v, same defaults) plus --presence-floor,
 --batch-size, --verify-db, --devices, --render-workers, --on-bad-read,
---device and the telemetry flags (--metrics, --metrics-interval,
---trace-spans, --profile, --metrics-live).
+--device, the telemetry flags (--metrics, --metrics-interval,
+--trace-spans, --profile, --metrics-live) and crash safety's
+(--checkpoint-every, --resume, --fault-plan, --preflight,
+--stall-timeout-s).
 
     python -m quorum_tpu_torch.cli.error_correct_reads -p 4 db.jf \\
         reads.fastq -o corrected
+    ... -o corrected --checkpoint-every 16 ...   # journaled; after a
+                                                 # kill, add --resume
+
+Exit codes as quorum_create_database's (cli/create_database.failure_rc):
+3 a journal or database that cannot be used, 4 out of disk at the
+output or the journal, 75 a stall.
 """
 
 from __future__ import annotations
@@ -18,11 +26,11 @@ import sys
 from .. import resolve_device
 from ..io import db_format
 from ..io.fastq import BadReadPolicy
-from ..io.integrity import IntegrityError
 from ..models.ec_config import DEFAULT_QUAL_CUTOFF
 from ..models.error_correct import ECOptions, run_error_correct
+from ..utils import faults
 from ..utils import vlog as vlog_mod
-from .create_database import (add_devices_arg, refuse_unported,
+from .create_database import (add_devices_arg, failure_rc, refuse_unported,
                               resolve_devices_arg, routed_devices_ok)
 from .observability import add_observability_args
 
@@ -100,6 +108,19 @@ def build_parser() -> argparse.ArgumentParser:
                        "row-sharded past QUORUM_REPLICATE_TABLE_BYTES or "
                        "2^24 rows)")
     add_observability_args(p)
+    p.add_argument("--checkpoint-every", metavar="batches", type=int,
+                   default=0,
+                   help="Journal completed batches every N batches: "
+                        "output streams to <prefix>.fa/.log.partial "
+                        "and a kill -> --resume run is byte-identical "
+                        "to an uninterrupted one (needs -o, no "
+                        "--gzip; 0 = off)")
+    p.add_argument("--resume", action="store_true",
+                   help="Skip reads already journaled by an "
+                        "interrupted --checkpoint-every run, then "
+                        "finalize atomically (fresh start if no "
+                        "journal)")
+    faults.add_fault_args(p)
     p.add_argument("-v", "--verbose", action="store_true", help="Be verbose")
     p.add_argument("db", help="Mer database")
     p.add_argument("sequence", nargs="+", help="Input sequence")
@@ -137,6 +158,7 @@ def main(argv=None, db=None, prepacked=None, records=None,
     prog = "quorum_error_correct_reads"
     if refuse_unported(args, prog):
         return 1
+    faults.setup(args.fault_plan)
     if not resolve_devices_arg(args, prog):
         return 1
     resolve_device(args.device)  # no card for --device cuda: raise here
@@ -158,7 +180,10 @@ def main(argv=None, db=None, prepacked=None, records=None,
                      no_mmap=args.no_mmap, metrics=args.metrics,
                      metrics_interval=args.metrics_interval,
                      metrics_force=args.metrics_live,
-                     trace_spans=args.trace_spans, profile=args.profile)
+                     trace_spans=args.trace_spans, profile=args.profile,
+                     checkpoint_every=args.checkpoint_every,
+                     resume=args.resume, preflight=args.preflight,
+                     stall_timeout_s=args.stall_timeout_s)
     try:
         stats = run_error_correct(args.db, args.sequence, opts,
                                   qual_cutoff=qual_cutoff, skip=args.skip,
@@ -171,12 +196,9 @@ def main(argv=None, db=None, prepacked=None, records=None,
                                   trim_contaminant=args.trim_contaminant,
                                   db=db, prepacked=prepacked,
                                   records=records)
-    except IntegrityError as e:
-        print(str(e), file=sys.stderr)
-        return 3
     except (RuntimeError, ValueError, OSError) as e:
         print(str(e), file=sys.stderr)
-        return 1
+        return failure_rc(e)
     if report is not None:
         report["stats"] = stats
     return 0

@@ -3,14 +3,17 @@ run through (counterpart of quorum_tpu/cli/observability.py, limited to
 the ported surface).
 
 `add_observability_args` registers `--metrics`, `--metrics-interval`,
-`--trace-spans`, `--profile` and, on the stage and inspection CLIs,
+`--trace-spans`, `--profile`, the resource guards' `--preflight` and
+`--stall-timeout-s` and, on the stage and inspection CLIs,
 `--metrics-live`; the flags whose machinery is not ported yet are
 registered too, so that `refuse_unported` (cli/create_database.py)
 refuses them with the reason and the ROADMAP item that brings them.
 
 `observability()` builds the run's registry and span tracer, installs
-the quality scorecard whenever metrics are on and the ambient integrity
-registry, and on every exit path: parses the `--profile` trace into
+the quality scorecard whenever metrics are on, the ambient integrity
+registry and the resource-guard frame (utils/resources: the degradation
+ladder, the disk and RSS monitor over the run's artifact paths, the
+stall watchdog), and on every exit path: parses the `--profile` trace into
 device-kernel attribution (telemetry/devtrace.py), runs the `at_exit`
 hooks, stamps the final document `ok` or `error` and writes it, closes
 the span file and copies the span twin into the profile directory.
@@ -35,10 +38,6 @@ UNPORTED_OBSERVABILITY = {
                              "pusher, ROADMAP Queue 1 item 10)",
     "alert_rules": "--alert-rules (the alert engine, ROADMAP Queue 1 "
                    "item 10)",
-    "preflight": "--preflight (the resource guards, ROADMAP Queue 1 "
-                 "item 5)",
-    "stall_timeout_s": "--stall-timeout-s (the stall watchdog, ROADMAP "
-                       "Queue 1 item 5)",
 }
 
 
@@ -66,6 +65,24 @@ def add_observability_args(p: argparse.ArgumentParser,
                         "to each step in the metrics document"
                         + (" (stage1/ and stage2/ under it)"
                            if driver else ""))
+    p.add_argument("--preflight", choices=("strict", "warn", "off"),
+                   default="warn",
+                   help="Disk preflight before work starts: compare "
+                        "estimated output/checkpoint bytes against "
+                        "free space on the target filesystems. "
+                        "strict refuses (rc 4, not retried), warn "
+                        "(default) prints one line per short "
+                        "filesystem, off skips the check"
+                        + ("; forwarded to both stages" if driver
+                           else ""))
+    p.add_argument("--stall-timeout-s", metavar="seconds", type=float,
+                   default=0.0,
+                   help="Offline stall watchdog: abort a stage whose "
+                        "batch cursor stops advancing for this long "
+                        "(retryable rc 75, so a driver retry resumes "
+                        "from checkpoint); 0 = off"
+                        + ("; forwarded to both stages" if driver
+                           else ""))
     if not driver:
         p.add_argument("--metrics-live", action="store_true",
                        help="Keep a live metrics registry even with no "
@@ -134,12 +151,21 @@ class ObservabilitySession:
 @contextlib.contextmanager
 def observability(metrics: str | None = None, interval: float = 0.0,
                   live: bool = False, trace_spans: str | None = None,
-                  profile: str | None = None, **meta):
+                  profile: str | None = None, watch_paths=(),
+                  stall_timeout_s: float = 0.0, **meta):
     """The observability lifecycle: registry and tracer up front, and a
     teardown on every exit: the status-stamped final write (skipped when
     the body wrote it), the span file's close and the span twin copied
     into the profile directory. `meta` seeds the registry's meta
     (stage=..., and so on).
+
+    `watch_paths` / `stall_timeout_s`: the resource-guard frame
+    (utils/resources.install). Watch paths (the run's output, checkpoint
+    and metrics targets) arm the disk and RSS monitor (`disk_free_bytes*`,
+    `host_rss_bytes`); a positive stall timeout arms the watchdog the
+    stage loops beat. The frame pre-creates `writer_degraded_total`,
+    `preflight_refusals_total` and `stall_aborts_total` in every live
+    document.
 
     `profile` (the run's `--profile` directory) declares the devtrace
     surface in meta, so metrics_check requires the device names; the
@@ -159,6 +185,7 @@ def observability(metrics: str | None = None, interval: float = 0.0,
     from ..io import integrity
     from ..telemetry import quality as quality_mod
     from ..telemetry import registry_for, tracer_for
+    from ..utils import resources
 
     reg = registry_for(metrics, interval, force=live)
     if meta:
@@ -175,6 +202,10 @@ def observability(metrics: str | None = None, interval: float = 0.0,
     # blocks (the driver's stages) stack and restore it
     prev_integrity = integrity.install_registry(
         reg if reg.enabled else None)
+    # the resource guards stack and restore the same way
+    resources_token = resources.install(
+        reg, watch_paths=watch_paths, stall_timeout_s=stall_timeout_s,
+        interval_s=interval if interval and interval > 0 else 5.0)
     try:
         try:
             yield obs
@@ -183,6 +214,7 @@ def observability(metrics: str | None = None, interval: float = 0.0,
             raise
         obs._finalize(ok=True)
     finally:
+        resources.uninstall(resources_token)
         integrity.install_registry(prev_integrity)
         tracer.close()
         if profile and tracer.enabled:

@@ -35,6 +35,17 @@ interleaved by merge_mate_pairs.merge_records, are corrected with
 Paired mode keeps no replay cache: the cache holds the files' order,
 not the merged one.
 
+Crash safety (quorum_tpu's driver): --checkpoint-dir DIR passes the
+checkpoints to both stages (stage 1's snapshots in DIR, stage 2's
+journal beside its output, every --checkpoint-every batches) and
+streams the replay cache to DIR/replay (io/checkpoint.ReplayCache; not
+in paired mode). --stage-retries N retries a failed stage with capped
+exponential backoff (--retry-backoff-ms), each retry resuming from the
+stage's checkpoint; rc 3 (an artifact that cannot be used) and rc 4
+(out of disk) are not retried. --resume reuses a finished database that
+validates under --verify-db (and replays the capture instead of parsing
+the FASTQ again), or else resumes each stage from its checkpoint.
+
 Telemetry: --metrics m.json writes the driver's own document there and
 forwards m.stage1.json / m.stage2.json to the stages; --trace-spans
 s.jsonl writes s.driver.jsonl (the shared producer's spans) and forwards
@@ -56,10 +67,12 @@ import numpy as np
 import torch
 
 from .. import __version__, resolve_device
+from ..io import checkpoint as ckpt_mod
 from ..io import db_format, fastq, packing
 from ..models.ec_config import DEFAULT_QUAL_CUTOFF
 from ..ops.sketch import PREFILTER_MODES
 from ..parallel import tile_sharded as ts
+from ..utils import faults, resources
 from ..utils import vlog as vlog_mod
 from ..utils.pipeline import prefetch
 from ..utils.sizes import parse_size
@@ -78,6 +91,60 @@ VERSION = f"1.1.1+torch.{__version__}"
 # replay (the JAX driver's default cap). Past it the cache is dropped
 # and stage 2 parses the input again from disk.
 REPLAY_CACHE_BYTES = 6 * 1024 ** 3
+
+# Retry backoff ceiling: exponential growth stops doubling here.
+_RETRY_BACKOFF_CAP_MS = 30_000.0
+
+# module-level so tests mock the clock without touching time.sleep
+_sleep = time.sleep
+
+
+def _run_stage_with_retries(reg, stage: str, attempt_fn, retries: int,
+                            backoff_ms: float, cursor_fn=None) -> int:
+    """Run one stage under the driver's retry policy (quorum_tpu's
+    _run_stage_with_retries): on a failure (a nonzero rc, or an
+    exception of the stages' failure shapes) wait with capped
+    exponential backoff and try again, up to `retries` extra attempts.
+    The document carries `<stage>_attempts`, `stage_retries_total`
+    counts the retries and each emits a `stage_retry` event (cause,
+    attempt, the cursor `cursor_fn` peeks). `attempt_fn(attempt)`
+    returns the stage's rc; a retried attempt passes --resume. rc 3
+    (NON_RETRYABLE_RC) and rc 4 (DISK_FULL_RC) return at once."""
+    attempt = 0
+    while True:
+        cause = None
+        try:
+            rc = attempt_fn(attempt)
+            if rc != 0:
+                cause = f"exit status {rc}"
+        except (RuntimeError, ValueError, OSError) as e:
+            # the stages' failure shapes, mapped as their CLIs map them
+            rc = cdb_cli.failure_rc(e)
+            cause = f"{type(e).__name__}: {e}"
+        if reg.enabled:
+            reg.set_meta(**{f"{stage}_attempts": attempt + 1})
+        if rc == 0:
+            return 0
+        # a deterministic refusal re-raises on every retry, and a full
+        # disk does not empty itself between attempts
+        if (rc in (ckpt_mod.NON_RETRYABLE_RC, resources.DISK_FULL_RC)
+                or attempt >= retries):
+            if cause:
+                print(f"quorum: {stage} failed: {cause}", file=sys.stderr)
+            return rc
+        delay_ms = min(backoff_ms * (2 ** attempt), _RETRY_BACKOFF_CAP_MS)
+        cursor = cursor_fn() if cursor_fn is not None else None
+        reg.counter("stage_retries_total").inc()
+        reg.event("stage_retry", stage=stage, attempt=attempt + 1,
+                  cause=cause, backoff_ms=delay_ms, resumed_from=cursor)
+        print(f"quorum: {stage} failed ({cause}); retrying in "
+              f"{delay_ms / 1000.0:.1f}s (attempt {attempt + 2} of "
+              f"{retries + 1}"
+              + (f", resuming from batch {cursor}" if cursor is not None
+                 else "") + ")", file=sys.stderr)
+        if delay_ms > 0:
+            _sleep(delay_ms / 1000.0)
+        attempt += 1
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -168,6 +235,28 @@ def build_parser() -> argparse.ArgumentParser:
            "replicated, or row-sharded past QUORUM_REPLICATE_TABLE_BYTES "
            "or 2^24 rows)")
     add_observability_args(p, driver=True)
+    p.add_argument("--checkpoint-dir", metavar="dir", default=None,
+                   help="Enable crash-safe checkpoints: stage-1 table "
+                        "snapshots land here; stage 2 journals beside "
+                        "its output. A killed run restarted with "
+                        "--resume continues instead of recounting")
+    p.add_argument("--checkpoint-every", metavar="batches", type=int,
+                   default=64,
+                   help="Batches between stage checkpoints "
+                        "(default 64)")
+    p.add_argument("--resume", action="store_true",
+                   help="Continue an interrupted run: a finished "
+                        "stage-1 database is reused, otherwise each "
+                        "stage resumes from its last checkpoint")
+    p.add_argument("--stage-retries", metavar="n", type=int, default=0,
+                   help="Retry a failed stage up to n times with "
+                        "capped exponential backoff, resuming from "
+                        "its checkpoint (default 0 = fail fast)")
+    p.add_argument("--retry-backoff-ms", metavar="ms", type=float,
+                   default=500.0,
+                   help="Base retry backoff; doubles per attempt, "
+                        "capped at 30s (default 500)")
+    faults.add_fault_args(p)
     cdb_cli.add_unported_args(p)
     p.add_argument("--debug", action="store_true",
                    help="Display debugging information")
@@ -222,10 +311,17 @@ def main(argv=None, report: dict | None = None) -> int:
     vlog_mod.verbose = args.debug or vlog_mod.verbose
     if cdb_cli.refuse_unported(args, "quorum"):
         return 1
+    # one plan for the driver and both in-process stages (subprocesses
+    # read QUORUM_FAULT_PLAN)
+    faults.setup(args.fault_plan)
+    # the driver's own resource guards watch its artifacts' filesystems;
+    # the stall watchdog is the stages' (only their loops beat)
+    watch = [p for p in (args.prefix + "_mer_database.jf",
+                         args.checkpoint_dir, args.metrics) if p]
     with observability(args.metrics, args.metrics_interval,
                        trace_spans=(_stage_path(args.trace_spans, "driver")
                                     if args.trace_spans else None),
-                       profile=args.profile) as obs:
+                       profile=args.profile, watch_paths=watch) as obs:
         rc = _main(args, obs.registry, obs.tracer, report)
         if rc != 0:
             obs.status = "error"
@@ -266,7 +362,7 @@ def _main(args, reg, tracer, report: dict | None) -> int:
             args, "quorum", ts.initial_rb(parse_size(args.size),
                                           args.kmer_len, 7, args.devices)):
         return 1
-    if args.prefilter == "inline" and P > 1:
+    if args.prefilter == "inline" and (P > 1 or args.checkpoint_dir):
         print("quorum: --prefilter=inline supports neither "
               "--partitions nor --checkpoint-dir; use "
               "--prefilter=two-pass", file=sys.stderr)
@@ -293,8 +389,7 @@ def _main(args, reg, tracer, report: dict | None) -> int:
                 for i in range(torch.cuda.device_count())} if cuda else ()),
             devices_resolved=args.devices,
             metrics_stage1=m1, metrics_stage2=m2)
-        # no stage retries in the port (ROADMAP Queue 1 item 5)
-        reg.counter("stage_retries_total")
+        reg.counter("stage_retries_total")  # lands even at 0
     min_q = args.min_q_char
     if min_q is None:
         try:
@@ -313,7 +408,13 @@ def _main(args, reg, tracer, report: dict | None) -> int:
                 "-b", "7", "-t", str(threads), "-o", db_file, "--batch-size",
                 str(args.batch_size), "--db-version", str(args.db_version),
                 "--db-layout", args.db_layout, "--device", args.device,
-                "--devices", str(args.devices)]
+                "--devices", str(args.devices), "--preflight",
+                args.preflight]
+    if args.stall_timeout_s and args.stall_timeout_s > 0:
+        cdb_argv.extend(["--stall-timeout-s", str(args.stall_timeout_s)])
+    if args.checkpoint_dir:
+        cdb_argv.extend(["--checkpoint-dir", args.checkpoint_dir,
+                         "--checkpoint-every", str(args.checkpoint_every)])
     if args.prefilter != "auto":
         cdb_argv.extend(["--prefilter", args.prefilter])
     if P != 1:
@@ -341,10 +442,20 @@ def _main(args, reg, tracer, report: dict | None) -> int:
     # bad-read policy lives on the driver's reader (its quarantine
     # beside the corrected output); repeat passes skip silently. Paired
     # mode caches nothing: stage 2 reads the mates merged, not in the
-    # files' order.
+    # files' order. With --checkpoint-dir the cache also streams to
+    # disk (ReplayCache), committed once the first pass ends, so that a
+    # resumed run replays it instead of parsing the FASTQ.
     cache: list = []
-    host = {"cached": 0, "keep": not args.paired_files, "complete": False}
+    host = {"cached": 0, "keep": not args.paired_files, "complete": False,
+            "writer": None}
     times: dict = {}
+    replay_identity = {"inputs": list(args.reads),
+                       "batch_size": int(args.batch_size),
+                       "qual_cutoff": int(DEFAULT_QUAL_CUTOFF),
+                       "on_bad_read": args.on_bad_read}
+    replay_store = (ckpt_mod.ReplayCache(args.checkpoint_dir)
+                    if args.checkpoint_dir and not args.paired_files
+                    else None)
 
     def policy(first: bool):
         if args.on_bad_read == "abort":
@@ -360,6 +471,7 @@ def _main(args, reg, tracer, report: dict | None) -> int:
     def packed(first: bool):
         """(batch without quals, packed stage-1 wire) pairs; the first
         pass also fills the replay cache."""
+        writer = host["writer"] if first else None
         for b in fastq.read_batches(args.reads, args.batch_size,
                                     threads=threads, policy=policy(first)):
             pk1 = packing.pack_reads(b.codes, b.quals, b.lengths,
@@ -380,31 +492,79 @@ def _main(args, reg, tracer, report: dict | None) -> int:
                 host["keep"] = host["cached"] <= REPLAY_CACHE_BYTES
                 if host["keep"]:
                     cache.append((lean, pk2))
+                    if writer is not None:
+                        writer.add(lean, pk2)
                 else:
                     cache.clear()
+                    if writer is not None:
+                        writer.abort()
             yield lean, pk1
         if first:
             host["complete"] = True
+            # every batch landed: the on-disk capture commits
+            if writer is not None and host["keep"]:
+                writer.finish()
 
-    calls = {"n": 0}
-
-    def factory():
-        calls["n"] += 1
-        first = calls["n"] == 1
-        if not first:
-            return prefetch(packed(False))
-        return prefetch(packed(True), times=times,
-                        metrics=reg if reg.enabled else None,
-                        name="reads_producer", tracer=tracer)
+    def stage1_cursor():
+        if not args.checkpoint_dir:
+            return None
+        if P > 1:
+            return ckpt_mod.Stage1PartitionCursor(args.checkpoint_dir).cursor()
+        cls = (ckpt_mod.Stage1ShardedCheckpoint if args.devices > 1
+               else ckpt_mod.Stage1Checkpoint)
+        return cls(args.checkpoint_dir).cursor()
 
     handoff: dict = {}
+
+    def stage1_attempt(attempt: int) -> int:
+        # every attempt gets a fresh producer and replay cache (a failed
+        # attempt consumed part of the previous one)
+        handoff.clear()
+        cache.clear()
+        host.update(cached=0, keep=not args.paired_files, complete=False,
+                    writer=(replay_store.start(replay_identity,
+                                               REPLAY_CACHE_BYTES)
+                            if replay_store is not None else None))
+        argv = list(cdb_argv)
+        if args.checkpoint_dir and (args.resume or attempt > 0):
+            argv.append("--resume")
+        calls = {"n": 0}
+
+        def factory():
+            calls["n"] += 1
+            first = calls["n"] == 1
+            if not first:
+                return prefetch(packed(False))
+            return prefetch(packed(True), times=times,
+                            metrics=reg if reg.enabled else None,
+                            name="reads_producer", tracer=tracer)
+        return cdb_cli.main(argv + list(args.reads), handoff=handoff,
+                            batches_factory=factory)
+
     t_s1 = time.perf_counter()
-    rc = cdb_cli.main(cdb_argv + list(args.reads), handoff=handoff,
-                      batches_factory=factory)
-    if rc != 0:
-        print("Creating the mer database failed. Most likely the size "
-              "passed to the -s switch is too small.", file=sys.stderr)
-        return 1
+    # --resume with stage 1 durable (its database exists and validates,
+    # and no partial checkpoint is pending): reuse it instead of
+    # counting again
+    if args.resume and os.path.exists(db_file) and stage1_cursor() is None \
+            and _db_reusable(db_file, args, reg):
+        vlog("Resume: reusing existing mer database ", db_file)
+        reg.event("stage_skipped", stage="create_database",
+                  reason="resume: database exists")
+        reg.set_meta(stage1_resumed_db=db_file)
+    else:
+        rc = _run_stage_with_retries(reg, "create_database", stage1_attempt,
+                                     args.stage_retries,
+                                     args.retry_backoff_ms,
+                                     cursor_fn=stage1_cursor)
+        if rc != 0:
+            if rc in (resources.DISK_FULL_RC, resources.STALL_RC):
+                # these rcs carry retry semantics for outer supervisors
+                print("Creating the mer database failed (out of disk "
+                      "space or stalled).", file=sys.stderr)
+                return rc
+            print("Creating the mer database failed. Most likely the size "
+                  "passed to the -s switch is too small.", file=sys.stderr)
+            return 1
     s1_s = time.perf_counter() - t_s1
     if reg.enabled:
         reg.gauge("stage1_seconds").set(round(s1_s, 3))
@@ -418,7 +578,12 @@ def _main(args, reg, tracer, report: dict | None) -> int:
     ec_argv = ["--batch-size", str(args.batch_size), "--device",
                args.device, "--devices", str(args.devices), "-t",
                str(threads), "--verify-db", args.verify_db,
-               "--render-workers", str(args.render_workers)]
+               "--render-workers", str(args.render_workers),
+               "--preflight", args.preflight]
+    if args.stall_timeout_s and args.stall_timeout_s > 0:
+        ec_argv.extend(["--stall-timeout-s", str(args.stall_timeout_s)])
+    if args.checkpoint_dir:
+        ec_argv.extend(["--checkpoint-every", str(args.checkpoint_every)])
     # a bad read skipped in one mate file would unpair the rest: paired
     # stage 2 reads the merged mates under the abort policy
     if args.on_bad_read != "abort" and not args.paired_files:
@@ -452,20 +617,57 @@ def _main(args, reg, tracer, report: dict | None) -> int:
     if args.debug and not args.paired_files:
         print("+ quorum_error_correct_reads " + " ".join(ec_argv),
               file=sys.stderr)
+    # stage 2's batches: the RAM cache (drained as it goes, unless a
+    # retry may need it again), else on a resume the on-disk capture,
+    # else a parse of the FASTQ
+    replay = None
+    if host["keep"] and host["complete"] and cache:
+        replay = ((lambda: iter(cache)) if args.stage_retries > 0
+                  else (lambda: _drain(cache)))
+    elif replay_store is not None:
+        try:
+            capture = replay_store.load(replay_identity)
+        except ckpt_mod.CheckpointError as e:
+            print(f"quorum: {e}", file=sys.stderr)
+            return ckpt_mod.NON_RETRYABLE_RC
+        if capture is not None:
+            vlog("Resume: replaying ", capture.n_batches,
+                 " cached batches from ", replay_store.dir,
+                 " (no FASTQ re-parse)")
+            reg.event("replay_cache_resume", n_batches=capture.n_batches)
+            reg.set_meta(replay_cache_resumed=True)
+            replay = capture.batches
     t_s2 = time.perf_counter()
     ec_stats: dict = {}
-    replay = host["keep"] and host["complete"]
-    # paired mode: merge | correct | split in process
-    # (quorum.in:172-231), every read kept so that the split pairs the
-    # mates again
-    rc = ec_cli.main(ec_argv, db=handoff.get("db"),
-                     prepacked=_drain(cache) if replay else None,
-                     records=(merge_records(args.reads)
-                              if args.paired_files else None),
-                     report=ec_stats)
+
+    def stage2_cursor():
+        if not args.checkpoint_dir:
+            return None
+        return ckpt_mod.Stage2Journal(args.prefix).batches_done()
+
+    def stage2_attempt(attempt: int) -> int:
+        argv = list(ec_argv)
+        if args.checkpoint_dir and (args.resume or attempt > 0):
+            argv.append("--resume")
+        # paired mode: merge | correct | split in process
+        # (quorum.in:172-231), every read kept so that the split pairs
+        # the mates again
+        return ec_cli.main(argv, db=handoff.get("db"),
+                           prepacked=replay() if replay else None,
+                           records=(merge_records(args.reads)
+                                    if args.paired_files else None),
+                           report=ec_stats)
+
+    rc = _run_stage_with_retries(reg, "error_correct", stage2_attempt,
+                                 args.stage_retries, args.retry_backoff_ms,
+                                 cursor_fn=stage2_cursor)
     if rc != 0:
         print("Error correction failed", file=sys.stderr)
-        return 1
+        return rc if rc in (resources.DISK_FULL_RC,
+                            resources.STALL_RC) else 1
+    if replay_store is not None:
+        # the corrected output is final: the capture is garbage now
+        replay_store.clear()
     if args.paired_files:
         fa_path = args.prefix + ".fa"
         try:
@@ -484,9 +686,37 @@ def _main(args, reg, tracer, report: dict | None) -> int:
         report.update(stage1_s=s1_s, stage2_s=s2_s,
                       stage1_host_s=times.get("produce_s", 0.0),
                       stage1_wait_s=times.get("wait_s", 0.0),
-                      threads=threads, build=handoff["stats"],
+                      threads=threads, build=handoff.get("stats"),
                       ec=ec_stats.get("stats"))
     return 0
+
+
+def _db_reusable(db_file: str, args, reg) -> bool:
+    """The --resume reuse bar (quorum_tpu's): a readable database header
+    whose geometry matches this run's flags and, for v5, digests that
+    pass --verify-db. A foreign file, another k, or damage means a
+    rebuild (the header does not record the input set: resuming over
+    changed inputs is the operator's assertion, as with any --resume)."""
+    try:
+        h = db_format.read_header(db_file)
+    except (OSError, ValueError):
+        return False
+    if h.get("key_len") != 2 * args.kmer_len or h.get("bits") != 7:
+        print(f"quorum: --resume found {db_file} built with "
+              f"k={h.get('key_len', 0) // 2}/bits={h.get('bits')} (this "
+              f"run: k={args.kmer_len}/bits=7); rebuilding", file=sys.stderr)
+        return False
+    if h.get("version", 1) >= 5 and args.verify_db != "off":
+        # the one place a damaged database is cured (rebuilt), not
+        # refused
+        try:
+            db_format.verify_db_file(db_file, args.verify_db)
+        except (OSError, ValueError) as e:
+            print(f"quorum: --resume found {db_file} but it failed "
+                  f"verification ({e}); rebuilding", file=sys.stderr)
+            reg.event("integrity_error", file=db_file, detail=str(e))
+            return False
+    return True
 
 
 if __name__ == "__main__":

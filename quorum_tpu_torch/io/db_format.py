@@ -33,6 +33,7 @@ import torch
 from .. import kernels
 from ..ops import ctable
 from ..ops.ctable import GlobalMeta, TileMeta, TileState
+from ..utils import faults
 from . import integrity, quorum_db
 from .integrity import IntegrityError  # noqa: F401  (callers catch it here)
 
@@ -106,6 +107,8 @@ def _atomic_write(path: str, line: bytes, payload: bytes,
         os.fsync(f.fileno())
     os.replace(tmp, path)
     integrity.fsync_dir(path)
+    # a `corrupt` fault here damages the file just committed
+    faults.inject("db.write", path=path)
 
 
 def _write_payload_file(path: str, header: dict, buf: np.ndarray,
@@ -687,6 +690,23 @@ def load_db(path: str, device="cpu", verify: str = "full", mesh=None,
         return state, meta, header, stats
     state, stats = ctable.tile_load(payload, meta, n, device)
     return state, meta, header, stats
+
+
+def verify_db_file(path: str, mode: str = "full") -> dict:
+    """Check a database's digests per `mode` (full, sample, off) without
+    putting its table on a device: a v5 file's sections, or a manifest's
+    seal and every shard (the quorum driver's --resume reuse check).
+    Returns the header; raises IntegrityError or ValueError on damage."""
+    header = read_header(path)
+    if mode == "off":
+        return header
+    if header.get("format") == MANIFEST_FORMAT:
+        _load_manifest(path, header, mode, on_mesh=True)
+    elif int(header.get("version", 1)) >= 5:
+        with open(path, "rb") as f:
+            offset = len(f.readline(1 << 20))
+        _verify_v5(path, header, offset, mode)
+    return header
 
 
 def db_lookup_np(state, meta, khi, klo) -> int:

@@ -25,6 +25,7 @@ from typing import Iterable, Iterator, Sequence
 import numpy as np
 
 from ..ops import mer
+from ..utils import faults, resources
 
 # Read-length buckets: batches are padded to the smallest bucket that
 # fits the longest read, so batch shapes stay few.
@@ -50,7 +51,10 @@ class BadReadPolicy:
     it (`bad`); ``quarantine`` also appends the record's raw lines to
     `quarantine_path`. Thread-safe (the pooled readers parse on worker
     threads). `registry` (an enabled telemetry registry, or None) counts
-    each bad record in `bad_reads_total`."""
+    each bad record in `bad_reads_total`. The quarantine stream is an
+    optional writer (utils/resources): ENOSPC there disables it for the
+    rest of the run, never the run; each append passes the
+    `quarantine.write` fault site."""
 
     MODES = ("abort", "skip", "quarantine")
 
@@ -82,12 +86,18 @@ class BadReadPolicy:
             self.registry.counter("bad_reads_total").inc()
         with self._lock:
             self.bad += 1
-            if self.mode == "quarantine" and raw_lines and not self._closed:
-                if self._f is None:
-                    self._f = open(self.quarantine_path, "wb")
-                for ln in raw_lines:
-                    self._f.write(ln)
-                self._f.flush()
+            if (self.mode == "quarantine" and raw_lines
+                    and not self._closed
+                    and not resources.degraded("quarantine.stream")):
+                with resources.guard("quarantine.stream",
+                                     path=self.quarantine_path):
+                    faults.inject("quarantine.write",
+                                  path=self.quarantine_path)
+                    if self._f is None:
+                        self._f = open(self.quarantine_path, "wb")
+                    for ln in raw_lines:
+                        self._f.write(ln)
+                    self._f.flush()
 
     def close(self) -> None:
         """Idempotent; a record met after close is counted, not written
@@ -96,7 +106,11 @@ class BadReadPolicy:
             self._closed = True
             if self._f is not None:
                 f, self._f = self._f, None
-                f.close()
+                # a degraded stream may still hold bytes a full disk
+                # refuses: closing it degrades, not the teardown
+                with resources.guard("quarantine.stream",
+                                     path=self.quarantine_path):
+                    f.close()
 
 
 def _open(path: str):
@@ -156,6 +170,7 @@ def _iter_one(f, path: str, policy: BadReadPolicy | None = None,
                     raise
                 policy.handle(path, err, raw or [])
                 continue
+            faults.inject("fastq.read")
             yield header, b"".join(seq_parts), b""
         elif stripped.startswith(b"@"):
             raw = [line] if capture else None
@@ -198,6 +213,7 @@ def _iter_one(f, path: str, policy: BadReadPolicy | None = None,
                 # resyncs at the next record
                 policy.handle(path, err, raw or [])
                 continue
+            faults.inject("fastq.read")
             yield header, seq, qual
         else:
             err = ValueError(

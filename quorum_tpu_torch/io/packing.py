@@ -76,6 +76,26 @@ def pack_reads(codes: np.ndarray, quals: np.ndarray, lengths: np.ndarray,
                        lengths=np.asarray(lengths, np.int32), length=l)
 
 
+def from_wire(wire: np.ndarray, b: int, length: int,
+              thresholds) -> PackedReads:
+    """The PackedReads whose to_wire() is `wire` (b rows of width
+    `length`, one plane a threshold): the planes are views of it, in
+    the wire's order (a replay-cache batch, io/checkpoint)."""
+    wire = np.asarray(wire, np.uint8)
+    c4, c8 = (length + 3) // 4, (length + 7) // 8
+    sizes = [b * c4, b * c8] + [b * c8 for _ in thresholds] + [4 * b]
+    if sum(sizes) != wire.shape[0]:
+        raise ValueError(f"a wire of {wire.shape[0]} bytes is not {b} "
+                         f"rows of width {length} with "
+                         f"{len(thresholds)} planes")
+    parts = np.split(wire, np.cumsum(sizes)[:-1])
+    return PackedReads(
+        pcodes=parts[0].reshape(b, c4), nmask=parts[1].reshape(b, c8),
+        hq={int(t): p.reshape(b, c8)
+            for t, p in zip(sorted(thresholds), parts[2:-1])},
+        lengths=parts[-1].view(np.int32), length=length, _wire=wire)
+
+
 def split_rows(pk: PackedReads, n: int) -> list[PackedReads]:
     """The batch's rows in `n` equal contiguous ranges, each a packed
     batch of its own with every plane of `pk` (a shard's reads under

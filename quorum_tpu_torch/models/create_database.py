@@ -31,7 +31,7 @@ a pass would move the partition bits.
 
 With --devices N (a power of two) the table is sharded by leading row
 bits over N devices (parallel/tile_sharded, quorum_tpu's
-_build_database_sharded without its checkpoints): each shard routes
+_build_database_sharded): each shard routes
 its row range of every batch to the owners of its mers (HK15), each
 owner counts what it receives (HK1's shard entry), a full row doubles
 every shard (HK8's shard entry), and HK2 seals each shard. The shards
@@ -41,12 +41,29 @@ rows through HK15's partition entry (quorum_tpu's
 _run_partition_pass_sharded); its sealed plane is gathered on the lead
 device, rebased (HK13) and exported as the pass's shard, as on one card.
 
+Crash safety (quorum_tpu's checkpoints, io/checkpoint, the same
+formats): with BuildConfig.checkpoint_dir a one-card build snapshots its
+build table every checkpoint_every resolved batches (Stage1Checkpoint),
+a --devices N build every shard under one manifest
+(Stage1ShardedCheckpoint), a partitioned build commits a cursor after
+each pass (Stage1PartitionCursor) and the two-pass prefilter its
+finished sketch (SketchCheckpoint); with `resume` the build reloads the
+last valid artifact and skips what it covers (the first `cursor`
+batches go by on the consumer side, with no insert). Every insert
+passes the `stage1.insert` fault site and the stall watchdog's beat
+(utils/faults, utils/resources). A finished build clears its artifacts.
+The inline prefilter does not checkpoint (its sketch is not
+snapshotted).
+
 Telemetry (`metrics`, `tracer`: cli/observability) follows quorum_tpu's
 names: the reads, bases, batches and distinct-mer counters, the hash
 geometry and fill gauges, grow events, the per-batch `insert_dispatch_us`
 / `insert_wait_us` histograms, the prefilter and partition counters, the
 `stage1` timer table, and the spans `stage1_batch`, `stage1_insert` (a
-device step), `hash_grow`, `seal`, `sketch_batch` and `stage1_sketch`.
+device step), `hash_grow`, `seal`, `sketch_batch`, `stage1_sketch` and
+`checkpoint`, the counters `checkpoint_writes_total` and
+`resume_skipped_reads`, the `resume` and `checkpoint` events and
+`meta.resumed` / `meta.resumed_from_batch`.
 With BuildConfig.profile the whole stage (build, seal, export) runs
 under utils/profiling.trace.
 """
@@ -55,17 +72,20 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import time
 from typing import Callable, Iterable, Sequence
 
 import torch
 
 from .. import kernels
+from ..io import checkpoint as ckpt_mod
 from ..io import db_format, fastq, packing, quorum_db
 from ..ops import ctable
 from ..ops import sketch as sketch_mod
 from ..ops.ctable import MAX_GROWS
 from ..telemetry import NULL, NULL_TRACER, observe_dispatch_wait
+from ..utils import faults, resources
 from ..utils.pipeline import prefetch
 from ..utils.profiling import StageTimer, trace
 from ..utils.vlog import vlog
@@ -96,6 +116,11 @@ class BuildConfig:
     # -p: the reprobe limit of a --ref-format file's open addressing
     max_reprobe: int = 126
     profile: str | None = None  # --profile DIR: a torch.profiler trace
+    # crash safety: snapshots of the build in checkpoint_dir every
+    # checkpoint_every batches; resume continues from the last valid one
+    checkpoint_dir: str | None = None
+    checkpoint_every: int = 64
+    resume: bool = False
 
 
 @dataclasses.dataclass
@@ -267,10 +292,18 @@ class _Tele:
         reg.set_timer("stage1", self.timer.as_dict(stats.bases))
 
 
-def _wires(batches: Iterable, cfg: BuildConfig, device, stats=None):
+def _wires(batches: Iterable, cfg: BuildConfig, device, stats=None,
+           skip: int = 0, reg=NULL):
     """(PackedReads, wire on `device`, bases) per batch; counts reads,
-    bases and batches into `stats` when given."""
+    bases and batches into `stats` when given. The first `skip` batches
+    (a resumed build's, counted before the kill) go by on the consumer
+    side with no copy to the device, their reads counted in `reg`'s
+    `resume_skipped_reads`."""
     for batch, pk in batches:
+        if skip > 0:
+            skip -= 1
+            reg.counter("resume_skipped_reads").inc(batch.n)
+            continue
         pk.require_plane(cfg.qual_thresh)
         nb = int(batch.lengths.sum())
         if stats is not None:
@@ -302,12 +335,17 @@ def _dropped(tele: _Tele, stats: BuildStats, d_hq: int, d_lq: int):
 
 
 def _insert_pass(wires, meta, bstate, stats: BuildStats, insert: Callable,
-                 tele: _Tele):
+                 tele: _Tele, step0: int = 0, snapshot=None):
     """Insert every batch with `insert(bstate, meta, pk, wire)` -> (full,
     (keys, qual) left over, dropped_hq, dropped_lq); on a full row the
-    table doubles and the leftovers re-insert, as often as needed.
-    Returns the final (bstate, meta)."""
-    for pk, wire, nb in wires:
+    table doubles and the leftovers re-insert, as often as needed. Batch
+    i (numbered from `step0`, a resumed build's cursor) passes the
+    `stage1.insert` fault site and the watchdog's beat first;
+    `snapshot(bstate, meta)` runs after each batch is resolved. Returns
+    the final (bstate, meta)."""
+    for n, (pk, wire, nb) in enumerate(wires):
+        faults.inject("stage1.insert", batch=step0 + n)
+        resources.watchdog_beat("stage1.insert", step0 + n)
         span, step = tele.batch(stats, pk.n_reads, nb)
         with span:
             with tele.device_step(step, pk.n_reads):
@@ -324,7 +362,82 @@ def _insert_pass(wires, meta, bstate, stats: BuildStats, insert: Callable,
             else:
                 if full:
                     raise RuntimeError("Hash is full")
+        if snapshot is not None:
+            snapshot(bstate, meta)
     return bstate, meta
+
+
+def _snapshotter(ck, cfg: BuildConfig, paths, stats: BuildStats,
+                 tele: _Tele):
+    """The per-batch snapshot hook of a checkpointed build (None
+    without one): every cfg.checkpoint_every resolved batches, `ck`
+    saves the table and the batch cursor. The device-to-host copy is
+    the sync point: a batch whose insert has not finished is never
+    counted."""
+    tele.reg.counter("checkpoint_writes_total")  # lands even at 0
+    tele.reg.set_meta(checkpoint_every=cfg.checkpoint_every)
+    if cfg.checkpoint_every <= 0:
+        return None
+
+    def snapshot(bstate, meta):
+        if stats.batches % cfg.checkpoint_every:
+            return
+        with tele.timer.stage("checkpoint"), tele.tracer.span(
+                "checkpoint", batch=stats.batches):
+            ck.save(bstate, meta, cfg, stats.batches, stats, paths)
+        tele.reg.counter("checkpoint_writes_total").inc()
+        # a one-card snapshot's bytes and seconds (D2H, CRC32C, write
+        # with its fsync) ride the event
+        tele.reg.event("checkpoint", stage="create_database",
+                       cursor=stats.batches,
+                       **(getattr(ck, "last_save", None) or {}))
+    return snapshot
+
+
+def _resumed(reg, stats: BuildStats, header: dict, **extra) -> int:
+    """Restore a snapshot's running stats and record the resume; returns
+    its batch cursor (the batches to skip)."""
+    stats.reads, stats.bases = int(header["reads"]), int(header["bases"])
+    stats.batches, stats.grows = int(header["batches"]), int(header["grows"])
+    cursor = int(header["cursor"])
+    reg.counter("resume_skipped_reads")  # lands even at 0
+    reg.set_meta(resumed=True, resumed_from_batch=cursor)
+    reg.event("resume", stage="create_database", cursor=cursor, **extra)
+    vlog("Resuming stage 1 from checkpoint: ", cursor, " batches (",
+         stats.reads, " reads) already counted")
+    return cursor
+
+
+def _sketch_identity(cfg: BuildConfig, paths, cells_log2: int) -> dict:
+    """What a sketch snapshot must match to be reused (quorum_tpu's)."""
+    return {"k": cfg.k, "qual_thresh": cfg.qual_thresh,
+            "batch_size": cfg.batch_size, "paths": list(paths),
+            "cells_log2": cells_log2}
+
+
+def _load_sketch(sk_ck, cfg: BuildConfig, paths, device, stats: BuildStats,
+                 reg):
+    """The two-pass prefilter's sketch from its snapshot on a resume,
+    or None (none, or another run's). Returns (sketch, its meta)."""
+    smeta = sketch_mod.SketchMeta(sketch_mod.cells_log2_for(cfg.initial_size))
+    if sk_ck is None or not cfg.resume:
+        return None, smeta
+    cells = sk_ck.load(_sketch_identity(cfg, paths, smeta.cells_log2))
+    if cells is None:
+        return None, smeta
+    stats.sketch_cells_log2 = smeta.cells_log2
+    reg.set_meta(sketch_cells_log2=smeta.cells_log2)
+    reg.event("resume", stage="create_database", sketch="loaded")
+    vlog("Resuming two-pass prefilter: sketch restored from checkpoint "
+         "(skipping pass 1)")
+    return sketch_mod.SketchState(
+        torch.from_numpy(cells.copy()).to(device)), smeta
+
+
+def _save_sketch(sk_ck, sk, cfg: BuildConfig, paths, smeta) -> None:
+    if sk_ck is not None:
+        sk_ck.save(sk.cells.cpu().numpy(),
+                   _sketch_identity(cfg, paths, smeta.cells_log2))
 
 
 class _PartitionGrew(Exception):
@@ -422,13 +535,40 @@ def build_database(paths: Sequence[str], cfg: BuildConfig,
                  qual_thresh=cfg.qual_thresh, batch_size=cfg.batch_size)
     if cfg.devices > 1:
         state, meta, stats = _build_sharded(cfg, device, batches_factory,
-                                            t0, mesh, tele)
+                                            t0, mesh, tele, paths)
         _stamp_times(stats, times)
         return state, meta, stats
+    if cfg.prefilter == "inline" and cfg.checkpoint_dir:
+        raise RuntimeError(
+            "--prefilter=inline does not checkpoint (the online "
+            "sketch is not snapshotted); use --prefilter=two-pass "
+            "with --checkpoint-dir")
     meta = ctable.TileMeta(k=cfg.k, bits=cfg.bits, rb_log2=ctable.tile_rb_for(
         cfg.initial_size, cfg.k, cfg.bits))
-    bstate = ctable.make_tile_build(meta, device)
     stats = BuildStats(prefilter_mode=cfg.prefilter)
+    # crash safety: the two-pass prefilter snapshots its sketch, every
+    # other one-card build its table and batch cursor
+    ck = sk_ck = None
+    if cfg.checkpoint_dir and cfg.prefilter == "two-pass":
+        sk_ck = ckpt_mod.SketchCheckpoint(cfg.checkpoint_dir)
+    elif cfg.checkpoint_dir:
+        ck = ckpt_mod.Stage1Checkpoint(cfg.checkpoint_dir)
+    t_load = time.perf_counter()
+    snap = ck.load() if ck is not None and cfg.resume else None
+    skip = 0
+    if snap is not None:
+        snap.check_config(cfg.k, cfg.bits, cfg.qual_thresh, cfg.batch_size,
+                          paths)
+        meta = ctable.TileMeta(k=cfg.k, bits=cfg.bits, rb_log2=snap.rb_log2)
+        bstate = snap.build_state(device)
+        # the load's seconds: read, digest check and the copy to the card
+        skip = _resumed(reg, stats, snap.header,
+                        load_s=time.perf_counter() - t_load)
+        del snap
+    else:
+        bstate = ctable.make_tile_build(meta, device)
+    snapshot = (_snapshotter(ck, cfg, paths, stats, tele)
+                if ck is not None else None)
     if cfg.prefilter != "off":
         reg.set_meta(prefilter=cfg.prefilter)
         reg.counter("prefilter_dropped_total")
@@ -455,13 +595,19 @@ def build_database(paths: Sequence[str], cfg: BuildConfig,
                 bs, m, sk, smeta, pk, wire, cfg.qual_thresh, cfg.prefilter)
 
     if cfg.prefilter == "two-pass":
-        # pass 1: every batch into the sketch only
-        sk, smeta = _sketch_pass(batches_factory, cfg, device, stats, tele)
-        wires = _wires(batches_factory(), cfg, device)
+        # pass 1: every batch into the sketch only (or its snapshot)
+        sk, smeta = _load_sketch(sk_ck, cfg, paths, device, stats, reg)
+        if sk is None:
+            sk, smeta = _sketch_pass(batches_factory, cfg, device, stats,
+                                     tele)
+            _save_sketch(sk_ck, sk, cfg, paths, smeta)
+        wires = _wires(batches_factory(), cfg, device,
+                       stats if stats.batches == 0 else None)
     else:
-        wires = _wires(batches_factory(), cfg, device, stats)
+        wires = _wires(batches_factory(), cfg, device, stats, skip, reg)
     t_pass = time.perf_counter()
-    bstate, meta = _insert_pass(wires, meta, bstate, stats, insert, tele)
+    bstate, meta = _insert_pass(wires, meta, bstate, stats, insert, tele,
+                                skip, snapshot)
     if cfg.prefilter == "two-pass":
         reg.counter("partition_passes_total").inc()
         reg.event("partition_pass", partition=0, n_partitions=1,
@@ -484,6 +630,8 @@ def build_database(paths: Sequence[str], cfg: BuildConfig,
         stats.poisson_distinct_hq = distinct + stats.prefilter_dropped_hq
         stats.poisson_total_hq = total + stats.prefilter_dropped_hq
         reg.counter("prefilter_false_pass_total").inc(singles)
+    if sk_ck is not None:
+        sk_ck.clear()
     stats.seconds = time.perf_counter() - t0
     tele.finish(stats, meta.rows)
     _stamp_times(stats, times)
@@ -499,10 +647,11 @@ def build_database(paths: Sequence[str], cfg: BuildConfig,
 
 def _build_sharded(cfg: BuildConfig, device: torch.device,
                    batches_factory: Callable[[], Iterable], t0: float,
-                   mesh: list | None, tele: _Tele):
+                   mesh: list | None, tele: _Tele, paths: Sequence[str]):
     """Stage 1 over a mesh of cfg.devices devices (quorum_tpu's
-    _build_database_sharded without checkpoints). Returns
-    (ShardedTileState, TileShardedMeta, BuildStats)."""
+    _build_database_sharded), with its per-shard snapshots under one
+    manifest (Stage1ShardedCheckpoint) when cfg.checkpoint_dir is set.
+    Returns (ShardedTileState, TileShardedMeta, BuildStats)."""
     import numpy as np
 
     from ..parallel import tile_sharded as ts
@@ -517,10 +666,31 @@ def _build_sharded(cfg: BuildConfig, device: torch.device,
         rb_log2=ts.initial_rb(cfg.initial_size, cfg.k, cfg.bits, S))
     reg = tele.reg
     reg.set_meta(devices=S)
-    bstate = ts.make_build_state(meta, mesh)
     stats = BuildStats()
+    ck = (ckpt_mod.Stage1ShardedCheckpoint(cfg.checkpoint_dir)
+          if cfg.checkpoint_dir else None)
+    snap = ck.load() if ck is not None and cfg.resume else None
+    skip = 0
+    if snap is not None:
+        snap.check_config(cfg.k, cfg.bits, cfg.qual_thresh, cfg.batch_size,
+                          paths, S)
+        meta = ts.TileShardedMeta(k=cfg.k, bits=cfg.bits, n_shards=S,
+                                  rb_log2=snap.rb_log2)
+        bstate = snap.build_state(mesh)
+        skip = _resumed(reg, stats, snap.header, devices=S)
+        del snap
+    else:
+        bstate = ts.make_build_state(meta, mesh)
+    snapshot = (_snapshotter(ck, cfg, paths, stats, tele)
+                if ck is not None else None)
     inserts = np.zeros(S, np.int64)
     for batch, pk in batches_factory():
+        if skip > 0:
+            skip -= 1
+            reg.counter("resume_skipped_reads").inc(batch.n)
+            continue
+        faults.inject("stage1.insert", batch=stats.batches)
+        resources.watchdog_beat("stage1.insert", stats.batches)
         stats.batches += 1
         stats.reads += batch.n
         nb = int(batch.lengths.sum())
@@ -535,6 +705,8 @@ def _build_sharded(cfg: BuildConfig, device: torch.device,
         reg.counter("shard_grows").inc(grows)
         reg.counter("shard_batches").inc()
         reg.counter("shard_reads").inc(batch.n)
+        if snapshot is not None:
+            snapshot(bstate, meta)
     with tele.timer.stage("seal"), tele.tracer.span("seal"):
         state, seal = ts.finalize(bstate, meta, mesh)
     del bstate
@@ -553,17 +725,22 @@ def _build_sharded(cfg: BuildConfig, device: torch.device,
 
 
 def _pass_table(factory, cfg: BuildConfig, device, stats: BuildStats,
-                rb_local: int, p: int, sk, smeta, tele: _Tele):
+                rb_local: int, p: int, sk, smeta, tele: _Tele,
+                step0: int = 0):
     """Pass `p` of a partitioned build on one device: insert the mers it
     owns (HK1, or HK11 behind the finished sketch) into a table of
     2^rb_local rows and seal it (HK2). Returns (the sealed TileState,
     its TileMeta, (occupied, distinct_hq, total_hq, singletons)).
-    Raises _PartitionGrew on a full row."""
+    Raises _PartitionGrew on a full row. Batch i passes the
+    `stage1.insert` fault site and the watchdog's beat as batch step0 +
+    i."""
     P = cfg.partitions
     lmeta = ctable.TileMeta(k=cfg.k, bits=cfg.bits, rb_log2=rb_local)
     bstate = ctable.make_tile_build(lmeta, device)
     count = stats if stats.batches == 0 else None
-    for pk, wire, nb in _wires(factory(), cfg, device, count):
+    for n, (pk, wire, nb) in enumerate(_wires(factory(), cfg, device, count)):
+        faults.inject("stage1.insert", batch=step0 + n)
+        resources.watchdog_beat("stage1.insert", step0 + n)
         span, step = tele.batch(stats, pk.n_reads, nb, partition=p)
         with span:
             with tele.device_step(step, pk.n_reads):
@@ -592,7 +769,7 @@ def _pass_table(factory, cfg: BuildConfig, device, stats: BuildStats,
 
 
 def _pass_table_sharded(factory, cfg: BuildConfig, mesh, stats: BuildStats,
-                        rb_local: int, p: int, tele: _Tele):
+                        rb_local: int, p: int, tele: _Tele, step0: int = 0):
     """Pass `p` of a partitioned build over the mesh (quorum_tpu's
     _run_partition_pass_sharded): the sharded build of 2^rb_local global
     rows with HK15's partition entry routing only the pass's mers, each
@@ -606,7 +783,9 @@ def _pass_table_sharded(factory, cfg: BuildConfig, mesh, stats: BuildStats,
                                n_shards=S)
     bstate = ts.make_build_state(lmeta, mesh)
     count = stats.batches == 0
-    for batch, pk in factory():
+    for n, (batch, pk) in enumerate(factory()):
+        faults.inject("stage1.insert", batch=step0 + n)
+        resources.watchdog_beat("stage1.insert", step0 + n)
         nb = int(batch.lengths.sum())
         if count:
             stats.batches += 1
@@ -631,6 +810,47 @@ def _pass_table_sharded(factory, cfg: BuildConfig, mesh, stats: BuildStats,
     return gstate, gmeta, tuple(int(x) for x in seal[:, 1:].sum(0))
 
 
+def _partition_identity(cfg: BuildConfig, paths, rb_local: int,
+                        cells_log2: int) -> dict:
+    """What a partition cursor must match to be resumed (quorum_tpu's):
+    the run's shape including the local geometry (a geometry restart
+    makes earlier shard files stale) and the sketch size."""
+    return {"k": cfg.k, "bits": cfg.bits, "qual_thresh": cfg.qual_thresh,
+            "batch_size": cfg.batch_size, "paths": list(paths),
+            "partitions": cfg.partitions, "devices": cfg.devices,
+            "db_version": cfg.db_version, "prefilter": cfg.prefilter,
+            "rb_local": rb_local, "cells_log2": cells_log2}
+
+
+# the fields of a cursor record that are the manifest's record; the rest
+# (the pass's statistics) stay in the cursor
+_MANIFEST_KEYS = ("path", "shard", "n_entries", "value_bytes", "file_crc32c")
+
+
+def _restore_passes(completed: dict, stats: BuildStats, reg,
+                    prefiltered: bool) -> None:
+    """A resumed partitioned build: the finished passes' accounting from
+    their cursor records."""
+    reg.event("resume", stage="create_database",
+              partitions_done=sorted(completed))
+    vlog("Resuming partitioned build: partitions ", sorted(completed),
+         " already exported")
+    for p, r in completed.items():
+        stats.distinct += int(r["n_entries"])
+        stats.poisson_distinct_hq += int(r.get("distinct_hq", 0))
+        stats.poisson_total_hq += int(r.get("total_hq", 0))
+        fp, dr = int(r.get("false_pass", 0)), int(r.get("dropped", 0))
+        stats.prefilter_false_pass += fp
+        stats.singletons += fp
+        stats.prefilter_dropped += dr
+        stats.prefilter_dropped_hq += int(r.get("dropped_hq", 0))
+        if prefiltered:
+            reg.counter("prefilter_dropped_total").inc(dr)
+            reg.counter("prefilter_false_pass_total").inc(fp)
+        reg.gauge(f'partition_distinct{{partition="{p}"}}').set(
+            int(r["n_entries"]))
+
+
 def _build_partitioned(paths: Sequence[str], cfg: BuildConfig, output: str,
                        device: torch.device,
                        batches_factory: Callable[[], Iterable] | None,
@@ -638,14 +858,17 @@ def _build_partitioned(paths: Sequence[str], cfg: BuildConfig, output: str,
                        mesh: list | None = None,
                        tele: _Tele | None = None) -> BuildStats:
     """The partitioned multi-pass build (quorum_tpu's
-    _build_database_partitioned, without its checkpoint cursor): P
-    passes, each rebased onto the global geometry (HK13) and exported
-    as shard p of it as it finishes, then the sealed manifest at
-    `output`. Each pass runs on one device or, with cfg.devices > 1,
-    over the mesh (`mesh`, by default the first cfg.devices devices of
-    `device`'s type). With two-pass the sketch pass runs once and
-    survives geometry restarts. Returns the BuildStats; no table stays
-    on the card."""
+    _build_database_partitioned on one host): P passes, each rebased
+    onto the global geometry (HK13) and exported as shard p of it as it
+    finishes, then the sealed manifest at `output`. Each pass runs on
+    one device or, with cfg.devices > 1, over the mesh (`mesh`, by
+    default the first cfg.devices devices of `device`'s type). With
+    two-pass the sketch pass runs once and survives geometry restarts.
+    With cfg.checkpoint_dir a cursor commits after every pass
+    (Stage1PartitionCursor; each pass's shard file is its own
+    checkpoint) and the sketch is snapshotted; a resume re-runs only the
+    passes the cursor does not vouch for. Returns the BuildStats; no
+    table stays on the card."""
     _check_config(cfg)
     t0 = time.perf_counter()
     P, S = cfg.partitions, cfg.devices
@@ -673,24 +896,47 @@ def _build_partitioned(paths: Sequence[str], cfg: BuildConfig, output: str,
         from ..parallel import tile_sharded as ts
 
         mesh = ts.make_mesh(S, device=device)
+    cursor = sk_ck = None
+    if cfg.checkpoint_dir:
+        cursor = ckpt_mod.Stage1PartitionCursor(cfg.checkpoint_dir)
+        if cfg.prefilter == "two-pass":
+            sk_ck = ckpt_mod.SketchCheckpoint(cfg.checkpoint_dir)
+    out_dir = os.path.dirname(os.path.abspath(output)) or "."
     sk = smeta = None
     if cfg.prefilter == "two-pass":
-        sk, smeta = _sketch_pass(batches_factory, cfg, device, stats, tele)
+        sk, smeta = _load_sketch(sk_ck, cfg, paths, device, stats, reg)
+        if sk is None:
+            sk, smeta = _sketch_pass(batches_factory, cfg, device, stats,
+                                     tele)
+            _save_sketch(sk_ck, sk, cfg, paths, smeta)
     for _ in range(MAX_GROWS + 1):
         gmeta = ctable.GlobalMeta(k=cfg.k, bits=cfg.bits, rb_log2=rb_local + g)
-        recs = []
+        identity = _partition_identity(cfg, paths, rb_local,
+                                       smeta.cells_log2 if smeta else 0)
+        completed: dict = {}
+        if cursor is not None and cfg.resume:
+            completed = {int(r["shard"]): r
+                         for r in cursor.load(identity, out_dir) or ()}
+            if completed:
+                _restore_passes(completed, stats, reg, cfg.prefilter != "off")
+        step0 = 0
         try:
             for p in range(P):
+                if p in completed:
+                    continue
                 t_pass = time.perf_counter()
                 b0 = tele.step
+                dropped0 = stats.prefilter_dropped
+                dropped_hq0 = stats.prefilter_dropped_hq
                 if S > 1:
                     state, lmeta, (occ, distinct, total, singles) = \
                         _pass_table_sharded(batches_factory, cfg, mesh,
-                                            stats, rb_local, p, tele)
+                                            stats, rb_local, p, tele, step0)
                 else:
                     state, lmeta, (occ, distinct, total, singles) = \
                         _pass_table(batches_factory, cfg, device, stats,
-                                    rb_local, p, sk, smeta, tele)
+                                    rb_local, p, sk, smeta, tele, step0)
+                step0 += tele.step - b0
                 with tele.timer.stage("export"), tele.tracer.span(
                         "partition_export", partition=p), \
                         kernels.device_scope(state.rows.device):
@@ -699,10 +945,18 @@ def _build_partitioned(paths: Sequence[str], cfg: BuildConfig, output: str,
                     if bad:
                         raise RuntimeError("internal error: partition pass "
                                            "counted a mer outside its bin")
-                    recs.append(db_format.write_db_shard_file(
+                    rec = db_format.write_db_shard_file(
                         output, state.rows, gmeta, p, P, cmdline,
-                        cfg.db_version, n_entries=occ))
+                        cfg.db_version, n_entries=occ)
                 del state
+                false_pass = singles if sk is not None else 0
+                # the cursor record: the manifest's record plus the
+                # pass's statistics a resumed build restores
+                completed[p] = {
+                    **rec, "distinct_hq": distinct, "total_hq": total,
+                    "false_pass": false_pass,
+                    "dropped": stats.prefilter_dropped - dropped0,
+                    "dropped_hq": stats.prefilter_dropped_hq - dropped_hq0}
                 stats.distinct += occ
                 stats.poisson_distinct_hq += distinct
                 stats.poisson_total_hq += total
@@ -715,6 +969,12 @@ def _build_partitioned(paths: Sequence[str], cfg: BuildConfig, output: str,
                 reg.event("partition_pass", partition=p, n_partitions=P,
                           batches=tele.step - b0, distinct=occ,
                           seconds=round(time.perf_counter() - t_pass, 3))
+                if cursor is not None:
+                    cursor.save(identity,
+                                [completed[i] for i in sorted(completed)],
+                                out_dir)
+                else:
+                    faults.inject("partition.commit", path=rec["path"])
             break
         except _PartitionGrew as e:
             vlog("Partition pass overflowed at local rb_log2=", rb_local,
@@ -729,6 +989,8 @@ def _build_partitioned(paths: Sequence[str], cfg: BuildConfig, output: str,
                           "reads", "bases", "batches"):
                 setattr(stats, field, 0)
             rb_local = e.rb_local
+            if cursor is not None:
+                cursor.clear()
     else:
         raise RuntimeError("Hash is full")
     del sk
@@ -739,8 +1001,14 @@ def _build_partitioned(paths: Sequence[str], cfg: BuildConfig, output: str,
         # of count 1 in the full table
         stats.poisson_distinct_hq += stats.prefilter_dropped_hq
         stats.poisson_total_hq += stats.prefilter_dropped_hq
+    recs = [{k: completed[p][k] for k in _MANIFEST_KEYS} for p in range(P)]
     db_format.write_db_manifest(output, recs, gmeta, P, cmdline,
                                 cfg.db_version, stats.db_extra_header())
+    # the manifest is the commit point: the pass-granular artifacts die
+    # with it
+    for art in (cursor, sk_ck):
+        if art is not None:
+            art.clear()
     stats.seconds = time.perf_counter() - t0
     _stamp_times(stats, times)
     tele.finish(stats, gmeta.rows)
@@ -826,6 +1094,12 @@ def _build_and_write(paths, output, cfg: BuildConfig, device, cmdline,
                            n_entries=stats.distinct,
                            db_version=cfg.db_version,
                            extra_header=stats.db_extra_header())
+    if cfg.checkpoint_dir:
+        # the finished database is the durable artifact now; a stale
+        # snapshot must not feed a later unrelated --resume
+        cls = (ckpt_mod.Stage1ShardedCheckpoint if cfg.devices > 1
+               else ckpt_mod.Stage1Checkpoint)
+        cls(cfg.checkpoint_dir).clear()
     if handoff is not None:
         handoff["db"] = (state, meta, stats)
     return stats

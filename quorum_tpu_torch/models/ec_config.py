@@ -50,6 +50,15 @@ class ECConfig:
         return self.homo_trim is not None
 
 
+def jax_repr(cfg: ECConfig) -> str:
+    """repr() of the JAX package's ECConfig of the same settings: the
+    stage-2 journal's resume identity (io/checkpoint.Stage2Journal),
+    so each package resumes the other's journal. The JAX class has one
+    more field, poisson_dtype, at its default "float64" on every path
+    the CLIs run."""
+    return repr(cfg)[:-1] + ", poisson_dtype='float64')"
+
+
 ERROR_CONTAMINANT = "Contaminated read"
 ERROR_NO_STARTING_MER = "No high quality mer"
 ERROR_HOMOPOLYMER = "Entire read is an homopolymer"

@@ -21,6 +21,16 @@ The outcome tallies are counted only when metrics are on; each render
 worker returns its batch's, and the consuming thread folds them in
 batch order, so the totals do not depend on --render-workers.
 
+Crash safety (quorum_tpu's journal, io/checkpoint.Stage2Journal, the
+same format): with ECOptions.checkpoint_every N the output streams to
+`PREFIX.fa.partial` / `.log.partial`; every N batches the render pool
+and the writer drain, then the journal commits the batch cursor, the
+stats and each partial's byte length and CRC32C. With `resume` the
+partials are truncated back to the commit, the journaled batches go by
+on the consumer side (parsed, not corrected), and a finished run
+renames the partials over `PREFIX.fa` / `.log`. Every batch passes the
+`stage2.correct` fault site and the stall watchdog's beat.
+
 Output contract (byte-compatible with the reference):
   * `.fa` record: ``>header fwd_log bwd_log\\nseq\\n``;
   * `.log` record per skipped read: ``Skipped <header>: <reason>\\n``;
@@ -38,18 +48,20 @@ import sys
 import time
 from typing import Iterable, Sequence
 
+from ..io import checkpoint as ckpt_mod
 from ..io import contaminant as contaminant_mod
 from ..io import db_format, fastq, packing
 from ..ops import ctable
 from ..ops.poisson import compute_poisson_cutoff
 from ..telemetry import observe_dispatch_wait, quality
+from ..utils import faults, resources
 from ..utils.pipeline import AsyncWriter, ReorderingPool, prefetch
 from ..utils.profiling import StageTimer, trace
 from .corrector import (correct_batch_packed, fetch_finish,
                         finish_batch_host, make_keep_table)
 from ..utils.vlog import vlog
 from .ec_config import (DEFAULT_QUAL_CUTOFF, ECConfig, ERROR_CONTAMINANT,
-                        ERROR_HOMOPOLYMER, ERROR_NO_STARTING_MER)
+                        ERROR_HOMOPOLYMER, ERROR_NO_STARTING_MER, jax_repr)
 
 # skip reason -> counter slug (the reasons the .log prints, so the
 # counters can be recovered from the .log)
@@ -227,6 +239,8 @@ class ECStats:
     fetch_s: float = 0.0       # the one D2H (and an overflow re-pack)
     queue_wait_s: float = 0.0  # main thread blocked on the next batch
     drain_wait_s: float = 0.0  # main thread blocked on a rendered batch
+    commits: int = 0           # journal commits (checkpoint_every)
+    commit_s: float = 0.0      # their seconds: drain, flush and commit
 
 
 @dataclasses.dataclass(frozen=True)
@@ -262,6 +276,14 @@ class ECOptions:
     metrics_force: bool = False
     trace_spans: str | None = None
     profile: str | None = None
+    # crash safety: journal every N batches (needs output, no gzip; 0 =
+    # off); resume from the journal
+    checkpoint_every: int = 0
+    resume: bool = False
+    # the resource guards: the disk preflight mode and the stall
+    # watchdog's timeout (0 = off)
+    preflight: str = "warn"
+    stall_timeout_s: float = 0.0
 
 
 def resolve_cutoff(opts: ECOptions, stats: tuple[int, int],
@@ -315,23 +337,44 @@ def run_error_correct(db_path: str, sequences: Sequence[str],
     it and run event mode, as the JAX package's do.
 
     The run goes through cli/observability.observability() with the
-    options' metrics, span and profile paths: a failed run still lands
-    its document, stamped status=error."""
+    options' metrics, span and profile paths, the resource guards over
+    the output and metrics filesystems and the stall watchdog: a failed
+    run still lands its document, stamped status=error. Output files
+    (not the driver's replay or merged records) are held to the disk
+    preflight first. ENOSPC at the output streams raises
+    ResourceExhausted (rc 4)."""
     from ..cli.observability import observability
 
+    watch = [p for p in (opts.output and opts.output + ".fa", opts.metrics)
+             if p]
     with observability(opts.metrics, opts.metrics_interval,
                        live=opts.metrics_force,
                        trace_spans=opts.trace_spans, profile=opts.profile,
+                       watch_paths=watch,
+                       stall_timeout_s=opts.stall_timeout_s,
                        stage="error_correct", batch_size=opts.batch_size,
                        no_discard=bool(no_discard)) as obs:
-        return _run_ec(db_path, sequences, opts, obs.registry, obs.tracer,
-                       qual_cutoff=qual_cutoff, skip=skip, good=good,
-                       anchor_count=anchor_count, min_count=min_count,
-                       window=window, error=error, no_discard=no_discard,
-                       homo_trim=homo_trim,
-                       trim_contaminant=trim_contaminant, db=db,
-                       prepacked=prepacked, mesh=mesh,
-                       event_driven=event_driven, records=records)
+        if opts.output and records is None and prepacked is None:
+            resources.preflight(opts.preflight,
+                                resources.estimate_stage2_needs(
+                                    opts.output + ".fa", sequences))
+        try:
+            return _run_ec(db_path, sequences, opts, obs.registry,
+                           obs.tracer, qual_cutoff=qual_cutoff, skip=skip,
+                           good=good, anchor_count=anchor_count,
+                           min_count=min_count, window=window, error=error,
+                           no_discard=no_discard, homo_trim=homo_trim,
+                           trim_contaminant=trim_contaminant, db=db,
+                           prepacked=prepacked, mesh=mesh,
+                           event_driven=event_driven, records=records)
+        except resources.ResourceExhausted:
+            raise  # already laddered (the journal's guard, the preflight)
+        except OSError as e:
+            if resources.is_enospc(e):
+                # a bare ENOSPC out of stage 2 is the .fa/.log stream
+                # (reads cannot ENOSPC): required, fail fast
+                raise resources.fail_required("output.stream", e) from e
+            raise
 
 
 def _run_ec(db_path: str, sequences: Sequence[str], opts: ECOptions, reg,
@@ -342,6 +385,12 @@ def _run_ec(db_path: str, sequences: Sequence[str], opts: ECOptions, reg,
     from .. import resolve_device
     from ..parallel import tile_sharded as ts
 
+    if opts.checkpoint_every > 0 and (not opts.output or opts.gzip):
+        # before the DB load: a misconfigured flag fails fast
+        raise RuntimeError(
+            "--checkpoint-every requires -o PREFIX and is "
+            "incompatible with --gzip (a gzip stream cannot be "
+            "truncated back to a commit point)")
     device = resolve_device(opts.device)
     devices = opts.devices
     if devices > 1:
@@ -455,6 +504,30 @@ def _correct(db_path: str, sequences: Sequence[str], opts: ECOptions, reg,
     n_render = resolve_render_workers(opts.render_workers)
     stats = ECStats(cutoff=cutoff, presence_floor=floor,
                     render_workers=n_render)
+    journal = jctx = jstate = None
+    skip_batches = 0
+    if opts.checkpoint_every > 0:  # the flags were validated at entry
+        journal = ckpt_mod.Stage2Journal(opts.output)
+        # the resume identity: the same database, inputs and correction
+        # config (JAX's repr of it, so either package resumes the
+        # other's journal); anything else would splice two corrections
+        jctx = {"db": db_path, "inputs": list(sequences),
+                "config": jax_repr(cfg)}
+        reg.counter("checkpoint_writes_total")  # lands even at 0
+        reg.set_meta(checkpoint_every=opts.checkpoint_every)
+        if opts.resume:
+            jstate = journal.load()
+        if jstate is not None:
+            journal.check_config(jstate, opts.batch_size, jctx)
+            skip_batches = int(jstate["batches"])
+            for field in ("reads", "corrected", "skipped", "bases_in",
+                          "bases_out"):
+                setattr(stats, field, int(jstate[field]))
+            reg.counter("resume_skipped_reads")  # lands even at 0
+            reg.set_meta(resumed=True, resumed_from_batch=skip_batches)
+            reg.event("resume", stage="error_correct", cursor=skip_batches)
+            vlog("Resuming stage 2 from journal: ", skip_batches,
+                 " batches (", stats.reads, " reads) already written")
     pipe_metrics = reg if reg.enabled else None
     policy = None
     if opts.on_bad_read != "abort":
@@ -472,8 +545,11 @@ def _correct(db_path: str, sequences: Sequence[str], opts: ECOptions, reg,
         reg.histogram("render_ms")  # lands even for an empty input
         reg.histogram("reorder_wait_ms")
     timer = StageTimer()
-    out = _open_out(opts.output, ".fa", sys.stdout, opts.gzip)
-    log = _open_out(opts.output, ".log", sys.stderr, opts.gzip)
+    if journal is not None:
+        out, log = journal.open_outputs(jstate)
+    else:
+        out = _open_out(opts.output, ".fa", sys.stdout, opts.gzip)
+        log = _open_out(opts.output, ".log", sys.stderr, opts.gzip)
     writer = AsyncWriter([out, log], metrics=pipe_metrics)
     times: dict = {}
     vlog("Correcting reads")
@@ -525,6 +601,16 @@ def _correct(db_path: str, sequences: Sequence[str], opts: ECOptions, reg,
                 if item is None:
                     break
                 batch, pk = item
+                if skip_batches > 0:
+                    # committed before the kill (the stats came back
+                    # from the journal): parsed, but neither corrected
+                    # nor rendered
+                    skip_batches -= 1
+                    reg.counter("resume_skipped_reads").inc(batch.n)
+                    step += 1
+                    continue
+                faults.inject("stage2.correct", batch=step)
+                resources.watchdog_beat("stage2.correct", step)
                 with tracer.span("stage2_batch", step=step, reads=batch.n):
                     with tracer.step("stage2_device", step, reads=batch.n):
                         res = correct(pk)
@@ -548,6 +634,21 @@ def _correct(db_path: str, sequences: Sequence[str], opts: ECOptions, reg,
                     reg.heartbeat(stage="error_correct", reads=stats.reads,
                                   bases=stats.bases_in)
                 step += 1
+                if journal is not None and step % opts.checkpoint_every == 0:
+                    # the commit point: every byte of batches [0, step)
+                    # is rendered in order, written and flushed before
+                    # the journal names the offsets
+                    tc = time.perf_counter()
+                    with timer.stage("checkpoint"):
+                        pool.flush()
+                        writer.flush()
+                        journal.commit(step, stats, out.tell(), log.tell(),
+                                       opts.batch_size, jctx)
+                    stats.commits += 1
+                    stats.commit_s += time.perf_counter() - tc
+                    reg.counter("checkpoint_writes_total").inc()
+                    reg.event("checkpoint", stage="error_correct",
+                              cursor=step)
             pool.flush()
         finally:
             stats.drain_wait_s += pool.take_reorder_wait()
@@ -567,6 +668,10 @@ def _correct(db_path: str, sequences: Sequence[str], opts: ECOptions, reg,
                 _finish(log)
                 if policy is not None:
                     policy.close()
+    if journal is not None:
+        # success only: promote the partials over the outputs and drop
+        # the journal (a failed run keeps both, ready for --resume)
+        journal.finalize()
     stats.parse_pack_s = times.get("produce_s", 0.0)
     stats.host_s = stats.parse_pack_s + stats.render_s
     timer.report(stats.bases_in)

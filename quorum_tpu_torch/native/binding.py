@@ -22,6 +22,8 @@ from typing import Iterator, Sequence
 
 import numpy as np
 
+from ..utils import faults
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(HERE, "fastq_parser.cpp")
 BUILD_ROOT = os.path.join(os.path.dirname(HERE), "_build")
@@ -176,6 +178,9 @@ def read_batches(paths: Sequence[str], batch_size: int = 8192
             try:
                 for codes, quals, lengths, headers, n in _parse_stream(
                         f, batch_size):
+                    if faults.active():
+                        for _ in range(int(n)):
+                            faults.inject("fastq.read")
                     if n < batch_size:  # inert padding rows
                         codes[n:] = -2
                         quals[n:] = 0

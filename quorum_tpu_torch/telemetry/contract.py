@@ -263,7 +263,8 @@ def missing_names(doc: dict) -> list[str]:
     """The names a final metrics document lacks under the rules
     tools/metrics_check.py applies, dispatching on what its meta
     declares: a quorum driver (`stage_retries_total`), a bad-read
-    policy, a checksummed load (`db_version >= 5` or `verify_db`), a
+    policy, checkpoints and a resume, the resource guards, a
+    checksummed load (`db_version >= 5` or `verify_db`), a
     `--profile` directory (DEVTRACE_*), a prefilter or partitions, a
     sharded build (`n_shards > 1`), the quality scorecard and a stage-2
     data plane. Empty = every required name is present."""
@@ -285,6 +286,17 @@ def missing_names(doc: dict) -> list[str]:
     if meta.get("on_bad_read") in ("skip", "quarantine"):
         need(("bad_reads_total",), counters, "counter",
              f"meta.on_bad_read={meta['on_bad_read']!r}")
+    if int(meta.get("checkpoint_every") or 0) > 0:
+        need(("checkpoint_writes_total",), counters, "counter",
+             "meta.checkpoint_every > 0")
+    if meta.get("resumed"):
+        need(("resume_skipped_reads",), counters, "counter", "meta.resumed")
+    if meta.get("resource_guard"):
+        need(RESOURCE_COUNTERS, counters, "counter", "meta.resource_guard")
+        need(RESOURCE_GAUGES, gauges, "gauge", "meta.resource_guard")
+        if not any(g.startswith(RESOURCE_GAUGE_PREFIX) for g in gauges):
+            errs.append("document with meta.resource_guard missing a "
+                        f"gauge {RESOURCE_GAUGE_PREFIX}...}}")
     if int(meta.get("db_version") or 0) >= 5 or meta.get("verify_db"):
         need(INTEGRITY_COUNTERS, counters, "counter",
              "a checksummed database")

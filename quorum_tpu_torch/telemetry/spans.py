@@ -22,6 +22,9 @@ twin that observability() places in the profile directory.
 Zero cost when disabled: `tracer_for(None)` returns the NULL singleton
 whose `span`/`step` are no-op context managers.
 
+Both are optional writers (utils/resources): ENOSPC drops the trace for
+the rest of the run, never the run.
+
 Threads: the parent stack is thread-local (the prefetch producer and
 the render workers each get their own lineage); the JSONL sink and the
 retained-span list share one lock.
@@ -36,6 +39,7 @@ import os
 import threading
 import time
 
+from ..utils import resources
 from .registry import _scalar, atomic_write
 
 
@@ -101,6 +105,7 @@ class SpanTracer:
         for k, v in attrs.items():
             obj[k] = _scalar(v)
         line = json.dumps(obj) + "\n"
+        enospc = None
         with self._lock:
             if self._closed:
                 # a straggler thread outliving close(): reopening the
@@ -111,11 +116,27 @@ class SpanTracer:
                 self._spans.append(obj)
             else:
                 self._dropped += 1
-            if self.path:
-                if self._f is None:
-                    self._f = open(self.path, "w")
-                self._f.write(line)
-                self._f.flush()
+            if self.path and not resources.degraded("trace.spans"):
+                try:
+                    if self._f is None:
+                        self._f = open(self.path, "w")
+                    self._f.write(line)
+                    self._f.flush()
+                except OSError as e:
+                    # traces are an optional writer: a full disk drops
+                    # the trace, never the run (the ladder call runs
+                    # outside the lock)
+                    if not resources.is_enospc(e):
+                        raise
+                    enospc = e
+                    if self._f is not None:
+                        try:
+                            self._f.close()
+                        except OSError:
+                            pass
+                        self._f = None
+        if enospc is not None:
+            resources.degrade("trace.spans", enospc, path=self.path)
 
     @contextlib.contextmanager
     def _span(self, name: str, step, attrs: dict):
@@ -176,10 +197,12 @@ class SpanTracer:
         """Write the Chrome trace JSON (atomic replace). Returns the path
         written."""
         path = path or self.chrome_path
-        if not path:
+        if not path or resources.degraded("trace.spans"):
             return None
-        atomic_write(path, json.dumps(self.as_chrome_trace()) + "\n")
-        return path
+        with resources.guard("trace.spans", path=path):
+            atomic_write(path, json.dumps(self.as_chrome_trace()) + "\n")
+            return path
+        return None  # the guard swallowed an ENOSPC: the trace degraded
 
     def close(self) -> None:
         """Close the JSONL sink and write the Chrome twin. Idempotent."""

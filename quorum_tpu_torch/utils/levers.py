@@ -41,6 +41,11 @@ def _declare(name: str, type_: str, default: str, doc: str) -> None:
 # -- the catalog (alphabetical; the JAX catalog's rows, verbatim) ---------
 
 _declare(
+    "QUORUM_FAULT_PLAN", "json", "(none)",
+    "Deterministic fault-injection plan (JSON, @file, or path) — the "
+    "env fallback behind `--fault-plan`, how subprocesses under test "
+    "inherit a plan (utils/faults.py).")
+_declare(
     "QUORUM_PREFETCH_QUEUE_BYTES", "size", "1G",
     "Byte budget for the producer prefetch queues (utils/pipeline."
     "prefetch) alongside their count bound: the producer blocks once "

@@ -18,13 +18,14 @@ import threading
 import time
 from typing import Iterable, Iterator, TypeVar
 
-from . import levers
+from . import faults, levers
 from .sizes import parse_size
 
 T = TypeVar("T")
 
 _STOP = object()
 _ITEM = object()
+_FLUSH = object()
 
 
 def queue_bytes_budget(lever: str, default: str) -> int:
@@ -250,7 +251,9 @@ class AsyncWriter:
     `max_bytes` of text (default QUORUM_WRITER_QUEUE_BYTES, "256M"; 0
     disables) are queued; an empty queue always admits one record. A
     stream error makes the next write() raise (fail fast) and close()
-    raise it once if no write() did; close() drains and joins.
+    raise it once if no write() did; close() drains and joins; flush()
+    is the barrier a stage-2 journal commit waits on. Each write passes
+    the `writer.stream` fault site (utils/faults).
     `metrics` (an enabled telemetry registry, or None) records
     `writer_queue_depth_max` (records queued when the caller writes:
     maxsize means output I/O was the bottleneck) and
@@ -280,6 +283,17 @@ class AsyncWriter:
             item = self.q.get()
             if item is _STOP:
                 return
+            if isinstance(item, tuple) and item[0] is _FLUSH:
+                # barrier: everything queued before it is written; the
+                # streams are flushed before the waiter goes on
+                if self.err is None:
+                    try:
+                        for s in self.streams:
+                            s.flush()
+                    except BaseException as e:  # noqa: BLE001
+                        self.err = e
+                item[1].set()
+                continue
             i, text = item
             if self.max_bytes:
                 with self._cv:
@@ -288,9 +302,22 @@ class AsyncWriter:
             if self.err is not None:
                 continue  # drain without writing after a failure
             try:
+                faults.inject("writer.stream", batch=i,
+                              path=getattr(self.streams[i], "name", None))
                 self.streams[i].write(text)
             except BaseException as e:  # noqa: BLE001 - surfaced later
                 self.err = e
+
+    def flush(self) -> None:
+        """Block until every record queued so far is written and the
+        streams are flushed (a stage-2 journal must never claim bytes
+        the files might not have); raise a stream error."""
+        done = threading.Event()
+        self.q.put((_FLUSH, done))
+        done.wait()
+        if self.err is not None:
+            self._raised = True
+            raise self.err
 
     def write(self, i: int, text: str) -> None:
         if self.err is not None:

@@ -159,7 +159,7 @@ def test_histo_of_value_words_matches_jax(dbs):
 
 @pytest.mark.parametrize("main,argv", [
     (tquery.main, ["--alert-rules", "r.json"]),
-    (thisto.main, ["--stall-timeout-s", "5"]),
+    (thisto.main, ["--metrics-textfile", "x.prom"]),
     (thisto.main, ["--metrics-port", "0"]),
 ])
 def test_observability_flags_refused(dbs, main, argv):

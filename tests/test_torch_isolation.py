@@ -46,6 +46,14 @@ def _imported(path):
             yield node.module or ""
 
 
+@pytest.mark.parametrize("module", ["io/checkpoint.py", "utils/faults.py",
+                                    "utils/resources.py"])
+def test_crash_safety_modules_are_walked(module):
+    """The crash-safety modules (the JAX package's own import no jax)
+    are among the files the import check walks."""
+    assert os.path.join(PKG, module) in _port_files()
+
+
 @pytest.mark.parametrize("forbidden", ["jax", "quorum_tpu"])
 def test_port_imports_neither_jax_nor_the_jax_package(forbidden):
     files = _port_files()

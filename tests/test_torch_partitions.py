@@ -374,7 +374,8 @@ def test_sharded_layout_writes_one_shard(golden_dbs):
     (["--partitions", "4", "--prefilter", "inline"],
      "supports neither --partitions"),
     (["--devices", "3"], "--devices must be a power of two"),
-    (["--checkpoint-dir", "ck"], "--checkpoint-dir"),
+    (["--prefilter", "inline", "--checkpoint-dir", "ck"],
+     "nor --checkpoint-dir"),
 ])
 def test_stage1_cli_refuses(tmp_path, capsys, argv, msg):
     out = str(tmp_path / "db.jf")
