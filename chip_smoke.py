@@ -35,13 +35,33 @@ run. Phases, each printing one JSON line:
            its --device cpu output; so are quorum_error_correct_reads'
            with --contaminant (two 2k-base windows of golden reads),
            with --contaminant --trim-contaminant and with --homo-trim 3,
-           and the driver's with all three
+           and the driver's with all three (the --device cpu runs in
+           processes of their own: the drivers' beside the build,
+           stage 2's from golden's stage 1, run right after the build,
+           beside the kernels phase and golden's card runs)
   full     the quorum driver on a seeded E. coli-size FASTQ (random
            4,641,652 bp genome, 150 bp reads at 40x, 1% substitutions,
            ~10% low-quality bases, k = 24) at its defaults (-t the cpu
            count, --render-workers min(4, cores)), its reads parsed by
            the native parser; launch counts are reset just before it
            and read just after
+  serve    quorum-serve (python -m quorum_tpu_torch.cli.serve's main,
+           in-process, --device cuda --max-batch 1024) on the full run's
+           v5 file: the full run's first 65,536 reads from 8 closed-loop
+           clients in seeded requests of 1-512 reads, byte-equal to its
+           .fa/.log records; 2,048 seeded reads of 40-300 bp in 64-read
+           requests (batches across buckets 64 to 384), byte-equal to
+           quorum_error_correct_reads --device cpu on them;
+           engine_compiles flat after the warmup; quorum-serve-bench at
+           -c 8 x 256 reads and -c 1 x 1 read from a client process of
+           its own (latency percentiles, reads/s, the card's busy share,
+           dispatch/wait medians, render and parse apart, peak memory);
+           a hung step under the watchdog, a reload swap and a
+           corrupt-file rollback, each ending byte-equal; /metrics
+           lint-clean and the drain's document; each engine's warmup
+           read the table walk (no all-A fallback), equal to the walk on
+           the host (launch counts reset before the boot and read after
+           the drain)
   pipeline the same driver run at -t 1 --render-workers 1: .fa/.log
            byte-equal to the full run's; both runs' stage seconds, producer parse + pack seconds, main-thread
            seconds blocked on the prefetch queue and on the render drain,
@@ -87,9 +107,10 @@ run. Phases, each printing one JSON line:
            there, the mers by one HK3 launch), and on the v5 file equal
            to numpy's bins and host lookups over the rows brought back;
            stage 2 from each at the full run's cutoff (-p): .fa/.log
-           equal; launch counts reset and read around stage 1, around
-           the inspection CLIs (the `inspect` path) and around the two
-           stage-2 runs
+           equal (the v5 file's in a process of its own, beside stage
+           1); launch counts reset and read around stage 1, around
+           the inspection CLIs (the `inspect` path) and around each
+           stage-2 run
   legacy   v1, v2 and v3 files of the golden table (as
            tests/test_ref_format.py builds them), stage 2 on each and on
            the golden v5 file with --device cuda (HK7 places each) and
@@ -116,7 +137,8 @@ run. Phases, each printing one JSON line:
            the two-pass run's .fa/.log; the driver with --prefilter
            inline, held to inline's guarantees against the exact counts;
            then two-pass again from a table of a 64th of the full run's
-           rows (sketch kept at the full size), so the gated build
+           rows (sketch kept at the full size; in a process of its own,
+           beside the floor and inline runs), so the gated build
            grows: equal to the full-s two-pass run in table, header and
            .fa/.log, peak
            memory beside the two_binary run's; launch counts reset
@@ -190,11 +212,10 @@ run. Phases, each printing one JSON line:
            held on the golden reads with Ns (where event
            mode departs from the plain walk on some read); then the full
            cell's stage 2 from its database in event mode and in plain
-           mode (event_driven=False) in the order event, plain, plain,
-           event: device step, host time, kernel time and launches of
-           each; event mode's .fa/.log equal the full run's, each
-           mode's second run its first run's, and each mode's first
-           2,048 reads equal a --device cpu run of that mode on them;
+           mode (event_driven=False), in that order: device step, host
+           time, kernel time and launches of each; event mode's .fa/.log
+           equal the full run's, and each mode's first 2,048 reads
+           equal a --device cpu run of that mode on them;
            launch counts reset before and read after each run
   devices  --devices 4 on a mesh of four entries over the host's cards
            (all naming the card on a one-card host), fed the full run's
@@ -252,9 +273,9 @@ run. Phases, each printing one JSON line:
 Kernel times are medians of CUDA events around each C launch, each
 timed call behind a ~1 ms spin on its stream (LEAD_CYCLES), so that
 the host's work before the launch does not count.
-Then one {"kernels": [...]} line (launches from the full, pipeline,
+Then one {"kernels": [...]} line (launches from the full, serve, pipeline,
 telemetry (both runs), two_binary, paired (both runs), ref_format,
-inspect, legacy, the four prefilter, the three partitioned, the two
+inspect, legacy, the three prefilter, the three partitioned, the two
 contaminant, the devices runs, the routed and partitioned mesh runs
 and the event phase's two runs and the flat, minimizer and
 devices_unpacked runs, times and bounds from the kernels, loaded, table, event, devices, flat
@@ -468,6 +489,10 @@ PATH_KERNELS.update({"telemetry": PATH_KERNELS["full"],
 PATH_KERNELS.update({"resume_stage1": ("tile_insert", "tile_seal",
                                        "tile_export"),
                      "resume_stage2": ("tile_load", *S2)})
+# the serve phase: quorum-serve on the full run's v5 file (HK7 at boot,
+# at the watchdog's rebuild and at a reload; HK3 counts the warmup's
+# representative read; every step the event path)
+PATH_KERNELS["serve"] = ("tile_load", "tile_lookup", *S2)
 # the sharded build's device time by step (CUDA events, STATS.timing):
 # the step's name -> the counter or span its events are kept under
 SPLIT = {"route": "shard_route", "exchange": "exchange",
@@ -498,6 +523,58 @@ def emit(obj):
     if "phase" in obj:
         obj = {**obj, "elapsed_s": round(time.perf_counter() - START, 1)}
     print(json.dumps(obj), flush=True)
+
+
+# work that runs in a process of its own beside later phases: the child
+# imports this script, calls one of its functions on JSON arguments, and
+# prints that function's phase lines and, last, its JSON result
+CHILD = """
+import json, sys
+import chip_smoke
+chip_smoke.START = float(sys.argv[1])
+out = getattr(chip_smoke, sys.argv[2])(*json.loads(sys.argv[3]))
+print(json.dumps(out), flush=True)
+"""
+CHILDREN: list = []  # started and not yet joined (run() ends them)
+
+
+def child_start(fn: str, *args, env: dict | None = None):
+    """Start `fn(*args)` of this script in a process of its own (its
+    phase lines keep this run's elapsed seconds: perf_counter is the
+    host's monotonic clock)."""
+    p = subprocess.Popen(
+        [sys.executable, "-c", CHILD, repr(START), fn, json.dumps(args)],
+        cwd=ROOT, env=dict(os.environ) if env is None else env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    CHILDREN.append(p)
+    return p
+
+
+def child_join(p, what: str, timeout: float = 900):
+    """Wait for a child_start process: print its phase lines, return its
+    result; fail with its stderr's tail if it failed."""
+    try:
+        out, err = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        p.kill()
+        p.communicate()
+        out, err = "", f"no end within {timeout} s"
+    CHILDREN.remove(p)
+    lines = out.strip().splitlines()
+    check(p.returncode == 0 and lines,
+          f"{what} (a process of its own) rc {p.returncode}: {err[-800:]}")
+    for ln in lines[:-1]:
+        print(ln, flush=True)
+    return json.loads(lines[-1])
+
+
+def stop_children() -> None:
+    """End every child_start process not yet joined (a failed run)."""
+    while CHILDREN:
+        p = CHILDREN.pop()
+        if p.poll() is None:
+            p.kill()
+        p.communicate()
 
 
 def card_line() -> str:
@@ -1782,17 +1859,99 @@ def _batch_equal(a, b, found) -> bool:
     return True
 
 
-def phase_golden():
-    from quorum_tpu_torch.cli import create_database as cdb
+def golden_paths() -> dict:
+    """The golden phase's reads, database and contaminant file."""
+    d = os.path.join(WORK, "golden")
+    return {"d": d, "reads": os.path.join(GOLDEN, "reads.fastq"),
+            "db": os.path.join(d, "db.jf"),
+            "cfa": os.path.join(d, "contaminant.fa")}
+
+
+def golden_runs(cfa: str):
+    """The golden runs held card against CPU: the quorum driver's (tag,
+    extra argv) and quorum_error_correct_reads' (the contaminant and
+    homo-trim path: two 2k-base windows of golden reads as the
+    contaminant, as tests/test_error_correct_cli.py)."""
+    drivers = (("drv", []),
+               ("drv_contam", ["--contaminant", cfa, "--trim-contaminant",
+                               "--homo-trim", "3"]))
+    stage2 = (("contaminant", ["--contaminant", cfa]),
+              ("contaminant_trim", ["--contaminant", cfa,
+                                    "--trim-contaminant"]),
+              ("homo_trim", ["--homo-trim", "3"]))
+    return drivers, stage2
+
+
+def golden_cpu_start(which: str):
+    """Start golden_cpu(`which`) in a process of its own (four torch
+    threads), so the CPU's references run beside the card's work. The
+    drivers' runs need only the reads and the contaminant file (written
+    here first); stage 2's need the card-built golden database."""
+    g = golden_paths()
+    if which == "drivers":
+        import numpy as np
+
+        from quorum_tpu_torch.io import fastq
+
+        os.makedirs(g["d"], exist_ok=True)
+        r = next(fastq.read_batches([g["reads"]], 256))
+        acgt = np.frombuffer(b"ACGT", np.uint8)
+        with open(g["cfa"], "w") as f:
+            for i, (j, at) in enumerate(((3, 10), (40, 20))):
+                w = acgt[r.codes[j, at:at + 26]].tobytes().decode()
+                f.write(f">w{i}\n{w}\n")
+    return child_start("golden_cpu", which,
+                       env=dict(os.environ, OMP_NUM_THREADS="4"))
+
+
+def golden_cpu(which: str) -> dict:
+    """The golden phase's --device cpu references at the defaults:
+    `drivers` (the quorum driver's runs) or `stage2` (the stage-2 runs
+    on the golden database). Returns {tag: seconds}."""
     from quorum_tpu_torch.cli import error_correct_reads as ec
     from quorum_tpu_torch.cli import quorum
 
-    reads = os.path.join(GOLDEN, "reads.fastq")
-    d = os.path.join(WORK, "golden")
-    os.makedirs(d, exist_ok=True)
-    db = os.path.join(d, "db.jf")
-    check(cdb.main(["-s", "64k", "-m", "13", "-b", "7", "-q", "38", "-o", db,
-                    "--device", "cuda", reads]) == 0, "golden stage 1")
+    g = golden_paths()
+    drivers, stage2 = golden_runs(g["cfa"])
+    spent = {}
+    for tag, extra in (drivers if which == "drivers" else stage2):
+        out = os.path.join(g["d"], f"{tag}_cpu")
+        t0 = time.perf_counter()
+        if which == "drivers":
+            rc = quorum.main(["-s", "64k", "-k", "13", "-p", out, "--device",
+                              "cpu", *extra, g["reads"]])
+        else:
+            rc = ec.main(extra + [g["db"], g["reads"], "-o", out,
+                                  "--device", "cpu"])
+        check(rc == 0, f"golden {tag} (cpu) rc {rc}")
+        spent[tag] = round(time.perf_counter() - t0, 3)
+    return spent
+
+
+def golden_stage1():
+    """The golden reads' stage 1 on the card, right after the build; then
+    golden_cpu_start("stage2") on its database."""
+    from quorum_tpu_torch.cli import create_database as cdb
+
+    g = golden_paths()
+    check(cdb.main(["-s", "64k", "-m", "13", "-b", "7", "-q", "38", "-o",
+                    g["db"], "--device", "cuda", g["reads"]]) == 0,
+          "golden stage 1")
+    return golden_cpu_start("stage2")
+
+
+def phase_golden(drivers_cpu, stage2_cpu):
+    """The golden reads on the card (after golden_stage1): stage 2
+    against the golden expected files, the -p 4 run's quality section
+    against QUALITY_BASELINE.json, and the driver's and stage 2's runs
+    of golden_runs held to their --device cpu references (`drivers_cpu`
+    and `stage2_cpu`: golden_cpu_start's processes, the drivers' started
+    before the build, stage 2's after golden_stage1)."""
+    from quorum_tpu_torch.cli import error_correct_reads as ec
+    from quorum_tpu_torch.cli import quorum
+
+    g = golden_paths()
+    d, reads, db = g["d"], g["reads"], g["db"]
     res = {}
     metrics = os.path.join(d, "p4.metrics.json")
     for tag, extra, suffix in (("p4", ["-p", "4", "--metrics", metrics], ""),
@@ -1818,55 +1977,36 @@ def phase_golden():
     res["quality_baseline"] = not off
     res["quality_section_in_document"] = (
         doc.get("quality") == quality.section_from_doc(doc))
-    for dev in ("cuda", "cpu"):
+    drivers, stage2 = golden_runs(g["cfa"])
+    for tag, extra in drivers:
         check(quorum.main(["-s", "64k", "-k", "13", "-p",
-                           os.path.join(d, f"drv_{dev}"), "--device", dev,
-                           reads]) == 0, f"golden driver ({dev})")
+                           os.path.join(d, f"{tag}_cuda"), "--device",
+                           "cuda", *extra, reads]) == 0,
+              f"golden {tag} (cuda)")
     check(quorum.main(["-s", "64k", "-k", "13", "-p",
                        os.path.join(d, "drv_part"), "--device", "cuda",
                        "--partitions", str(PARTS), reads]) == 0,
           "golden driver (--partitions)")
+    for tag, extra in stage2:
+        check(ec.main(extra + [db, reads, "-o", os.path.join(d, f"{tag}_cuda"),
+                               "--device", "cuda"]) == 0,
+              f"golden stage 2 {tag} (cuda)")
+    t0 = time.perf_counter()
+    cpu_s = {**child_join(drivers_cpu, "the golden drivers on the CPU"),
+             **child_join(stage2_cpu, "golden stage 2 on the CPU")}
+    waited = round(time.perf_counter() - t0, 3)
     for tag in ("cuda", "part"):
-        res[f"driver_{tag}_eq_cpu"] = all(
-            filecmp.cmp(os.path.join(d, f"drv_{tag}{ext}"),
-                        os.path.join(d, f"drv_cpu{ext}"), shallow=False)
-            for ext in (".fa", ".log"))
-    # the contaminant and homo-trim path: two 2k-base windows of golden
-    # reads as the contaminant (tests/test_error_correct_cli.py)
-    import numpy as np
-
-    from quorum_tpu_torch.io import fastq
-
-    g = next(fastq.read_batches([reads], 256))
-    acgt = np.frombuffer(b"ACGT", np.uint8)
-    cfa = os.path.join(d, "contaminant.fa")
-    with open(cfa, "w") as f:
-        for i, (r, at) in enumerate(((3, 10), (40, 20))):
-            w = acgt[g.codes[r, at:at + 26]].tobytes().decode()
-            f.write(f">w{i}\n{w}\n")
-    for tag, extra in (("contaminant", ["--contaminant", cfa]),
-                       ("contaminant_trim", ["--contaminant", cfa,
-                                             "--trim-contaminant"]),
-                       ("homo_trim", ["--homo-trim", "3"])):
-        outs = []
-        for dev in ("cuda", "cpu"):
-            outs.append(os.path.join(d, f"{tag}_{dev}"))
-            check(ec.main(extra + [db, reads, "-o", outs[-1], "--device",
-                                   dev]) == 0, f"golden stage 2 {tag} ({dev})")
-        res[f"{tag}_cuda_eq_cpu"] = same_fa_log(*outs)
-        if tag == "contaminant":
-            with open(outs[0] + ".log") as f:
-                res["contaminant_skips"] = f.read().count("Contaminated read")
-    outs = []
-    for dev in ("cuda", "cpu"):
-        outs.append(os.path.join(d, f"drv_contam_{dev}"))
-        check(quorum.main(["-s", "64k", "-k", "13", "-p", outs[-1],
-                           "--device", dev, "--contaminant", cfa,
-                           "--trim-contaminant", "--homo-trim", "3",
-                           reads]) == 0,
-              f"golden driver with a contaminant ({dev})")
-    res["driver_contaminant_cuda_eq_cpu"] = same_fa_log(*outs)
-    emit({"phase": "golden", **res, "quality_off_baseline": off})
+        res[f"driver_{tag}_eq_cpu"] = same_fa_log(
+            os.path.join(d, f"drv_{tag}"), os.path.join(d, "drv_cpu"))
+    for tag, _extra in stage2:
+        res[f"{tag}_cuda_eq_cpu"] = same_fa_log(
+            os.path.join(d, f"{tag}_cuda"), os.path.join(d, f"{tag}_cpu"))
+    with open(os.path.join(d, "contaminant_cuda.log")) as f:
+        res["contaminant_skips"] = f.read().count("Contaminated read")
+    res["driver_contaminant_cuda_eq_cpu"] = same_fa_log(
+        os.path.join(d, "drv_contam_cuda"), os.path.join(d, "drv_contam_cpu"))
+    emit({"phase": "golden", **res, "quality_off_baseline": off,
+          "cpu_reference_s": cpu_s, "waited_for_cpu_s": waited})
     check(all(res.values()), f"golden mismatch: {res}")
 
 
@@ -2621,7 +2761,8 @@ def phase_prefilter(card: str, full: dict, two_binary: dict) -> dict:
     again at the -s of a table with fewer slots than the two-pass table
     holds entries (a 64th of the full run's rows at full width), with
     the sketch held at the full run's size (QUORUM_SKETCH_BITS), so that
-    the gated build grows: its table, header and .fa/.log equal the
+    the gated build grows (grow_run: in a process of its own, beside the
+    floor and inline runs): its table, header and .fa/.log equal the
     full-s two-pass run's, and each run's peak device memory stands
     beside the unfiltered two-binary run's."""
     import torch
@@ -2655,6 +2796,15 @@ def phase_prefilter(card: str, full: dict, two_binary: dict) -> dict:
           f"two-pass content: kept entries equal {kept_same}, missing "
           f"{int(gone.sum())} all count-1 {gone_count1}")
     del hb, vb, gone, at
+    # two-pass from a table with fewer slots than the two-pass run keeps
+    # entries, so it must grow; the sketch as large as above (the inline
+    # mode's grown run went to make room for the resume phase)
+    small = 24 << (h["n_entries"] // 128).bit_length()
+    grow = child_start(
+        "grow_run", card, {"size": full["size"], "fastq": full["fastq"],
+                           "max_memory": full["max_memory"],
+                           "distinct": fb.distinct}, small,
+        env=dict(os.environ, QUORUM_SKETCH_BITS=str(pf["sketch_cells_log2"])))
 
     # the full database's stage 2 at floor 2: the floor theorem
     prefix = os.path.join(WORK, "full_floor2")
@@ -2683,19 +2833,9 @@ def phase_prefilter(card: str, full: dict, two_binary: dict) -> dict:
     exact = exact_counts(full)
     inline_check(card, inl, exact, two["db"], "prefilter_inline_check")
 
-    # two-pass from a table with fewer slots than the two-pass run keeps
-    # entries, so it must grow; the sketch as large as above (the inline
-    # mode's grown run went to make room for the resume phase)
-    small = 24 << (h["n_entries"] // 128).bit_length()
-    before = os.environ.get("QUORUM_SKETCH_BITS")
-    os.environ["QUORUM_SKETCH_BITS"] = str(pf["sketch_cells_log2"])
-    try:
-        two_g = driver_run(card, full, "two-pass", small)
-    finally:
-        if before is None:
-            del os.environ["QUORUM_SKETCH_BITS"]
-        else:
-            os.environ["QUORUM_SKETCH_BITS"] = before
+    t0 = time.perf_counter()
+    two_g = child_join(grow, "the grown two-pass run")
+    waited = round(time.perf_counter() - t0, 3)
     hg, vg = table_content(two_g["db"])
     same_table = torch.equal(hg, ha) and torch.equal(vg, va)
     del ha, va, hg, vg
@@ -2703,7 +2843,9 @@ def phase_prefilter(card: str, full: dict, two_binary: dict) -> dict:
                       for key in ("prefilter", "poisson_stats", "n_entries"))
     same_out = same_fa_log(two_g["prefix"], two["prefix"])
     emit({"phase": "prefilter_grow", "card": card, "size": small,
-          "grows_two_pass": two_g["build"].grows,
+          "grows_two_pass": two_g["grows"],
+          "ran_beside": ["prefilter_floor", "prefilter_inline"],
+          "waited_for_s": waited,
           "same_table_as_full_s_two_pass": same_table,
           "same_header_as_full_s_two_pass": same_header,
           "same_fa_log_as_full_s_two_pass": same_out,
@@ -2719,6 +2861,20 @@ def phase_prefilter(card: str, full: dict, two_binary: dict) -> dict:
     return {"prefilter_two_pass": two["launches"],
             "prefilter_inline": inl["launches"],
             "prefilter_two_pass_grow": two_g["launches"]}, two
+
+
+def grow_run(card: str, sub: dict, size: int) -> dict:
+    """driver_run's two-pass run at -s `size` (phase_prefilter starts it
+    in a process of its own): `sub` holds the full run's size, FASTQ,
+    peak memory and distinct entries. Returns the run's launches,
+    prefix, database, header, peak memory and grows."""
+    import types
+
+    full = dict(sub, build=types.SimpleNamespace(distinct=sub["distinct"]))
+    r = driver_run(card, full, "two-pass", size)
+    return {"launches": r["launches"], "prefix": r["prefix"], "db": r["db"],
+            "header": r["header"], "peak": r["peak"],
+            "grows": r["build"].grows}
 
 
 def partition_run(card: str, full: dict, path: str, extra: list) -> dict:
@@ -4996,14 +5152,11 @@ def phase_event(card: str, full: dict, contam: dict, two_db: str) -> dict:
     loaded by HK7 (`two_db`: rows packed from slot 0), and all held on
     the golden reads with Ns; then the full cell's stage 2
     from its database in event mode (the default) and in plain mode
-    (event_driven=False), in the order event, plain, plain, event in
-    this call: event's .fa/.log equal the full run's, each mode's second
-    run its first run's, and each mode's records of the first CPU_READS
-    reads equal a --device cpu run of the same mode on them. Launch
-    counts reset before and read after each run; a path's launches are
-    its first run's."""
-    import types
-
+    (event_driven=False), in that order: event's .fa/.log equal the full
+    run's, and each mode's records of the first CPU_READS reads equal a
+    --device cpu run of the same mode on them (event_cpu, in a process
+    of its own from the phase's start). Launch counts reset before and
+    read after each run."""
     import numpy as np
     import torch
 
@@ -5013,6 +5166,13 @@ def phase_event(card: str, full: dict, contam: dict, two_db: str) -> dict:
     from quorum_tpu_torch.models import error_correct as ec
     from quorum_tpu_torch.ops import ctable
 
+    # each mode's first CPU_READS reads on the CPU, in a process of its
+    # own (event_cpu) beside the kernels' checks and the card's runs
+    codes, quals = full["codes"], full["quals"]
+    sub = os.path.join(WORK, "event_head.fastq")
+    write_fastq(sub, codes[:CPU_READS], quals[:CPU_READS])
+    cpu_runs = child_start("event_cpu", full["db"], sub, full["cutoff"],
+                           env=dict(os.environ, OMP_NUM_THREADS="4"))
     dev = torch.device("cuda")
     h = db_format.read_header(full["db"])
     meta = ctable.TileMeta(h["key_len"] // 2, h["bits"], h["rb_log2"])
@@ -5020,7 +5180,6 @@ def phase_event(card: str, full: dict, contam: dict, two_db: str) -> dict:
     payload = torch.from_numpy(np.frombuffer(raw, np.uint8).copy()).to(dev)
     rows, _stats = kernels.tile_load(payload, meta, h["n_entries"])
     del payload
-    codes, quals = full["codes"], full["quals"]
     touched = contam["touched"]
     nb = -(-codes.shape[0] // BATCH)
     i = int(np.argmax([touched[j * BATCH:(j + 1) * BATCH].sum()
@@ -5053,19 +5212,11 @@ def phase_event(card: str, full: dict, contam: dict, two_db: str) -> dict:
     check(gdep["plain entry"] > 0, "the golden reads with Ns hold no read "
           "where event mode departs from the plain walk")
     del gs
-    # the full cell's stage 2 in both modes, then each mode's first
-    # CPU_READS reads on the CPU against the table copied to the host once
-    sub = os.path.join(WORK, "event_head.fastq")
-    write_fastq(sub, codes[:CPU_READS], quals[:CPU_READS])
-    host_db = (ctable.TileState(rows.cpu()), meta, types.SimpleNamespace(
-        distinct_hq=0, total_hq=0, db_extra_header=lambda: {}))
+    # the full cell's stage 2 in both modes
     del rows
     runs = {}
-    # event, plain, plain, event: each mode once after the other, so an
-    # order effect (page cache, warm-up) shows as a difference between a
-    # mode's two runs
-    order = (("event", True), ("event_plain", False),
-             ("event_plain_2", False), ("event_2", True))
+    # event, then plain
+    order = (("event", True), ("event_plain", False))
     for mode, event in order:
         prefix = os.path.join(WORK, mode)
         STATS.reset()
@@ -5093,33 +5244,25 @@ def phase_event(card: str, full: dict, contam: dict, two_db: str) -> dict:
             kernel_ms_per_launch={k: round(v / launches[k], 5)
                                   for k, v in kms.items() if launches[k]},
             launches=launches)
-        if mode != path:  # the mode's second run: its first run's bytes
-            runs[mode]["eq_first_run"] = same_fa_log(
-                prefix, os.path.join(WORK, path))
-            continue
-        cpu = os.path.join(WORK, mode + "_cpu")
-        t1 = time.perf_counter()
-        ec.run_error_correct(full["db"], [sub], ec.ECOptions(
-            output=cpu, device="cpu", cutoff=ecs.cutoff,
-            batch_size=CPU_READS), db=host_db, event_driven=event)
-        fa, log, _s = read_outputs(prefix)
-        cfa, clog, _s = read_outputs(cpu)
+        check(ecs.cutoff == full["cutoff"], f"{mode}: cutoff {ecs.cutoff}, "
+              f"the CPU runs' {full['cutoff']}")
+    cpu_s = child_join(cpu_runs, "event's CPU runs")
+    for mode, _event in order:
+        fa, log, _s = read_outputs(os.path.join(WORK, mode))
+        cfa, clog, _s = read_outputs(os.path.join(WORK, mode + "_cpu"))
         runs[mode].update(
-            cpu_reads=CPU_READS, cpu_s=round(time.perf_counter() - t1, 3),
+            cpu_reads=CPU_READS, cpu_s=cpu_s[mode],
             head_eq_cpu=(cfa == {j: r for j, r in fa.items()
                                  if j < CPU_READS}
                          and clog == {j: r for j, r in log.items()
                                       if j < CPU_READS}))
     ev, pl = runs["event"], runs["event_plain"]
-    ev2, pl2 = runs["event_2"], runs["event_plain_2"]
     fa_e, log_e, _s = read_outputs(os.path.join(WORK, "event"))
     fa_p, log_p, _s = read_outputs(os.path.join(WORK, "event_plain"))
     res = dict(event_eq_full=same_fa_log(os.path.join(WORK, "event"),
                                          full["prefix"]),
                event_head_eq_cpu=ev["head_eq_cpu"],
-               plain_head_eq_cpu=pl["head_eq_cpu"],
-               event_2_eq_event=ev2["eq_first_run"],
-               plain_2_eq_plain=pl2["eq_first_run"])
+               plain_head_eq_cpu=pl["head_eq_cpu"])
 
     def ratio(a, b, key):
         return round(a[key] / b[key], 4)
@@ -5132,13 +5275,9 @@ def phase_event(card: str, full: dict, contam: dict, two_db: str) -> dict:
               fa_e.get(j) != fa_p.get(j) or log_e.get(j) != log_p.get(j)
               for j in range(codes.shape[0])),
           "order": [m for m, _e in order],
-          # event over plain: event first (runs 1, 2), plain first (3, 4)
           "device_step_ratio_event_plain": ratio(ev, pl, "stage2_device_s"),
-          "device_step_ratio_event_plain_2": ratio(ev2, pl2,
-                                                   "stage2_device_s"),
           "host_ratio_event_plain": ratio(ev, pl, "stage2_host_s"),
-          "host_ratio_event_plain_2": ratio(ev2, pl2, "stage2_host_s"),
-          "event": ev, "plain": pl, "plain_2": pl2, "event_2": ev2,
+          "event": ev, "plain": pl,
           **{nm: {kk: (round(v, 5) if isinstance(v, float) else v)
                   for kk, v in d.items()} for nm, d in stats.items()},
           **res})
@@ -5146,6 +5285,22 @@ def phase_event(card: str, full: dict, contam: dict, two_db: str) -> dict:
     return dict(kernels=stats,
                 launches={m: runs[m]["launches"]
                           for m in ("event", "event_plain")})
+
+
+def event_cpu(db: str, fastq: str, cutoff: int) -> dict:
+    """phase_event's --device cpu runs (a process of its own): the reads
+    of `fastq` in event mode and in plain mode at `cutoff`, into
+    WORK/event_cpu and WORK/event_plain_cpu. Returns {mode: seconds}."""
+    from quorum_tpu_torch.models import error_correct as ec
+
+    spent = {}
+    for mode, event in (("event", True), ("event_plain", False)):
+        t0 = time.perf_counter()
+        ec.run_error_correct(db, [fastq], ec.ECOptions(
+            output=os.path.join(WORK, mode + "_cpu"), device="cpu",
+            cutoff=cutoff, batch_size=CPU_READS), event_driven=event)
+        spent[mode] = round(time.perf_counter() - t0, 3)
+    return spent
 
 
 # ------------------------------------------------------------- flat table
@@ -5829,10 +5984,12 @@ def phase_ref_format(card: str, full: dict) -> dict:
     query answers on the card equal to the host's (numpy over the rows
     brought back: the bins by np.bincount, the mers by db_lookup_np);
     stage 2 on the card from each file at the full run's cutoff given
-    with -p (.fa/.log equal). Launch counts reset before stage 1 and
-    read after it, reset before the first inspection CLI and read after
-    the last (the `inspect` path), and reset before the first stage 2
-    and read after the last; `ref_format` is stage 1's and stage 2's."""
+    with -p (.fa/.log equal; the v5 file's in a process of its own
+    (stage2_run), started at the phase's start beside stage 1). Launch
+    counts reset before stage 1 and read after it, reset before the
+    first inspection CLI and read after the last (the `inspect` path),
+    and reset before the reference file's stage 2 and read after it;
+    `ref_format` is stage 1's and both stage 2s'."""
     import numpy as np
     import torch
 
@@ -5845,6 +6002,10 @@ def phase_ref_format(card: str, full: dict) -> dict:
     from quorum_tpu_torch.ops import ctable, mer
 
     ref = os.path.join(WORK, "ref_format.jf")
+    v5_out = os.path.join(WORK, "ref_s2_v5")
+    v5_stage2 = child_start("stage2_run", [
+        "-p", str(full["cutoff"]), "--device", "cuda", "-o", v5_out,
+        full["db"], full["fastq"]])
     spent: dict = {}
     originals = (quorum_db.write_ref_db, ctable.tile_iterate)
 
@@ -5919,14 +6080,16 @@ def phase_ref_format(card: str, full: dict) -> dict:
                   == query.lookup_values(host, meta, keys))}
     del state, host, rows
     STATS.reset()
-    for tag, db in files:
-        o = os.path.join(WORK, f"ref_s2_{tag}")
-        t0 = time.perf_counter()
-        rc3 = ec.main(["-p", str(full["cutoff"]), "--device", "cuda", "-o", o,
-                       db, full["fastq"]])
-        check(rc3 == 0, f"stage 2 on the {tag} file rc {rc3}")
-        out[tag].update(out=o, stage2_s=round(time.perf_counter() - t0, 3))
-    launches = {name: n + stage1.get(name, 0)
+    o = os.path.join(WORK, "ref_s2_ref")
+    t0 = time.perf_counter()
+    rc3 = ec.main(["-p", str(full["cutoff"]), "--device", "cuda", "-o", o,
+                   ref, full["fastq"]])
+    check(rc3 == 0, f"stage 2 on the ref file rc {rc3}")
+    out["ref"].update(out=o, stage2_s=round(time.perf_counter() - t0, 3))
+    v5 = child_join(v5_stage2, "stage 2 on the v5 file")
+    check(v5["rc"] == 0, f"stage 2 on the v5 file rc {v5['rc']}")
+    out["v5"].update(out=v5_out, stage2_s=v5["seconds"])
+    launches = {name: n + stage1.get(name, 0) + v5["launches"][name]
                 for name, n in STATS.launches.items()}
     for name in PATH_KERNELS["ref_format"]:
         check(launches[name] > 0, f"{name} was not launched on the "
@@ -5947,7 +6110,8 @@ def phase_ref_format(card: str, full: dict) -> dict:
           "queries": REF_QUERIES,
           **{f"{tag}_{k}": v[k] for tag, v in out.items()
              for k in ("histo_s", "query_s", "stage2_s")},
-          **res, "launches": launches, "launches_inspect": inspect})
+          "v5_stage2_ran_beside": "stage1", **res, "launches": launches,
+          "launches_inspect": inspect})
     check(all(res.values()), f"ref_format mismatch: {res}")
     check(found == len(present), f"{found} of {len(present)} genome mers "
                                  "found")
@@ -5956,6 +6120,19 @@ def phase_ref_format(card: str, full: dict) -> dict:
                                      "the full run's")
     os.remove(ref)
     return {"ref_format": launches, "inspect": inspect}
+
+
+def stage2_run(argv: list) -> dict:
+    """quorum_error_correct_reads on `argv` (in a process of its own),
+    launch counts reset just before: its rc, seconds and launches."""
+    from quorum_tpu_torch.cli import error_correct_reads as ec
+    from quorum_tpu_torch.kernels.loader import STATS
+
+    STATS.reset()
+    t0 = time.perf_counter()
+    rc = ec.main(argv)
+    return {"rc": rc, "seconds": round(time.perf_counter() - t0, 3),
+            "launches": dict(STATS.launches)}
 
 
 def legacy_files(d: str, v5: str) -> dict:
@@ -6030,6 +6207,555 @@ def phase_legacy(card: str) -> dict:
     check(all(res.values()), f"legacy stage 2 differs: {res}")
     for name in PATH_KERNELS["legacy"]:
         check(launches[name] > 0, f"{name} was not launched on the legacy "
+                                  "path")
+    return launches
+
+
+# the serve phase: quorum-serve of the port on full's v5 file
+SERVE_ROWS = 1024  # --max-batch
+SERVE_PARITY_READS = 65_536  # full's first reads, served and held to .fa
+SERVE_CLIENTS = 8  # closed-loop clients of the parity and mixed parts
+SERVE_MIXED = (2048, 40, 300)  # mixed-length reads: count, shortest, longest
+SERVE_MIXED_REQ = 64  # reads a mixed-length request
+SERVE_WARM = (64, 128, 160, 192, 256, 384)  # every bucket the phase sends
+SERVE_STEP_TIMEOUT_MS = 3000  # the watchdog's budget in the phase
+SERVE_LOAD = ((8, 256, 512), (1, 1, 256))  # bench -c, -r, -n
+FASTQ_REC = 12 + READ_LEN + 3 + READ_LEN + 1  # bytes of one full record
+
+
+def mixed_reads(genome, path: str):
+    """SERVE_MIXED[0] reads of SERVE_MIXED[1]-[2] bp (seeded) from the
+    genome, either strand, 1% substitutions, ~10% low-quality bases, as
+    FASTQ named m<6 digits>. Returns their lengths."""
+    import torch
+
+    n, lo, hi = SERVE_MIXED
+    gen = torch.Generator().manual_seed(SEED + 18)
+    lens = torch.randint(lo, hi + 1, (n,), generator=gen)
+    acgt = b"ACGT"
+    with open(path, "wb") as f:
+        for i, ln in enumerate(lens.tolist()):
+            s = int(torch.randint(0, genome.shape[0] - ln + 1, (1,),
+                                  generator=gen))
+            true = genome[s:s + ln]
+            if bool(torch.rand(1, generator=gen) < 0.5):
+                true = (3 - true).flip(0)
+            err = torch.rand(ln, generator=gen) < ERR_RATE
+            shift = torch.randint(1, 4, (ln,), generator=gen,
+                                  dtype=torch.int8)
+            codes = torch.where(err, (true + shift) % 4, true)
+            low = torch.rand(ln, generator=gen) < LOW_Q_RATE
+            qual = bytes(33 + 2 if q else 33 + 40 for q in low.tolist())
+            seq = bytes(acgt[c] for c in codes.tolist())
+            f.write(b"@m%06d\n%s\n+\n%s\n" % (i, seq, qual))
+    return lens.tolist()
+
+
+def mixed_outputs(prefix: str):
+    """A stage-2 run's records of the mixed reads by index (m<6 digits>):
+    {i: .fa record with its newline}, {i: .log line with its newline}."""
+    with open(prefix + ".fa", "rb") as f:
+        lines = f.read().split(b"\n")
+    fa = {int(h[2:8]): h + b"\n" + q + b"\n"
+          for h, q in zip(lines[0::2], lines[1::2]) if h}
+    with open(prefix + ".log", "rb") as f:
+        log = {int(ln[9:15]): ln + b"\n" for ln in f.read().split(b"\n")
+               if ln}
+    return fa, log
+
+
+def closed_loop(port: int, jobs: list, n_clients: int, check_fn) -> dict:
+    """`jobs` (body bytes, want_log, tag) posted by `n_clients` closed-loop
+    clients; `check_fn(tag, result)` returns an error string or None.
+    Returns {"requests", "errors": [first few], "statuses"}."""
+    import threading
+
+    from quorum_tpu_torch.serve.client import ServeClient
+
+    nxt = [0]
+    lock = threading.Lock()
+    errors: list = []
+    statuses: dict = {}
+
+    def worker():
+        client = ServeClient(port=port, timeout=300)
+        while True:
+            with lock:
+                if nxt[0] >= len(jobs) or len(errors) > 8:
+                    return
+                body, want_log, tag = jobs[nxt[0]]
+                nxt[0] += 1
+            try:
+                r = client.correct(body, want_log=want_log)
+            except OSError as e:
+                with lock:
+                    errors.append(f"{tag}: {e!r}")
+                continue
+            err = (f"{tag}: status {r.status} {r.error}" if r.status != 200
+                   else check_fn(tag, r))
+            with lock:
+                statuses[r.status] = statuses.get(r.status, 0) + 1
+                if err:
+                    errors.append(err)
+
+    threads = [threading.Thread(target=worker, daemon=True)
+               for _ in range(n_clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return {"requests": len(jobs), "errors": errors[:4],
+            "statuses": statuses}
+
+
+def hist_median(before: dict, after: dict):
+    """Median of the values an exact-count histogram took between two
+    snapshots of its counts ({value: n})."""
+    delta = sorted((int(v), n - before.get(v, 0)) for v, n in after.items()
+                   if n - before.get(v, 0) > 0)
+    total = sum(n for _v, n in delta)
+    if not total:
+        return None
+    seen = 0
+    for v, n in delta:
+        seen += n
+        if 2 * seen >= total:
+            return v
+    return None
+
+
+# quorum-serve-bench in a process of its own, started at the serve
+# phase's start (its imports overlap the parity part): one bench_main
+# argv a line on stdin, its metric lines then {"rc": N} on stdout
+SERVE_BENCH = """
+import json, sys
+from quorum_tpu_torch.serve.client import bench_main
+for line in sys.stdin:
+    rc = bench_main(json.loads(line))
+    print(json.dumps({"rc": rc}), flush=True)
+"""
+
+
+def serve_bench(bench, port: int, fastq: str, conc: int, reads: int, n: int,
+                reg, spans: str) -> dict:
+    """quorum-serve-bench (the port's bench_main, in the client process
+    `bench`: SERVE_BENCH) at -c conc -r reads -n n under DeviceBusy: its
+    metric lines, the card's busy share, the medians of
+    serve_dispatch_us / serve_wait_us and of the serve_render span over
+    the run, the request parse's median on these bodies, and the peak
+    device memory."""
+    import torch
+
+    from quorum_tpu_torch.serve.server import parse_fastq_text
+
+    def counts(name):
+        return dict(reg.histogram(name).counts)
+
+    before = {h: counts(h) for h in ("serve_dispatch_us", "serve_wait_us")}
+    with open(spans) as f:
+        span0 = sum(1 for _ in f)
+    torch.cuda.reset_peak_memory_stats()
+    lines: dict = {}
+    with DeviceBusy() as busy:
+        bench.stdin.write(json.dumps(["--port", str(port), "-c", str(conc),
+                                      "-r", str(reads), "-n", str(n),
+                                      fastq]) + "\n")
+        bench.stdin.flush()
+        while True:
+            ln = bench.stdout.readline()
+            check(ln, f"quorum-serve-bench -c {conc} -r {reads} ended "
+                      f"(rc {bench.poll()})")
+            o = json.loads(ln)
+            if "rc" in o:
+                break
+            lines[o["metric"]] = o
+    check(o["rc"] == 0, f"quorum-serve-bench -c {conc} -r {reads} rc "
+                        f"{o['rc']}")
+    b = lines["serve_bench"]
+    check(b["ok"] == n and b["reads"] == n * reads,
+          f"bench -c {conc} -r {reads}: {b}")
+    with open(spans) as f:
+        renders = sorted(o["dur"] for o in
+                         (json.loads(ln) for ln in list(f)[span0:])
+                         if o["span"] == "serve_render")
+    with open(fastq, "rb") as f:
+        body = f.read(reads * FASTQ_REC)
+    parse = []
+    for _ in range(15):
+        t0 = time.perf_counter()
+        parse_fastq_text(body)
+        parse.append(time.perf_counter() - t0)
+    return {"concurrency": conc, "reads_per_request": reads,
+            "requests": n, "client": "a process of its own",
+            "latency_ms": [b["latency_p50_ms"], b["latency_p90_ms"],
+                           b["latency_p99_ms"]],
+            "reads_per_s": b["reads_per_s"],
+            "served_gbases_per_hour": round(
+                b["reads_per_s"] * READ_LEN * 3600 / 1e9, 4),
+            "wall_s": b["wall_s"],
+            # the share of the bench's own window (the profiled window
+            # also holds the bench's parse of its input, with no traffic)
+            "busy_s": round(busy.busy_s, 4), "profiled_s": round(
+                busy.wall_s, 4),
+            "busy_share": round(busy.busy_s / b["wall_s"], 4),
+            "serve_dispatch_us_median": hist_median(
+                before["serve_dispatch_us"], counts("serve_dispatch_us")),
+            "serve_wait_us_median": hist_median(
+                before["serve_wait_us"], counts("serve_wait_us")),
+            "serve_render_ms_median": (round(renders[len(renders) // 2]
+                                             * 1e3, 3) if renders else None),
+            "steps": len(renders),
+            "parse_ms_median_request": round(sorted(parse)[7] * 1e3, 3),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "phases": lines.get("serve_bench_phases")}
+
+
+def phase_serve(card: str, full: dict) -> dict:
+    """quorum-serve of the port, booted in-process through cli/serve.main
+    (--device cuda, the quorum driver's stage-2 correction flags: none,
+    so the cutoff resolves from the file as the driver's does; --max-batch
+    1024, --warmup-lengths over every bucket sent, --step-timeout-ms,
+    --verify-db sample so boots, rebuilds and reloads digest the header,
+    the bucket index and a 16th of the entry chunks, --metrics and
+    --trace-spans) on full's v5 file, then: (1) full's first 65,536
+    reads from 8 closed-loop clients in seeded requests of 1-512 reads,
+    every 200 byte-equal to full's .fa records (one request in 8 with
+    ?log=1, its log equal to full's .log lines); (2) 2,048 seeded reads
+    of 40-300 bp from full's genome in 64-read requests (every batch
+    crosses buckets 64 to 384), byte-equal to quorum_error_correct_reads
+    --device cpu on the same reads and file (a subprocess, started at
+    the phase's start; the answers held to it after the drain); (3)
+    engine_compiles after the warmup equal to its value after that
+    traffic and the load; (4) quorum-serve-bench
+    at -c 8 -r 256 -n 512 and -c 1 -r 1 -n 256, in a client process of
+    its own started at the phase's start (latency, reads/s, the card's
+    busy share, dispatch/wait medians, the render span and the request
+    parse apart, peak memory); (5) a hang fault at
+    serve.engine.step under the watchdog (500, engine_restarts_total 1,
+    the next request 200 and byte-equal; the peak device memory of the
+    rebuild, two tables), POST /reload to a copy of the file (generation
+    2, byte-equal) and to a copy with a bucket-index byte flipped (400,
+    rolled back, reload_failures_total 1, the old engine byte-equal);
+    (6) /metrics lint-clean, /healthz 200, POST /quiesce drains and the
+    final document is a serve document missing no name; (7) every engine
+    the server built (boot, rebuild, reload) warmed on the representative
+    read with no fallback to all-A, the read equal to the same walk over
+    the boot table's rows brought back to the host. Launch counts are
+    reset before the boot and read after the drain (before (7)'s host
+    walk)."""
+    import socket
+    import threading
+
+    import torch
+
+    from quorum_tpu_torch import serve as serve_pkg
+    from quorum_tpu_torch.cli import serve as serve_cli
+    from quorum_tpu_torch.io import fastq
+    from quorum_tpu_torch.kernels.loader import STATS
+    from quorum_tpu_torch.serve.client import ServeClient
+    from quorum_tpu_torch.telemetry import contract
+    from quorum_tpu_torch.telemetry import export as export_mod
+    from quorum_tpu_torch.utils import faults
+
+    t_phase = time.perf_counter()
+    d = os.path.join(WORK, "serve")
+    os.makedirs(d, exist_ok=True)
+    gen = torch.Generator().manual_seed(SEED + 180)
+    # (2)'s reference first, on the host beside everything else
+    mixed = os.path.join(d, "mixed.fastq")
+    lens = mixed_reads(full["genome"], mixed)
+    cpu_ref = subprocess.Popen(
+        [sys.executable, "-m", "quorum_tpu_torch.cli.error_correct_reads",
+         "--device", "cpu", "--verify-db", "sample", "--batch-size",
+         str(SERVE_MIXED[0]), "-o",
+         os.path.join(d, "mixed_cpu"), full["db"], mixed],
+        cwd=ROOT, env=dict(os.environ, OMP_NUM_THREADS="4"),
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+    # the load's client process (SERVE_BENCH), starting meanwhile
+    bench_err = open(os.path.join(d, "bench.err"), "w")
+    bench = subprocess.Popen(
+        [sys.executable, "-c", SERVE_BENCH], cwd=ROOT,
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=bench_err,
+        text=True)
+    # every engine the server builds (boot, the watchdog's rebuild, the
+    # reload), for the check of its warmup read
+    engines: list = []
+    engine_cls = serve_pkg.CorrectionEngine
+
+    class Recorded(engine_cls):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            engines.append(self)
+
+    serve_pkg.CorrectionEngine = Recorded
+    metrics = os.path.join(d, "serve.json")
+    spans = os.path.join(d, "spans.jsonl")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    argv = ["--device", "cuda", "--port", str(port), "--max-batch",
+            str(SERVE_ROWS), "--warmup-lengths",
+            ",".join(map(str, SERVE_WARM)), "--step-timeout-ms",
+            str(SERVE_STEP_TIMEOUT_MS), "--verify-db", "sample",
+            "--metrics", metrics, "--trace-spans", spans, full["db"]]
+    box: dict = {}
+    STATS.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    server = threading.Thread(
+        target=lambda: box.setdefault("rc", serve_cli.main(argv)),
+        name="serve-phase", daemon=True)
+    server.start()
+    client = ServeClient(port=port, timeout=300)
+    res: dict = {}
+    try:
+        while True:
+            try:
+                h0 = client.healthz()
+                break
+            except OSError:
+                check(server.is_alive() and time.perf_counter() - t0 < 300,
+                      f"quorum-serve did not come up (rc {box.get('rc')})")
+                time.sleep(0.05)
+        res["boot_s"] = round(time.perf_counter() - t0, 3)
+        reg = next(r for r in export_mod.live_registries()
+                   if r.meta.get("stage") == "serve")
+        compiles0 = reg.counter("engine_compiles").value
+        check(compiles0 == len(SERVE_WARM) == h0["engine_compiles"],
+              f"warmup saw {compiles0} shapes, want {len(SERVE_WARM)}")
+        res["boot_memory_allocated"] = torch.cuda.max_memory_allocated() \
+            - resident
+
+        # (1) parity with full's own output
+        fa, log, _s = read_outputs(full["prefix"])
+        with open(full["fastq"], "rb") as f:
+            raw = f.read(SERVE_PARITY_READS * FASTQ_REC)
+        sizes = torch.randint(1, 513, (SERVE_PARITY_READS,),
+                              generator=gen).tolist()
+        jobs, a = [], 0
+        for size in sizes:
+            if a >= SERVE_PARITY_READS:
+                break
+            b = min(a + size, SERVE_PARITY_READS)
+            want_log = len(jobs) % 8 == 7
+            jobs.append((raw[a * FASTQ_REC:b * FASTQ_REC], want_log,
+                         (a, b, want_log)))
+            a = b
+
+        def expect(a, b):
+            return (b"".join(fa[i] + b"\n" for i in range(a, b) if i in fa),
+                    b"".join(log[i] + b"\n" for i in range(a, b)
+                             if i in log))
+
+        def parity(tag, r):
+            a, b, want_log = tag
+            want_fa, want_lg = expect(a, b)
+            if r.reads != b - a or r.fa.encode() != want_fa:
+                return f"reads {a}-{b}: .fa records differ"
+            if want_log and r.log.encode() != want_lg:
+                return f"reads {a}-{b}: .log lines differ"
+            return None
+
+        t1 = time.perf_counter()
+        p = closed_loop(port, jobs, SERVE_CLIENTS, parity)
+        p.update(reads=SERVE_PARITY_READS, s=round(time.perf_counter() - t1,
+                                                   3),
+                 log_requests=sum(1 for j in jobs if j[1]))
+        res["parity"] = p
+        check(not p["errors"] and p["statuses"] == {200: len(jobs)},
+              f"serve parity with full: {p['errors']} {p['statuses']}")
+        del raw
+
+        # (2) mixed lengths, served now and held to the CPU's plain
+        # versions after the drain (the reference runs meanwhile)
+        with open(mixed, "rb") as f:
+            recs = f.read().split(b"\n")
+        n_mix = SERVE_MIXED[0]
+        bodies = [b"\n".join(recs[4 * i:4 * i + 4]) + b"\n"
+                  for i in range(n_mix)]
+        mjobs = [(b"".join(bodies[i:i + SERVE_MIXED_REQ]), True,
+                  (i, min(i + SERVE_MIXED_REQ, n_mix)))
+                 for i in range(0, n_mix, SERVE_MIXED_REQ)]
+        served: dict = {}
+
+        def keep(tag, r):
+            served[tag] = (r.fa.encode(), r.log.encode())
+            return None
+
+        m = closed_loop(port, mjobs, SERVE_CLIENTS, keep)
+        m.update(reads=n_mix, lengths=[min(lens), max(lens)],
+                 request_buckets=sorted({fastq.bucket_for(max(lens[a:b]))
+                                         for _x, _y, (a, b) in mjobs}))
+        res["mixed"] = m
+        check(not m["errors"] and m["statuses"] == {200: len(mjobs)},
+              f"mixed lengths: {m['errors']} {m['statuses']}")
+
+        # (4) load, closed loop
+        load_fq = os.path.join(d, "load.fastq")
+        with open(full["fastq"], "rb") as f, open(load_fq, "wb") as g:
+            g.write(f.read(max(r * n for _c, r, n in SERVE_LOAD)
+                           * FASTQ_REC))
+        res["load"] = [serve_bench(bench, port, load_fq, c, r, n, reg,
+                                   spans) for c, r, n in SERVE_LOAD]
+        bench.stdin.close()
+        check(bench.wait(timeout=60) == 0, "the bench's client process "
+                                           f"rc {bench.returncode}")
+
+        # (3) warm means warm: no new shape past the warmup
+        res["engine_compiles"] = [compiles0,
+                                  reg.counter("engine_compiles").value,
+                                  client.healthz()["engine_compiles"]]
+        check(len(set(res["engine_compiles"])) == 1,
+              f"engine_compiles moved: {res['engine_compiles']}")
+
+        # (5) resilience on the card, on one request of (1)
+        probe = jobs[3]
+        want_probe = expect(*probe[2][:2])[0]
+        del fa, log
+
+        def same(r):
+            return r.status == 200 and r.fa.encode() == want_probe
+
+        torch.cuda.reset_peak_memory_stats()
+        faults.install(faults.FaultPlan.parse(
+            {"site": "serve.engine.step", "action": "hang"}), "serve-hang")
+        t1 = time.perf_counter()
+        hung = client.correct(probe[0])
+        hang_s = time.perf_counter() - t1
+        faults.reset()  # releases the abandoned step
+        restarts = reg.counter("engine_restarts_total").value
+        after = client.correct(probe[0])
+        torch.cuda.synchronize()
+        res["watchdog"] = {
+            "status": hung.status, "error": hung.error[:80],
+            "answer_s": round(hang_s, 3), "restarts": restarts,
+            "timeouts": reg.counter("engine_step_timeouts").value,
+            "next_status": after.status, "next_equal": same(after),
+            "rebuild_peak_memory_allocated":
+                torch.cuda.max_memory_allocated() - resident,
+            "generation": client.healthz()["engine_generation"]}
+        check(hung.status == 500 and restarts == 1 and same(after),
+              f"watchdog on the card: {res['watchdog']}")
+        copy = os.path.join(d, "copy.jf")
+        shutil.copyfile(full["db"], copy)
+        t1 = time.perf_counter()
+        code, doc = client.reload({"db": copy})
+        reload_s = time.perf_counter() - t1
+        swapped = client.correct(probe[0])
+        bad = os.path.join(d, "flipped.jf")
+        shutil.copyfile(full["db"], bad)
+        with open(bad, "r+b") as f:
+            off = len(f.readline()) + 100  # inside the bucket index
+            f.seek(off)
+            byte = f.read(1)
+            f.seek(off)
+            f.write(bytes([byte[0] ^ 0xFF]))
+        bcode, bdoc = client.reload({"db": bad})
+        kept = client.correct(probe[0])
+        res["reload"] = {
+            "status": code, "generation": doc.get("generation"),
+            "s": round(reload_s, 3), "equal_after": same(swapped),
+            "flipped_status": bcode, "rolled_back": bdoc.get("rolled_back"),
+            "flipped_error": str(bdoc.get("error"))[:100],
+            "failures": reg.counter("reload_failures_total").value,
+            "kept_equal": same(kept),
+            "generation_after": client.healthz()["engine_generation"]}
+        r = res["reload"]
+        check(code == 200 and r["generation"] == 2 and r["equal_after"]
+              and bcode == 400 and r["rolled_back"] and r["failures"] == 1
+              and r["kept_equal"] and r["generation_after"] == 2,
+              f"reload on the card: {r}")
+        os.unlink(copy)
+        os.unlink(bad)
+
+        # (6) exposition and drain
+        text = client.metrics_text()
+        lint = export_mod.lint_prometheus_text(text)
+        hcode, _h = client.healthz_full()
+        check(not lint and hcode == 200, f"/metrics lint {lint[:3]}, "
+              f"/healthz {hcode}")
+        check(client.quiesce()["status"] == "draining", "/quiesce")
+        server.join(timeout=120)
+        check(not server.is_alive() and box.get("rc") == 0,
+              f"quorum-serve drain rc {box.get('rc')}")
+        with open(metrics) as f:
+            final = json.load(f)
+        missing = contract.missing_names(final)
+        check(final["meta"]["stage"] == "serve" and not missing
+              and final["meta"].get("drained") is True,
+              f"final serve document: stage {final['meta'].get('stage')},"
+              f" missing {missing[:4]}")
+
+        # (2) the mixed reads' answers against the CPU's plain versions
+        t1 = time.perf_counter()
+        rc = cpu_ref.wait(timeout=900)
+        res["cpu_reference_s"] = round(time.perf_counter() - t_phase, 3)
+        res["cpu_reference_waited_s"] = round(time.perf_counter() - t1, 3)
+        check(rc == 0, "the --device cpu reference run failed: "
+              + cpu_ref.stderr.read().decode()[-800:])
+        cfa, clog = mixed_outputs(os.path.join(d, "mixed_cpu"))
+        differ = [f"mixed reads {a}-{b}" for (a, b), (got_fa, got_log)
+                  in sorted(served.items())
+                  if got_fa != b"".join(cfa.get(i, b"") for i in range(a, b))
+                  or got_log != b"".join(clog.get(i, b"")
+                                         for i in range(a, b))]
+        m.update(cpu_corrected=len(cfa), cpu_skipped=len(clog),
+                 differing=differ[:4])
+        check(len(served) == len(mjobs) and not differ,
+              f"mixed lengths against the CPU: {len(served)} answers, "
+              f"{differ[:4]} differ")
+    finally:
+        faults.reset()
+        serve_pkg.CorrectionEngine = engine_cls
+        if bench.poll() is None:
+            bench.kill()
+            bench.wait()
+        bench_err.close()
+        if server.is_alive():
+            try:
+                client.quiesce()
+            except OSError:
+                pass
+            server.join(timeout=60)
+        if cpu_ref.poll() is None:
+            cpu_ref.kill()
+            cpu_ref.wait()
+    launches = dict(STATS.launches)
+    # each engine's warmup walked the table on the card (HK3 counted its
+    # candidates): no fallback to all-A, and the boot engine's read equal
+    # to the same walk over its rows brought back to the host
+    from quorum_tpu_torch.ops import ctable
+    from quorum_tpu_torch.serve.engine import representative_read
+
+    boot = engines[0]
+    host = ctable.TileState(boot.state.rows.cpu())
+    want_read = representative_read(host, boot.meta, max(SERVE_WARM))
+    res["warmup"] = {
+        "engines": len(engines),
+        "fallbacks": [e.warmup_fallbacks for e in engines],
+        "read_eq_host_walk": [e.warmup_read == want_read for e in engines]}
+    del host, boot, engines
+    check(res["warmup"]["engines"] == 3
+          and not any(res["warmup"]["fallbacks"])
+          and all(res["warmup"]["read_eq_host_walk"]),
+          f"serve warmup reads: {res['warmup']}")
+    # the engines (a second table was on the card during the rebuild and
+    # the reload) go before later phases measure free memory
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    res.update(final_counters={k: final["counters"].get(k) for k in (
+        "requests_accepted", "requests_completed", "requests_failed",
+        "reads_in", "reads_corrected", "batches", "engine_compiles",
+        "engine_restarts_total", "reload_total", "reload_failures_total")})
+    emit({"phase": "serve", "card": card, "port": port,
+          "max_batch": SERVE_ROWS, "warmup_lengths": list(SERVE_WARM),
+          "phase_s": round(time.perf_counter() - t_phase, 3), **res,
+          "metrics_lines": len(text.splitlines()), "launches": launches})
+    for name in PATH_KERNELS["serve"]:
+        check(launches[name] > 0, f"{name} was not launched on the serve "
                                   "path")
     return launches
 
@@ -6275,10 +7001,14 @@ def run() -> int:
     os.makedirs(WORK, exist_ok=True)
     chain = None
     try:
+        # the golden drivers' CPU references run beside the build
+        drivers_cpu = golden_cpu_start("drivers")
         phase_build()
+        stage2_cpu = golden_stage1()
         stats = phase_kernels(card)
-        phase_golden()
+        phase_golden(drivers_cpu, stage2_cpu)
         full = phase_full(card)
+        serve = phase_serve(card, full)
         chain = resume_stage1_start(full)
         serial = phase_serial(card, full)
         telemetry = phase_telemetry(card, full)
@@ -6316,6 +7046,7 @@ def run() -> int:
         return 1
     finally:
         stop_chain(chain)
+        stop_children()
         shutil.rmtree(WORK, ignore_errors=True)
     by_path = {"full": full["launches"], "pipeline": serial, **telemetry,
                "two_binary": two["launches"],
@@ -6332,7 +7063,7 @@ def run() -> int:
                "devices_unpacked": unpacked["launches"],
                "paired": paired["paired"],
                "paired_unpaired": paired["unpaired"],
-               **ref_format, "legacy": legacy, **resume}
+               **ref_format, "legacy": legacy, **resume, "serve": serve}
     def bound_ms(nbytes):
         return round(nbytes / H100_BYTES_PER_S * 1e3, 5)
 

@@ -321,6 +321,8 @@ def main(argv=None, handoff: dict | None = None,
              if p]
     rc = 0
     with observability(args.metrics, args.metrics_interval,
+                       port=args.metrics_port,
+                       textfile=args.metrics_textfile,
                        live=args.metrics_live, trace_spans=args.trace_spans,
                        profile=args.profile, watch_paths=watch,
                        stall_timeout_s=args.stall_timeout_s) as obs:

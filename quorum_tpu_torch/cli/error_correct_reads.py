@@ -179,6 +179,8 @@ def main(argv=None, db=None, prepacked=None, records=None,
                      gzip=args.gzip, on_bad_read=args.on_bad_read,
                      no_mmap=args.no_mmap, metrics=args.metrics,
                      metrics_interval=args.metrics_interval,
+                     metrics_port=args.metrics_port,
+                     metrics_textfile=args.metrics_textfile,
                      metrics_force=args.metrics_live,
                      trace_spans=args.trace_spans, profile=args.profile,
                      checkpoint_every=args.checkpoint_every,

@@ -93,6 +93,8 @@ def main(argv=None) -> int:
     if refuse_unported(args, "histo_mer_database"):
         return 1
     with observability(args.metrics, args.metrics_interval,
+                       port=args.metrics_port,
+                       textfile=args.metrics_textfile,
                        live=args.metrics_live, trace_spans=args.trace_spans,
                        profile=args.profile,
                        stage="histo_mer_database") as obs:

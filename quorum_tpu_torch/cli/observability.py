@@ -3,20 +3,23 @@ run through (counterpart of quorum_tpu/cli/observability.py, limited to
 the ported surface).
 
 `add_observability_args` registers `--metrics`, `--metrics-interval`,
+the live exposition's `--metrics-port` and `--metrics-textfile`,
 `--trace-spans`, `--profile`, the resource guards' `--preflight` and
 `--stall-timeout-s` and, on the stage and inspection CLIs,
 `--metrics-live`; the flags whose machinery is not ported yet are
 registered too, so that `refuse_unported` (cli/create_database.py)
 refuses them with the reason and the ROADMAP item that brings them.
 
-`observability()` builds the run's registry and span tracer, installs
-the quality scorecard whenever metrics are on, the ambient integrity
-registry and the resource-guard frame (utils/resources: the degradation
-ladder, the disk and RSS monitor over the run's artifact paths, the
-stall watchdog), and on every exit path: parses the `--profile` trace into
-device-kernel attribution (telemetry/devtrace.py), runs the `at_exit`
-hooks, stamps the final document `ok` or `error` and writes it, closes
-the span file and copies the span twin into the profile directory.
+`observability()` builds the run's registry and span tracer, starts the
+live exposition (telemetry/export.py: the `/metrics` endpoint and the
+textfile) inside the error umbrella, installs the quality scorecard
+whenever metrics are on, the ambient integrity registry and the
+resource-guard frame (utils/resources: the degradation ladder, the disk
+and RSS monitor over the run's artifact paths, the stall watchdog), and
+on every exit path: parses the `--profile` trace into device-kernel
+attribution (telemetry/devtrace.py), runs the `at_exit` hooks, stamps
+the final document `ok` or `error` and writes it, closes the span file,
+copies the span twin into the profile directory and frees the port.
 """
 
 from __future__ import annotations
@@ -28,10 +31,6 @@ import os
 # dest -> the flag and the machinery it waits for, with its ROADMAP
 # item; refuse_unported (cli/create_database.py) prints it
 UNPORTED_OBSERVABILITY = {
-    "metrics_port": "--metrics-port (live exposition, ROADMAP Queue 1 "
-                    "item 10)",
-    "metrics_textfile": "--metrics-textfile (live exposition, ROADMAP "
-                        "Queue 1 item 10)",
     "metrics_push_url": "--metrics-push-url (the metrics pusher, ROADMAP "
                         "Queue 1 item 10)",
     "metrics_push_interval": "--metrics-push-interval (the metrics "
@@ -42,9 +41,12 @@ UNPORTED_OBSERVABILITY = {
 
 
 def add_observability_args(p: argparse.ArgumentParser,
-                           driver: bool = False) -> None:
+                           driver: bool = False,
+                           profile: bool = True) -> None:
     """The telemetry flag block. `driver=True` takes the quorum driver's
-    wording (per-stage suffixes) and drops `--metrics-live`."""
+    wording (per-stage suffixes) and drops `--metrics-live`;
+    `profile=False` drops `--profile` (quorum-serve's surface, as the
+    JAX package's)."""
     p.add_argument("--metrics", metavar="path", default=None,
                    help="Write a final metrics JSON (schema "
                         "quorum-tpu-metrics/1) to this path"
@@ -54,17 +56,31 @@ def add_observability_args(p: argparse.ArgumentParser,
                    default=0.0,
                    help="With --metrics: also write JSONL heartbeat "
                         "events at this period (0 = off)")
+    p.add_argument("--metrics-port", metavar="port", type=int,
+                   default=None,
+                   help="Serve live Prometheus /metrics (+ /healthz) "
+                        "on this port during the run; 0 = ephemeral"
+                        + (". One endpoint carries the driver and "
+                           "both stages under stage=... labels"
+                           if driver else ""))
+    p.add_argument("--metrics-textfile", metavar="path", default=None,
+                   help="Atomically refresh a Prometheus textfile "
+                        "here on each heartbeat"
+                        + (" (shared by the driver and both stages)"
+                           if driver else ""))
     p.add_argument("--trace-spans", metavar="path", default=None,
                    help="Write hierarchical span JSONL here (plus a "
                         "Chrome trace_event twin, .trace.json)"
                         + (", suffixed .driver/.stage1/.stage2"
                            if driver else ""))
-    p.add_argument("--profile", metavar="dir", default=None,
-                   help="Write a torch.profiler (Kineto) trace to this "
-                        "directory and attribute the card's kernel time "
-                        "to each step in the metrics document"
-                        + (" (stage1/ and stage2/ under it)"
-                           if driver else ""))
+    if profile:
+        p.add_argument("--profile", metavar="dir", default=None,
+                       help="Write a torch.profiler (Kineto) trace to "
+                            "this directory and attribute the card's "
+                            "kernel time to each step in the metrics "
+                            "document"
+                            + (" (stage1/ and stage2/ under it)"
+                               if driver else ""))
     p.add_argument("--preflight", choices=("strict", "warn", "off"),
                    default="warn",
                    help="Disk preflight before work starts: compare "
@@ -86,10 +102,15 @@ def add_observability_args(p: argparse.ArgumentParser,
     if not driver:
         p.add_argument("--metrics-live", action="store_true",
                        help="Keep a live metrics registry even with no "
-                            "output path")
+                            "output path, so a parent process's "
+                            "exposition endpoint sees this stage (the "
+                            "quorum driver forwards this with "
+                            "--metrics-port)")
     for dest in UNPORTED_OBSERVABILITY:
+        # the JAX package's defaults (a 0.0 interval is unused, as None)
         p.add_argument("--" + dest.replace("_", "-"), dest=dest,
-                       default=None, help=argparse.SUPPRESS)
+                       default=0.0 if dest == "metrics_push_interval"
+                       else None, help=argparse.SUPPRESS)
 
 
 class ObservabilitySession:
@@ -106,6 +127,7 @@ class ObservabilitySession:
     def __init__(self, registry, tracer):
         self.registry = registry
         self.tracer = tracer
+        self.server = None  # the --metrics-port endpoint, if any
         self.quality = None  # QualityScorecard (telemetry/quality.py)
         self.status: str | None = None
         self._at_exit: list = []
@@ -150,6 +172,7 @@ class ObservabilitySession:
 
 @contextlib.contextmanager
 def observability(metrics: str | None = None, interval: float = 0.0,
+                  port: int | None = None, textfile: str | None = None,
                   live: bool = False, trace_spans: str | None = None,
                   profile: str | None = None, watch_paths=(),
                   stall_timeout_s: float = 0.0, **meta):
@@ -158,6 +181,13 @@ def observability(metrics: str | None = None, interval: float = 0.0,
     the body wrote it), the span file's close and the span twin copied
     into the profile directory. `meta` seeds the registry's meta
     (stage=..., and so on).
+
+    `port` / `textfile` (`--metrics-port`, `--metrics-textfile`): the
+    live exposition (telemetry/export.start_exposition), started inside
+    the umbrella so that a busy port still lands the error document, and
+    closed on every exit. Either, or `live`, makes the registry real
+    without a `--metrics` path; `live=True` is the server's meaning
+    (quorum-serve is its own `/metrics` endpoint).
 
     `watch_paths` / `stall_timeout_s`: the resource-guard frame
     (utils/resources.install). Watch paths (the run's output, checkpoint
@@ -184,10 +214,12 @@ def observability(metrics: str | None = None, interval: float = 0.0,
     """
     from ..io import integrity
     from ..telemetry import quality as quality_mod
+    from ..telemetry import export as export_mod
     from ..telemetry import registry_for, tracer_for
     from ..utils import resources
 
-    reg = registry_for(metrics, interval, force=live)
+    reg = registry_for(metrics, interval,
+                       force=(port is not None or bool(textfile) or live))
     if meta:
         reg.set_meta(**meta)
     if profile and reg.enabled:
@@ -208,6 +240,8 @@ def observability(metrics: str | None = None, interval: float = 0.0,
         interval_s=interval if interval and interval > 0 else 5.0)
     try:
         try:
+            obs.server = export_mod.start_exposition(
+                reg, port, textfile, period=interval)
             yield obs
         except BaseException:
             obs._finalize(ok=False)
@@ -224,3 +258,5 @@ def observability(metrics: str | None = None, interval: float = 0.0,
                     os.path.join(profile, "spans.trace.json"))
             except OSError:  # pragma: no cover - unwritable profile dir
                 pass
+        if obs.server is not None:
+            obs.server.close()

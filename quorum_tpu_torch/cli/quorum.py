@@ -296,6 +296,19 @@ def detect_min_q_char(path: str, max_reads: int = 1000) -> int:
     return min_q
 
 
+def _live_argv(args) -> list[str]:
+    """The live exposition's flags a stage gets from the quorum driver:
+    the shared textfile, and `--metrics-live` under its `--metrics-port`
+    (one endpoint for the whole run; the stage runs a real registry so
+    that its counters appear on it)."""
+    out = []
+    if args.metrics_textfile:
+        out.extend(["--metrics-textfile", args.metrics_textfile])
+    if args.metrics_port is not None:
+        out.append("--metrics-live")
+    return out
+
+
 def _drain(items: list):
     """Yield the items in order, letting go of each once it is taken."""
     items.reverse()
@@ -319,6 +332,8 @@ def main(argv=None, report: dict | None = None) -> int:
     watch = [p for p in (args.prefix + "_mer_database.jf",
                          args.checkpoint_dir, args.metrics) if p]
     with observability(args.metrics, args.metrics_interval,
+                       port=args.metrics_port,
+                       textfile=args.metrics_textfile,
                        trace_spans=(_stage_path(args.trace_spans, "driver")
                                     if args.trace_spans else None),
                        profile=args.profile, watch_paths=watch) as obs:
@@ -427,6 +442,7 @@ def _main(args, reg, tracer, report: dict | None) -> int:
             cdb_argv.extend([flag, val])
     if m1 is not None:
         cdb_argv.extend(["--metrics-interval", str(args.metrics_interval)])
+    cdb_argv.extend(_live_argv(args))
     if args.debug:
         cdb_argv.append("-v")
         print("+ quorum_create_database " + " ".join(cdb_argv)
@@ -606,6 +622,7 @@ def _main(args, reg, tracer, report: dict | None) -> int:
             ec_argv.extend([flag, val])
     if m2 is not None:
         ec_argv.extend(["--metrics-interval", str(args.metrics_interval)])
+    ec_argv.extend(_live_argv(args))
     if args.debug:
         ec_argv.append("-v")
         if args.paired_files:

@@ -18,6 +18,13 @@ host work between them the two differ by the device's idle gap. While
 `STATS.annotate` is on (a `--profile` run, utils/profiling.trace) each
 wrapper call is also a profiler range named `launch:<kernel>`, which
 telemetry/devtrace.py reads.
+
+Threads: the correction server launches kernels from its dispatcher,
+step-watchdog and rebuild threads (serve/batcher.py), so a library's
+build-and-load runs under one lock (one build, one loaded object for
+every thread) and the launch counts under another; the kernel a wrapper
+is launching (`STATS.current`, the label of its timed C launches) is
+kept per thread.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "csrc")
@@ -176,13 +184,30 @@ class KernelStats:
         self.launches = {name: 0 for name in COUNTERS}
         self.timing = False
         self.annotate = False  # a profiler range per wrapper call
-        self.current: str | None = None  # the counter being launched
+        self._local = threading.local()  # .current, per thread
+        self._lock = threading.Lock()  # the counts' increments
         self.events: list = []  # (kernel, start event, end event)
         self.calls: list = []  # (kernel, C launcher, start, end)
 
+    @property
+    def current(self) -> str | None:
+        """The counter this thread is launching under (None outside a
+        wrapper)."""
+        return getattr(self._local, "current", None)
+
+    @current.setter
+    def current(self, name: str | None) -> None:
+        self._local.current = name
+
+    def count(self, name: str) -> None:
+        """One launch of `name`, atomically across threads."""
+        with self._lock:
+            self.launches[name] += 1
+
     def reset(self) -> None:
-        for name in self.launches:
-            self.launches[name] = 0
+        with self._lock:
+            for name in self.launches:
+                self.launches[name] = 0
         self.events.clear()
         self.calls.clear()
 
@@ -198,6 +223,9 @@ class KernelStats:
 
 STATS = KernelStats()
 _LIBS: dict = {}
+# one build-and-load at a time: concurrent first users of a library wait
+# for the one build and share the one loaded object
+_LOAD_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -252,17 +280,22 @@ def build_all() -> dict:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel `name` (built on first use)."""
+    """The loaded library of kernel `name` (built on first use; safe to
+    call from several threads at once)."""
     lib = _LIBS.get(name)
-    if lib is None:
-        path = os.path.join(build_dir(), f"lib{name}.so")
-        if not os.path.exists(path):
-            build_all()
-        lib = ctypes.CDLL(path)
-        for fn, argtypes in SIGNATURES[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        _LIBS[name] = lib
+    if lib is not None:
+        return lib
+    with _LOAD_LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            path = os.path.join(build_dir(), f"lib{name}.so")
+            if not os.path.exists(path):
+                build_all()
+            lib = ctypes.CDLL(path)
+            for fn, argtypes in SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _LIBS[name] = lib
     return lib
 
 
@@ -276,7 +309,7 @@ def launching(name: str, count: bool = True):
     import torch
 
     if count:
-        STATS.launches[name] += 1
+        STATS.count(name)
     outer, STATS.current = STATS.current, name
     annotation = contextlib.nullcontext()
     if STATS.annotate:

@@ -49,7 +49,11 @@ STATUS_ERRORS = {
 _BASES = "ACGTN"
 _BASE_U8 = np.frombuffer(b"ACGTN", np.uint8)
 # per-(batch, maxe) entry capacity of HK14's buffer: grows (never
-# shrinks) to what a batch needed; an overflow packs again, exactly
+# shrinks) to what a batch needed; an overflow packs again, exactly.
+# Module-global: the correction server's engines share it (a watchdog
+# rebuild or a reload runs a second engine beside the first), which is
+# harmless because a capacity only grows and any capacity gives the same
+# bytes
 _LEAN_CAP_CACHE: dict = {}
 
 

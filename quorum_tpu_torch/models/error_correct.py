@@ -273,6 +273,8 @@ class ECOptions:
     # the torch.profiler directory
     metrics: str | None = None
     metrics_interval: float = 0.0
+    metrics_port: int | None = None  # --metrics-port: live /metrics
+    metrics_textfile: str | None = None  # --metrics-textfile PATH
     metrics_force: bool = False
     trace_spans: str | None = None
     profile: str | None = None
@@ -348,6 +350,8 @@ def run_error_correct(db_path: str, sequences: Sequence[str],
     watch = [p for p in (opts.output and opts.output + ".fa", opts.metrics)
              if p]
     with observability(opts.metrics, opts.metrics_interval,
+                       port=opts.metrics_port,
+                       textfile=opts.metrics_textfile,
                        live=opts.metrics_force,
                        trace_spans=opts.trace_spans, profile=opts.profile,
                        watch_paths=watch,

@@ -366,12 +366,18 @@ def registry_for(path: str | None,
                  events_path: str | None = None,
                  force: bool = False) -> MetricsRegistry | NullRegistry:
     """A real registry when a `--metrics PATH` (or an explicit
-    `events_path`) was given, or with `force` (`--metrics-live`: counters
-    accumulate though no document lands); the NULL singleton when not."""
+    `events_path`) was given, or with `force` (`--metrics-live`,
+    `--metrics-port`, `--metrics-textfile`, a server: counters
+    accumulate though no document lands); the NULL singleton when not.
+    Enabled registries register with the live exposition
+    (telemetry/export.py), so `/metrics` sees every stage in-process."""
     if not path and not events_path and not force:
         return NULL
-    return MetricsRegistry(path, heartbeat_s=heartbeat_s,
-                           events_path=events_path)
+    reg = MetricsRegistry(path, heartbeat_s=heartbeat_s,
+                          events_path=events_path)
+    from .export import register_live
+    register_live(reg)
+    return reg
 
 
 def labeled(name: str, **labels) -> str:

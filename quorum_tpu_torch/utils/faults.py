@@ -51,11 +51,11 @@ Fields per spec:
 * ``path_prefix``: match only calls whose ``path=`` starts with it.
 
 Sites (SITES below, one ``faults.inject(...)`` call each; the disabled
-cost is one module-global None check). The serve, ingest, epoch,
+cost is one module-global None check). The correction server fires
+serve.engine.step, serve.admit and serve.reload. The ingest, epoch,
 flight and fleet sites keep the JAX package's entries but fire only
-once their machinery is ported (ROADMAP Queue 1 items 7-10): the
-correction server (serve.engine.step, serve.admit, serve.reload),
-live ingest (serve.ingest, serve.epoch), the multi-host fleet
+once their machinery is ported (ROADMAP Queue 1 items 8-10): live
+ingest (serve.ingest, serve.epoch), the multi-host fleet
 (fleet.exchange) and the flight recorder (flight.dump).
 
 Determinism: per-spec hit counters under one lock; the same plan over

@@ -248,12 +248,13 @@ def _fired_sites():
 def test_every_fired_site_is_declared():
     fired = _fired_sites()
     assert set(fired) <= set(tfaults.SITES)
-    # the offline sites all fire in the port; the rest wait for the
-    # serve, ingest, fleet and flight-recorder items
+    # the offline and the correction server's sites all fire in the
+    # port; the rest wait for the ingest, fleet and flight-recorder items
     assert set(fired) == {
         "stage1.insert", "stage2.correct", "fastq.read", "db.write",
         "checkpoint.commit", "journal.append", "partition.commit",
-        "quarantine.write", "writer.stream"}
+        "quarantine.write", "writer.stream", "serve.engine.step",
+        "serve.admit", "serve.reload"}
 
 
 def test_hard_exit_kills_the_process():

@@ -159,13 +159,14 @@ def test_histo_of_value_words_matches_jax(dbs):
 
 @pytest.mark.parametrize("main,argv", [
     (tquery.main, ["--alert-rules", "r.json"]),
-    (thisto.main, ["--metrics-textfile", "x.prom"]),
-    (thisto.main, ["--metrics-port", "0"]),
+    (thisto.main, ["--metrics-push-url", "http://localhost:9"]),
+    (thisto.main, ["--metrics-push-interval", "5"]),
 ])
 def test_observability_flags_refused(dbs, main, argv):
     """The flags whose machinery is not ported are refused with the
     ROADMAP item that brings them (the telemetry core's own flags run:
-    tests/test_torch_observability_cli.py)."""
+    tests/test_torch_observability_cli.py; the live exposition's:
+    tests/test_torch_export.py)."""
     rc, out, err = _run(main, CPU + argv + [dbs[("v5", "port")]]
                         + (["ACGTACGTACGTA"] if main is tquery.main else []))
     assert rc == 1 and out == ""

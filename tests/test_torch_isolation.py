@@ -18,6 +18,7 @@ from quorum_tpu_torch.cli import error_correct_reads as tec_cli
 from quorum_tpu_torch.cli import histo_mer_database as thisto
 from quorum_tpu_torch.cli import query_mer_database as tquery
 from quorum_tpu_torch.cli import quorum as tquorum
+from quorum_tpu_torch.cli import serve as tserve_cli
 from quorum_tpu_torch.kernels import loader
 from quorum_tpu_torch.models import create_database as tcdb
 from quorum_tpu_torch.models import error_correct as tec
@@ -54,6 +55,17 @@ def test_crash_safety_modules_are_walked(module):
     assert os.path.join(PKG, module) in _port_files()
 
 
+@pytest.mark.parametrize("module", [
+    "serve/__init__.py", "serve/admission.py", "serve/batcher.py",
+    "serve/engine.py", "serve/server.py", "serve/client.py",
+    "cli/serve.py", "telemetry/export.py"])
+def test_serve_modules_are_walked(module):
+    """The correction service's modules (JAX's admission.py and
+    batcher.py import no jax; the port keeps its own copies) are among
+    the files the import check walks."""
+    assert os.path.join(PKG, module) in _port_files()
+
+
 @pytest.mark.parametrize("forbidden", ["jax", "quorum_tpu"])
 def test_port_imports_neither_jax_nor_the_jax_package(forbidden):
     files = _port_files()
@@ -67,7 +79,7 @@ def test_default_device_is_cuda():
     assert quorum_tpu_torch.DEFAULT_DEVICE == "cuda"
     for parser in (tcdb_cli.build_parser(), tec_cli.build_parser(),
                    tquorum.build_parser(), thisto.build_parser(),
-                   tquery.build_parser()):
+                   tquery.build_parser(), tserve_cli.build_parser()):
         assert parser.get_default("device") == "cuda"
     assert tcdb.BuildConfig().device == "cuda"
     assert tec.ECOptions().device == "cuda"
@@ -79,7 +91,8 @@ def no_card(monkeypatch):
 
 
 @pytest.mark.parametrize("entry", ["create_database", "error_correct",
-                                   "quorum", "library"])
+                                   "quorum", "library", "serve",
+                                   "serve_engine"])
 def test_entry_points_raise_without_a_card(no_card, tmp_path, entry):
     out = str(tmp_path / "out")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -90,6 +103,11 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path, entry):
             tec_cli.main(["-p", "4", out, READS, "-o", out])
         elif entry == "quorum":
             tquorum.main(["-s", "64k", "-k", "13", "-p", out, READS])
+        elif entry == "serve":
+            tserve_cli.main(["--port", "0", out])
+        elif entry == "serve_engine":
+            from quorum_tpu_torch.serve import CorrectionEngine
+            CorrectionEngine(out)
         else:
             tcdb.create_database_main([READS], out, tcdb.BuildConfig(k=13))
     assert not os.path.exists(out + ".fa")

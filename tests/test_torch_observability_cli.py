@@ -256,7 +256,9 @@ def test_failing_run_lands_status_error(tmp_path, entry, argv):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--metrics-port", "0"], 10), (["--metrics-textfile", "x.prom"], 10),
+    (["--process-id", "1"], 9),
+    (["--metrics-push-url", "http://localhost:9", "--alert-rules",
+      "r.json"], 10),
     (["--metrics-push-url", "http://localhost:9"], 10),
     (["--metrics-push-interval", "5"], 10), (["--alert-rules", "r.json"], 10),
     (["--coordinator", "localhost:1"], 9), (["--num-processes", "2"], 9),
